@@ -18,7 +18,17 @@ its main path on the card, printing one JSON line per phase:
      admits whose refresh must patch, then the waves again;
   6. the wikikv-router serving loop at full width over the AuthTrace wiki
      on the card, against the same run on the CPU (plain versions);
-  7. one JSON line of every kernel with its launches, error, times and
+  7. flash_attention against its plain version at the oracle's, qwen3
+     prefill, chunked-prefill, non-causal ragged and group-6 shapes, timed
+     beside the plain version and SDPA;
+  8. LM-routed navigation: the same serving run with a wikikv-router
+     ModelOracle (two loss evaluations per decision, flash_attention in
+     every layer) on the card and on the CPU, decisions and traces equal;
+  9. qwen3-1.7B at full width (28 layers, random weights from the seed):
+     make_prefill_step and make_eval_step at B=1, S=4096 on the card,
+     launches per forward, a finite loss, and logit parity with the CPU
+     at 2 layers and S=256;
+ 10. one JSON line of every kernel with its launches, error, times and
      bound; the card's name and power limit; the final ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
@@ -42,6 +52,7 @@ SRC = ROOT / "src"
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
+BF16_FLOPS = 989e12        # bfloat16 on the tensor cores
 INT8_OPS = 1979e12
 F32_TOL = dict(atol=3e-5, rtol=3e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -145,8 +156,25 @@ def model_kernels(dev) -> dict:
                     "library_ms": (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
                                    if hasattr(F, "rms_norm") else None),
                     "bound_ms": b, "bound_by": by}
+    # the prefill shapes of qwen3-1.7B at S=4096: a block norm over 4096
+    # rows of d_model 2048, the qk-norm over 4096 x 16 rows of head_dim 128
+    prefill = []
+    for rows, D in ((4096, 2048), (4096 * 16, 128)):
+        x = torch.randn((rows, D), generator=g).to(dev, torch.bfloat16)
+        s = torch.randn((D,), generator=g).to(dev, torch.bfloat16)
+        err = check_float(f"rmsnorm {rows}x{D}", ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
+                          torch.bfloat16)
+        b, by = bound(2 * rows * D * 2 + D * 2, 4 * rows * D, F32_FLOPS)
+        prefill.append({
+            "shape": f"x ({rows}, {D}) bfloat16 with scale", "max_abs_err": err,
+            "ms": cuda_ms(lambda: rn.rmsnorm(x, s)),
+            "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, s)),
+            "library_ms": (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
+                           if hasattr(F, "rms_norm") else None),
+            "bound_ms": b, "bound_by": by})
+    entries["rmsnorm"]["prefill"] = prefill
     emit({"phase": "model_kernels", "rmsnorm": "ok",
-          "rmsnorm_ms": entries["rmsnorm"]["ms"]})
+          "rmsnorm_ms": entries["rmsnorm"]["ms"], "prefill": prefill})
 
     timings = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -184,6 +212,82 @@ def model_kernels(dev) -> dict:
                     "bound_ms": b, "bound_by": by}
     emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings})
     return entries
+
+
+# (tag, B, Hq, Hkv, Sq, Skv, D, dtype, causal): (a) the ModelOracle's
+# wikikv-router NLLs, (b) qwen3-1.7B prefill, (c) its chunked prefill,
+# (d) whisper-medium's cross-attention shape (448 decoder x 1500 encoder
+# positions, non-causal), (e) dbrx's group of 6 (48 / 8 heads)
+FLASH_SHAPES = [
+    ("a S=7", 1, 4, 2, 7, 7, 64, "float32", True),
+    ("a S=37", 1, 4, 2, 37, 37, 64, "float32", True),
+    ("a S=113", 1, 4, 2, 113, 113, 64, "float32", True),
+    ("b", 1, 16, 8, 4096, 4096, 128, "bfloat16", True),
+    ("c", 1, 16, 8, 128, 4096, 128, "bfloat16", True),
+    ("d", 1, 16, 16, 448, 1500, 64, "bfloat16", False),
+    ("e", 1, 48, 8, 1024, 1024, 128, "bfloat16", True),
+]
+
+
+def attn_work(B, Hq, Hkv, Sq, Skv, D, causal, elt) -> tuple[float, float]:
+    """(bytes, flops) of attention at these shapes: q, k and v read once,
+    the output written once; 4·D flops per visible (query, key) pair."""
+    off = Skv - Sq
+    pairs = sum(min(i + off + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    return elt * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D), 4.0 * D * pairs * B * Hq
+
+
+def sdpa_call(q, k, v, causal):
+    """One SDPA call computing the same function (the yardstick only): the
+    causal mask of a chunked prefill (Sq < Skv) is lower-right aligned,
+    which ``is_causal`` is not, so it goes in as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    Sq, Skv = q.shape[2], k.shape[2]
+    if not causal or Sq == Skv:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+    mask = (torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+            >= torch.arange(Skv, device=q.device)[None, :])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def attention_kernels(dev) -> dict:
+    """flash_attention against its plain version (``ref.attention_ref``) at
+    FLASH_SHAPES, timed beside it and beside SDPA; the kernels-line entry
+    is shape (b)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cpu").manual_seed(1)
+    rows, entry = [], None
+    for tag, B, Hq, Hkv, Sq, Skv, D, dt, causal in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, Hq, Sq, D), generator=g).to(dev, dtype)
+        k = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
+        v = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
+        got = ops.attention(q, k, v, causal=causal)
+        err = check_float(f"flash_attention ({tag})", got, ref.attention_ref(q, k, v, causal=causal),
+                          dtype)
+        nbytes, flops = attn_work(B, Hq, Hkv, Sq, Skv, D, causal, q.element_size())
+        b, by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        n = 10 if Sq * Skv * Hq > (1 << 24) else 25
+        row = {"shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
+                        f"{'causal' if causal else 'non-causal'}",
+               "max_abs_err": err, "gflop": flops / 1e9,
+               "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=n),
+               "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=n),
+               "library_ms": cuda_ms(sdpa_call(q, k, v, causal), iters=n),
+               "bound_ms": b, "bound_by": by}
+        rows.append(row)
+        if tag == "b":
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:94", **row}
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_attention", "shapes": rows})
+    return {"flash_attention": entry}
 
 
 def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
@@ -377,11 +481,55 @@ def write_wave(dev_eng, dims, rng):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serving at full width
+# phases 6 and 8: serving at full width, with the heuristic or the LM oracle
 # ---------------------------------------------------------------------------
-def serve_once(device, n_docs=160, seed=0, n_requests=8):
+NEAR_TIE = 1e-4   # a decision margin below this may flip on float rounding
+
+
+def instrument_oracle(oracle) -> dict:
+    """Record every NLL of a ModelOracle (value, host ms) and every LM
+    decision with its margin: the NLL gap of classify_query's two routes,
+    |coverage - theta| of needs_deeper."""
+    log = {"nll": [], "ms": [], "decisions": []}
+    nll, classify, deeper = oracle._nll, oracle.classify_query, oracle.needs_deeper
+
+    def logged_nll(prefix, target):
+        t0 = time.perf_counter()
+        value = nll(prefix, target)
+        log["ms"].append((time.perf_counter() - t0) * 1e3)
+        log["nll"].append(value)
+        return value
+
+    def logged_classify(q):
+        n0 = len(log["nll"])
+        route = classify(q)
+        vals = log["nll"][n0:]
+        log["decisions"].append(("classify_query", route,
+                                 abs(vals[0] - vals[1]) if vals else None))
+        return route
+
+    def logged_deeper(q, content, theta=0.34):
+        n0 = len(log["nll"])
+        answer = deeper(q, content, theta)
+        margin = None
+        if len(log["nll"]) > n0:
+            cond, uncond = log["nll"][n0:]
+            cov = max(0.0, min(1.0, (uncond - cond) / max(uncond, 1e-6) + 0.5))
+            margin = abs(cov - theta)
+        log["decisions"].append(("needs_deeper", answer, margin))
+        return answer
+
+    oracle._nll, oracle.classify_query, oracle.needs_deeper = (
+        logged_nll, logged_classify, logged_deeper)
+    return log
+
+
+def serve_once(device, model_oracle=False, n_docs=160, seed=0, n_requests=8) -> dict:
     """Serve AuthTrace questions with wikikv-router over a DeviceEngine on
-    ``device``; returns (requests, per-decode-step log, serve calls)."""
+    ``device``; the navigation oracle is the heuristic one, or with
+    ``model_oracle`` a ModelOracle over the same LM.  Returns the requests,
+    their evidence answers, the per-decode-step log, the serve calls, the
+    wall time and the oracle's log."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import records as R
@@ -391,6 +539,7 @@ def serve_once(device, n_docs=160, seed=0, n_requests=8):
     from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.models import model as M
+    from repro_torch.runtime.model_oracle import ModelOracle
     from repro_torch.runtime.serving import Request, ServingEngine
 
     docs, questions = generate_authtrace(
@@ -403,7 +552,12 @@ def serve_once(device, n_docs=160, seed=0, n_requests=8):
     cfg = get_config("wikikv-router")
     tok = HashTokenizer(vocab_size=cfg.vocab).fit([d["text"] for d in docs])
     params = M.init_params(cfg, seed=seed, device=device)
-    oracle = HeuristicOracle()
+    olog = None
+    if model_oracle:
+        oracle = ModelOracle(cfg, params, tok, device=device)
+        olog = instrument_oracle(oracle)
+    else:
+        oracle = HeuristicOracle()
     eng = ServingEngine(cfg, params, tok, DeviceEngine.from_store(pipe.store, device=device),
                         oracle, batch_size=4, max_len=512, device=device)
     for i in range(4):
@@ -440,34 +594,79 @@ def serve_once(device, n_docs=160, seed=0, n_requests=8):
                 for r in done}
     admitted = eng.engine.q1_get([f"/entities/online_{i}" for i in range(4)])
     check(all(a is not None for a in admitted), "an online admit is not readable")
-    return done, evidence, log, calls["n"], wall
+    return {"done": done, "evidence": evidence, "log": log, "calls": calls["n"],
+            "wall": wall, "oracle": olog}
 
 
-def serving_phase(dev) -> dict:
+def decision_parity(gpu_log, cpu_log) -> tuple[dict | None, float]:
+    """The LM decisions of the two runs, in order: equal, unless the first
+    one that differs has a CPU-side margin below NEAR_TIE (then it is
+    reported and the runs are compared no further).  Returns (near tie or
+    None, max |NLL card - NLL cpu| over the calls both runs made alike)."""
+    max_dnll = max((abs(a - b) for a, b in zip(gpu_log["nll"], cpu_log["nll"])), default=0.0)
+    for i, (g, c) in enumerate(zip(gpu_log["decisions"], cpu_log["decisions"])):
+        if g[:2] != c[:2]:
+            check(g[0] == c[0] and c[2] is not None and c[2] < NEAR_TIE,
+                  f"oracle decision {i} differs (card {g}, cpu {c}) beyond a near tie")
+            return {"decision": i, "kind": c[0], "card": g[1], "cpu": c[1],
+                    "margin_cpu": c[2], "margin_card": g[2]}, max_dnll
+    check(len(gpu_log["decisions"]) == len(cpu_log["decisions"]),
+          "the two runs made different numbers of oracle decisions")
+    return None, max_dnll
+
+
+def serving_phase(dev, model_oracle=False) -> dict:
+    """One serving run on the card, the same on the CPU, and the two held
+    equal: navigation traces and results, evidence answers, greedy tokens
+    (and with ``model_oracle`` every LM decision)."""
     import torch
     from repro_torch.kernels import ops
+    phase = "oracle_navigation" if model_oracle else "serving"
     ops.reset_launches()
-    gpu_done, gpu_ev, gpu_log, gpu_calls, gpu_wall = serve_once(dev)
+    gpu = serve_once(dev, model_oracle)
     counts = dict(ops.LAUNCHES)
-    emit({"phase": "serving", "device": "cuda", "requests": len(gpu_done),
-          "serve_steps": gpu_calls, "wall_s": gpu_wall, "launches": counts})
-    check(counts["path_lookup"] > 0, "serving ran no path_lookup")
-    check(counts["rmsnorm"] == 17 * gpu_calls,
-          f"rmsnorm launches {counts['rmsnorm']} != 17 x {gpu_calls} decode steps")
-    check(counts["decode_attention"] == 4 * gpu_calls,
-          f"decode_attention launches {counts['decode_attention']} != 4 x {gpu_calls}")
-    cpu_done, cpu_ev, cpu_log, cpu_calls, cpu_wall = serve_once(torch.device("cpu"))
-    emit({"phase": "serving", "device": "cpu", "requests": len(cpu_done),
-          "serve_steps": cpu_calls, "wall_s": cpu_wall})
+    n_nll = len(gpu["oracle"]["nll"]) if model_oracle else 0
+    calls = gpu["calls"]
+
+    def summary(run, device):
+        out = {"phase": phase, "device": device, "requests": len(run["done"]),
+               "serve_steps": run["calls"], "wall_s": run["wall"]}
+        if model_oracle:
+            o = run["oracle"]
+            out.update(nll_calls=len(o["nll"]), decisions=len(o["decisions"]),
+                       oracle_ms_per_nll=statistics.mean(o["ms"]),
+                       oracle_ms_per_nll_median=statistics.median(o["ms"]),
+                       oracle_s=sum(o["ms"]) / 1e3)
+        return out
+    emit({**summary(gpu, "cuda"), "launches": counts})
+    check(counts["path_lookup"] > 0, f"{phase} ran no path_lookup")
+    check(counts["rmsnorm"] == 17 * (calls + n_nll),
+          f"rmsnorm launches {counts['rmsnorm']} != 17 x ({calls} decode steps + {n_nll} NLLs)")
+    check(counts["decode_attention"] == 4 * calls,
+          f"decode_attention launches {counts['decode_attention']} != 4 x {calls}")
+    check(counts["flash_attention"] == 4 * n_nll,
+          f"flash_attention launches {counts['flash_attention']} != 4 layers x {n_nll} NLLs")
+    if model_oracle:
+        check(n_nll > 0, "the ModelOracle made no loss evaluation")
+    cpu = serve_once(torch.device("cpu"), model_oracle)
+    emit(summary(cpu, "cpu"))
+
+    near_tie, max_dnll = (decision_parity(gpu["oracle"], cpu["oracle"]) if model_oracle
+                          else (None, None))
+    if near_tie is not None:
+        emit({"phase": f"{phase}_parity", "near_tie": near_tie, "max_abs_dnll": max_dnll})
+        return counts
 
     def nav(r):
-        return (r.rid, r.trace.tool_calls, r.trace.pages_read, [x.path for x in r.nav_results])
-    check([nav(r) for r in gpu_done] == [nav(r) for r in cpu_done],
+        return (r.rid, r.trace.route, r.trace.llm_calls, r.trace.tool_calls, r.trace.pages_read,
+                [(x.kind, x.path, x.text) for x in r.nav_results])
+    check([nav(r) for r in gpu["done"]] == [nav(r) for r in cpu["done"]],
           "navigation traces differ between the card and the CPU")
-    check(gpu_ev == cpu_ev, "evidence answers differ between the card and the CPU")
+    check(gpu["evidence"] == cpu["evidence"],
+          "evidence answers differ between the card and the CPU")
     # greedy tokens: equal at every decode step, unless the CPU run's top-2
     # logit gap at the first differing step is below the f32 tolerance
-    near_tie = None
+    gpu_log, cpu_log = gpu["log"], cpu["log"]
     compared = 0
     for step, (g, c) in enumerate(zip(gpu_log, cpu_log)):
         lanes = [i for i, on in enumerate(c[3]) if on]
@@ -481,15 +680,115 @@ def serving_phase(dev) -> dict:
             break
         compared += 1
     if near_tie is None:
-        check(len(gpu_log) == len(cpu_log) and gpu_calls == cpu_calls,
+        check(len(gpu_log) == len(cpu_log) and gpu["calls"] == cpu["calls"],
               "the two runs took different numbers of steps")
-        check([r.answer for r in gpu_done] == [r.answer for r in cpu_done],
+        check([r.answer for r in gpu["done"]] == [r.answer for r in cpu["done"]],
               "answers differ between the card and the CPU")
     min_gap = min((min(c[1][i] for i, on in enumerate(c[3]) if on)
                    for c in cpu_log if any(c[3])), default=None)
-    emit({"phase": "serving_parity", "decode_steps_compared": compared,
-          "tokens_equal": near_tie is None, "near_tie": near_tie,
-          "min_top2_gap_cpu": min_gap})
+    out = {"phase": f"{phase}_parity", "decode_steps_compared": compared,
+           "tokens_equal": near_tie is None, "near_tie": near_tie,
+           "min_top2_gap_cpu": min_gap}
+    if model_oracle:
+        margins = [d[2] for d in cpu["oracle"]["decisions"] if d[2] is not None]
+        routes = [r.trace.route for r in gpu["done"]]
+        out.update(decisions_equal=True, max_abs_dnll=max_dnll,
+                   flash_launches_per_nll=counts["flash_attention"] / n_nll,
+                   min_decision_margin_cpu=min(margins, default=None),
+                   routes={k: routes.count(k) for k in sorted(set(routes))},
+                   needs_deeper_true=sum(1 for d in gpu["oracle"]["decisions"]
+                                         if d[0] == "needs_deeper" and d[1]))
+    emit(out)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: qwen3-1.7B prefill / eval at full width
+# ---------------------------------------------------------------------------
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def first_layers(params: dict, n: int) -> dict:
+    """The same model cut to its first ``n`` layers (periods)."""
+    return {**params, "body": tree_map(lambda t: t[:n], params["body"])}
+
+
+def prefill_phase(dev, seed=0, seq=4096, parity_layers=2, parity_seq=256) -> dict:
+    """qwen3-1.7B at full width with random weights from ``seed``: one
+    make_prefill_step and one make_eval_step at B=1, S=``seq`` on the card
+    (the launches counted), then their times; then logit parity of the
+    first ``parity_layers`` layers at S=``parity_seq``, card against CPU,
+    both held to the f32 computation of the same bf16 weights."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    host = M.init_params(cfg, seed=seed, device="cpu")
+    t_init = time.perf_counter() - t0
+    params = tree_map(lambda t: t.to(dev), host)
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(1, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((1, 1), -1, np.int32)], axis=1)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+    prefill, evals = M.make_prefill_step(cfg), M.make_eval_step(cfg)
+
+    # the main path: counts from zero, one prefill and one eval, read just after
+    ops.reset_launches()
+    logits = prefill(params, batch)
+    loss = float(evals(params, batch))
+    counts = dict(ops.LAUNCHES)
+    n_norm = cfg.n_layers * (2 + 2 * int(cfg.qk_norm)) + 1
+    check(counts["flash_attention"] == 2 * cfg.n_layers,
+          f"flash_attention launches {counts['flash_attention']} != 2 forwards x {cfg.n_layers}")
+    check(counts["rmsnorm"] == 2 * n_norm,
+          f"rmsnorm launches {counts['rmsnorm']} != 2 forwards x {n_norm}")
+    check(tuple(logits.shape) == (1, seq, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(math.isfinite(loss) and loss > 0, f"eval loss {loss}")
+    del logits
+    prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3, warmup=1)
+    eval_ms = cuda_ms(lambda: evals(params, batch), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": "prefill", "arch": cfg.name, "layers": cfg.n_layers, "seq": seq,
+          "init_s": t_init, "launches": counts,
+          "flash_per_forward": counts["flash_attention"] // 2,
+          "rmsnorm_per_forward": counts["rmsnorm"] // 2, "loss": loss,
+          "prefill_ms": prefill_ms, "eval_ms": eval_ms,
+          "prefill_tokens_per_s": seq / prefill_ms * 1e3, "peak_gib": peak})
+
+    cfg_p = dataclasses.replace(cfg, n_layers=parity_layers)
+    tb = {"tokens": torch.from_numpy(toks[:, :parity_seq])}
+    card = M.make_prefill_step(cfg_p)(first_layers(params, parity_layers),
+                                      {"tokens": tb["tokens"].to(dev)}).float().cpu()
+    host_p = first_layers(host, parity_layers)
+    cpu = M.make_prefill_step(cfg_p)(host_p, tb).float()
+    cfg_32 = dataclasses.replace(cfg_p, dtype="float32", param_dtype="float32")
+    f32 = M.make_prefill_step(cfg_32)(tree_map(lambda t: t.float(), host_p), tb)
+    e_card, e_cpu = (card - f32).abs(), (cpu - f32).abs()
+    out = {"phase": "prefill_parity", "layers": parity_layers, "seq": parity_seq,
+           "max_abs_card_cpu": float((card - cpu).abs().max()),
+           "max_abs_card_f32": float(e_card.max()), "max_abs_cpu_f32": float(e_cpu.max()),
+           "mean_abs_card_f32": float(e_card.mean()), "mean_abs_cpu_f32": float(e_cpu.mean()),
+           "max_abs_f32": float(f32.abs().max())}
+    emit(out)
+    # the tolerance: both runs round every matmul and norm output to bf16
+    # in their own order, so neither equals the other bit for bit; the card
+    # passes when its distance from the f32 computation is within twice
+    # the CPU's own (in the max and in the mean)
+    check(out["max_abs_card_f32"] <= 2 * out["max_abs_cpu_f32"]
+          and out["mean_abs_card_f32"] <= 2 * out["mean_abs_cpu_f32"],
+          f"card bf16 logits are further from the f32 computation than twice the CPU's: {out}")
+    del params, host
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -530,6 +829,7 @@ def main() -> int:
                     for n in build.SOURCES if (build.BUILD_DIR / f"{n}.log").exists()}})
 
     entries = model_kernels(dev)
+    entries.update(attention_kernels(dev))
 
     rng = random.Random(0)
     store, dims, n_files, dev_eng, host = query_phase(dev, SCALE_LOG2)
@@ -551,16 +851,20 @@ def main() -> int:
     del store, dev_eng, host
     torch.cuda.empty_cache()
 
-    serve_counts = serving_phase(dev)
+    # each path below sets the counts to 0 just before it and reads them just after
+    path_counts = [query_counts, serving_phase(dev), serving_phase(dev, model_oracle=True),
+                   prefill_phase(dev)]
 
     kernels = []
-    for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention"):
+    for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
+                 "flash_attention"):
         e = entries[name]
-        e["launches"] = query_counts[name] + serve_counts[name]
+        e["launches"] = sum(c[name] for c in path_counts)
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape")})
+                                          "bound_by", "library_ms", "shape", "prefill")
+                        if k in e})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

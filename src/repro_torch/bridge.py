@@ -6,6 +6,10 @@ per period on axis 0 as ``repro/models/transformer.py::_stack_periods``
 builds them) and returns the same tree of torch tensors.  Weights keep
 the JAX (d_in, d_out) layout, so ``x @ W`` is the same product in both
 packages.  This module imports nothing of JAX: the caller converts.
+
+A bfloat16 leaf arrives as numpy's ``ml_dtypes.bfloat16``, which torch
+cannot read; its bits cross as int16 and are reinterpreted as
+``torch.bfloat16`` (the same bits, no float round trip).
 """
 from __future__ import annotations
 
@@ -25,5 +29,11 @@ def params_from_jax(tree, device=None):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(conv(v) for v in t)
-        return torch.from_numpy(np.array(t)).to(dev)
+        return _leaf(np.array(t)).to(dev)
     return conv(tree)
+
+
+def _leaf(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

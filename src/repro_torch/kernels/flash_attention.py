@@ -1,0 +1,87 @@
+"""Blocked online-softmax GQA attention on Hopper — CUDA kernel.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas
+body ``_flash_kernel``).  The kernel is ``csrc/flash_attention.cu``: one
+block of 128 threads per (sequence, query head, 64-query tile) walks the
+key tiles in a loop with the running (m, l, acc) in registers; the TPU
+carried them in VMEM scratch across a sequential grid dimension.
+
+Semantics are the TPU kernel's: f32 scores times the scale, the finite
+-1e30 mask, causal key tiles past a query tile's last visible key skipped,
+queries at the last Sq positions (``seq_off = Skv - Sq``), ``l == 0 -> 1``.
+Unlike the TPU kernel, Sq and Skv need not be block multiples (ragged
+tails are masked in the kernel) and the query-head group Hq / Hkv is any
+integer (GQA is index math; no repeated KV).
+
+What bounds it on the card: operations (4·D flops per visible (query,
+key) pair).  float32 runs on the CUDA cores in full f32 (no TF32);
+bfloat16 runs both products on the tensor cores (mma.sync, f32
+accumulate, P rounded to bf16 for the second product).  The plain
+version it is held against is ``ref.attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_Q = 64
+MAX_GRID_Y = 65535
+
+
+def _launcher():
+    fn = build.library("flash_attention").flash_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0 and
+    Sq <= Skv.  Returns (B, Hq, Sq, D) in q.dtype.  CUDA tensors only;
+    float32 or bfloat16, D in HEAD_DIMS, any Sq, Skv and group."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention kernel: tensors must be on a CUDA device")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if Sq > Skv:
+        raise ValueError(f"flash_attention: Sq={Sq} > Skv={Skv}; the queries are the "
+                         "last Sq positions of the context")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: unsupported head_dim {D}; need one of {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                         "need one of float32, bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: all tensors must be on one device")
+    if -(-Sq // BLOCK_Q) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: Sq={Sq} exceeds {BLOCK_Q * MAX_GRID_Y}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     B, Hq, Hkv, Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), scale,
+                     build.stream_of(q))
+    build.check("flash_attention", rc)
+    build.count_launch("flash_attention")
+    return out

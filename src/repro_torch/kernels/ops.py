@@ -13,6 +13,7 @@ import torch
 from . import ref
 from .build import LAUNCHES, reset_launches
 from .decode_attention import decode_attention as _decode_kernel
+from .flash_attention import flash_attention as _flash_kernel
 from .path_lookup import key64, pad_keys, pad_pinned
 from .path_lookup import path_lookup as _lookup_kernel
 from .prefix_search import prefix_search as _prefix_kernel
@@ -21,6 +22,20 @@ from .rmsnorm import rmsnorm as _rmsnorm_kernel
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D)^2 -> (B, Hq, Sq, D); the queries
+    are the last Sq positions.  On the CPU the plain version the JAX
+    package's dispatch would take: the chunked online softmax when
+    Skv > 1024 and Skv % 1024 == 0, full attention otherwise."""
+    if _on_cpu(q):
+        skv = k.shape[2]
+        if skv > 1024 and skv % 1024 == 0:
+            return ref.chunked_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                             chunk=1024)
+        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    return _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
 def rmsnorm(x, scale=None, eps: float = 1e-6):
@@ -55,5 +70,5 @@ def prefix_search(tokens, prefixes, prefix_lens):
     return _prefix_kernel(tokens, prefixes, prefix_lens)
 
 
-__all__ = ["rmsnorm", "decode_attention", "path_lookup", "prefix_search",
+__all__ = ["attention", "rmsnorm", "decode_attention", "path_lookup", "prefix_search",
            "key64", "pad_keys", "pad_pinned", "LAUNCHES", "reset_launches"]

@@ -4,8 +4,9 @@ Each function computes what its kernel computes, in ordinary tensor
 operations; the CPU path of ``ops`` runs them, the tests hold them
 against the JAX package, and ``chip_smoke.py`` holds each kernel against
 its plain version on the card.  Counterparts of
-``repro/kernels/ref.py``'s ``rmsnorm_ref``, ``decode_attention_ref``,
-``path_lookup_ref``, ``path_lookup_pinned_ref`` and ``prefix_search_ref``.
+``repro/kernels/ref.py``'s ``attention_ref``, ``chunked_attention_ref``,
+``rmsnorm_ref``, ``decode_attention_ref``, ``path_lookup_ref``,
+``path_lookup_pinned_ref`` and ``prefix_search_ref``.
 
 Digest tables hold one int64 per key, ``((hi << 32) | lo) ^ (1 << 63)``:
 torch has no ordering on uint32, and flipping the sign bit makes the
@@ -18,6 +19,67 @@ import math
 import torch
 
 NEG_INF = -1e30  # the finite mask value of the reference kernels
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """Full softmax attention with GQA (query head h reads KV head
+    h // group).  q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  The queries
+    are the last Sq positions of the Skv context.  Scores in f32 times the
+    scale, the finite -1e30 mask; returns (B, Hq, Sq, D) in q.dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+        mask = q_pos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, sm_scale: float | None = None,
+                          chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``chunk`` positions
+    (peak memory O(Sq * chunk)), as the JAX twin computes it: q is scaled
+    in q.dtype first, the queries fold to (B, Hkv, G, Sq, D) against the
+    un-repeated chunk, products accumulate in f32 and p is cast to q.dtype
+    before the P.V product.  Skv must be a multiple of the chunk."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    c = min(chunk, Skv)
+    if Skv % c:
+        raise ValueError(f"chunked_attention_ref: Skv={Skv} is not a multiple of {c}")
+    seq_off = Skv - Sq
+    qg = (q * torch.tensor(scale, dtype=q.dtype)).reshape(B, Hkv, group, Sq, D).float()
+    q_pos = torch.arange(Sq, device=q.device) + seq_off
+    m = torch.full((B, Hkv, group, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hkv, group, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, group, Sq, D), dtype=torch.float32, device=q.device)
+    for ci in range(Skv // c):
+        kb = k[:, :, ci * c:(ci + 1) * c].float()
+        vb = v[:, :, ci * c:(ci + 1) * c].float()
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kb)
+        if causal:
+            k_pos = ci * c + torch.arange(c, device=q.device)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p.to(q.dtype).float(), vb)
+        m = m_new
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor | None,

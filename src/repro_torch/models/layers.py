@@ -1,16 +1,17 @@
-"""Shared layers: norms, RoPE, GQA attention with a KV cache, gated MLP.
+"""Shared layers: norms, RoPE, GQA attention (full-sequence and with a KV
+cache), gated MLP.
 
-Port of ``repro/models/layers.py`` for the decode path.  Parameters are
-plain dicts of tensors with the JAX package's layout: a weight is
-(d_in, d_out), so ``x @ W`` is the same product in both packages.  The
-block norms and qk-norm go through ``kernels.ops.rmsnorm`` and the decode
+Port of ``repro/models/layers.py``.  Parameters are plain dicts of
+tensors with the JAX package's layout: a weight is (d_in, d_out), so
+``x @ W`` is the same product in both packages.  The block norms and
+qk-norm go through ``kernels.ops.rmsnorm``, full-sequence attention
+(``attn_apply``) through ``kernels.ops.attention`` and the decode
 attention through ``kernels.ops.decode_attention``; the projections stay
 ``torch.matmul``, as the JAX package left them to XLA.
 
 Float32 products run in full float32: ``set_fp32_matmul()`` turns TF32
 off for matmuls and cuDNN, so the card computes what the CPU computes.
-Full-sequence attention (``attn_apply``, ``cross_attn_apply``) needs the
-flash-attention kernel and comes with that slice.
+Cross-attention (``cross_attn_apply``) comes with the enc-dec slice.
 """
 from __future__ import annotations
 
@@ -116,6 +117,17 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
     q = apply_rope(q.transpose(1, 2), positions[:, None, :], inv)
     k = apply_rope(k.transpose(1, 2), positions[:, None, :], inv)
     return q, k, v.transpose(1, 2)  # (B, H, S, Dh), (B, KV, S, Dh) x2
+
+
+def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence causal (prefill / loss) attention: x (B, S, D) ->
+    (B, S, D), positions 0 .. S-1."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    q, k, v = _project_qkv(params, x, positions, cfg)
+    o = ops.attention(q, k, v, causal=True)  # (B, H, S, Dh)
+    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return o @ params["wo"]
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -1,8 +1,9 @@
-"""Public model facade for the serving path (port of the serving half of
-``repro/models/model.py``): ``init_params`` and ``make_serve_step``.
+"""Public model facade (port of ``repro/models/model.py``): ``init_params``,
+``make_eval_step``, ``make_prefill_step`` and ``make_serve_step``.
 
-Training, prefill and the sharding helpers need the flash-attention
-kernel or the distribution slice and come later.
+The eval and prefill steps run the full-sequence forward (flash-attention
+kernel on the card) under ``torch.inference_mode()``.  Training and the
+sharding helpers come with the training and distribution slices.
 """
 from __future__ import annotations
 
@@ -29,6 +30,31 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def make_eval_step(cfg: ModelConfig):
+    """``eval_step(params, batch) -> loss`` (0-d f32): the masked mean
+    next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (labels < 0 masked)."""
+    T.check_supported(cfg)
+    L.set_fp32_matmul()
+
+    def eval_step(params, batch):
+        with torch.inference_mode():
+            return T.loss_fn(params, batch, cfg)
+    return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> logits`` (B, S, V_pad) over
+    ``batch["tokens"]``."""
+    T.check_supported(cfg)
+    L.set_fp32_matmul()
+
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            return T.forward(params, batch, cfg)
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -1,16 +1,20 @@
-"""LM assembly for the decode path (port of ``repro/models/transformer.py``).
+"""LM assembly (port of ``repro/models/transformer.py``): the full-sequence
+forward (``hidden_states``, ``forward``, ``loss_fn``) and the decode step.
 
-This slice runs the ``"attn"`` block kind with a dense gated-MLP FFN —
-the wikikv-router family (dense GQA, optional qk-norm, RMSNorm or OLMo's
-non-parametric LN).  Parameters keep the JAX tree: per-slot leaves are
-stacked over periods on axis 0 (``params["body"]["slot{i}"]``), so the
-JAX parameter pytree moves over leaf by leaf (``repro_torch.bridge``).
-Decode state is stacked the same way and updated in place.
+The port runs the ``"attn"`` block kind with a dense gated-MLP FFN — the
+dense families (GQA, optional qk-norm, RMSNorm or OLMo's non-parametric
+LN): wikikv-router, qwen3, olmo, granite, codeqwen.  Parameters keep the
+JAX tree: per-slot leaves are stacked over periods on axis 0
+(``params["body"]["slot{i}"]``), so the JAX parameter pytree moves over
+leaf by leaf (``repro_torch.bridge``).  A plain loop over periods takes
+the place of ``lax.scan``; there is no remat, because the forward runs
+for inference (callers wrap it in ``torch.inference_mode()``) and the
+backward comes with the training slice.  Decode state is stacked the same
+way and updated in place.
 
 Other families wait for later slices: MoE (``moe_router``), SSM and
 xLSTM blocks, the encoder-decoder and the vision stub raise
-``NotImplementedError`` naming their slice.  ``forward``/``loss_fn``
-need the flash-attention kernel and come with that slice.
+``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
@@ -82,6 +86,64 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.
 
 
 # ---------------------------------------------------------------------------
+# forward (prefill / evaluation)
+# ---------------------------------------------------------------------------
+def _slot_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence apply of one block."""
+    h = L.norm_apply(params["norm1"], x, cfg)
+    x = x + L.attn_apply(params["attn"], h, cfg)
+    h2 = L.norm_apply(params["norm2"], x, cfg)
+    return x + L.mlp_apply(params["mlp"], h2)
+
+
+def hidden_states(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Forward up to (but not including) the LM head: (B, S, D)."""
+    check_supported(cfg)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    for p in range(cfg.n_periods):
+        for s_idx, _kind in enumerate(cfg.block_pattern):
+            x = _slot_apply(_index(params["body"][f"slot{s_idx}"], p), x, cfg)
+    return L.norm_apply(params["final_norm"], x, cfg)
+
+
+def _head(params: dict, cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head.to(dtype)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, S, V_pad) for ``batch["tokens"]`` (B, S) int."""
+    x = hidden_states(params, batch, cfg)
+    return x @ _head(params, cfg, x.dtype)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
+            loss_chunks: int = 8) -> torch.Tensor:
+    """Mean next-token cross entropy (0-d f32); labels < 0 are masked.
+
+    The LM head and the CE run in ``loss_chunks`` token chunks (one chunk
+    when B * S does not divide), so only one chunk of f32 logits is live
+    at a time: qwen3's vocabulary is 151,936."""
+    x = hidden_states(params, batch, cfg)
+    labels = batch["labels"]
+    head = _head(params, cfg, x.dtype)
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    lt = labels.reshape(B * S).to(torch.int64)
+    n_chunks = loss_chunks if (B * S) % loss_chunks == 0 else 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for x_c, l_c in zip(xt.reshape(n_chunks, -1, D), lt.reshape(n_chunks, -1)):
+        logits = (x_c @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, l_c.clamp(min=0)[:, None])[:, 0]
+        mask = (l_c >= 0).float()
+        total = total + ((lse - ll) * mask).sum()
+        count = count + mask.sum()
+    return total / count.clamp(min=1.0)
+
+
+# ---------------------------------------------------------------------------
 # decode (serving)
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -118,6 +180,5 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.
             x = _slot_decode(_index(params["body"][slot], p), x,
                              _index(state[slot], p), lengths, cfg)
     x = L.norm_apply(params["final_norm"], x, cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head.to(x.dtype))[:, 0, :]
+    logits = (x @ _head(params, cfg, x.dtype))[:, 0, :]
     return logits, state

@@ -94,3 +94,65 @@ def test_cuda_prefix_search_matches_plain(cuda):
         t, p, ln = (torch.from_numpy(a) for a in (toks, prefs, plens))
         got = ops.prefix_search(t.to(cuda), p.to(cuda), ln.to(cuda))
         assert torch.equal(got.cpu(), ops.prefix_search(t, p, ln))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_attention_matches_plain(cuda, dtype):
+    """Ragged lengths, Sq < Skv, groups 1-7, non-causal, every head_dim."""
+    dt = getattr(torch, dtype)
+    cases = [(1, 4, 2, 7, 7, 64, True), (1, 4, 2, 113, 113, 64, True),
+             (2, 4, 2, 64, 64, 32, True), (1, 8, 1, 32, 128, 16, True),
+             (1, 16, 8, 130, 300, 128, True), (1, 2, 2, 45, 150, 16, False),
+             (1, 12, 2, 65, 65, 128, True), (1, 14, 2, 33, 70, 32, True),
+             (1, 14, 2, 19, 19, 64, False), (1, 2, 2, 1, 9, 128, True)]
+    for B, Hq, Hkv, Sq, Skv, D, causal in cases:
+        q = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        k = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        v = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        n0 = ops.LAUNCHES["flash_attention"]
+        got = ops.attention(q, k, v, causal=causal)
+        assert ops.LAUNCHES["flash_attention"] == n0 + 1
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, causal=causal)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(1, 2, 8, 48, device=cuda)            # head_dim 48
+    with pytest.raises(ValueError):
+        ops.attention(q, q[:, :1], q[:, :1])
+    q = torch.randn(1, 2, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        ops.attention(q, q, q)
+    q = torch.randn(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError):                      # Sq > Skv
+        ops.attention(q, q[:, :, :4], q[:, :, :4])
+
+
+@pytest.mark.cuda
+def test_cuda_forward_and_loss_match_cpu(cuda):
+    """The full-sequence forward of a reduced f32 router on the card (flash
+    and rmsnorm kernels) against the same weights on the CPU (plain
+    versions): one flash launch per layer, logits and loss within 3e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("wikikv-router").reduced(n_layers=3, d_model=128, vocab=1000)
+    params = M.init_params(cfg, seed=3, device="cpu")
+    rs = np.random.RandomState(3)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, 77)).astype(np.int32))
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    card_params = M._to(params, cuda)
+    ops.reset_launches()
+    logits = M.make_prefill_step(cfg)(card_params, on_card)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), M.make_prefill_step(cfg)(params, batch),
+                               atol=3e-5, rtol=3e-5)
+    loss = M.make_eval_step(cfg)(card_params, on_card)
+    torch.testing.assert_close(loss.cpu(), M.make_eval_step(cfg)(params, batch),
+                               atol=3e-5, rtol=3e-5)

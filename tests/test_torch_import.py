@@ -75,7 +75,8 @@ def test_port_adds_no_new_repro_env_names():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels import decode_attention, path_lookup, prefix_search, rmsnorm
+    from repro_torch.kernels import (decode_attention, flash_attention, path_lookup,
+                                     prefix_search, rmsnorm)
     keys = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         path_lookup.path_lookup(keys, keys)
@@ -89,6 +90,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         decode_attention.decode_attention(torch.ones(1, 2, 16), torch.ones(1, 1, 4, 16),
                                           torch.ones(1, 1, 4, 16),
                                           torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(torch.ones(1, 2, 4, 16), torch.ones(1, 1, 4, 16),
+                                        torch.ones(1, 1, 4, 16))
 
 
 def test_entry_points_without_a_device_need_cuda():
