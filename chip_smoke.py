@@ -28,7 +28,17 @@ its main path on the card, printing one JSON line per phase:
      make_prefill_step and make_eval_step at B=1, S=4096 on the card,
      launches per forward, a finite loss, and logit parity with the CPU
      at 2 layers and S=256;
- 10. one JSON line of every kernel with its launches, error, times and
+ 10. moe_router against its plain version at the dbrx prefill and decode,
+     jamba, kimi-k2 and ragged shapes (tie-laden logits too), timed beside
+     the plain version and the softmax -> topk -> renorm composite; then
+     dbrx-132b at full width (8 of its 40 layers, weights drawn on the
+     card from the seed): make_prefill_step and make_eval_step at B=1,
+     S=4096 and 16 make_serve_step decode steps at B=4, launches per
+     forward and per step, times beside their bounds; f32 parity of its
+     first 2 layers with the CPU (router indices, logits), the bf16 run's
+     share of changed expert assignments, and teacher-forced decode
+     against the prefill;
+ 11. one JSON line of every kernel with its launches, error, times and
      bound; the card's name and power limit; the final ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
@@ -127,7 +137,9 @@ def check_float(name, got, want, dtype) -> float:
 def model_kernels(dev) -> dict:
     """rmsnorm and decode_attention at the serving shapes (batch 4 lanes,
     wikikv-router: 4 query heads, 2 KV heads, head_dim 64, d_model 256,
-    max_len 512) and the longer-cache shapes; returns the JSON entries."""
+    max_len 512), the longer-cache shapes, qwen3-1.7B's prefill norms and
+    dbrx-132b's (d_model 6144; decode at group 6: 48 query heads, 8 KV
+    heads, head_dim 128, B=4, max_len 512); returns the JSON entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -157,60 +169,72 @@ def model_kernels(dev) -> dict:
                                    if hasattr(F, "rms_norm") else None),
                     "bound_ms": b, "bound_by": by}
     # the prefill shapes of qwen3-1.7B at S=4096: a block norm over 4096
-    # rows of d_model 2048, the qk-norm over 4096 x 16 rows of head_dim 128
-    prefill = []
-    for rows, D in ((4096, 2048), (4096 * 16, 128)):
+    # rows of d_model 2048, the qk-norm over 4096 x 16 rows of head_dim 128;
+    # dbrx-132b's block norm at S=4096 and at a decode step of B=4
+    shapes = []
+    for rows, D in ((4096, 2048), (4096 * 16, 128), (4096, 6144), (4, 6144)):
         x = torch.randn((rows, D), generator=g).to(dev, torch.bfloat16)
         s = torch.randn((D,), generator=g).to(dev, torch.bfloat16)
         err = check_float(f"rmsnorm {rows}x{D}", ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
                           torch.bfloat16)
         b, by = bound(2 * rows * D * 2 + D * 2, 4 * rows * D, F32_FLOPS)
-        prefill.append({
+        shapes.append({
             "shape": f"x ({rows}, {D}) bfloat16 with scale", "max_abs_err": err,
             "ms": cuda_ms(lambda: rn.rmsnorm(x, s)),
             "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, s)),
             "library_ms": (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
                            if hasattr(F, "rms_norm") else None),
             "bound_ms": b, "bound_by": by})
-    entries["rmsnorm"]["prefill"] = prefill
+    entries["rmsnorm"]["shapes"] = shapes
     emit({"phase": "model_kernels", "rmsnorm": "ok",
-          "rmsnorm_ms": entries["rmsnorm"]["ms"], "prefill": prefill})
+          "rmsnorm_ms": entries["rmsnorm"]["ms"], "shapes": shapes})
 
-    timings = []
+    timings, group6 = [], []
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, lens in ((4, 512, [1, 97, 311, 512]),
-                           (8, 512, [1, 7, 64, 129, 256, 300, 511, 512]),
-                           (8, 4096, [1, 100, 1000, 2049, 3000, 4000, 4095, 4096])):
-            Hq, Hkv, D = 4, 2, 64
+        for B, S, lens, Hq, Hkv, D in (
+                (4, 512, [1, 97, 311, 512], 4, 2, 64),
+                (8, 512, [1, 7, 64, 129, 256, 300, 511, 512], 4, 2, 64),
+                (8, 4096, [1, 100, 1000, 2049, 3000, 4000, 4095, 4096], 4, 2, 64),
+                # dbrx's decode: the smoke's lanes at 0, 1/5, 1/2 and the
+                # end of a 512 cache, one token in
+                (4, 512, [1, 103, 257, 497], 48, 8, 128)):
             q = torch.randn((B, Hq, D), generator=g).to(dev, dtype)
             k = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
             v = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
             ln = torch.tensor(lens, dtype=torch.int32, device=dev)
             got = ops.decode_attention(q, k, v, ln)
             want = ref.decode_attention_ref(q, k, v, ln)
-            err = check_float(f"decode_attention B={B} S={S}", got, want, dtype)
+            err = check_float(f"decode_attention B={B} Hq={Hq} Hkv={Hkv} S={S}", got, want, dtype)
             ms = cuda_ms(lambda: da.decode_attention(q, k, v, ln))
-            timings.append({"B": B, "S": S, "dtype": str(dtype), "ms": ms, "err": err})
-            if (B, S) == (4, 512) and dtype == torch.float32:
-                live = sum(lens)
-                elt = q.element_size()
-                b, by = bound(2 * Hkv * D * elt * live + 2 * B * Hq * D * elt + 4 * B,
-                              4.0 * Hq * D * live, F32_FLOPS)
-                # the yardstick: one SDPA call over the group-expanded
-                # cache with the length mask (expanded outside the timing)
-                mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-                kx, vx = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+            timings.append({"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "dtype": str(dtype),
+                            "ms": ms, "err": err})
+            if S != 512 or B != 4 or (Hq == 4 and dtype != torch.float32):
+                continue
+            live = sum(lens)
+            elt = q.element_size()
+            b, by = bound(2 * Hkv * D * elt * live + 2 * B * Hq * D * elt + 4 * B,
+                          4.0 * Hq * D * live, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            # the yardstick: one SDPA call over the group-expanded cache with
+            # the length mask (expanded outside the timing)
+            mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+            kx, vx = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+            row = {"shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} lengths={lens} "
+                            f"{str(dtype).split('.')[1]}",
+                   "max_abs_err": err, "ms": ms,
+                   "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
+                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q[:, :, None, :], kx, vx, attn_mask=mask)),
+                   "bound_ms": b, "bound_by": by}
+            if Hq == 4:
                 entries["decode_attention"] = {
                     "name": "decode_attention", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-                    "replaces": "src/repro/kernels/decode_attention.py:74",
-                    "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} lengths={lens} float32",
-                    "max_abs_err": err, "ms": ms,
-                    "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
-                    "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                        q[:, :, None, :], kx, vx, attn_mask=mask)),
-                    "bound_ms": b, "bound_by": by}
-    emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings})
+                    "replaces": "src/repro/kernels/decode_attention.py:74", **row}
+            else:
+                group6.append(row)
+    entries["decode_attention"]["shapes"] = group6
+    emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings,
+          "group6": group6})
     return entries
 
 
@@ -708,6 +732,8 @@ def serving_phase(dev, model_oracle=False) -> dict:
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -793,6 +819,340 @@ def prefill_phase(dev, seed=0, seq=4096, parity_layers=2, parity_seq=256) -> dic
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the MoE path — moe_router, then dbrx-132b at full width
+# ---------------------------------------------------------------------------
+# (tag, T, E, k): dbrx prefill (S=4096) and decode (B=4), jamba, kimi-k2,
+# and a ragged T
+ROUTER_SHAPES = [("dbrx prefill", 4096, 16, 4), ("dbrx decode", 4, 16, 4),
+                 ("jamba", 4096, 16, 2), ("kimi-k2", 4096, 384, 8), ("ragged", 4099, 16, 4)]
+ROUTER_NEAR_TIE = 1e-6   # two candidates' probabilities this close may order either way
+
+
+def router_library(logits, k):
+    """softmax -> topk -> renorm, three PyTorch calls (the yardstick only)."""
+    import torch
+    w, idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    return w / w.sum(dim=-1, keepdim=True), idx
+
+
+def router_kernels(dev) -> dict:
+    """(a) moe_router against its plain version at ROUTER_SHAPES, with
+    renormalize on and off, on random-normal and on tie-laden logits (a
+    grid of 0.5).  Indices equal in every tie-laden row; on normal input a
+    row may differ only where two of its k + 1 largest probabilities lie
+    within ROUTER_NEAR_TIE (counted); weights within 1e-6 on the rows that
+    agree.  Timed beside its bytes bound, the plain version and the
+    library composite."""
+    import torch
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cpu").manual_seed(2)
+    rows, near_rows = [], 0
+    for tag, T, E, k in ROUTER_SHAPES:
+        x = torch.randn((T, E), generator=g).to(dev) * 2
+        err = 0.0
+        for kind, logits in (("normal", x), ("ties", torch.round(x * 2) / 2)):
+            for renorm in (True, False):
+                w, idx = ops.moe_router(logits, k, renormalize=renorm)
+                pw, pidx = ref.moe_router_ref(logits, k, renormalize=renorm)
+                differ = (idx != pidx).any(dim=1)
+                p = torch.softmax(logits.double(), dim=-1).sort(dim=-1, descending=True).values
+                near = (p[:, :k] - p[:, 1:k + 1]).amin(dim=-1) < ROUTER_NEAR_TIE
+                check(kind == "normal" or not bool(differ.any()),
+                      f"moe_router ({tag}, ties): indices differ in {int(differ.sum())} rows")
+                check(not bool((differ & ~near).any()),
+                      f"moe_router ({tag}): indices differ beyond a near tie")
+                near_rows += int(differ.sum())
+                err = max(err, max_err(w[~differ], pw[~differ]))
+                check(err <= 1e-6, f"moe_router ({tag}): weights differ by {err}")
+        # bytes: the logits read once, weights and indices written once;
+        # operations: exp, subtract and divide per logit, k compare rounds
+        b, by = bound(T * E * 4 + T * k * 8, T * E * (3.0 + k), F32_FLOPS)
+        rows.append({"shape": f"({tag}) T={T} E={E} k={k} float32 renormalized",
+                     "max_abs_err": err, "ms": cuda_ms(lambda: mr.moe_router(x, k)),
+                     "plain_ms": cuda_ms(lambda: ref.moe_router_ref(x, k)),
+                     "library_ms": cuda_ms(lambda: router_library(x, k)),
+                     "bound_ms": b, "bound_by": by})
+    emit({"phase": "moe_router", "shapes": rows, "rows_differing_at_near_ties": near_rows,
+          "library": "softmax -> topk -> renorm (three calls)"})
+    return {"moe_router": {"name": "moe_router", "route": "cuda",
+                           "source": "src/repro_torch/kernels/csrc/moe_router.cu",
+                           "replaces": "src/repro/kernels/moe_router.py:55",
+                           **rows[0], "shapes": rows[1:]}}
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def logged_run(fn):
+    """``fn()`` with every ``ops.moe_router`` call's (f32 logits, indices)
+    recorded on the host; returns (result, log)."""
+    from repro_torch.kernels import ops
+    log, orig = [], ops.moe_router
+
+    def logged(logits, k, **kw):
+        w, idx = orig(logits, k, **kw)
+        log.append((logits.float().cpu(), idx.cpu()))
+        return w, idx
+    ops.moe_router = logged
+    try:
+        return fn(), log
+    finally:
+        ops.moe_router = orig
+
+
+def first_flip(ref_log, other_log, k) -> dict | None:
+    """The first (layer, token) whose router indices differ between two
+    runs, checked to be a near tie: in the reference run's logits of that
+    token, two of the k + 1 largest lie within the two runs' rounding
+    difference of that row (max |d logit|).  None when all are equal.
+    Tokens before it are unaffected in every layer (causal attention)."""
+    import torch
+    for layer, ((lr, ir), (lo, io)) in enumerate(zip(ref_log, other_log)):
+        rows = torch.nonzero((ir != io).any(dim=1)).flatten()
+        if rows.numel():
+            t = int(rows[0])
+            top = lr[t].sort(descending=True).values[:k + 1]
+            gap = float((top[:-1] - top[1:]).min())
+            rounding = float((lr[t] - lo[t]).abs().max())
+            check(gap <= rounding, f"router layer {layer} token {t}: experts "
+                  f"{ir[t].tolist()} vs {io[t].tolist()} with a logit gap {gap} > {rounding}")
+            return {"layer": layer, "token": t, "tokens_differing": int(rows.numel()),
+                    "logit_gap": gap, "rounding": rounding}
+    return None
+
+
+def host_mem_available() -> int:
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_steps=16,
+              parity_seq=128, tf_tokens=16) -> dict:
+    """(b) dbrx-132b at full width (depth cut to ``layers`` of 40 to fit
+    one card), weights drawn on the card from ``seed``: one prefill and
+    one eval at B=1, S=``seq``, then ``dec_steps`` serve steps at
+    B=``dec_batch``, max_len ``dec_len`` — the launches counted — then
+    their times beside their bounds.  (c) the first 2 layers (1 when the
+    host is short of memory) upcast to f32 on the card and on the CPU at
+    S=``parity_seq``: router indices equal but at near ties, logits within
+    1e-3 of the largest; the bf16 run's share of assignments whose expert
+    differs from the f32 run; and teacher-forced decode of ``tf_tokens``
+    tokens against the prefill logits at capacity_factor 64."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    m = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(1, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((1, 1), -1, np.int32)], axis=1)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+    prefill, evals, serve = M.make_prefill_step(cfg), M.make_eval_step(cfg), M.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, dec_batch, dec_len, dev)
+    tk = torch.from_numpy(rs.randint(0, cfg.vocab, size=dec_batch).astype(np.int32)).to(dev)
+    lens0 = [0, dec_len // 5, dec_len // 2, dec_len - dec_steps]
+    lens = torch.tensor(lens0, dtype=torch.int32, device=dev)
+
+    # the main path: counts from zero, one prefill, one eval and the decode
+    # steps, read just after
+    ops.reset_launches()
+    logits, log_pre = logged_run(lambda: prefill(params, batch))
+    loss = float(evals(params, batch))
+    check(tuple(logits.shape) == (1, seq, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite dbrx prefill logits")
+    check(math.isfinite(loss) and loss > 0, f"dbrx eval loss {loss}")
+    del logits
+    fwd = dict(ops.LAUNCHES)
+    for _ in range(dec_steps):
+        tk, dec_logits, state = serve(params, state, {"tokens": tk, "lengths": lens})
+        lens = lens + 1
+    check(bool(torch.isfinite(dec_logits[:, :cfg.vocab]).all()), "non-finite decode logits")
+    counts = dict(ops.LAUNCHES)
+    dec = {k: counts[k] - fwd[k] for k in counts}
+    n_norm = 2 * layers + 1
+    for name, per_fwd, per_step in (("moe_router", layers, layers),
+                                    ("flash_attention", layers, 0),
+                                    ("decode_attention", 0, layers),
+                                    ("rmsnorm", n_norm, n_norm)):
+        check(fwd[name] == 2 * per_fwd and dec[name] == dec_steps * per_step,
+              f"{name} launches {fwd[name]} (2 forwards) / {dec[name]} ({dec_steps} decode "
+              f"steps) != {2 * per_fwd} / {dec_steps * per_step}")
+
+    prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3, warmup=1)
+    eval_ms = cuda_ms(lambda: evals(params, batch), iters=3, warmup=1)
+    step = {"tokens": tk, "lengths": lens - 1}      # the last step again, in place
+    _, log_dec = logged_run(lambda: serve(params, state, step))
+    decode_ms = cuda_ms(lambda: serve(params, state, step), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # where the time goes: one layer's MoE FFN at the prefill and decode
+    # shapes, one flash_attention at the prefill shape (outside the count)
+    layer0 = tree_map(lambda t: t[0], params["body"]["slot0"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    act = getattr(torch, cfg.dtype)
+    h = torch.randn((seq, cfg.d_model), generator=gen, device=dev).to(act)
+    moe_ms = cuda_ms(lambda: MoE.moe_apply_local(layer0["moe"], h, cfg), iters=5, warmup=1)
+    moe_dec_ms = cuda_ms(lambda: MoE.moe_apply_local(layer0["moe"], h[:dec_batch], cfg),
+                         iters=10, warmup=2)
+    q = torch.randn((1, cfg.n_heads, seq, cfg.head_dim), generator=gen, device=dev)
+    kv = torch.randn((2, 1, cfg.n_kv_heads, seq, cfg.head_dim), generator=gen, device=dev)
+    q, kv = q.to(act), kv.to(act)
+    flash_ms = cuda_ms(lambda: ops.attention(q, kv[0], kv[1], causal=True), iters=5, warmup=1)
+    del h, q, kv, layer0
+    # bounds.  Prefill: operations (the projections, causal attention, the
+    # head, the experts); a decode step: bytes (every weight but the
+    # embedding and the unrouted experts, the live KV cache).  The
+    # function's bound counts the expert work this run's routing needs:
+    # the (token, expert) assignments kept under capacity in prefill, the
+    # experts routed to at least once in the timed decode step.  The
+    # dispatch bound counts what the capacity dispatch computes and reads:
+    # every (expert, capacity slot), every expert.
+    D, H, KV, Dh, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.padded_vocab
+    E, F_ = m.n_experts, m.d_ff_expert
+    cap = MoE._capacity(seq, m.top_k, E, m.capacity_factor)
+    cap_dec = MoE._capacity(dec_batch, m.top_k, E, m.capacity_factor)
+    kept = sum(int(torch.bincount(idx.flatten().long(), minlength=E).clamp(max=cap).sum())
+               for _, idx in log_pre)
+    routed = [len(set(idx.flatten().tolist())) for _, idx in log_dec]
+    check(len(log_pre) == len(log_dec) == layers, "router calls per forward / step != layers")
+    dense = layers * (2 * seq * D * (2 * H * Dh + 2 * KV * Dh) + 2 * seq * D * E
+                      + 4.0 * Dh * H * seq * (seq + 1) / 2) + 2 * seq * D * V
+    expert_flops = 3 * 2 * D * F_               # one (token, expert) assignment
+    flops = dense + expert_flops * kept
+    flops_dispatch = dense + expert_flops * layers * E * cap
+    b_pre, by_pre = bound(w_bytes, flops, BF16_FLOPS)
+    b_pre_d, by_pre_d = bound(w_bytes, flops_dispatch, BF16_FLOPS)
+    expert_bytes = 3 * D * F_ * torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    emb_bytes = params["embed"].numel() * params["embed"].element_size()
+    kv_bytes = 2 * layers * KV * Dh * 2 * sum(n + dec_steps for n in lens0)
+    rest_bytes = w_bytes - emb_bytes - layers * E * expert_bytes + kv_bytes
+    b_dec, by_dec = bound(rest_bytes + expert_bytes * sum(routed),
+                          expert_flops * layers * dec_batch * m.top_k, BF16_FLOPS)
+    b_dec_d, by_dec_d = bound(rest_bytes + expert_bytes * layers * E,
+                              expert_flops * layers * E * cap_dec, BF16_FLOPS)
+    emit({"phase": "moe", "arch": cfg.name, "layers": layers, "of": full.n_layers,
+          "params_b": n_params / 1e9, "weights_gib": w_bytes / 2**30, "init_s": t_init,
+          "seq": seq, "loss": loss, "launches": counts,
+          "per_forward": {k: fwd[k] // 2 for k in ("moe_router", "flash_attention", "rmsnorm")},
+          "per_decode_step": {k: dec[k] // dec_steps
+                              for k in ("moe_router", "decode_attention", "rmsnorm")},
+          "prefill_ms": prefill_ms, "prefill_tokens_per_s": seq / prefill_ms * 1e3,
+          "eval_ms": eval_ms, "decode_batch": dec_batch, "decode_step_ms": decode_ms,
+          "peak_gib": peak, "capacity_per_expert": cap,
+          "prefill_assignments_kept": kept, "prefill_tflop": flops / 1e12,
+          "prefill_bound_ms": b_pre, "prefill_bound_by": by_pre,
+          "prefill_dispatch_tflop": flops_dispatch / 1e12,
+          "prefill_dispatch_bound_ms": b_pre_d, "prefill_dispatch_bound_by": by_pre_d,
+          "decode_experts_routed": routed,
+          "decode_gb": (rest_bytes + expert_bytes * sum(routed)) / 1e9,
+          "decode_bound_ms": b_dec, "decode_bound_by": by_dec,
+          "decode_dispatch_gb": (rest_bytes + expert_bytes * layers * E) / 1e9,
+          "decode_dispatch_bound_ms": b_dec_d, "decode_dispatch_bound_by": by_dec_d,
+          "prefill_breakdown_ms": {"moe_ffn_per_layer": moe_ms, "flash_per_layer": flash_ms,
+                                   "moe_ffn": layers * moe_ms, "flash": layers * flash_ms,
+                                   "rest": prefill_ms - layers * (moe_ms + flash_ms)},
+          "decode_breakdown_ms": {"moe_ffn_per_layer": moe_dec_ms, "moe_ffn": layers * moe_dec_ms,
+                                  "rest": decode_ms - layers * moe_dec_ms}})
+
+    # (c) parity on the first layers, the rest of the card's weights freed
+    f32_bytes = 2 * (w_bytes / layers * 2 + 2 * emb_bytes)
+    n_par = 2 if host_mem_available() >= 1.5 * f32_bytes else 1
+    small = {**params, "body": tree_map(lambda t: t[:n_par].clone(), params["body"])}
+    del params, state, dec_logits, step
+    torch.cuda.empty_cache()
+    cfg_p = dataclasses.replace(cfg, n_layers=n_par)
+    cfg32 = dataclasses.replace(cfg_p, dtype="float32", param_dtype="float32")
+    cfg64 = dataclasses.replace(cfg32, moe=dataclasses.replace(m, capacity_factor=64.0))
+    fwd32 = M.make_prefill_step(cfg32)
+    tokens = torch.from_numpy(toks[:, :parity_seq])
+    _, log_bf = logged_run(lambda: M.make_prefill_step(cfg_p)(small, {"tokens": tokens.to(dev)}))
+    card32_p = tree_map(lambda t: t.float(), small)
+    del small
+    torch.cuda.empty_cache()
+    card, log_card = logged_run(lambda: fwd32(card32_p, {"tokens": tokens.to(dev)}).cpu())
+    host32 = tree_map(lambda t: t.cpu(), card32_p)
+    t0 = time.perf_counter()
+    cpu, log_cpu = logged_run(lambda: fwd32(host32, {"tokens": tokens}))
+    cpu_s = time.perf_counter() - t0
+    del host32
+    # teacher-forced decode against the prefill at capacity_factor 64
+    tf = tokens[:, :tf_tokens].to(dev)
+    tf_full, log_tf_full = logged_run(
+        lambda: M.make_prefill_step(cfg64)(card32_p, {"tokens": tf}).cpu())
+
+    def decode_all():
+        st, out = T.init_decode_state(cfg64, 1, tf_tokens, dev), []
+        with torch.inference_mode():
+            for t in range(tf_tokens):
+                lg, st = T.decode_step(card32_p, st, tf[:, t],
+                                       torch.full((1,), t, dtype=torch.int32, device=dev), cfg64)
+                out.append(lg.cpu())
+        return torch.stack(out, dim=1)
+    got, log_tf_dec = logged_run(decode_all)
+    del card32_p
+    torch.cuda.empty_cache()
+
+    k = m.top_k
+    flip = first_flip(log_cpu, log_card, k)
+    upto = parity_seq if flip is None else flip["token"]
+    scale = float(cpu.abs().max())
+    err = float((card[0, :upto] - cpu[0, :upto]).abs().max()) if upto else 0.0
+    check(err <= 1e-3 * scale, f"f32 logits card vs cpu differ by {err} > 1e-3 x {scale}")
+    changed = total = 0
+    for (_, i32), (_, ibf) in zip(log_card, log_bf):
+        for a, b in zip(i32.tolist(), ibf.tolist()):
+            changed += len(set(b) - set(a))
+            total += len(a)
+    # decode: one router call per layer per step (T=1); regroup as the
+    # prefill's (layer, token) rows
+    dec_log = [(torch.cat([log_tf_dec[t * n_par + layer][0] for t in range(tf_tokens)]),
+                torch.cat([log_tf_dec[t * n_par + layer][1] for t in range(tf_tokens)]))
+               for layer in range(n_par)]
+    tf_flip = first_flip(log_tf_full, dec_log, k)
+    tf_upto = tf_tokens if tf_flip is None else tf_flip["token"]
+    tf_scale = float(tf_full.abs().max())
+    tf_err = float((got[0, :tf_upto] - tf_full[0, :tf_upto]).abs().max()) if tf_upto else 0.0
+    check(tf_err <= 1e-3 * tf_scale,
+          f"teacher-forced decode vs prefill differ by {tf_err} > 1e-3 x {tf_scale}")
+    emit({"phase": "moe_parity", "layers": n_par,
+          "layers_note": None if n_par == 2 else "1 layer: the host is short of memory",
+          "seq": parity_seq, "dtype": "float32 (bf16 weights upcast)", "cpu_forward_s": cpu_s,
+          "max_abs_card_cpu": err, "max_abs_logit": scale, "tolerance": 1e-3 * scale,
+          "router_near_tie": flip, "tokens_compared": upto,
+          "bf16_assignments_changed": changed, "bf16_assignments": total,
+          "bf16_share_changed": changed / max(total, 1),
+          "teacher_forced": {"tokens": tf_tokens, "capacity_factor": 64.0,
+                             "max_abs_decode_prefill": tf_err, "max_abs_logit": tf_scale,
+                             "router_near_tie": tf_flip, "tokens_compared": tf_upto}})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; run it "
@@ -830,6 +1190,7 @@ def main() -> int:
 
     entries = model_kernels(dev)
     entries.update(attention_kernels(dev))
+    entries.update(router_kernels(dev))
 
     rng = random.Random(0)
     store, dims, n_files, dev_eng, host = query_phase(dev, SCALE_LOG2)
@@ -853,17 +1214,17 @@ def main() -> int:
 
     # each path below sets the counts to 0 just before it and reads them just after
     path_counts = [query_counts, serving_phase(dev), serving_phase(dev, model_oracle=True),
-                   prefill_phase(dev)]
+                   prefill_phase(dev), moe_phase(dev)]
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
-                 "flash_attention"):
+                 "flash_attention", "moe_router"):
         e = entries[name]
         e["launches"] = sum(c[name] for c in path_counts)
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape", "prefill")
+                                          "bound_by", "library_ms", "shape", "shapes")
                         if k in e})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

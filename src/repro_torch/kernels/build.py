@@ -26,13 +26,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("path_lookup", "prefix_search", "decode_attention", "flash_attention")
+SOURCES = ("path_lookup", "prefix_search", "decode_attention", "flash_attention",
+           "moe_router")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
-                            "decode_attention": 0, "flash_attention": 0, "rmsnorm": 0}
+                            "decode_attention": 0, "flash_attention": 0, "rmsnorm": 0,
+                            "moe_router": 0}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

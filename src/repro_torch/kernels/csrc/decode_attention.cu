@@ -217,6 +217,7 @@ int by_group(int G, const void* q, const void* k, const void* v, const int* leng
     case 1: launch<T, D, 1>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
     case 2: launch<T, D, 2>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
     case 4: launch<T, D, 4>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
+    case 6: launch<T, D, 6>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
     case 8: launch<T, D, 8>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
     default: return 1;
   }

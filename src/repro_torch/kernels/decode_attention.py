@@ -27,7 +27,7 @@ import torch
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 4, 6, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: at most this many KV slices per (sequence, KV head)
 MAX_SPLITS = 64

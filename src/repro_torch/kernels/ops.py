@@ -14,6 +14,7 @@ from . import ref
 from .build import LAUNCHES, reset_launches
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
+from .moe_router import moe_router as _router_kernel
 from .path_lookup import key64, pad_keys, pad_pinned
 from .path_lookup import path_lookup as _lookup_kernel
 from .prefix_search import prefix_search as _prefix_kernel
@@ -52,6 +53,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float | None = N
     return _decode_kernel(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
 
 
+def moe_router(logits, k: int, *, renormalize: bool = True):
+    """(T, E) f32 -> (weights (T, k) f32, indices (T, k) int32)."""
+    if _on_cpu(logits):
+        return ref.moe_router_ref(logits, k, renormalize=renormalize)
+    return _router_kernel(logits, k, renormalize=renormalize)
+
+
 def path_lookup(keys, queries, *, pinned=None):
     """Sorted int64 digest table x (Q,) int64 queries -> (Q,) int32
     positions or -1.  ``pinned`` is the hot-set staging pair (pin_keys,
@@ -70,5 +78,5 @@ def prefix_search(tokens, prefixes, prefix_lens):
     return _prefix_kernel(tokens, prefixes, prefix_lens)
 
 
-__all__ = ["attention", "rmsnorm", "decode_attention", "path_lookup", "prefix_search",
-           "key64", "pad_keys", "pad_pinned", "LAUNCHES", "reset_launches"]
+__all__ = ["attention", "rmsnorm", "decode_attention", "moe_router", "path_lookup",
+           "prefix_search", "key64", "pad_keys", "pad_pinned", "LAUNCHES", "reset_launches"]

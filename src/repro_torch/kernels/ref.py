@@ -5,8 +5,8 @@ operations; the CPU path of ``ops`` runs them, the tests hold them
 against the JAX package, and ``chip_smoke.py`` holds each kernel against
 its plain version on the card.  Counterparts of
 ``repro/kernels/ref.py``'s ``attention_ref``, ``chunked_attention_ref``,
-``rmsnorm_ref``, ``decode_attention_ref``, ``path_lookup_ref``,
-``path_lookup_pinned_ref`` and ``prefix_search_ref``.
+``rmsnorm_ref``, ``decode_attention_ref``, ``moe_router_ref``,
+``path_lookup_ref``, ``path_lookup_pinned_ref`` and ``prefix_search_ref``.
 
 Digest tables hold one int64 per key, ``((hi << 32) | lo) ^ (1 << 63)``:
 torch has no ordering on uint32, and flipping the sign bit makes the
@@ -117,6 +117,35 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     out = out / torch.where(l == 0.0, torch.ones_like(l), l)
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def moe_router_ref(logits: torch.Tensor, k: int, *,
+                   renormalize: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused softmax + top-k gate.  logits: (T, E).  Returns (weights
+    (T, k) f32, indices (T, k) int32).
+
+    As the Pallas kernel computes it: in f32, the softmax as
+    ``exp(x - max) / sum``, then k rounds that take the largest remaining
+    probability, ties to the lowest expert id (the first match, as
+    ``lax.top_k`` orders them; PyTorch's top-k promises no order among
+    ties), and mask it.  Selection is on the probabilities, not the
+    logits.  With ``renormalize`` the k weights are divided by their sum."""
+    x = logits.float()
+    p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    E = p.shape[-1]
+    cols = torch.arange(E, device=p.device)
+    ws, ids = [], []
+    for _ in range(k):
+        w = p.amax(dim=-1)
+        idx = torch.where(p == w[..., None], cols, E).amin(dim=-1)
+        ws.append(w)
+        ids.append(idx)
+        p = p.masked_fill(cols == idx[..., None], NEG_INF)
+    w = torch.stack(ws, dim=-1)
+    if renormalize:
+        w = w / w.sum(dim=-1, keepdim=True)
+    return w, torch.stack(ids, dim=-1).to(torch.int32)
 
 
 def path_lookup_ref(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

@@ -36,20 +36,22 @@ def _dtype(name: str) -> torch.dtype:
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, cfg: ModelConfig,
                scale: float | None = None) -> torch.Tensor:
-    """(d_in, d_out) matrix; default fan-in init, drawn on the CPU
-    generator so every device gets the same weights from one seed."""
+    """(d_in, d_out) matrix; default fan-in init, drawn on the
+    generator's device (a CPU generator gives every device the same
+    weights from one seed)."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32) * s
-    return w.to(_dtype(cfg.param_dtype))
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device)
+    return w.mul_(s).to(_dtype(cfg.param_dtype))
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
-def norm_init(cfg: ModelConfig) -> dict:
+def norm_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Unit scale on the generator's device (nothing is drawn)."""
     if cfg.nonparam_ln:
         return {}
-    return {"scale": torch.ones((cfg.d_model,), dtype=_dtype(cfg.param_dtype))}
+    return {"scale": torch.ones((cfg.d_model,), dtype=_dtype(cfg.param_dtype), device=gen.device)}
 
 
 def norm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -98,8 +100,8 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wo": dense_init(gen, H * Dh, D, cfg),
     }
     if cfg.qk_norm:
-        params["q_norm"] = torch.ones((Dh,), dtype=_dtype(cfg.param_dtype))
-        params["k_norm"] = torch.ones((Dh,), dtype=_dtype(cfg.param_dtype))
+        params["q_norm"] = torch.ones((Dh,), dtype=_dtype(cfg.param_dtype), device=gen.device)
+        params["k_norm"] = torch.ones((Dh,), dtype=_dtype(cfg.param_dtype), device=gen.device)
     return params
 
 

@@ -17,7 +17,9 @@ from .config import ModelConfig
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from ``torch.Generator`` seed ``seed``, drawn on
-    the CPU and moved to ``device`` (``cuda`` unless given)."""
+    the CPU and moved to ``device`` (``cuda`` unless given).  A model too
+    large for the host is drawn on the card by ``transformer.init_params``
+    with a CUDA generator."""
     dev = resolve_device(device)
     L.set_fp32_matmul()
     gen = torch.Generator().manual_seed(seed)

@@ -64,6 +64,65 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_group_6(cuda, dtype):
+    """dbrx's 48 query heads over 8 KV heads, head_dim 128."""
+    dt = getattr(torch, dtype)
+    B, Hq, Hkv, S, D = 4, 48, 8, 512, 128
+    q = torch.randn(B, Hq, D, dtype=dt, device=cuda)
+    k = torch.randn(B, Hkv, S, D, dtype=dt, device=cuda)
+    v = torch.randn(B, Hkv, S, D, dtype=dt, device=cuda)
+    lens = torch.tensor([1, 129, 300, 512], dtype=torch.int32, device=cuda)
+    n0 = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, lens)
+    assert ops.LAUNCHES["decode_attention"] == n0 + 1
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, k, v, lens).float(),
+                               **_tol(dtype))
+
+
+# (T, E, k): dbrx prefill and decode, jamba, kimi-k2, a ragged T, a tiny E
+ROUTER_SHAPES = [(4096, 16, 4), (4, 16, 4), (4096, 16, 2), (4096, 384, 8), (4099, 16, 4),
+                 (33, 4, 2), (5, 1000, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renormalize", [True, False])
+def test_cuda_moe_router_matches_plain(cuda, renormalize):
+    """Weights within 1e-6; indices equal in every row of the tie-laden
+    input (logits on a grid of 0.5), and on normal input wherever no two
+    of the row's k + 1 largest probabilities lie within 1e-6 of each
+    other (the kernel's expf and the plain version's exp may order such a
+    pair apart)."""
+    g = torch.Generator().manual_seed(0)
+    for T, E, k in ROUTER_SHAPES:
+        x = torch.randn(T, E, generator=g) * 2
+        for logits in (x, torch.round(x * 2) / 2):
+            n0 = ops.LAUNCHES["moe_router"]
+            w, idx = ops.moe_router(logits.to(cuda), k, renormalize=renormalize)
+            assert ops.LAUNCHES["moe_router"] == n0 + 1
+            pw, pidx = ref.moe_router_ref(logits.to(cuda), k, renormalize=renormalize)
+            assert w.dtype == torch.float32 and idx.dtype == torch.int32
+            differ = (idx != pidx).any(dim=1)
+            if logits is not x:
+                assert not bool(differ.any())
+            else:
+                p = torch.softmax(logits.double(), -1).sort(-1, descending=True).values
+                near = (p[:, :k] - p[:, 1:k + 1]).amin(-1) < 1e-6
+                assert not bool((differ.cpu() & ~near).any())
+            torch.testing.assert_close(w[~differ], pw[~differ], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError):                      # logits not f32
+        ops.moe_router(torch.randn(4, 16, device=cuda, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError):                      # k > E
+        ops.moe_router(torch.randn(4, 4, device=cuda), 5)
+    with pytest.raises(ValueError):                      # E > 1024
+        ops.moe_router(torch.randn(4, 1025, device=cuda), 2)
+
+
+@pytest.mark.cuda
 def test_cuda_path_lookup_matches_plain(cuda):
     rs = np.random.RandomState(11)
     for N, Q, n_pin in [(1000, 301, 5), (50, 20, 3), (0, 8, 0), (200_000, 4096, 17)]:
@@ -156,3 +215,50 @@ def test_cuda_forward_and_loss_match_cpu(cuda):
     loss = M.make_eval_step(cfg)(card_params, on_card)
     torch.testing.assert_close(loss.cpu(), M.make_eval_step(cfg)(params, batch),
                                atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_cuda_moe_forward_and_serve_match_cpu(cuda, arch):
+    """Reduced dbrx (MoE in every layer) and kimi-k2 (shared expert, dense
+    prefix) in f32: the forward, the loss and 6 serve steps on the card
+    (moe_router, flash and decode kernels) against the CPU (plain
+    versions) on the same weights; router launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced(d_model=128, vocab=1000)
+    n_moe = cfg.n_layers - cfg.n_dense_prefix
+    params = M.init_params(cfg, seed=5, device="cpu")
+    card_params = M._to(params, cuda)
+    rs = np.random.RandomState(5)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, 40)).astype(np.int32))
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    ops.reset_launches()
+    logits = M.make_prefill_step(cfg)(card_params, on_card)
+    assert ops.LAUNCHES["moe_router"] == n_moe
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), M.make_prefill_step(cfg)(params, batch),
+                               atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(M.make_eval_step(cfg)(card_params, on_card).cpu(),
+                               M.make_eval_step(cfg)(params, batch), atol=3e-5, rtol=3e-5)
+    serve = M.make_serve_step(cfg)
+    B = 3
+    st_card = T.init_decode_state(cfg, B, 32, cuda)
+    st_cpu = T.init_decode_state(cfg, B, 32, "cpu")
+    tk = toks[0, :B].clone()
+    lens = torch.tensor([0, 3, 7], dtype=torch.int32)
+    for _ in range(6):
+        ops.reset_launches()
+        n_card, l_card, st_card = serve(card_params, st_card,
+                                        {"tokens": tk.to(cuda), "lengths": lens.to(cuda)})
+        assert ops.LAUNCHES["moe_router"] == n_moe
+        assert ops.LAUNCHES["decode_attention"] == cfg.n_layers
+        n_cpu, l_cpu, st_cpu = serve(params, st_cpu, {"tokens": tk, "lengths": lens})
+        torch.testing.assert_close(l_card.cpu()[:, :cfg.vocab], l_cpu[:, :cfg.vocab],
+                                   atol=3e-5, rtol=3e-5)
+        assert torch.equal(n_card.cpu(), n_cpu)
+        tk, lens = n_cpu, lens + 1

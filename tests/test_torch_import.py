@@ -18,7 +18,7 @@ PKG = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # library calls that would stand in for the port's own kernels
 BANNED = ("scaled_dot_product_attention", "torch.compile", "F.rms_norm",
-          "functional.rms_norm", "torch.searchsorted")
+          "functional.rms_norm", "torch.searchsorted", "torch.topk")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -75,8 +75,8 @@ def test_port_adds_no_new_repro_env_names():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from repro_torch.kernels import (decode_attention, flash_attention, path_lookup,
-                                     prefix_search, rmsnorm)
+    from repro_torch.kernels import (decode_attention, flash_attention, moe_router,
+                                     path_lookup, prefix_search, rmsnorm)
     keys = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         path_lookup.path_lookup(keys, keys)
@@ -93,6 +93,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         flash_attention.flash_attention(torch.ones(1, 2, 4, 16), torch.ones(1, 1, 4, 16),
                                         torch.ones(1, 1, 4, 16))
+    with pytest.raises(ValueError):
+        moe_router.moe_router(torch.zeros(4, 16), 4)
 
 
 def test_entry_points_without_a_device_need_cuda():

@@ -209,5 +209,6 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
                       torch.zeros((2, 32), dtype=torch.uint8),
                       torch.ones(2, dtype=torch.int32))
     ops.attention(torch.randn(1, 2, 5, 16), torch.randn(1, 1, 9, 16), torch.randn(1, 1, 9, 16))
+    ops.moe_router(torch.randn(6, 16), 4)
     assert ops.LAUNCHES == {"path_lookup": 0, "prefix_search": 0, "decode_attention": 0,
-                            "flash_attention": 0, "rmsnorm": 0}
+                            "flash_attention": 0, "rmsnorm": 0, "moe_router": 0}
