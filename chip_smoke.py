@@ -134,6 +134,27 @@ def check_float(name, got, want, dtype) -> float:
     return err
 
 
+def norm_row(x, s, err) -> dict:
+    """rmsnorm timed at x's shape with scale s, beside its plain version,
+    ``F.rms_norm`` and its bytes bound; the achieved GB/s and the ratio to
+    the library call of the same run."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    rows, D = x.shape
+    elt = x.element_size()
+    nbytes = 2 * rows * D * elt + D * s.element_size()
+    b, by = bound(nbytes, 4 * rows * D, F32_FLOPS)
+    ms = cuda_ms(lambda: rn.rmsnorm(x, s))
+    lib = (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
+           if hasattr(F, "rms_norm") else None)
+    return {"shape": f"x ({rows}, {D}) {str(x.dtype).split('.')[1]} with scale",
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, s)), "library_ms": lib,
+            "bound_ms": b, "bound_by": by, "gb_per_s": nbytes / ms / 1e6,
+            "share_of_bound": b / ms, "vs_library": ms / lib if lib else None}
+
+
 def model_kernels(dev) -> dict:
     """rmsnorm and decode_attention at the serving shapes (batch 4 lanes,
     wikikv-router: 4 query heads, 2 KV heads, head_dim 64, d_model 256,
@@ -144,7 +165,6 @@ def model_kernels(dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import rmsnorm as rn
     g = torch.Generator(device="cpu").manual_seed(0)
     entries = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -155,19 +175,11 @@ def model_kernels(dev) -> dict:
                 got = ops.rmsnorm(x, scale)
                 err = check_float(f"rmsnorm {rows}x{D}", got, ref.rmsnorm_ref(x, scale), dtype)
             if (rows, D) == (4, 256) and dtype == torch.float32:
-                elt = x.element_size()
-                b, by = bound(2 * rows * D * elt + D * elt, 4 * rows * D, F32_FLOPS)
                 entries["rmsnorm"] = {
-                    "name": "rmsnorm", "route": "triton",
-                    "source": "src/repro_torch/kernels/rmsnorm.py",
+                    "name": "rmsnorm", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "replaces": "src/repro/kernels/rmsnorm.py:37",
-                    "shape": f"x ({rows}, {D}) float32 with scale",
-                    "max_abs_err": err,
-                    "ms": cuda_ms(lambda: rn.rmsnorm(x, s)),
-                    "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, s)),
-                    "library_ms": (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
-                                   if hasattr(F, "rms_norm") else None),
-                    "bound_ms": b, "bound_by": by}
+                    **norm_row(x, s, err)}
     # the prefill shapes of qwen3-1.7B at S=4096: a block norm over 4096
     # rows of d_model 2048, the qk-norm over 4096 x 16 rows of head_dim 128;
     # dbrx-132b's block norm at S=4096 and at a decode step of B=4
@@ -177,17 +189,12 @@ def model_kernels(dev) -> dict:
         s = torch.randn((D,), generator=g).to(dev, torch.bfloat16)
         err = check_float(f"rmsnorm {rows}x{D}", ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
                           torch.bfloat16)
-        b, by = bound(2 * rows * D * 2 + D * 2, 4 * rows * D, F32_FLOPS)
-        shapes.append({
-            "shape": f"x ({rows}, {D}) bfloat16 with scale", "max_abs_err": err,
-            "ms": cuda_ms(lambda: rn.rmsnorm(x, s)),
-            "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, s)),
-            "library_ms": (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
-                           if hasattr(F, "rms_norm") else None),
-            "bound_ms": b, "bound_by": by})
+        shapes.append(norm_row(x, s, err))
     entries["rmsnorm"]["shapes"] = shapes
     emit({"phase": "model_kernels", "rmsnorm": "ok",
-          "rmsnorm_ms": entries["rmsnorm"]["ms"], "shapes": shapes})
+          "rmsnorm_ms": entries["rmsnorm"]["ms"],
+          "shapes": [{k: v for k, v in entries["rmsnorm"].items()
+                      if k not in ("name", "route", "source", "replaces", "shapes")}] + shapes})
 
     timings, group6 = [], []
     for dtype in (torch.float32, torch.bfloat16):
@@ -296,13 +303,16 @@ def attention_kernels(dev) -> dict:
         nbytes, flops = attn_work(B, Hq, Hkv, Sq, Skv, D, causal, q.element_size())
         b, by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
         n = 10 if Sq * Skv * Hq > (1 << 24) else 25
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=n)
+        lib = cuda_ms(sdpa_call(q, k, v, causal), iters=n)
         row = {"shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
                         f"{'causal' if causal else 'non-causal'}",
-               "max_abs_err": err, "gflop": flops / 1e9,
-               "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=n),
+               "block_q": fa.query_tile(B, Hq, Sq) if dt == "bfloat16" else fa.BLOCK_Q,
+               "max_abs_err": err, "gflop": flops / 1e9, "ms": ms,
                "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=n),
-               "library_ms": cuda_ms(sdpa_call(q, k, v, causal), iters=n),
-               "bound_ms": b, "bound_by": by}
+               "library_ms": lib, "bound_ms": b, "bound_by": by,
+               "tflop_per_s": flops / ms / 1e9, "library_tflop_per_s": flops / lib / 1e9,
+               "share_of_bound": b / ms, "vs_library": ms / lib}
         rows.append(row)
         if tag == "b":
             entry = {"name": "flash_attention", "route": "cuda",
@@ -784,12 +794,32 @@ def prefill_phase(dev, seed=0, seq=4096, parity_layers=2, parity_seq=256) -> dic
     prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3, warmup=1)
     eval_ms = cuda_ms(lambda: evals(params, batch), iters=3, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # where the time goes: one flash_attention and the norms of one layer at
+    # the prefill shape (outside the count), times the layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    act = getattr(torch, cfg.dtype)
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((1, H, seq, Dh), generator=gen, device=dev).to(act)
+    kv = torch.randn((2, 1, KV, seq, Dh), generator=gen, device=dev).to(act)
+    flash_ms = cuda_ms(lambda: ops.attention(q, kv[0], kv[1], causal=True), iters=5, warmup=1)
+    hid = torch.randn((seq, cfg.d_model), generator=gen, device=dev).to(act)
+    w = torch.ones((cfg.d_model,), device=dev, dtype=act)
+    wh = torch.ones((Dh,), device=dev, dtype=act)
+    norm_ms = 2 * cuda_ms(lambda: ops.rmsnorm(hid, w))
+    if cfg.qk_norm:
+        norm_ms += cuda_ms(lambda: ops.rmsnorm(q.reshape(-1, Dh), wh))
+        norm_ms += cuda_ms(lambda: ops.rmsnorm(kv[0].reshape(-1, Dh), wh))
+    del q, kv, hid
+    L = cfg.n_layers
     emit({"phase": "prefill", "arch": cfg.name, "layers": cfg.n_layers, "seq": seq,
           "init_s": t_init, "launches": counts,
           "flash_per_forward": counts["flash_attention"] // 2,
           "rmsnorm_per_forward": counts["rmsnorm"] // 2, "loss": loss,
           "prefill_ms": prefill_ms, "eval_ms": eval_ms,
-          "prefill_tokens_per_s": seq / prefill_ms * 1e3, "peak_gib": peak})
+          "prefill_tokens_per_s": seq / prefill_ms * 1e3, "peak_gib": peak,
+          "prefill_breakdown_ms": {"flash_per_layer": flash_ms, "norms_per_layer": norm_ms,
+                                   "flash": L * flash_ms, "norms": L * norm_ms,
+                                   "rest": prefill_ms - L * (flash_ms + norm_ms)}})
 
     cfg_p = dataclasses.replace(cfg, n_layers=parity_layers)
     tb = {"tokens": torch.from_numpy(toks[:, :parity_seq])}
@@ -1175,17 +1205,9 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = build.build_all()
     t_cuda = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.bfloat16):
-        for D in (64, 256):
-            x = torch.ones((2, D), dtype=dtype, device=dev)
-            ops.rmsnorm(x, torch.ones((D,), dtype=dtype, device=dev))
-            ops.rmsnorm(x, None)
-    torch.cuda.synchronize()
     emit({"phase": "build", "nvcc_s": nvcc_s, "cuda_build_s": t_cuda,
-          "triton_first_launch_s": time.perf_counter() - t0,
           "ptxas": {n: [ln.strip() for ln in (build.BUILD_DIR / f"{n}.log").read_text()
-                        .splitlines() if "registers" in ln][:2]
+                        .splitlines() if "registers" in ln or "spill" in ln][:24]
                     for n in build.SOURCES if (build.BUILD_DIR / f"{n}.log").exists()}})
 
     entries = model_kernels(dev)

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("path_lookup", "prefix_search", "decode_attention", "flash_attention",
-           "moe_router")
+           "moe_router", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -125,6 +125,10 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
+    device, as an int for a ``c_void_p`` argument.  It asks for the handle
+    alone: ``torch.cuda.current_stream`` builds a Python ``Stream`` object
+    on every call, a cost each launch of a small kernel would pay."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

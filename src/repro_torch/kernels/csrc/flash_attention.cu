@@ -1,4 +1,4 @@
-// Blocked online-softmax GQA attention (FlashAttention-2 forward): the
+// Blocked online-softmax GQA attention (FlashAttention forward): the
 // full-sequence attention of every forward, prefill and loss evaluation.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
@@ -15,41 +15,60 @@
 // the TPU kernel asserted block multiples.
 //
 // The TPU carried (m, l, acc) in VMEM scratch across a sequential grid
-// over key blocks.  Here one block of 128 threads owns one (sequence,
-// query head, 64-query tile) and walks the key tiles in a loop, so the
-// running state stays in registers: each warp owns 16 query rows.  GQA is
-// index math only: the block reads its KV head's rows, never a repeated
-// copy.  Two bodies:
+// over key blocks.  Here one block owns one (sequence, query head, query
+// tile) and walks the key tiles in a loop, so the running state stays in
+// registers.  GQA is index math only: the block reads its KV head's rows,
+// never a repeated copy.  The longest causal query tiles start first.
+// Two bodies:
 //
 //  * float32 (flash_fwd_kernel): f32 on the CUDA cores, full f32 with no
-//    TF32, so it matches the plain version to float tolerance.  A lane
-//    owns 4 rows x BK/8 score columns and 4 rows x D/8 output dims (lane =
-//    8 * ry + rx; row reductions are 3 xor shuffles over rx); Q, the K and
-//    V tiles and the warp's P tile are staged in shared memory as f32 with
-//    row pitches D + 1 and BK + 1, so a warp's loads hit distinct banks.
-//  * bfloat16 (flash_fwd_mma_kernel): both products on the tensor cores
-//    with mma.sync m16n8k16 (bf16 in, f32 accumulate).  The warp's Q
-//    fragments stay in registers for the whole walk; the S = Q K^T
-//    accumulators are laid out as the A fragments of P V, so P goes from
-//    the softmax to the second product without shared memory (P is
-//    rounded to bf16 there, as the reference's chunked twin does).  K is
-//    staged as [key][D + 8] and V transposed as [d][BK + 8] in bf16, so
-//    every fragment is one 32-bit shared load on distinct banks.
-//
-// Bound on this card: operations (4 * D flops per visible (query, key)
-// pair against 2 * D * elt bytes per key row; at qwen3 prefill S = 4096
-// the bytes take 0.015 ms and the work 68.7 GFLOP, 0.069 ms at the bf16
-// tensor-core peak).  mma.sync without a copy pipeline is the simple
-// design of this version; wgmma with TMA-fed, double-buffered tiles and
-// a split-KV schedule for short query tiles over long contexts are the
-// steps toward that bound.
+//    TF32, so it matches the plain version to float tolerance; 128
+//    threads and 64 queries a block.  A lane owns 4 rows x BK/8 score
+//    columns and 4 rows x D/8 output dims (lane = 8 * ry + rx; row
+//    reductions are 3 xor shuffles over rx); Q, the K and V tiles and the
+//    warp's P tile are staged in shared memory as f32 with row pitches
+//    D + 1 and BK + 1, so a warp's loads hit distinct banks.  It serves
+//    the ModelOracle's short f32 NLLs, where it beats SDPA.
+//  * bfloat16 (flash_fwd_wgmma_kernel): Hopper's warp-specialised shape.
+//    Bound on this card: operations (4 * D flops per visible (query, key)
+//    pair against 2 * D * 2 bytes per key row; at qwen3 prefill, S = 4096,
+//    16/8 heads, D = 128, the work is 68.7 GFLOP, 0.0695 ms at the bf16
+//    tensor-core peak, the bytes 0.015 ms).  Only wgmma reaches that
+//    rate, and only when its operands arrive without the threads' help:
+//     - copies by TMA: 3-D tensor maps over (D, S, B*H) for Q, K, V and
+//       the output, so a ragged tail is zero-filled (never the next
+//       head's rows) and out-of-range output rows are clipped on the
+//       store; rows of D bf16 in the swizzle that fits them (128 B at
+//       D = 64 and 128, two 64-column atoms at 128; 64 B at D = 32; 32 B
+//       at D = 16), which is the layout the wgmma descriptors read.
+//       One producer thread issues them: Q once, K and V through a ring of
+//       tiles of 128 keys (2 at D = 128, 3 below) with full (K, V apart)
+//       and empty mbarriers.  With two consumer warpgroups the producer warpgroup
+//       drops to 24 registers (setmaxnreg) and the consumers rise to 240.
+//     - products by wgmma: each consumer warpgroup owns 64 query rows
+//       (one or two a block: 128 queries, or 64 where the grid would not
+//       fill the card; the host picks).  S = Q K^T is m64n128k16 with both
+//       operands in shared memory; the online softmax runs on its f32
+//       accumulators in registers (row max and sum over the 4 threads of a
+//       row, exp2 with log2 e folded into the scale); P is rounded to
+//       bf16 in registers, where the accumulator layout of S is the A
+//       fragment of O += P V (m64n{D}k16), V read MN-major from the same
+//       tiles K came in (no transposed copy).
+//     - causal work: only tiles that straddle the diagonal or the ragged
+//       Skv tail compute the mask; wholly visible tiles skip the compare.
+//    The epilogue writes O through the warpgroup's Q tile (swizzled) and
+//    one TMA store.  The two warpgroups' products and softmaxes interleave
+//    on their own; issuing tile i's S beside tile i-1's P V inside one
+//    warpgroup (FlashAttention-3's overlap) was no faster at qwen3
+//    prefill on an H100, and needs a third K/V stage at D = 128.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;        // queries per block
+constexpr int BQ = 64;        // queries per block of the f32 body
 constexpr int WARPS = 4;      // 16 query rows per warp
 constexpr int THREADS = WARPS * 32;
 constexpr float NEG = -1e30f;  // the finite mask value of the reference
@@ -202,17 +221,116 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bfloat16: TMA + wgmma, one producer warp and one or two consumer
+// warpgroups
 // ---------------------------------------------------------------------------
-constexpr int MMA_BK = 64;  // keys per tile
+constexpr int WG_ROWS = 64;   // query rows of one consumer warpgroup
+constexpr int HBK = 128;      // keys per tile
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// The shared-memory layout of a tile of rows of D bf16: ATOMS column
+// atoms of ATOM_E elements (ATOM_B bytes a row), each atom rows x ATOM_B
+// bytes, swizzled by TMA in the mode of its row length.
+template <int D>
+struct Geo {
+  static constexpr int ATOM_E = D < 64 ? D : 64;
+  static constexpr int ATOM_B = ATOM_E * 2;                 // 32, 64 or 128
+  static constexpr int ATOMS = D / ATOM_E;                  // 2 at D = 128
+  static constexpr int LAYOUT = ATOM_B == 128 ? 1 : ATOM_B == 64 ? 2 : 3;  // wgmma: B128/B64/B32
+  static constexpr int SW_MASK = ATOM_B / 16 - 1;          // 16-byte chunks xor-ed by row
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int KV_TILE_BYTES = HBK * D * 2;
+  static constexpr int Q_WG_BYTES = WG_ROWS * D * 2;
+};
+
+template <int D, int NWG>
+constexpr int wgmma_smem_bytes() {
+  // + 1024: the tiles start on a 1024-byte boundary (the 128-byte swizzle's period)
+  return NWG * Geo<D>::Q_WG_BYTES + 2 * Geo<D>::STAGES * Geo<D>::KV_TILE_BYTES + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across a wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for the A fragments a wgmma still reads after its issue: their
+// registers stay untouched until the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -220,198 +338,346 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-template <int D>
-constexpr int mma_smem_bytes() {
-  return (BQ * (D + 8) + MMA_BK * (D + 8) + D * (MMA_BK + 8)) * 2;
+// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// rows x D bf16 from global memory into shared rows of pitch `ld`, 16-byte
-// vectors; rows in [n_valid, rows) are zero-filled.  With `transpose` the
-// tile lands as [d][row] (pitch `ld` over rows), and neighbouring threads
-// take neighbouring rows, so a warp's 2-byte stores fill 16 consecutive
-// words of one d row instead of landing on one bank.
-template <int D, bool transpose>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, int ld,
-                                               const __nv_bfloat16* __restrict__ src,
-                                               int n_valid, int rows) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
-    const int r = transpose ? i % rows : i / VPR;
-    const int c = (transpose ? i / rows : i % VPR) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r < n_valid) x = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * D + c));
-    if (transpose) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+// D[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+// One key tile of the online softmax on a warpgroup's S accumulators.
+// Element i of s (and of o) is row g + 8 * ((i >> 1) & 1) of the warp's
+// 16, column 8 * (i >> 2) + 2 * t + (i & 1).  On return s holds p.
+template <bool MASK, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[HBK / 2], float (&o)[NO], float (&m)[2],
+                                               float (&l)[2], int k0, int t, int pos0,
+                                               int kv_len, int causal, float scale_log2) {
+  float mx[2] = {NEG, NEG};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(c + j) * ld + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
+  for (int i = 0; i < HBK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float v = s[i] * scale_log2;
+    if (MASK) {
+      const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const bool ok = key < kv_len && (!causal || key <= pos0 + 8 * r);
+      v = ok ? v : NEG;
     }
+    s[i] = v;
+    mx[r] = fmaxf(mx[r], v);
   }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < HBK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = exp2f(s[i] - m[r]);
+    if (MASK) p = s[i] == NEG ? 0.f : p;
+    l[r] += p;  // this thread's share of the row sum
+    s[i] = p;
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     int Hq, int Hkv, int Sq, int Skv, int causal, float scale, int n_qt) {
-  constexpr int BK = MMA_BK;
-  constexpr int QP = D + 8, KP = D + 8, VP = BK + 8;  // shared pitches (bf16)
-  constexpr int KD = D / 16;   // k-steps of S = Q K^T
-  constexpr int NT = BK / 8;   // 8-key column tiles of S
-  constexpr int DT = D / 8;    // 8-dim column tiles of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * QP;
-  __nv_bfloat16* Vt = Ks + BK * KP;
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap o_map, int Hq, int Hkv, int Sq,
+                       int Skv, int causal, float scale_log2, int n_qt) {
+  using G = Geo<D>;
+  constexpr int ST = G::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * ST];  // Q full; K full, V full, empty per stage
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + NWG * G::Q_WG_BYTES;
+  const uint32_t v_s = k_s + ST * G::KV_TILE_BYTES;
+  const uint32_t q_bar = smem_u32(bars);
+  const uint32_t k_bar = q_bar + 8, v_bar = k_bar + 8 * ST, e_bar = v_bar + 8 * ST;
 
-  const int bh = blockIdx.x;
-  const int qt = n_qt - 1 - blockIdx.y;
+  const int bh = blockIdx.x;                 // sequence * Hq + query head
+  const int qt = n_qt - 1 - blockIdx.y;      // the longest causal tiles start first
   const int b = bh / Hq, h = bh % Hq;
-  const int bkv = b * Hkv + h / (Hq / Hkv);
-  const int q0 = qt * BQ;
+  const int bkv = b * Hkv + h / (Hq / Hkv);  // the query head's KV head
+  const int q0 = qt * NWG * WG_ROWS;
   const int seq_off = Skv - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma group and thread-in-group
-  const __nv_bfloat16* kb = k + (size_t)bkv * Skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bkv * Skv * D;
-  const int q_rows = min(BQ, Sq - q0);
-  load_tile_bf16<D, false>(Qs, QP, q + ((size_t)bh * Sq + q0) * D, q_rows, BQ);
+  const int q_rows = min(NWG * WG_ROWS, Sq - q0);
   const int k_end = causal ? min(Skv, q0 + q_rows + seq_off) : Skv;
+  const int n_kt = (k_end + HBK - 1) / HBK;
+  const int wg = threadIdx.x >> 7;           // warpgroups 0..NWG-1 consume, NWG produces
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(k_bar + 8 * st, 1);
+      mbar_init(v_bar + 8 * st, 1);
+      mbar_init(e_bar + 8 * st, 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // the warp's 16 query rows as A fragments, kept for the whole walk
-  uint32_t qf[KD][4];
-  const __nv_bfloat16* qw = Qs + (warp * 16) * QP;
+  if (wg == NWG) {
+    // ---- producer: one thread issues every copy --------------------------
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == NWG * 128) {
+      mbar_expect_tx(q_bar, NWG * G::Q_WG_BYTES);
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    qf[kd][0] = ld_u32(qw + g * QP + kd * 16 + 2 * t);
-    qf[kd][1] = ld_u32(qw + (g + 8) * QP + kd * 16 + 2 * t);
-    qf[kd][2] = ld_u32(qw + g * QP + kd * 16 + 8 + 2 * t);
-    qf[kd][3] = ld_u32(qw + (g + 8) * QP + kd * 16 + 8 + 2 * t);
-  }
-  // this thread's two rows: g and g + 8 of the warp's 16
-  int qpos[2];
-  qpos[0] = q0 + warp * 16 + g + seq_off;
-  qpos[1] = qpos[0] + 8;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float o[DT][4];
+      for (int w = 0; w < NWG; ++w)
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+        for (int a = 0; a < G::ATOMS; ++a)
+          tma_load_3d(q_s + w * G::Q_WG_BYTES + a * WG_ROWS * G::ATOM_B, &q_map, q_bar,
+                      a * G::ATOM_E, q0 + w * WG_ROWS, bh);
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % ST;
+        mbar_wait(e_bar + 8 * st, ((i / ST) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(k_bar + 8 * st, G::KV_TILE_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    const int k_rows = min(BK, Skv - k0);
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    load_tile_bf16<D, false>(Ks, KP, kb + (size_t)k0 * D, k_rows, BK);
-    load_tile_bf16<D, true>(Vt, VP, vb + (size_t)k0 * D, k_rows, BK);
-    __syncthreads();
-
-    // S = Q K^T: s[nt] holds (row g, keys 8nt + 2t, +1) and (row g + 8, same keys)
-    float s[NT][4];
+        for (int a = 0; a < G::ATOMS; ++a)
+          tma_load_3d(k_s + st * G::KV_TILE_BYTES + a * HBK * G::ATOM_B, &k_map, k_bar + 8 * st,
+                      a * G::ATOM_E, i * HBK, bkv);
+        mbar_expect_tx(v_bar + 8 * st, G::KV_TILE_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        const __nv_bfloat16* kp = Ks + (nt * 8 + g) * KP + kd * 16 + 2 * t;
-        mma_bf16(s[nt], qf[kd], ld_u32(kp), ld_u32(kp + 8));
+        for (int a = 0; a < G::ATOMS; ++a)
+          tma_load_3d(v_s + st * G::KV_TILE_BYTES + a * HBK * G::ATOM_B, &v_map, v_bar + 8 * st,
+                      a * G::ATOM_E, i * HBK, bkv);
       }
     }
+  } else {
+    // ---- consumers: 64 query rows a warpgroup ----------------------------
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row_wg = q0 + wg * WG_ROWS;            // the warpgroup's first query row
+    const int pos0 = row_wg + warp * 16 + g + seq_off;  // this thread's rows: pos0, pos0 + 8
+    const uint32_t q_wg = q_s + wg * G::Q_WG_BYTES;
+    constexpr uint32_t SBO = 8 * G::ATOM_B;          // 8 rows of one atom
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
 
-    // online softmax over the tile, two rows per thread (4 lanes per row)
-    float mx[2] = {NEG, NEG};
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % ST;
+      const uint32_t ph = (i / ST) & 1;
+      const int k0 = i * HBK;
+      const uint32_t k_t = k_s + st * G::KV_TILE_BYTES, v_t = v_s + st * G::KV_TILE_BYTES;
+      float s[HBK / 2];
+      mbar_wait(k_bar + 8 * st, ph);
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = key < k_end && (!causal || key <= qpos[e >> 1]);
-        s[nt][e] = ok ? s[nt][e] * scale : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a = kk * 16 / G::ATOM_E, c = (kk * 16 % G::ATOM_E) * 2;
+        wgmma_ss_n128(s, make_desc(q_wg + a * WG_ROWS * G::ATOM_B + c, 16, SBO, G::LAYOUT),
+                      make_desc(k_t + a * HBK * G::ATOM_B + c, 16, SBO, G::LAYOUT), kk > 0);
       }
-    float alpha[2];
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      if (k0 + HBK > Skv || (causal && k0 + HBK - 1 > row_wg + seq_off))
+        online_softmax<true>(s, o, m, l, k0, t, pos0, Skv, causal, scale_log2);
+      else
+        online_softmax<false>(s, o, m, l, k0, t, pos0, Skv, causal, scale_log2);
+
+      // the S accumulators of key columns 16j..16j+15 are the A fragment of k-step j
+      uint32_t pa[HBK / 16][4];
+#pragma unroll
+      for (int j = 0; j < HBK / 16; ++j) {
+        pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+        pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
+      mbar_wait(v_bar + 8 * st, ph);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < HBK / 16; ++j)  // V MN-major: LBO steps the D atoms, SBO 8 keys
+        wgmma_rs<D>(o, pa[j], make_desc(v_t + j * 16 * G::ATOM_B, HBK * G::ATOM_B, SBO,
+                                        G::LAYOUT));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(e_bar + 8 * st);  // this warp is done with the stage
+    }
+
+    // ---- epilogue: O / l through the warpgroup's Q tile, one TMA store ----
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
+      l[r] += __shfl_xor_sync(FULL, l[r], 1);
+      l[r] += __shfl_xor_sync(FULL, l[r], 2);
+      inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
     }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // Q reads are over
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const int a = col / G::ATOM_E;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[nt][e] == NEG ? 0.f : expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += p;  // this thread's share of the row sum
-        s[nt][e] = p;
-      }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of key tiles 2j, 2j + 1 are the A
-    // fragment of k-step j; V^T rows give the B fragments
-    const int kn = min(BK, k_end - k0);
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      if (j * 16 >= kn) break;
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vp = Vt + (dt * 8 + g) * VP + j * 16 + 2 * t;
-        mma_bf16(o[dt], pa, ld_u32(vp), ld_u32(vp + 8));
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t off = (warp * 16 + g + 8 * r) * G::ATOM_B + (col % G::ATOM_E) * 2;
+        const uint32_t sw = off ^ (((off >> 7) & G::SW_MASK) << 4);
+        const uint32_t val = pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(q_wg + a * WG_ROWS * G::ATOM_B + sw),
+                     "r"(val)
+                     : "memory");
       }
     }
-  }
-
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (tid == 0 && row_wg < Sq) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(FULL, l[r], 1);
-    l[r] += __shfl_xor_sync(FULL, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= Sq) continue;
-    const float denom = l[r] == 0.f ? 1.f : l[r];
-    __nv_bfloat16* orow = out + ((size_t)bh * Sq + row) * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][2 * r] / denom, o[dt][2 * r + 1] / denom);
+      for (int a = 0; a < G::ATOMS; ++a)
+        tma_store_3d(&o_map, q_wg + a * WG_ROWS * G::ATOM_B, a * G::ATOM_E, row_wg, bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
   }
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda at link time).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over (D, rows, heads) of a contiguous (heads, rows, D) bf16
+// tensor; boxes of (one atom of D, box_rows, 1).
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-               int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<D>();
-  auto kernel = flash_fwd_mma_kernel<D>;
-  const cudaError_t err =
+int tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads, int box_rows) {
+  using G = Geo<D>;
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)G::ATOM_E, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swz = G::ATOM_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : G::ATOM_B == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int NWG>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
+                 int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = wgmma_smem_bytes<D, NWG>();
+  auto kernel = flash_fwd_wgmma_kernel<D, NWG>;
+  static const cudaError_t attr =  // once per instantiation: it is host work on every launch
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_qt = (Sq + BQ - 1) / BQ;
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap qm, km, vm, om;
+  int rc = tensor_map<D>(&qm, q, Sq, B * Hq, WG_ROWS);
+  if (!rc) rc = tensor_map<D>(&km, k, Skv, B * Hkv, HBK);
+  if (!rc) rc = tensor_map<D>(&vm, v, Skv, B * Hkv, HBK);
+  if (!rc) rc = tensor_map<D>(&om, out, Sq, B * Hq, WG_ROWS);
+  if (rc) return rc;
+  const int n_qt = (Sq + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
   const dim3 grid(B * Hq, n_qt);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Skv,
-      causal, scale, n_qt);
+  kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(qm, km, vm, om, Hq, Hkv, Sq, Skv, causal,
+                                                   scale * 1.4426950408889634f, n_qt);
   return 0;
+}
+
+template <int D>
+int launch_bf16(int block_q, const void* q, const void* k, const void* v, void* out, int B,
+                int Hq, int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+  if (block_q == 128)
+    return launch_wgmma<D, 2>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+  if (block_q == 64)
+    return launch_wgmma<D, 1>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D, int BK>
@@ -441,13 +707,14 @@ int by_dim_f32(int D, const void* q, const void* k, const void* v, void* out, in
   }
 }
 
-int by_dim_bf16(int D, const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+                cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_mma<16>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 32: return launch_mma<32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 64: return launch_mma<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 128: return launch_mma<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 16: return launch_bf16<16>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 32: return launch_bf16<32>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 64: return launch_bf16<64>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 128: return launch_bf16<128>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -455,16 +722,19 @@ int by_dim_bf16(int D, const void* q, const void* k, const void* v, void* out, i
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
-// out like q, all contiguous; Hq % Hkv == 0, 0 < Sq <= Skv, ceil(Sq / 64) <= 65535.
+// out like q, all contiguous and 16-byte aligned; Hq % Hkv == 0,
+// 0 < Sq <= Skv.  block_q: the bf16 body's queries a block, 128 (two
+// consumer warpgroups) or 64 (one); the f32 body always takes 64.
+// ceil(Sq / 64) <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                                      int dtype, int causal, float scale,
+                                      int dtype, int causal, float scale, int block_q,
                                       cudaStream_t stream) {
   if (B > 0 && Hq > 0 && Sq > 0) {
     const int rc = dtype == 0
         ? by_dim_f32(D, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
         : dtype == 1
-        ? by_dim_bf16(D, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
+        ? by_dim_bf16(D, block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
         : (int)cudaErrorInvalidValue;
     if (rc) return rc;
   }

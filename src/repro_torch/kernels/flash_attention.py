@@ -2,9 +2,9 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas
 body ``_flash_kernel``).  The kernel is ``csrc/flash_attention.cu``: one
-block of 128 threads per (sequence, query head, 64-query tile) walks the
-key tiles in a loop with the running (m, l, acc) in registers; the TPU
-carried them in VMEM scratch across a sequential grid dimension.
+block per (sequence, query head, query tile) walks the key tiles in a
+loop with the running (m, l, acc) in registers; the TPU carried them in
+VMEM scratch across a sequential grid dimension.
 
 Semantics are the TPU kernel's: f32 scores times the scale, the finite
 -1e30 mask, causal key tiles past a query tile's last visible key skipped,
@@ -14,9 +14,11 @@ tails are masked in the kernel) and the query-head group Hq / Hkv is any
 integer (GQA is index math; no repeated KV).
 
 What bounds it on the card: operations (4·D flops per visible (query,
-key) pair).  float32 runs on the CUDA cores in full f32 (no TF32);
-bfloat16 runs both products on the tensor cores (mma.sync, f32
-accumulate, P rounded to bf16 for the second product).  The plain
+key) pair).  float32 runs on the CUDA cores in full f32 (no TF32), 64
+queries a block.  bfloat16 runs Hopper's warp-specialised body: TMA copies
+into a ring of key tiles, both products on wgmma (f32 accumulate, P
+rounded to bf16 in registers for the second), 128 queries a block, or 64
+where ``query_tile`` finds the grid too small for the card.  The plain
 version it is held against is ``ref.attention_ref``.
 """
 from __future__ import annotations
@@ -30,17 +32,39 @@ from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_Q = 64
+BLOCK_Q = 64            # the smallest query tile; bounds the grid's y extent
 MAX_GRID_Y = 65535
+N_SM = 132              # streaming multiprocessors of an H100 SXM
+_SM_COUNT: dict[int, int] = {}
+
+
+def query_tile(B: int, Hq: int, Sq: int, n_sm: int = N_SM) -> int:
+    """The bf16 body's queries a block: 128 (two consumer warpgroups)
+    when that grid, B * Hq * ceil(Sq / 128) blocks, fills the ``n_sm``
+    SMs, else 64 (one warpgroup, twice the blocks: a chunked prefill of
+    128 queries over 16 heads runs 32 blocks, not 16)."""
+    return 128 if B * Hq * -(-Sq // 128) >= n_sm else 64
+
+
+def _sm_count(index: int) -> int:
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+_FN = None
 
 
 def _launcher():
-    fn = build.library("flash_attention").flash_attention_launch
-    if fn.argtypes is None:
+    global _FN
+    if _FN is None:
+        fn = build.library("flash_attention").flash_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        _FN = fn
+    return _FN
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -70,7 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "need one of float32, bfloat16")
-    if k.device != q.device or v.device != q.device:
+    dev = q.get_device()
+    if k.get_device() != dev or v.get_device() != dev:
         raise ValueError("flash_attention: all tensors must be on one device")
     if -(-Sq // BLOCK_Q) > MAX_GRID_Y:
         raise ValueError(f"flash_attention: Sq={Sq} exceeds {BLOCK_Q * MAX_GRID_Y}")
@@ -81,7 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      B, Hq, Hkv, Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), scale,
-                     build.stream_of(q))
+                     query_tile(B, Hq, Sq, _sm_count(dev)), build.stream_of(q))
     build.check("flash_attention", rc)
     build.count_launch("flash_attention")
     return out

@@ -1,75 +1,106 @@
-"""Fused RMSNorm on Hopper — Triton kernel.
+"""Fused RMSNorm on Hopper — CUDA kernel.
 
 Replaces ``repro/kernels/rmsnorm.py::rmsnorm`` (Pallas bodies
 ``_rmsnorm_kernel`` and ``_rmsnorm_kernel_noscale``): RMSNorm over the
-last axis, f32 compute, optional scale, cast back to x.dtype.
+last axis, f32 compute, optional scale, cast back to x.dtype.  The kernel
+is ``csrc/rmsnorm.cu``.
 
 What bounds it on the card: bytes (one read and one write of x, a few
 flops per element) — and at the serving shapes (rows of 64 or 256, a few
-rows per call) the launch latency.  Design: one program per row, the row
-in registers, f32 sum of squares, one store: the row-reduction pattern
-Triton serves as well as CUDA.
-
-Triton is imported at the first launch, not at import: the CPU has none,
-and the CPU path of ``ops`` never comes here.  ``tl`` stays ``None`` until
-then; Triton reads it from this module's globals when it compiles.
+rows per call) the launch path.  So the wrapper is lean: the C entry is
+bound once, x and the scale are passed without a copy when they are
+contiguous, the output is one ``torch.empty_like``, and the launch geometry
+comes from ``launch_geometry`` (cached, pure Python): one warp per row
+up to D = 1024 in bf16, one block per row above, 16-byte vectors where
+the row and its bases allow them.
 """
 from __future__ import annotations
 
-import os
+import ctypes
+import functools
 
 import torch
 
 from . import build
 
-tl = None  # triton.language, bound by _jit() at the first launch
-_JIT = None
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+N_SM = 132          # streaming multiprocessors of an H100 SXM
+NVMAX = 8           # 16-byte vectors a thread keeps in registers (csrc/rmsnorm.cu)
+WARP_ROW_VECS = 4   # the most 16-byte vectors a lane takes in a warp row
+ROW_VECS = 4        # 16-byte vectors a thread of a block row aims at
+WARP_ROW_MAX_D = 1024   # the longest scalar row a warp takes
+_FN = None
 
 
-def _rmsnorm_kernel(x_ptr, s_ptr, o_ptr, D, eps,
-                    HAS_SCALE: tl.constexpr, BLOCK_D: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK_D)
-    mask = cols < D
-    x = tl.load(x_ptr + row * D + cols, mask=mask, other=0.0).to(tl.float32)
-    ms = tl.sum(x * x, axis=0) / D
-    y = x / tl.sqrt(ms + eps)
-    if HAS_SCALE:
-        y = y * tl.load(s_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-    tl.store(o_ptr + row * D + cols, y.to(o_ptr.dtype.element_ty), mask=mask)
+@functools.lru_cache(maxsize=256)
+def launch_geometry(rows: int, D: int, elt: int, vec_ok: bool) -> tuple[int, int, int]:
+    """(threads, rows_per_block, vec) of one launch over ``rows`` rows of
+    ``D`` elements of ``elt`` bytes.  ``vec_ok``: every base is 16-byte
+    aligned, so rows of a whole number of 16-byte vectors take the vector
+    body (vec = 16 / elt), else the scalar one (vec = 1).
+
+    Rows of at most WARP_ROW_VECS vectors a lane (D <= 1024 in bf16): a
+    warp per row, 1-4 rows a block, as many as keep the grid at two or
+    more waves of N_SM blocks.  Longer rows: a block per row with
+    about ROW_VECS vectors a thread (64 threads at D = 2048 bf16, 192 at
+    6144): each thread keeps several 16-byte loads in flight, which the
+    card rewards over more threads a row with one load each."""
+    vec = 16 // elt if vec_ok and (D * elt) % 16 == 0 else 1
+    nvec = -(-D // vec)
+    if (vec > 1 and nvec <= 32 * WARP_ROW_VECS) or (vec == 1 and D <= WARP_ROW_MAX_D):
+        rpb = 1
+        while rpb < 4 and -(-rows // (2 * rpb)) >= 2 * N_SM:
+            rpb *= 2
+        return 32 * rpb, rpb, vec
+    if vec == 1:
+        return 256, 1, 1
+    threads = min(1024, max(64, 32 * -(-nvec // (32 * ROW_VECS))))
+    if -(-nvec // threads) > NVMAX:
+        return 256, 1, 1
+    return threads, 1, vec
 
 
-def _jit():
-    global _JIT, tl
-    if _JIT is None:
-        # keep Triton's compile cache inside the checkout
-        os.environ.setdefault("TRITON_CACHE_DIR", str(build.BUILD_DIR / "triton"))
-        import triton
-        import triton.language as language
-        tl = language
-        _JIT = triton.jit(_rmsnorm_kernel)
-    return _JIT
+def _launcher():
+    global _FN
+    if _FN is None:
+        fn = build.library("rmsnorm").rmsnorm_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor | None = None,
             eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., D) float32 or bfloat16 on a CUDA device; scale: (D,) or
-    None (non-parametric)."""
+    """x: (..., D) float32 or bfloat16 on a CUDA device; scale: (D,)
+    float32 or bfloat16, or None (non-parametric)."""
     if not x.is_cuda:
         raise ValueError("rmsnorm kernel: tensors must be on a CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    x_dt = _DTYPES.get(x.dtype)
+    if x_dt is None:
         raise ValueError(f"rmsnorm: unsupported dtype {x.dtype}")
     D = x.shape[-1]
-    if scale is not None and (scale.shape != (D,) or scale.device != x.device):
-        raise ValueError(f"rmsnorm: scale must be ({D},) on {x.device}")
-    xr = x.reshape(-1, D).contiguous()
-    out = torch.empty_like(xr)
-    rows = xr.shape[0]
-    if rows == 0:
-        return out.reshape(x.shape)
-    s = scale.contiguous() if scale is not None else xr
-    block = max(16, 1 << (D - 1).bit_length())
-    _jit()[(rows,)](xr, s, out, D, eps, HAS_SCALE=scale is not None, BLOCK_D=block,
-                    num_warps=1 if block <= 256 else 4)
+    s_dt = -1
+    if scale is not None:
+        s_dt = _DTYPES.get(scale.dtype)
+        if s_dt is None or scale.shape != (D,) or scale.get_device() != x.get_device():
+            raise ValueError(f"rmsnorm: scale must be ({D},) float32 or bfloat16 on {x.device}")
+        if not scale.is_contiguous():
+            scale = scale.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    rows = n // D
+    xp, op = x.data_ptr(), out.data_ptr()
+    sp = scale.data_ptr() if scale is not None else 0
+    threads, rpb, vec = launch_geometry(rows, D, x.element_size(),
+                                        (xp | op | sp) % 16 == 0)
+    rc = _launcher()(xp, sp or None, op, rows, D, x_dt, s_dt, eps, threads, rpb, vec,
+                     build.stream_of(x))
+    build.check("rmsnorm", rc)
     build.count_launch("rmsnorm")
-    return out.reshape(x.shape)
+    return out

@@ -1,4 +1,4 @@
-"""On the card only: each of the port's CUDA/Triton kernels against its
+"""On the card only: each of the port's CUDA kernels against its
 plain PyTorch version, at small shapes and at the main path's.  This file
 imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX:
@@ -32,20 +32,35 @@ def _key_table(rs, N):
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA/Triton kernels have no CPU mode")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_rmsnorm_matches_plain(cuda, dtype):
-    for shape, scaled in [((7, 130), True), ((32, 64), True), ((8, 256), False)]:
-        x = torch.randn(shape, dtype=getattr(torch, dtype), device=cuda)
-        s = torch.randn(shape[-1], device=cuda) if scaled else None
+    """Both bodies (16-byte vectors; scalar at D = 130 and on a misaligned
+    base), warp and block rows, the main path's shapes, an f32 scale with
+    bf16 x, a non-contiguous input and zero rows."""
+    dt = getattr(torch, dtype)
+    # (shape, scale): "f32" an f32 scale, "x" one in x's dtype, None none
+    cases = [((7, 130), "f32"), ((32, 64), "f32"), ((8, 256), None), ((5, 3, 130), "x"),
+             ((65536, 128), "x"), ((4096, 2048), "x"), ((4096, 6144), "x"), ((4, 6144), "f32"),
+             ((4, 256), "x"), ((3, 1030), None), ((0, 256), "x")]
+    for shape, scaled in cases:
+        x = torch.randn(shape, dtype=dt, device=cuda)
+        s = {"f32": torch.randn(shape[-1], device=cuda),
+             "x": torch.randn(shape[-1], dtype=dt, device=cuda), None: None}[scaled]
         n0 = ops.LAUNCHES["rmsnorm"]
         got = ops.rmsnorm(x, s)
-        assert ops.LAUNCHES["rmsnorm"] == n0 + 1
+        assert ops.LAUNCHES["rmsnorm"] == n0 + (1 if x.numel() else 0)
+        assert got.shape == x.shape and got.dtype == x.dtype
         torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, s).float(), **_tol(dtype))
+    s = torch.randn(256, dtype=dt, device=cuda)
+    for x in (torch.randn(64, 512, dtype=dt, device=cuda)[:, ::2],       # non-contiguous
+              torch.randn(64 * 256 + 1, dtype=dt, device=cuda)[1:].view(64, 256)):  # misaligned
+        torch.testing.assert_close(ops.rmsnorm(x, s).float(), ref.rmsnorm_ref(x, s).float(),
+                                   **_tol(dtype))
 
 
 @pytest.mark.cuda
@@ -158,14 +173,32 @@ def test_cuda_prefix_search_matches_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_flash_attention_matches_plain(cuda, dtype):
-    """Ragged lengths, Sq < Skv, groups 1-7, non-causal, every head_dim."""
+    """Ragged lengths, Sq < Skv, groups 1-7, non-causal, every head_dim;
+    the bf16 body's tile edges (Sq and Skv of 1, 127, 128, 129, 257) with
+    its 64-query tile (small grids) and its 128-query tile (grids of 132
+    blocks or more), where the last head of the last sequence ends in a
+    ragged tail that only the tensor maps' zero fill keeps from the rows
+    past it."""
+    from repro_torch.kernels.flash_attention import query_tile
     dt = getattr(torch, dtype)
     cases = [(1, 4, 2, 7, 7, 64, True), (1, 4, 2, 113, 113, 64, True),
              (2, 4, 2, 64, 64, 32, True), (1, 8, 1, 32, 128, 16, True),
              (1, 16, 8, 130, 300, 128, True), (1, 2, 2, 45, 150, 16, False),
              (1, 12, 2, 65, 65, 128, True), (1, 14, 2, 33, 70, 32, True),
-             (1, 14, 2, 19, 19, 64, False), (1, 2, 2, 1, 9, 128, True)]
+             (1, 14, 2, 19, 19, 64, False), (1, 2, 2, 1, 9, 128, True),
+             # tile edges, the 64-query tile
+             (1, 4, 4, 1, 1, 64, True), (1, 4, 4, 127, 127, 128, True),
+             (1, 4, 2, 128, 128, 32, True), (1, 6, 1, 129, 129, 16, True),
+             (1, 7, 1, 257, 257, 64, True), (1, 4, 2, 128, 257, 128, True),
+             (1, 7, 1, 1, 257, 128, True), (1, 6, 6, 127, 129, 64, True),
+             (2, 4, 2, 129, 257, 32, False), (1, 12, 2, 127, 257, 16, False),
+             # the 128-query tile: groups 6, 7 and 11, ragged tails in every head
+             (2, 48, 8, 257, 257, 128, True), (1, 70, 10, 129, 129, 128, True),
+             (2, 66, 6, 257, 300, 64, False), (1, 132, 132, 128, 128, 32, True),
+             (1, 132, 66, 127, 127, 16, True)]
+    tiles = set()
     for B, Hq, Hkv, Sq, Skv, D, causal in cases:
+        tiles.add(query_tile(B, Hq, Sq))
         q = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
         k = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
         v = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
@@ -175,7 +208,9 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype):
         torch.cuda.synchronize()
         want = ref.attention_ref(q, k, v, causal=causal)
         assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got[-1, -1].float(), want[-1, -1].float(), **_tol(dtype))
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert tiles == {64, 128}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The port's kernels: plain versions against the JAX Pallas kernels (run
 in interpret mode, as tests/test_kernels.py runs them), the CPU dispatch,
-(each CUDA/Triton kernel against its plain version on the card is in
+(each CUDA kernel against its plain version on the card is in
 tests/test_torch_cuda.py).
 
 Inputs come from numpy with a fixed seed and go to both packages.
@@ -212,3 +212,54 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     ops.moe_router(torch.randn(6, 16), 4)
     assert ops.LAUNCHES == {"path_lookup": 0, "prefix_search": 0, "decode_attention": 0,
                             "flash_attention": 0, "rmsnorm": 0, "moe_router": 0}
+
+
+# ---------------------------------------------------------------------------
+# launch geometry chosen on the host (pure Python, so it is tested here)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,Hq,Sq,want", [
+    (1, 16, 4096, 128),    # qwen3-1.7B prefill: 512 blocks of 128 queries
+    (1, 16, 128, 64),      # its chunked prefill: 16 blocks of 128 would idle 116 SMs
+    (1, 16, 448, 64),      # whisper's 448 x 1500 cross-attention
+    (1, 48, 1024, 128),    # dbrx's group 6 at S=1024
+    (1, 48, 4096, 128),    # dbrx prefill
+    (1, 4, 113, 64),       # the oracle's NLLs
+    (1, 132, 128, 128),    # exactly one wave of 128-query blocks
+    (1, 131, 128, 64),     # one block short of a wave
+    (2, 33, 129, 128),     # 2 * 33 * 2 = 132
+    (1, 1, 1, 64),
+])
+def test_flash_query_tile(B, Hq, Sq, want):
+    from repro_torch.kernels.flash_attention import BLOCK_Q, query_tile
+    tile = query_tile(B, Hq, Sq)
+    assert tile == want
+    assert tile % BLOCK_Q == 0
+    assert query_tile(B, Hq, Sq, n_sm=1) == 128
+
+
+@pytest.mark.parametrize("rows,D,elt,vec_ok,want", [
+    (4, 256, 4, True, (32, 1, 4)),          # router decode, f32
+    (4, 64, 4, True, (32, 1, 4)),           # router qk-norm rows
+    (65536, 128, 2, True, (128, 4, 8)),     # qwen3 qk-norm
+    (4096, 2048, 2, True, (64, 1, 8)),      # qwen3 block norm: 4 vectors a thread
+    (4096, 6144, 2, True, (192, 1, 8)),     # dbrx block norm, prefill
+    (4, 6144, 2, True, (192, 1, 8)),        # dbrx decode
+    (4096, 6144, 4, True, (384, 1, 4)),     # f32 at d_model 6144
+    (7, 130, 2, True, (32, 1, 1)),          # 260-byte rows: the scalar body
+    (4096, 128, 2, False, (128, 4, 1)),     # a misaligned base: the scalar body
+    (1000, 1024, 2, True, (64, 2, 8)),      # the longest bf16 warp row: 4 vectors a lane
+    (1000, 1024, 4, True, (64, 1, 4)),      # f32 rows of 1024: a block row
+    (3, 1030, 2, True, (256, 1, 1)),        # a block row of odd bytes
+])
+def test_rmsnorm_launch_geometry(rows, D, elt, vec_ok, want):
+    from repro_torch.kernels.rmsnorm import NVMAX, launch_geometry
+    threads, rpb, vec = got = launch_geometry(rows, D, elt, vec_ok)
+    assert got == want
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert vec in (1, 16 // elt) and (vec == 1 or (D * elt) % 16 == 0)
+    tpr = 32 if threads == 32 * rpb else threads      # a warp a row, or the block
+    assert rpb == 1 or tpr == 32
+    if vec > 1:
+        assert -(-(D // vec) // tpr) <= NVMAX
+    if rpb > 1:                      # never fewer than two waves of 132 blocks
+        assert -(-rows // rpb) >= 2 * 132
