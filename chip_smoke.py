@@ -105,6 +105,97 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 500, warmup: int = 50) -> float:
+    """The caller's host time for one call of ``fn`` in ms: ``calls`` calls
+    in a row on the host's clock, synchronised only after (few enough that
+    the launch queue never fills).  For a launch-bound kernel, ``ms`` is
+    about this plus the event floor."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
+
+
+def profiled_ms(fn, inputs, calls: int) -> float | None:
+    """Device time of one call ``fn(*inputs)`` in ms from ``torch.profiler``'s
+    ``key_averages()`` over ``calls`` eager calls; None where the profiler
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*inputs)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages())
+    return us / 1e3 / calls if us > 0 else None
+
+
+def graph_ms(fn, inputs, calls: int = 32, replays: int = 5, warmup: int = 3) -> dict:
+    """The card's own time for one call ``fn(*inputs)``, the wrapper's host
+    work left out: ``calls`` calls captured in a CUDA graph (after
+    ``warmup`` eager calls, so that any cached workspace exists first),
+    the graph replayed ``replays`` times between two CUDA events, per
+    call; with the graph's kernel and total node counts.
+
+    A cold-L2 time, comparable with a bytes bound: the tensors of
+    ``inputs`` are cloned into as many copies as fill twice the card's L2
+    (at most ``calls``), call i reads copy i mod copies, and every call's
+    output stays alive until the graph is freed, so no call finds its
+    inputs or its output where an earlier call left them in L2.  Where
+    ``fn`` cannot be captured, the profiler's device time of eager calls
+    (or None) and the reason, which is also printed."""
+    import torch
+    from repro_torch.kernels import build
+    nbytes = sum(t.numel() * t.element_size() for t in inputs if isinstance(t, torch.Tensor))
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    n_copies = max(1, min(calls, -(-2 * l2 // max(nbytes, 1))))
+    copies = [inputs] + [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in inputs)
+                         for _ in range(n_copies - 1)]
+    for _ in range(warmup):
+        fn(*inputs)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(g):
+            outs = [fn(*copies[i % n_copies]) for i in range(calls)]
+        kernels, nodes = build.graph_nodes(g)
+    except Exception as exc:        # reported, then measured another way
+        del g
+        torch.cuda.synchronize()
+        reason = f"not captured: {type(exc).__name__}: {exc}"
+        emit({"phase": "device_ms_unavailable", "reason": reason})
+        return {"device_ms": profiled_ms(fn, inputs, calls), "by": "torch.profiler",
+                "reason": reason}
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del g, outs, copies
+    return {"device_ms": ms, "by": "cuda graph", "kernel_nodes": kernels, "nodes": nodes,
+            "calls": calls, "input_copies": n_copies}
+
+
+def one_kernel_a_call(name: str, gm: dict) -> None:
+    """Fail unless ``gm`` (from ``graph_ms``) captured its calls and each
+    made exactly one kernel node and no other node."""
+    check(gm["by"] == "cuda graph" and gm["kernel_nodes"] == gm["nodes"] == gm["calls"],
+          f"{name}: {gm}; not one kernel node a call")
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
     """Least time for the work (ms): the larger of bytes over the memory
     rate and operations over the peak rate for their type."""
@@ -146,13 +237,17 @@ def norm_row(x, s, err) -> dict:
     nbytes = 2 * rows * D * elt + D * s.element_size()
     b, by = bound(nbytes, 4 * rows * D, F32_FLOPS)
     ms = cuda_ms(lambda: rn.rmsnorm(x, s))
-    lib = (cuda_ms(lambda: F.rms_norm(x, (D,), s, eps=1e-6))
-           if hasattr(F, "rms_norm") else None)
+    dev = graph_ms(rn.rmsnorm, (x, s))["device_ms"]
+    lib_fn = ((lambda x, s: F.rms_norm(x, (D,), s, eps=1e-6)) if hasattr(F, "rms_norm")
+              else None)
+    lib = cuda_ms(lambda: lib_fn(x, s)) if lib_fn else None
     return {"shape": f"x ({rows}, {D}) {str(x.dtype).split('.')[1]} with scale",
-            "max_abs_err": err, "ms": ms,
+            "max_abs_err": err, "ms": ms, "device_ms": dev,
             "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, s)), "library_ms": lib,
+            "library_device_ms": graph_ms(lib_fn, (x, s))["device_ms"] if lib_fn else None,
             "bound_ms": b, "bound_by": by, "gb_per_s": nbytes / ms / 1e6,
-            "share_of_bound": b / ms, "vs_library": ms / lib if lib else None}
+            "share_of_bound": b / ms, "vs_library": ms / lib if lib else None,
+            "device_share_of_bound": b / dev if dev else None}
 
 
 def model_kernels(dev) -> dict:
@@ -163,7 +258,7 @@ def model_kernels(dev) -> dict:
     heads, head_dim 128, B=4, max_len 512); returns the JSON entries."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as da
     g = torch.Generator(device="cpu").manual_seed(0)
     entries = {}
@@ -213,24 +308,34 @@ def model_kernels(dev) -> dict:
             want = ref.decode_attention_ref(q, k, v, ln)
             err = check_float(f"decode_attention B={B} Hq={Hq} Hkv={Hkv} S={S}", got, want, dtype)
             ms = cuda_ms(lambda: da.decode_attention(q, k, v, ln))
-            timings.append({"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "dtype": str(dtype),
-                            "ms": ms, "err": err})
-            if S != 512 or B != 4 or (Hq == 4 and dtype != torch.float32):
-                continue
+            gm = graph_ms(da.decode_attention, (q, k, v, ln))
+            one_kernel_a_call(f"decode_attention B={B} Hq={Hq} S={S} {dtype}", gm)
+            warps, blocks, split = da.decode_plan(B, Hkv, Hq // Hkv, S, D, q.element_size(),
+                                                  build.sm_count(q.get_device()))
             live = sum(lens)
             elt = q.element_size()
             b, by = bound(2 * Hkv * D * elt * live + 2 * B * Hq * D * elt + 4 * B,
                           4.0 * Hq * D * live, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            timings.append({"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "dtype": str(dtype),
+                            "plan": {"warps": warps, "blocks": blocks, "split": split},
+                            "ms": ms, "device_ms": gm["device_ms"], "bound_ms": b, "err": err})
+            if S != 512 or B != 4 or (Hq == 4 and dtype != torch.float32):
+                continue
             # the yardstick: one SDPA call over the group-expanded cache with
             # the length mask (expanded outside the timing)
             mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
             kx, vx = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+
+            def sdpa(q, kx, vx):
+                return F.scaled_dot_product_attention(q[:, :, None, :], kx, vx, attn_mask=mask)
             row = {"shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} lengths={lens} "
                             f"{str(dtype).split('.')[1]}",
-                   "max_abs_err": err, "ms": ms,
+                   "max_abs_err": err, "ms": ms, "device_ms": gm["device_ms"],
                    "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
-                   "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                       q[:, :, None, :], kx, vx, attn_mask=mask)),
+                   "library_ms": cuda_ms(lambda: sdpa(q, kx, vx)),
+                   "library_device_ms": graph_ms(sdpa, (q, kx, vx))["device_ms"],
+                   "host_ms": host_ms(lambda: da.decode_attention(q, k, v, ln)),
+                   "library_host_ms": host_ms(lambda: sdpa(q, kx, vx)),
                    "bound_ms": b, "bound_by": by}
             if Hq == 4:
                 entries["decode_attention"] = {
@@ -268,19 +373,24 @@ def attn_work(B, Hq, Hkv, Sq, Skv, D, causal, elt) -> tuple[float, float]:
     return elt * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D), 4.0 * D * pairs * B * Hq
 
 
-def sdpa_call(q, k, v, causal):
-    """One SDPA call computing the same function (the yardstick only): the
-    causal mask of a chunked prefill (Sq < Skv) is lower-right aligned,
-    which ``is_causal`` is not, so it goes in as a boolean mask."""
+def sdpa_mask(q, k, causal):
+    """The mask that lets one SDPA call compute the same function (the
+    yardstick only): the causal mask of a chunked prefill (Sq < Skv) is
+    lower-right aligned, which ``is_causal`` is not, so it goes in as a
+    boolean mask; None where ``is_causal`` says it."""
     import torch
-    import torch.nn.functional as F
     Sq, Skv = q.shape[2], k.shape[2]
     if not causal or Sq == Skv:
-        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                      enable_gqa=True)
-    mask = (torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        return None
+    return (torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
             >= torch.arange(Skv, device=q.device)[None, :])
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def sdpa(q, k, v, causal, mask):
+    """One SDPA call with ``sdpa_mask``'s mask."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          is_causal=causal and mask is None, enable_gqa=True)
 
 
 def attention_kernels(dev) -> dict:
@@ -304,13 +414,19 @@ def attention_kernels(dev) -> dict:
         b, by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
         n = 10 if Sq * Skv * Hq > (1 << 24) else 25
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=n)
-        lib = cuda_ms(sdpa_call(q, k, v, causal), iters=n)
+        mask = sdpa_mask(q, k, causal)
+        lib = cuda_ms(lambda: sdpa(q, k, v, causal, mask), iters=n)
+        dev_ms = graph_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal),
+                          (q, k, v), calls=20)["device_ms"]
         row = {"shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
                         f"{'causal' if causal else 'non-causal'}",
                "block_q": fa.query_tile(B, Hq, Sq) if dt == "bfloat16" else fa.BLOCK_Q,
-               "max_abs_err": err, "gflop": flops / 1e9, "ms": ms,
+               "max_abs_err": err, "gflop": flops / 1e9, "ms": ms, "device_ms": dev_ms,
                "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=n),
-               "library_ms": lib, "bound_ms": b, "bound_by": by,
+               "library_ms": lib,
+               "library_device_ms": graph_ms(lambda q, k, v: sdpa(q, k, v, causal, mask),
+                                             (q, k, v), calls=20)["device_ms"],
+               "bound_ms": b, "bound_by": by,
                "tflop_per_s": flops / ms / 1e9, "library_tflop_per_s": flops / lib / 1e9,
                "share_of_bound": b / ms, "vs_library": ms / lib}
         rows.append(row)
@@ -354,10 +470,17 @@ def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
         "source": "src/repro_torch/kernels/csrc/path_lookup.cu",
         "replaces": "src/repro/kernels/path_lookup.py:99",
         "shape": f"keys N={N} int64, Q={Q}, pinned P={P} ({n_pin_hit} pinned hits)",
+        "geometry": dict(zip(("blocks", "top_stride", "n_top", "n_pin_staged", "smem_bytes"),
+                             pl.lookup_geometry(Q, N, P))),
         "max_abs_err": max_err(got, want),
         "ms": cuda_ms(lambda: pl.path_lookup(keys, queries, pinned=pinned)),
+        "device_ms": graph_ms(lambda k, q, pk, pp: pl.path_lookup(k, q, pinned=(pk, pp)),
+                              (keys, queries, *pinned))["device_ms"],
         "plain_ms": cuda_ms(lambda: ref.path_lookup_pinned_ref(keys, queries, *pinned)),
         "library_ms": cuda_ms(lambda: torch.searchsorted(keys, queries)),
+        "library_device_ms": graph_ms(torch.searchsorted, (keys, queries))["device_ms"],
+        "host_ms": host_ms(lambda: pl.path_lookup(keys, queries, pinned=pinned)),
+        "library_host_ms": host_ms(lambda: torch.searchsorted(keys, queries)),
         "bound_ms": b, "bound_by": by}
 
     L = st.ptoks.shape[1]
@@ -381,11 +504,17 @@ def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
         "shape": f"tokens ({Nr}, {L}) uint8, Q={Qp} prefixes",
         "max_abs_err": max_err(got, want),
         "ms": cuda_ms(lambda: ps.prefix_search(toks, pt, lt)),
+        "device_ms": graph_ms(ps.prefix_search, (toks, pt, lt), calls=20)["device_ms"],
         "plain_ms": cuda_ms(lambda: ref.prefix_search_ref(toks, pt, lt), iters=5),
-        "library_ms": None,
+        "library_ms": None, "library_device_ms": None,
         "bound_ms": b, "bound_by": by}
-    emit({"phase": "storage_kernels", "path_lookup_ms": lookup["ms"],
-          "prefix_search_ms": prefix["ms"], "path_lookup_hits": int((got_np >= 0).sum())})
+    torch.cuda.empty_cache()
+    emit({"phase": "storage_kernels",
+          "path_lookup": {k: v for k, v in lookup.items()
+                          if k not in ("name", "route", "source", "replaces")},
+          "prefix_search_ms": prefix["ms"],
+          "prefix_search_device_ms": prefix["device_ms"],
+          "path_lookup_hits": int((got_np >= 0).sum())})
     return {"path_lookup": lookup, "prefix_search": prefix}
 
 
@@ -900,8 +1029,10 @@ def router_kernels(dev) -> dict:
         b, by = bound(T * E * 4 + T * k * 8, T * E * (3.0 + k), F32_FLOPS)
         rows.append({"shape": f"({tag}) T={T} E={E} k={k} float32 renormalized",
                      "max_abs_err": err, "ms": cuda_ms(lambda: mr.moe_router(x, k)),
+                     "device_ms": graph_ms(mr.moe_router, (x, k))["device_ms"],
                      "plain_ms": cuda_ms(lambda: ref.moe_router_ref(x, k)),
                      "library_ms": cuda_ms(lambda: router_library(x, k)),
+                     "library_device_ms": graph_ms(router_library, (x, k))["device_ms"],
                      "bound_ms": b, "bound_by": by})
     emit({"phase": "moe_router", "shapes": rows, "rows_differing_at_near_ties": near_rows,
           "library": "softmax -> topk -> renorm (three calls)"})
@@ -1201,7 +1332,9 @@ def main() -> int:
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "device_count": torch.cuda.device_count(), "nvidia_smi": smi})
+          "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
+          # two CUDA events around nothing: the least any row's ms can read
+          "event_floor_ms": cuda_ms(lambda: None)})
     t0 = time.perf_counter()
     nvcc_s = build.build_all()
     t_cuda = time.perf_counter() - t0
@@ -1245,8 +1378,10 @@ def main() -> int:
         e["launches"] = sum(c[name] for c in path_counts)
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",
-                                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape", "shapes")
+                                          "max_abs_err", "ms", "device_ms", "host_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "library_device_ms", "library_host_ms", "shape",
+                                          "shapes")
                         if k in e})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -28,6 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("path_lookup", "prefix_search", "decode_attention", "flash_attention",
            "moe_router", "rmsnorm")
+#: streaming multiprocessors of an H100 SXM: the launch geometries' default
+#: for callers without a card (the wrappers pass ``sm_count`` of theirs)
+N_SM = 132
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +41,7 @@ LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SM_COUNT: dict[int, int] = {}
 
 
 def count_launch(name: str) -> None:
@@ -132,3 +136,36 @@ def stream_of(t) -> int:
     on every call, a cost each launch of a small kernel would pay."""
     import torch
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked once."""
+    n = _SM_COUNT.get(index)
+    if n is None:
+        import torch
+        n = _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def graph_nodes(graph) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of a ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True`` and captured, counted through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``): a wrapper that launches
+    one kernel per call and nothing else adds one kernel node per call."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, n.value

@@ -1,5 +1,5 @@
-// Single-token GQA decode attention over a padded KV cache, split-KV
-// (FlashDecoding): the serving LM's attention in every decode step.
+// Single-token GQA decode attention over a padded KV cache: the serving
+// LM's attention in every decode step.  One kernel launch per call.
 //
 // Replaces the Pallas kernel repro/kernels/decode_attention.py::
 // decode_attention (body _decode_kernel).  For sequence b and query head
@@ -9,29 +9,37 @@
 // applied to the f32 scores, as the TPU kernel does.
 //
 // The TPU carried (m, l, acc) in VMEM scratch across a sequential grid
-// over KV blocks.  Hopper's blocks run in no order, so the reduction over
-// KV is split in two kernels: decode_split_kernel, where one warp owns a
-// slice of `chunk` positions of one (sequence, KV head) and the whole
-// query-head group of that KV head (the K/V rows are read once for all G
-// heads), writes its partial (m, l, acc); decode_combine_kernel merges the
-// partials of each (sequence, KV head).  Slices at or past the length are
-// never launched into work: their warps return at once and the combine
-// reads only the valid ones, so the cost follows the live lengths, not S.
+// over KV blocks.  Here one block of W warps takes one (sequence, KV head)
+// and the whole query-head group of that KV head (the K/V rows are read
+// once for all G heads).  Its warps take the live positions 32 at a time,
+// round robin, each with its own (m, l, acc) in registers, and the block
+// merges the W partials in shared memory.  The grid's second dimension
+// splits a (sequence, KV head) over `nblk` blocks when the plan
+// (kernels/decode_attention.py::decode_plan) asks for it: each block
+// writes its merged partial to a workspace and takes a ticket; the block
+// that draws the last ticket merges the partials, writes the output and
+// sets the ticket back to 0.  So no memset and no second kernel.
 //
 // Bound on this card: bytes (K and V once: 2*B*Hkv*len*D*elt; about one
-// flop per byte).  At serving shapes (B = 4, len <= 512, D = 64) that is
-// well under a megabyte and the kernel is bound by launch latency.
-// Inside a warp a lane owns one key row for the scores (16-byte loads of
-// its row, q from shared memory as broadcasts) and one or more head
-// dimensions for P.V (coalesced V rows, p broadcast by __shfl_sync).
+// flop per byte).  At serving shapes (B = 4, len <= 512) that is well
+// under a megabyte, and the cost is the launch and a few dependent loads:
+// one launch, q staged once a block, every warp's K and V rows requested
+// before it waits on them.  Inside a warp a lane owns one key row for the
+// scores (16-byte loads of its row, q from shared memory as broadcasts);
+// for P.V, R = D/4 lanes share a V row (4 head dims each: 16 bytes in
+// f32, 8 in bf16, which keeps a lane's acc at 4*G floats), so one
+// warp-wide load covers 32/R rows and a 32-position chunk takes R
+// coalesced loads; the lanes that hold the same head dimensions are summed
+// by __shfl_xor_sync once, after the warp's last chunk.  Positions at or
+// past the length are never read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;  // the finite mask value of the reference
+constexpr int SMEM_MAX = 48 * 1024;  // dynamic shared memory without opting in
 
 template <typename T> struct Vec;
 template <> struct Vec<float> {
@@ -55,6 +63,22 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+// 4 head dims of a V row: one 16-byte load in f32, one 8-byte load in bf16
+template <typename T> struct Piece;
+template <> struct Piece<float> {
+  using type = float4;
+  __device__ static void unpack(const float4& x, float* o) { Vec<float>::unpack(x, o); }
+};
+template <> struct Piece<__nv_bfloat16> {
+  using type = uint2;
+  __device__ static void unpack(const uint2& x, float* o) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  }
+};
+constexpr int PN = 4;  // head dims a lane holds in P.V
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -74,48 +98,61 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D, int G>
-__global__ void decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                    const T* __restrict__ v, const int* __restrict__ lengths,
-                                    float* __restrict__ m_out, float* __restrict__ l_out,
-                                    float* __restrict__ acc_out, int Hkv, int S, int chunk,
-                                    int n_split, float scale) {
-  using VT = typename Vec<T>::type;
-  constexpr int VN = Vec<T>::N;
-  constexpr int DPL = (D + 31) / 32;  // head dims per lane in the P.V phase
-  const int bh = blockIdx.x;          // sequence * Hkv + KV head
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int split = blockIdx.y * WARPS + warp;
-  const int length = min(lengths[bh / Hkv], S);
+// Shared memory of one block: q (G*D) and W partials of G*(D+2) floats.
+__host__ __device__ constexpr int smem_floats(int W, int G, int D) {
+  return G * D + W * G * (D + 2);
+}
 
-  __shared__ float sq[G][D];
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(512)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ part,
+              unsigned* __restrict__ tickets, int Hkv, int S, float scale) {
+  using VT = typename Vec<T>::type;
+  using PT = typename Piece<T>::type;
+  constexpr int VN = Vec<T>::N;  // elements of a 16-byte K load
+  constexpr int R = D / PN;      // lanes that share a V row
+  constexpr int PPI = 32 / R;    // V rows one warp-wide load covers
+  const int bh = blockIdx.x;   // sequence * Hkv + KV head
+  const int blk = blockIdx.y, nblk = gridDim.y;
+  const int W = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int length = min(lengths[bh / Hkv], S);
+  // this block's positions: a whole number of 32-position chunks
+  const int span = ((S + 31) / 32 + nblk - 1) / nblk * 32;
+  const int lo = blk * span, hi = min(lo + span, length);
+
+  extern __shared__ float smem[];
+  float* sq = smem;                // [G][D]
+  float* sm = sq + G * D;          // [W][G]
+  float* sl = sm + W * G;          // [W][G]
+  float* sacc = sl + W * G;        // [W][G][D]
+  __shared__ int s_last;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    sq[i / D][i % D] = to_f(q[(size_t)bh * G * D + i]);
+    sq[i] = to_f(q[(size_t)bh * G * D + i]);
   __syncthreads();
 
-  const int s0 = split * chunk;
-  if (split >= n_split || s0 >= length) return;  // the combine skips this slice
-  const int s1 = min(s0 + chunk, length);
   const T* kb = k + (size_t)bh * S * D;
   const T* vb = v + (size_t)bh * S * D;
-
-  float m[G], l[G], acc[G][DPL];
+  float m[G], l[G], acc[G][PN];  // l is this lane's share until the end
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = NEG;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+    for (int e = 0; e < PN; ++e) acc[g][e] = 0.f;
   }
+  const int piece = lane % R, sub = lane / R;
 
-  for (int base = s0; base < s1; base += 32) {
-    const int s = base + lane;
-    const bool valid = s < s1;
+  for (int base = lo + warp * 32; base < hi; base += W * 32) {
+    const int s1 = min(base + 32, hi);
+    // scores: lane owns position base + lane
+    const bool valid = base + lane < s1;
     float sc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) sc[g] = 0.f;
     if (valid) {
-      const VT* kr = reinterpret_cast<const VT*>(kb + (size_t)s * D);
+      const VT* kr = reinterpret_cast<const VT*>(kb + (size_t)(base + lane) * D);
 #pragma unroll
       for (int c = 0; c < D / VN; ++c) {
         float kv[VN];
@@ -123,134 +160,189 @@ __global__ void decode_split_kernel(const T* __restrict__ q, const T* __restrict
 #pragma unroll
         for (int e = 0; e < VN; ++e)
 #pragma unroll
-          for (int g = 0; g < G; ++g) sc[g] += sq[g][c * VN + e] * kv[e];
+          for (int g = 0; g < G; ++g) sc[g] += sq[g * D + c * VN + e] * kv[e];
       }
     }
+    // online softmax: m is the warp's, l and acc are this lane's shares
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float s_g = valid ? sc[g] * scale : NEG;
       const float m_new = fmaxf(m[g], warp_max(s_g));
       const float alpha = expf(m[g] - m_new);
       const float p = valid ? expf(s_g - m_new) : 0.f;
-      l[g] = l[g] * alpha + warp_sum(p);
+      l[g] = l[g] * alpha + p;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
+      for (int e = 0; e < PN; ++e) acc[g][e] *= alpha;
       m[g] = m_new;
       sc[g] = p;
     }
-    const int n = min(32, s1 - base);
-    for (int j = 0; j < n; ++j) {
-      const T* vr = vb + (size_t)(base + j) * D;
-      float vv[DPL];
+    // P.V: load i covers rows i*PPI .. i*PPI + PPI - 1 of the chunk
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        vv[i] = d < D ? to_f(vr[d]) : 0.f;
+    for (int i = 0; i < R; ++i) {
+      const int j = i * PPI + sub;
+      float vv[PN];
+      if (base + j < s1) {
+        Piece<T>::unpack(__ldg(reinterpret_cast<const PT*>(vb + (size_t)(base + j) * D) + piece),
+                         vv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < PN; ++e) vv[e] = 0.f;
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pj = __shfl_sync(FULL, sc[g], j);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] += pj * vv[i];
+        for (int e = 0; e < PN; ++e) acc[g][e] += pj * vv[e];
       }
     }
   }
 
-  const size_t o = ((size_t)bh * n_split + split) * G;
+  // the warp's partial: l over all lanes, acc over the lanes of one piece
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      m_out[o + g] = m[g];
-      l_out[o + g] = l[g];
-    }
+    l[g] = warp_sum(l[g]);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) acc_out[(o + g) * D + d] = acc[g][i];
+    for (int o = R; o < 32; o <<= 1)
+#pragma unroll
+      for (int e = 0; e < PN; ++e) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
+    if (lane == 0) {
+      sm[warp * G + g] = m[g];
+      sl[warp * G + g] = l[g];
+    }
+    if (lane < R) {
+#pragma unroll
+      for (int e = 0; e < PN; ++e) sacc[(warp * G + g) * D + lane * PN + e] = acc[g][e];
     }
   }
-}
+  __syncthreads();
 
-template <typename T, int D, int G>
-__global__ void decode_combine_kernel(const float* __restrict__ m_in,
-                                      const float* __restrict__ l_in,
-                                      const float* __restrict__ acc_in,
-                                      const int* __restrict__ lengths, T* __restrict__ out,
-                                      int Hkv, int S, int chunk, int n_split) {
-  const int bh = blockIdx.x;
-  const int length = min(lengths[bh / Hkv], S);
-  const int n_valid = length > 0 ? min(n_split, (length + chunk - 1) / chunk) : 0;
+  // merge the block's W partials; thread i takes (g, d) = (i / D, i % D)
+  const size_t P = (size_t)G * (D + 2);  // floats of one partial in the workspace
+  float* mine = part + ((size_t)bh * nblk + blk) * P;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D, d = i % D;
     float M = NEG;
-    for (int s = 0; s < n_valid; ++s) M = fmaxf(M, m_in[((size_t)bh * n_split + s) * G + g]);
+    for (int w = 0; w < W; ++w) M = fmaxf(M, sm[w * G + g]);
     float L = 0.f, A = 0.f;
-    for (int s = 0; s < n_valid; ++s) {
-      const size_t o = ((size_t)bh * n_split + s) * G + g;
-      const float w = expf(m_in[o] - M);
-      L += l_in[o] * w;
-      A += acc_in[o * D + d] * w;
+    for (int w = 0; w < W; ++w) {
+      const float c = expf(sm[w * G + g] - M);
+      L += sl[w * G + g] * c;
+      A += sacc[(w * G + g) * D + d] * c;
+    }
+    if (nblk == 1) {
+      out[(size_t)bh * G * D + i] = from_f<T>(A / (L == 0.f ? 1.f : L));
+    } else {
+      mine[i] = A;
+      if (d == 0) {
+        mine[G * D + g] = M;
+        mine[G * D + G + g] = L;
+      }
+    }
+  }
+  if (nblk == 1) return;
+
+  // split: the block that draws the last ticket of this (sequence, KV
+  // head) merges all nblk partials (the threadFenceReduction pattern: each
+  // block's partial is visible device-wide before its ticket is taken)
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(tickets + bh, 1u) == (unsigned)(nblk - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* all = part + (size_t)bh * nblk * P;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D;
+    float M = NEG;
+    for (int b = 0; b < nblk; ++b) M = fmaxf(M, __ldcg(all + b * P + G * D + g));
+    float L = 0.f, A = 0.f;
+    for (int b = 0; b < nblk; ++b) {
+      const float c = expf(__ldcg(all + b * P + G * D + g) - M);
+      L += __ldcg(all + b * P + G * D + G + g) * c;
+      A += __ldcg(all + b * P + i) * c;
     }
     out[(size_t)bh * G * D + i] = from_f<T>(A / (L == 0.f ? 1.f : L));
   }
+  // every other block of this (sequence, KV head) has taken its ticket:
+  // the next launch finds 0
+  if (threadIdx.x == 0) tickets[bh] = 0u;
 }
 
 template <typename T, int D, int G>
-void launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-            float* m_scr, float* l_scr, float* acc_scr, int BH, int Hkv, int S, int chunk,
-            int n_split, float scale, cudaStream_t stream) {
-  const dim3 grid(BH, (n_split + WARPS - 1) / WARPS);
-  decode_split_kernel<T, D, G><<<grid, WARPS * 32, 0, stream>>>(
+int launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
+           float* ws, int B, int Hkv, int S, float scale, int warps, int nblk,
+           cudaStream_t stream) {
+  const int smem = smem_floats(warps, G, D) * (int)sizeof(float);
+  if (warps < 1 || warps > 16 || nblk < 1 || smem > SMEM_MAX || (nblk > 1 && ws == nullptr))
+    return 1;
+  const int BH = B * Hkv;
+  // the workspace: BH tickets (rounded up to 32), then BH * nblk partials
+  unsigned* tickets = reinterpret_cast<unsigned*>(ws);
+  float* part = ws == nullptr ? nullptr : ws + (BH + 31) / 32 * 32;
+  decode_kernel<T, D, G><<<dim3(BH, nblk), warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      m_scr, l_scr, acc_scr, Hkv, S, chunk, n_split, scale);
-  int threads = ((G * D + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  decode_combine_kernel<T, D, G><<<BH, threads, 0, stream>>>(
-      m_scr, l_scr, acc_scr, lengths, static_cast<T*>(out), Hkv, S, chunk, n_split);
+      static_cast<T*>(out), part, tickets, Hkv, S, scale);
+  return 0;
 }
 
 template <typename T, int D>
 int by_group(int G, const void* q, const void* k, const void* v, const int* lengths, void* out,
-             float* m_scr, float* l_scr, float* acc_scr, int BH, int Hkv, int S, int chunk,
-             int n_split, float scale, cudaStream_t stream) {
+             float* ws, int B, int Hkv, int S, float scale, int warps, int nblk,
+             cudaStream_t stream) {
   switch (G) {
-    case 1: launch<T, D, 1>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
-    case 2: launch<T, D, 2>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
-    case 4: launch<T, D, 4>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
-    case 6: launch<T, D, 6>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
-    case 8: launch<T, D, 8>(q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream); return 0;
+    case 1: return launch<T, D, 1>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 2: return launch<T, D, 2>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 4: return launch<T, D, 4>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 6: return launch<T, D, 6>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 8: return launch<T, D, 8>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
     default: return 1;
   }
 }
 
 template <typename T>
 int by_dim(int D, int G, const void* q, const void* k, const void* v, const int* lengths,
-           void* out, float* m_scr, float* l_scr, float* acc_scr, int BH, int Hkv, int S,
-           int chunk, int n_split, float scale, cudaStream_t stream) {
+           void* out, float* ws, int B, int Hkv, int S, float scale, int warps, int nblk,
+           cudaStream_t stream) {
   switch (D) {
-    case 16: return by_group<T, 16>(G, q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream);
-    case 32: return by_group<T, 32>(G, q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream);
-    case 64: return by_group<T, 64>(G, q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream);
-    case 128: return by_group<T, 128>(G, q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream);
+    case 16: return by_group<T, 16>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 32: return by_group<T, 32>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 64: return by_group<T, 64>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 128: return by_group<T, 128>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
     default: return 1;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q (B, Hkv*G, D), caches (B, Hkv, S, D),
-// all contiguous; scratch m/l (B*Hkv*n_split*G) and acc (... * D) float32.
-extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const int* lengths, void* out, float* m_scr,
-                                       float* l_scr, float* acc_scr, int B, int Hkv, int G,
-                                       int S, int D, int dtype, float scale, int chunk,
-                                       int n_split, cudaStream_t stream) {
+// The launch's arguments, which the wrapper packs as 16 little-endian
+// 8-byte fields (struct "<12qd3q", a null pointer as 0): ctypes then
+// passes one buffer instead of converting 16 arguments.  dtype: 0 =
+// float32, 1 = bfloat16.  q (B, Hkv*G, D), caches (B, Hkv, S, D), all
+// contiguous; (warps, nblk) from decode_plan; ws: the zeroed float32
+// workspace of the split path (nblk > 1), null otherwise.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* out;
+  float* ws;
+  long long B, Hkv, G, S, D, dtype;
+  double scale;
+  long long warps, nblk;
+  cudaStream_t stream;
+};
+static_assert(sizeof(DecodeArgs) == 16 * 8, "DecodeArgs must match the wrapper's \"<12qd3q\"");
+
+extern "C" int decode_attention_launch(const DecodeArgs* a) {
+  const int B = (int)a->B, Hkv = (int)a->Hkv, G = (int)a->G, S = (int)a->S, D = (int)a->D;
+  const int warps = (int)a->warps, nblk = (int)a->nblk;
+  const float scale = (float)a->scale;
   if (B > 0 && Hkv > 0) {
-    const int BH = B * Hkv;
-    const int bad = dtype == 0
-        ? by_dim<float>(D, G, q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream)
-        : dtype == 1
-        ? by_dim<__nv_bfloat16>(D, G, q, k, v, lengths, out, m_scr, l_scr, acc_scr, BH, Hkv, S, chunk, n_split, scale, stream)
+    const int bad = a->dtype == 0
+        ? by_dim<float>(D, G, a->q, a->k, a->v, a->lengths, a->out, a->ws, B, Hkv, S, scale, warps, nblk, a->stream)
+        : a->dtype == 1
+        ? by_dim<__nv_bfloat16>(D, G, a->q, a->k, a->v, a->lengths, a->out, a->ws, B, Hkv, S, scale, warps, nblk, a->stream)
         : 1;
     if (bad) return (int)cudaErrorInvalidValue;
   }

@@ -1,18 +1,29 @@
-"""Single-token GQA decode attention on Hopper — CUDA kernel, split-KV
-(FlashDecoding).
+"""Single-token GQA decode attention on Hopper — CUDA kernel, one launch
+per call.
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention`` (Pallas
-body ``_decode_kernel``).  The kernel is ``csrc/decode_attention.cu``: a
-split kernel where one warp owns ``chunk`` positions of one (sequence, KV
-head) for the whole query-head group and writes a partial (m, l, acc),
-and a combine kernel that merges the partials.  The TPU fused that
-combine by revisiting VMEM scratch in grid order; Hopper's blocks run in
-no order, hence the second kernel.
+body ``_decode_kernel``).  The kernel is ``csrc/decode_attention.cu``: one
+block of up to 16 warps takes one (sequence, KV head) and its whole
+query-head group; its warps take the live positions 32 at a time with
+(m, l, acc) in registers and the block merges their partials in shared
+memory.  Where B*Hkv blocks would leave SMs idle, each (sequence, KV
+head) is split over several blocks, and the block that draws the last
+ticket of its (sequence, KV head) merges their partials: still one
+launch.  The TPU fused that merge by revisiting VMEM scratch in grid
+order; Hopper's blocks run in no order, hence the ticket.
 
 What bounds it on the card: bytes (K and V read once, about one flop per
-byte); at serving shapes (a few hundred positions, B = 4) the launch
-latency dominates.  Slices past each sequence's length do no work, so the
-cost follows the live lengths, not the cache size S.
+byte); at serving shapes (a few hundred positions, B = 4) the launch path.
+So the wrapper is lean: the C entry is bound once and takes its
+arguments packed in one buffer, the shapes are checked against one
+tuple, ``lengths`` passes without a copy when it is already contiguous
+int32, the output is one ``torch.empty_like`` and the launch plan comes
+from ``decode_plan`` (cached, pure Python).  Nothing is allocated per
+call but the output: the split path's workspace is allocated once per
+device and grows.  The wrapper never synchronises, so once a first call
+at a shape has made the workspace it can be captured in a CUDA graph.
+Blocks past a sequence's length do no work, so the cost follows the live
+lengths, not the cache size S.
 
 Scaling follows the TPU kernel (f32 scores times the scale), and the
 plain version in ``ref.decode_attention_ref`` does the same.
@@ -20,33 +31,81 @@ plain version in ``ref.decode_attention_ref`` does the same.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import struct
 
 import torch
 
 from . import build
+from .build import N_SM
 
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 6, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: at most this many KV slices per (sequence, KV head)
-MAX_SPLITS = 64
+MAX_WARPS = 16            # warps a block (the kernel's __launch_bounds__(512))
+SMEM_MAX = 48 * 1024      # a block's dynamic shared memory without opting in
+BLOCK_CHUNKS = 4          # 32-position chunks a block takes at least, split or not
+MIN_WARPS = 8             # warps a block has at least: they share q's staging and the merge
+#: the C entry's arguments (csrc/decode_attention.cu DecodeArgs), packed in
+#: one buffer: ctypes would convert each separate argument on every call
+_PACK = struct.Struct("<12qd3q").pack
+_FN = None
+#: the split path's workspace on each device: BH tickets (the kernel
+#: leaves them 0), then the blocks' partials.  One launch at a time uses
+#: it, because the port issues every call on the current stream of its
+#: one serving thread and launches on one stream run in order: a launch
+#: writes each partial before the last block reads it, and leaves every
+#: ticket 0 for the next.  A CUDA graph captured over the split path keeps
+#: this buffer's address, so it is replayed before a larger shape grows it.
+_WORKSPACE: dict[int, torch.Tensor] = {}
 
 
-def split_plan(S: int) -> tuple[int, int]:
-    """(chunk, n_split): positions per warp slice, a multiple of 32 chosen
-    so that a cache of S positions has at most MAX_SPLITS slices."""
-    chunk = 32 * max(1, -(-S // (32 * MAX_SPLITS)))
-    return chunk, max(1, -(-S // chunk))
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, Hkv: int, G: int, S: int, D: int, elt: int, n_sm: int = N_SM
+                ) -> tuple[int, int, bool]:
+    """(warps, blocks per (sequence, KV head), split) of one launch over a
+    cache of S positions, head_dim D, group G, elements of ``elt`` bytes,
+    on a card of ``n_sm`` SMs (the wrapper passes the device's count).
+
+    A warp takes 32 positions (a chunk) at a time.  When B*Hkv blocks
+    leave SMs idle, each (sequence, KV head) is split over up to
+    n_sm // (B*Hkv) blocks (one wave) of at least BLOCK_CHUNKS chunks: a
+    block's SM then pulls fewer K/V bytes.  A block has one warp a
+    chunk, at least MIN_WARPS (they share q's staging and the merge) and
+    at most MAX_WARPS and what fits its partials in SMEM_MAX
+    (G*D + warps*G*(D+2) floats).  ``elt`` is part of the key for the
+    kernel's instances; the plan is the same for both types."""
+    chunks = max(1, -(-S // 32))
+    w_cap = max(1, min(MAX_WARPS, (SMEM_MAX // 4 - G * D) // (G * (D + 2))))
+    blocks = 1
+    if B * Hkv < n_sm:
+        blocks = max(1, min(n_sm // (B * Hkv), chunks // BLOCK_CHUNKS))
+    per_block = -(-chunks // blocks)
+    rounds = -(-per_block // w_cap)            # chunks a warp takes
+    return min(w_cap, max(MIN_WARPS, -(-per_block // rounds))), blocks, blocks > 1
 
 
 def _launcher():
-    fn = build.library("decode_attention").decode_attention_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+    global _FN
+    if _FN is None:
+        fn = build.library("decode_attention").decode_attention_launch
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
-    return fn
+        _FN = fn
+    return _FN
+
+
+def _workspace(q: torch.Tensor, floats: int) -> int:
+    """The device's split workspace of at least ``floats`` float32, zeroed
+    when it is made or grown; its address."""
+    dev = q.get_device()
+    ws = _WORKSPACE.get(dev)
+    if ws is None or ws.numel() < floats:
+        ws = torch.zeros((max(floats, 2 * ws.numel() if ws is not None else 0),),
+                         dtype=torch.float32, device=q.device)
+        _WORKSPACE[dev] = ws
+    return ws.data_ptr()
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -57,39 +116,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     bfloat16, D in HEAD_DIMS, Hq/Hkv in GROUPS, any S."""
     if not q.is_cuda:
         raise ValueError("decode_attention kernel: tensors must be on a CUDA device")
+    dt = _DTYPES.get(q.dtype)
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} must be 3-D and the "
+                         f"caches {tuple(k_cache.shape)} 4-D")
     B, Hq, D = q.shape
-    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or k_cache.shape[0] != B \
-            or k_cache.shape[3] != D:
-        raise ValueError(f"decode_attention: cache shapes {tuple(k_cache.shape)}, "
-                         f"{tuple(v_cache.shape)} do not fit q {tuple(q.shape)}")
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    if Hq % Hkv or Hq // Hkv not in GROUPS or D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: unsupported Hq={Hq} Hkv={Hkv} D={D}")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError(f"decode_attention: dtypes {q.dtype}/{k_cache.dtype}/"
-                         f"{v_cache.dtype}; need one of float32, bfloat16")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("decode_attention: caches must be contiguous")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode_attention: caches must be 16-byte aligned")
-    if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
-        raise ValueError("decode_attention: all tensors must be on one device")
+    dev = q.get_device()
+    if (k_cache.shape[0], k_cache.shape[3], v_cache.shape, lengths.shape, k_cache.dtype,
+            v_cache.dtype, k_cache.get_device(), v_cache.get_device(),
+            lengths.get_device()) != (B, D, k_cache.shape, (B,), q.dtype, q.dtype, dev, dev, dev):
+        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} {k_cache.dtype}, "
+                         f"{tuple(v_cache.shape)} {v_cache.dtype} and lengths "
+                         f"{tuple(lengths.shape)} on {lengths.device} do not fit q "
+                         f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if dt is None or Hkv == 0 or Hq % Hkv or Hq // Hkv not in GROUPS or D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: unsupported Hq={Hq} Hkv={Hkv} D={D} "
+                         f"dtype={q.dtype}; need float32 or bfloat16, D in {HEAD_DIMS}, "
+                         f"Hq/Hkv in {GROUPS}")
+    kp, vp = k_cache.data_ptr(), v_cache.data_ptr()
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()) or (kp | vp) % 16:
+        raise ValueError("decode_attention: caches must be contiguous and 16-byte aligned")
     G = Hq // Hkv
-    q = q.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)
-    chunk, n_split = split_plan(S)
-    n_part = B * Hkv * n_split * G
-    m_scr = torch.empty((n_part,), dtype=torch.float32, device=q.device)
-    l_scr = torch.empty((n_part,), dtype=torch.float32, device=q.device)
-    acc_scr = torch.empty((n_part * D,), dtype=torch.float32, device=q.device)
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if B == 0:
         return out
-    rc = _launcher()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-                     out.data_ptr(), m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(),
-                     B, Hkv, G, S, D, _DTYPES[q.dtype], scale, chunk, n_split,
-                     build.stream_of(q))
+    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)
+    warps, blocks, _ = decode_plan(B, Hkv, G, S, D, q.element_size(), build.sm_count(dev))
+    ws = _workspace(q, (B * Hkv + 31) // 32 * 32 + B * Hkv * blocks * G * (D + 2)) \
+        if blocks > 1 else 0
+    rc = _launcher()(_PACK(q.data_ptr(), kp, vp, lengths.data_ptr(), out.data_ptr(), ws,
+                           B, Hkv, G, S, D, dt, scale, warps, blocks, build.stream_of(q)))
     build.check("decode_attention", rc)
     build.count_launch("decode_attention")
     return out

@@ -29,13 +29,12 @@ import math
 import torch
 
 from . import build
+from .build import N_SM
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 64            # the smallest query tile; bounds the grid's y extent
 MAX_GRID_Y = 65535
-N_SM = 132              # streaming multiprocessors of an H100 SXM
-_SM_COUNT: dict[int, int] = {}
 
 
 def query_tile(B: int, Hq: int, Sq: int, n_sm: int = N_SM) -> int:
@@ -44,13 +43,6 @@ def query_tile(B: int, Hq: int, Sq: int, n_sm: int = N_SM) -> int:
     SMs, else 64 (one warpgroup, twice the blocks: a chunked prefill of
     128 queries over 16 heads runs 32 blocks, not 16)."""
     return 128 if B * Hq * -(-Sq // 128) >= n_sm else 64
-
-
-def _sm_count(index: int) -> int:
-    n = _SM_COUNT.get(index)
-    if n is None:
-        n = _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return n
 
 
 _FN = None
@@ -106,7 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      B, Hq, Hkv, Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), scale,
-                     query_tile(B, Hq, Sq, _sm_count(dev)), build.stream_of(q))
+                     query_tile(B, Hq, Sq, build.sm_count(dev)), build.stream_of(q))
     build.check("flash_attention", rc)
     build.count_launch("flash_attention")
     return out

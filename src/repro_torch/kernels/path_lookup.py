@@ -1,16 +1,21 @@
 """Batched path-digest lookup (the paper's Q1/GET) on Hopper — CUDA kernel.
 
 Replaces ``repro/kernels/path_lookup.py::path_lookup`` (Pallas body
-``_lookup_kernel``).  The kernel is ``csrc/path_lookup.cu``: one warp per
-query; level 0 compares the query with the pinned hot set (the staged
-("/" + dimensions) keys and their sorted-table positions), level 1 finds
-the query's 128-key tile by a 32-way search of the fence column (every
-128th key), level 2 reads that one tile coalesced and takes the lowest
-matching position with ``__ballot_sync``.
+``_lookup_kernel``).  The kernel is ``csrc/path_lookup.cu``: a block of 8
+warps stages the pinned hot set (the ("/" + dimensions) keys and their
+sorted-table positions) and the top level of the fence column (every
+32nd fence, i.e. every 4096th key) in shared memory; each warp then takes
+one query through level 0 (pinned) and the first fence steps there, and
+through one 32-way fence probe and one coalesced 128-key tile read in
+global memory, the lowest matching position picked by ``__ballot_sync``.
 
 What bounds it on the card: the chain of dependent loads (a query moves
-12 bytes), so the design cuts the chain to ceil(log32(N/128)) fence steps
-plus one tile read; see the source for the details.
+12 bytes) and, at the main path's 4096 queries, the launch path.  So the
+kernel cuts the chain to two global round trips a warp, and the wrapper
+is lean: the C entry is bound once and takes its arguments packed in one
+buffer, the checks are one comparison of plain values, the output is one
+``torch.empty_like`` and the geometry comes from ``lookup_geometry``
+(cached, pure Python).
 
 Keys are one int64 per digest, ``((hi << 32) | lo) ^ (1 << 63)`` (``key64``):
 signed order equals the unsigned digest order on the CPU, where torch
@@ -21,6 +26,8 @@ which becomes INT64_MAX after ``key64``).
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 
 import numpy as np
 import torch
@@ -31,6 +38,13 @@ TILE = 128
 #: pinned sub-table allocation granule
 PIN_TILE = 8
 _SIGN = np.uint64(1 << 63)
+WARPS = 8           # warps a block, one query each (csrc/path_lookup.cu)
+TOP_MAX = 2048      # the most top-level fences a block stages (16 KB)
+PIN_MAX = 256       # the most pinned entries a block stages (3 KB)
+#: the C entry's arguments (csrc/path_lookup.cu LookupArgs), packed in one
+#: buffer: ctypes would convert each separate argument on every call
+_PACK = struct.Struct("<14q").pack
+_FN = None
 
 
 def key64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -67,47 +81,74 @@ def pad_keys(keys_hi: np.ndarray, keys_lo: np.ndarray
             np.concatenate([keys_lo, fill]))
 
 
+@functools.lru_cache(maxsize=256)
+def lookup_geometry(n_q: int, n_keys: int, n_pin: int
+                    ) -> tuple[int, int, int, int, int]:
+    """(blocks, top_stride, n_top, n_pin_staged, smem_bytes) of one launch
+    over ``n_q`` queries, a table of ``n_keys`` keys and ``n_pin`` pinned
+    entries.
+
+    One query a warp, 8 warps a block.  The top level is every
+    ``top_stride``-th fence, ``top_stride`` the least power of 32 that
+    keeps it within TOP_MAX entries, and none (``n_top`` 0) when the table
+    has at most 32 fences (one global step finds the tile).  The first
+    PIN_MAX pinned entries are staged; the rest are read from global
+    memory."""
+    blocks = -(-n_q // WARPS)
+    n_fences = -(-n_keys // TILE)
+    top_stride, n_top = 32, 0
+    if n_fences > 32:
+        while -(-n_fences // top_stride) > TOP_MAX:
+            top_stride *= 32
+        n_top = -(-n_fences // top_stride)
+    n_pin_staged = min(n_pin, PIN_MAX)
+    return blocks, top_stride, n_top, n_pin_staged, 8 * n_top + 12 * n_pin_staged
+
+
 def _launcher():
-    fn = build.library("path_lookup").path_lookup_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, p, i, p, p]
+    global _FN
+    if _FN is None:
+        fn = build.library("path_lookup").path_lookup_launch
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_1d(name: str, t: torch.Tensor, dtype: torch.dtype, device) -> None:
-    if t.device != device or t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"path_lookup: {name} must be a contiguous 1-D {dtype} tensor on "
-                         f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        _FN = fn
+    return _FN
 
 
 def path_lookup(keys: torch.Tensor, queries: torch.Tensor, *,
-                pinned: tuple[torch.Tensor, torch.Tensor] | None = None
-                ) -> torch.Tensor:
+                pinned: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """keys: (N,) int64 sorted; queries: (Q,) int64; pinned: optional
     (pin_keys (P,) int64, pin_pos (P,) int32) where pin_pos[j] is the
     sorted-table position of pin_keys[j].  Returns (Q,) int32 positions,
     -1 on a miss.  CUDA tensors only."""
     if not keys.is_cuda:
         raise ValueError("path_lookup kernel: tensors must be on a CUDA device")
-    dev = keys.device
-    _check_1d("keys", keys, torch.int64, dev)
-    _check_1d("queries", queries, torch.int64, dev)
-    if pinned is not None:
-        _check_1d("pin_keys", pinned[0], torch.int64, dev)
-        _check_1d("pin_pos", pinned[1], torch.int32, dev)
-        if pinned[0].shape != pinned[1].shape:
-            raise ValueError("path_lookup: pin_keys and pin_pos differ in length")
-        pin_keys, pin_pos, n_pin = pinned[0].data_ptr(), pinned[1].data_ptr(), pinned[0].shape[0]
+    dev = keys.get_device()
+    ok = (keys.dtype, keys.dim(), keys.is_contiguous(), queries.dtype, queries.dim(),
+          queries.is_contiguous(), queries.get_device()) == (
+              torch.int64, 1, True, torch.int64, 1, True, dev)
+    if pinned is None:
+        pin_keys = pin_pos = n_pin = 0
     else:
-        pin_keys, pin_pos, n_pin = None, None, 0
-    n_q = queries.shape[0]
-    out = torch.empty((n_q,), dtype=torch.int32, device=dev)
+        pk, pp = pinned
+        n_pin = pk.shape[0]
+        ok = ok and (pk.dtype, pk.dim(), pk.is_contiguous(), pk.get_device(), pp.dtype,
+                     pp.shape, pp.is_contiguous(), pp.get_device()) == (
+                         torch.int64, 1, True, dev, torch.int32, (n_pin,), True, dev)
+        pin_keys, pin_pos = pk.data_ptr(), pp.data_ptr()
+    if not ok:
+        raise ValueError(
+            f"path_lookup: keys, queries and pin_keys must be contiguous 1-D int64 and "
+            f"pin_pos contiguous 1-D int32 of pin_keys' length, all on {keys.device}; got "
+            + ", ".join(f"{tuple(t.shape)} {t.dtype} on {t.device}"
+                        for t in (keys, queries, *(pinned or ()))))
+    out = torch.empty_like(queries, dtype=torch.int32)
+    n_q, n_keys = queries.shape[0], keys.shape[0]
     if n_q == 0:
         return out
-    rc = _launcher()(keys.data_ptr(), keys.shape[0], pin_keys, pin_pos, n_pin,
-                     queries.data_ptr(), n_q, out.data_ptr(), build.stream_of(keys))
+    rc = _launcher()(_PACK(keys.data_ptr(), n_keys, pin_keys, pin_pos, n_pin,
+                           queries.data_ptr(), n_q, out.data_ptr(),
+                           *lookup_geometry(n_q, n_keys, n_pin), build.stream_of(keys)))
     build.check("path_lookup", rc)
     build.count_launch("path_lookup")
     return out

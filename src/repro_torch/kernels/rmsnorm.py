@@ -22,9 +22,9 @@ import functools
 import torch
 
 from . import build
+from .build import N_SM
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-N_SM = 132          # streaming multiprocessors of an H100 SXM
 NVMAX = 8           # 16-byte vectors a thread keeps in registers (csrc/rmsnorm.cu)
 WARP_ROW_VECS = 4   # the most 16-byte vectors a lane takes in a warp row
 ROW_VECS = 4        # 16-byte vectors a thread of a block row aims at
@@ -33,15 +33,17 @@ _FN = None
 
 
 @functools.lru_cache(maxsize=256)
-def launch_geometry(rows: int, D: int, elt: int, vec_ok: bool) -> tuple[int, int, int]:
+def launch_geometry(rows: int, D: int, elt: int, vec_ok: bool, n_sm: int = N_SM
+                    ) -> tuple[int, int, int]:
     """(threads, rows_per_block, vec) of one launch over ``rows`` rows of
-    ``D`` elements of ``elt`` bytes.  ``vec_ok``: every base is 16-byte
+    ``D`` elements of ``elt`` bytes on a card of ``n_sm`` SMs (the wrapper
+    passes the device's count).  ``vec_ok``: every base is 16-byte
     aligned, so rows of a whole number of 16-byte vectors take the vector
     body (vec = 16 / elt), else the scalar one (vec = 1).
 
     Rows of at most WARP_ROW_VECS vectors a lane (D <= 1024 in bf16): a
     warp per row, 1-4 rows a block, as many as keep the grid at two or
-    more waves of N_SM blocks.  Longer rows: a block per row with
+    more waves of n_sm blocks.  Longer rows: a block per row with
     about ROW_VECS vectors a thread (64 threads at D = 2048 bf16, 192 at
     6144): each thread keeps several 16-byte loads in flight, which the
     card rewards over more threads a row with one load each."""
@@ -49,7 +51,7 @@ def launch_geometry(rows: int, D: int, elt: int, vec_ok: bool) -> tuple[int, int
     nvec = -(-D // vec)
     if (vec > 1 and nvec <= 32 * WARP_ROW_VECS) or (vec == 1 and D <= WARP_ROW_MAX_D):
         rpb = 1
-        while rpb < 4 and -(-rows // (2 * rpb)) >= 2 * N_SM:
+        while rpb < 4 and -(-rows // (2 * rpb)) >= 2 * n_sm:
             rpb *= 2
         return 32 * rpb, rpb, vec
     if vec == 1:
@@ -98,7 +100,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor | None = None,
     xp, op = x.data_ptr(), out.data_ptr()
     sp = scale.data_ptr() if scale is not None else 0
     threads, rpb, vec = launch_geometry(rows, D, x.element_size(),
-                                        (xp | op | sp) % 16 == 0)
+                                        (xp | op | sp) % 16 == 0, build.sm_count(x.get_device()))
     rc = _launcher()(xp, sp or None, op, rows, D, x_dt, s_dt, eps, threads, rpb, vec,
                      build.stream_of(x))
     build.check("rmsnorm", rc)

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.path_lookup import key64, pad_keys, pad_pinned  # noqa: E402
+from repro_torch.kernels.path_lookup import path_lookup as pl_kernel  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 
@@ -93,6 +94,126 @@ def test_cuda_decode_attention_group_6(cuda, dtype):
     assert ops.LAUNCHES["decode_attention"] == n0 + 1
     torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, k, v, lens).float(),
                                **_tol(dtype))
+
+
+def _decode_inputs(cuda, dt, B, Hq, Hkv, S, D, lens):
+    return (torch.randn(B, Hq, D, dtype=dt, device=cuda),
+            torch.randn(B, Hkv, S, D, dtype=dt, device=cuda),
+            torch.randn(B, Hkv, S, D, dtype=dt, device=cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_split_path_three_calls(cuda, dtype):
+    """S = 4096 over 6 x 2 (sequence, KV head), group 8: the plan splits
+    each over 11 blocks, and three calls in a row, with the lengths
+    {0, 1, 31, 32, 33, S} permuted between them, each match the plain
+    version: the tickets are back at 0 after every launch."""
+    from repro_torch.kernels.decode_attention import decode_plan
+    dt = getattr(torch, dtype)
+    B, Hq, Hkv, S, D = 6, 16, 2, 4096, 128
+    assert decode_plan(B, Hkv, Hq // Hkv, S, D, dt.itemsize)[2]
+    q, k, v, lens = _decode_inputs(cuda, dt, B, Hq, Hkv, S, D, [0, 1, 31, 32, 33, S])
+    for perm in ([0, 1, 2, 3, 4, 5], [5, 4, 3, 2, 1, 0], [2, 5, 0, 4, 1, 3]):
+        ln = lens[torch.tensor(perm, device=cuda)]
+        n0 = ops.LAUNCHES["decode_attention"]
+        got = ops.decode_attention(q, k, v, ln)
+        assert ops.LAUNCHES["decode_attention"] == n0 + 1
+        want = ref.decode_attention_ref(q, k, v, ln)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        assert not bool(got[ln == 0].any())            # a length of 0 gives zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_every_group_and_dim(cuda, dtype):
+    """Every G in GROUPS and D in HEAD_DIMS, on both plans: one block per
+    (sequence, KV head) at S = 100 and the split one at S = 300 and 4096;
+    and 132 (sequence, KV head), which fill the card unsplit, with
+    several chunks a warp."""
+    from repro_torch.kernels.decode_attention import GROUPS, HEAD_DIMS, decode_plan
+    dt = getattr(torch, dtype)
+    plans = set()
+    for G in GROUPS:
+        for D in HEAD_DIMS:
+            for B, Hkv, S, lens in ((3, 2, 100, [100, 33, 1]), (3, 2, 300, [300, 33, 0]),
+                                    (1, 2, 4096, [4000])):
+                plans.add(decode_plan(B, Hkv, G, S, D, dt.itemsize)[2])
+                q, k, v, ln = _decode_inputs(cuda, dt, B, Hkv * G, Hkv, S, D, lens)
+                got = ops.decode_attention(q, k, v, ln)
+                torch.testing.assert_close(got.float(),
+                                           ref.decode_attention_ref(q, k, v, ln).float(),
+                                           **_tol(dtype))
+    assert plans == {False, True}
+    assert decode_plan(66, 2, 8, 1024, 128, dt.itemsize) == (8, 1, False)
+    q, k, v, ln = _decode_inputs(cuda, dt, 66, 16, 2, 1024, 128, [1024, 511, 1] * 22)
+    torch.testing.assert_close(ops.decode_attention(q, k, v, ln).float(),
+                               ref.decode_attention_ref(q, k, v, ln).float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_one_kernel_node_per_call(cuda):
+    """Captured in a CUDA graph, three calls make three kernel nodes and no
+    other node, on both plans (one block per (sequence, KV head) at S =
+    100; split at the router's serving shape and over a long cache, after
+    a warm-up call has made the workspace); LAUNCHES rises by one a call,
+    and the replay matches the plain version."""
+    from repro_torch.kernels import build
+    for B, Hq, Hkv, S, D, lens in ((4, 4, 2, 100, 64, [1, 50, 99, 100]),
+                                   (4, 4, 2, 512, 64, [1, 97, 311, 512]),
+                                   (1, 4, 2, 4096, 64, [4096])):
+        q, k, v, ln = _decode_inputs(cuda, torch.float32, B, Hq, Hkv, S, D, lens)
+        ops.decode_attention(q, k, v, ln)
+        torch.cuda.synchronize()
+        n0 = ops.LAUNCHES["decode_attention"]
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [ops.decode_attention(q, k, v, ln) for _ in range(3)]
+        assert ops.LAUNCHES["decode_attention"] == n0 + 3
+        assert build.graph_nodes(g) == (3, 3)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, k, v, ln)
+        for got in outs:
+            torch.testing.assert_close(got, want, **_tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [0, 128, 4095, 4096, 300_000])
+def test_cuda_path_lookup_exact_at_every_geometry(cuda, N):
+    """Exactly the plain version's answers at P in {0, 8, 24} pinned
+    entries, Q in {1, 33, 4096} queries, on mixed, all-miss and
+    all-pinned batches, with and without the pinned level."""
+    rs = np.random.RandomState(N)
+    khi, klo = _key_table(rs, N) if N else (np.zeros(0, np.uint32),) * 2
+    n = len(khi)
+    real = key64(khi, klo)
+    keys = torch.from_numpy(key64(*pad_keys(khi, klo)))
+    card_keys = keys.to(cuda)
+    for P in (0, 8, 24):
+        pin_rows = rs.choice(n, size=min(P, n), replace=False).astype(np.int32)
+        ph, pl, pp = pad_pinned(khi[pin_rows], klo[pin_rows], pin_rows)
+        pinned = (torch.from_numpy(key64(ph, pl)), torch.from_numpy(pp))
+        card_pinned = tuple(t.to(cuda) for t in pinned)
+        for Q in (1, 33, 4096):
+            misses = rs.randint(-2**63, 2**63 - 1, size=Q, dtype=np.int64)
+            batches = {"all_miss": misses[~np.isin(misses, real)]}
+            if n:
+                batches["mixed"] = np.where(rs.rand(Q) < 0.7, real[rs.randint(0, n, size=Q)],
+                                            misses)
+            if len(pin_rows):
+                batches["all_pinned"] = real[pin_rows][rs.randint(0, len(pin_rows), size=Q)]
+            for kind, qk in batches.items():
+                queries = torch.from_numpy(qk)
+                want = ops.path_lookup(keys, queries, pinned=pinned)
+                if kind == "all_miss":
+                    assert (want == -1).all()
+                got = pl_kernel(card_keys, queries.to(cuda), pinned=card_pinned)
+                assert torch.equal(got.cpu(), want), (P, Q, kind)
+                got = pl_kernel(card_keys, queries.to(cuda))
+                assert torch.equal(got.cpu(), ops.path_lookup(keys, queries)), (P, Q, kind)
 
 
 # (T, E, k): dbrx prefill and decode, jamba, kimi-k2, a ragged T, a tiny E

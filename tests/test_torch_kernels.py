@@ -263,3 +263,170 @@ def test_rmsnorm_launch_geometry(rows, D, elt, vec_ok, want):
         assert -(-(D // vec) // tpr) <= NVMAX
     if rpb > 1:                      # never fewer than two waves of 132 blocks
         assert -(-rows // rpb) >= 2 * 132
+
+
+# ---------------------------------------------------------------------------
+# decode_attention's launch plan and path_lookup's block geometry (pure
+# Python, so they are tested here; the kernels follow them on the card)
+# ---------------------------------------------------------------------------
+def _decode_coverage(S, length, warps, blocks):
+    """How often csrc/decode_attention.cu's loops visit each position: block
+    blk of a (sequence, KV head) takes [blk * span, min(+span, length)),
+    span a whole number of 32-position chunks, and its warp w the chunks
+    from lo + 32 w in steps of 32 * warps."""
+    seen = np.zeros(max(S, 1), np.int64)
+    span = -(-(-(-S // 32)) // blocks) * 32
+    length = min(length, S)
+    for blk in range(blocks):
+        lo, hi = blk * span, min(blk * span + span, length)
+        for w in range(warps):
+            for base in range(lo + 32 * w, hi, 32 * warps):
+                seen[base:min(base + 32, hi)] += 1
+    return seen
+
+
+@pytest.mark.parametrize("B,Hkv,G,S,D,elt,want", [
+    (4, 2, 2, 512, 64, 4, (8, 4, True)),        # wikikv-router serving, f32: 8 blocks, split 4 ways
+    (8, 2, 2, 512, 64, 4, (8, 4, True)),        # the smoke's 8-lane shape
+    (8, 2, 2, 4096, 64, 4, (16, 8, True)),      # the smoke's long cache: 128 blocks, one wave
+    (8, 2, 2, 4096, 64, 2, (16, 8, True)),
+    (4, 8, 6, 512, 128, 2, (8, 4, True)),       # dbrx-132b decode, bf16
+    (4, 8, 6, 512, 128, 4, (8, 4, True)),
+    (6, 2, 8, 4096, 128, 2, (8, 11, True)),     # the card tests' three-call split shape
+    (1, 2, 2, 4096, 64, 4, (8, 32, True)),      # the card tests' graph of the split path
+    (3, 2, 2, 100, 64, 4, (8, 1, False)),       # 4 chunks: one block, no split
+    (1, 1, 1, 4096, 16, 4, (8, 32, True)),
+    (2, 4, 2, 300, 32, 4, (8, 2, True)),        # ragged S: 10 chunks, 2 blocks of 5
+    (64, 8, 8, 4096, 128, 2, (10, 1, False)),   # B*Hkv fills the card: no split; 48 KB caps warps
+    (66, 2, 8, 1024, 128, 2, (8, 1, False)),    # the card tests' unsplit 132: 4 chunks a warp
+    (1, 1, 4, 2048, 64, 4, (8, 16, True)),
+    (1, 1, 4, 2049, 64, 4, (8, 16, True)),      # one chunk more: 5 a block
+    (1, 1, 1, 1, 16, 4, (8, 1, False)),
+    (2, 1, 8, 0, 128, 2, (8, 1, False)),        # an empty cache
+])
+def test_decode_plan(B, Hkv, G, S, D, elt, want):
+    from repro_torch.kernels.decode_attention import (BLOCK_CHUNKS, MAX_WARPS, SMEM_MAX,
+                                                      decode_plan)
+    warps, blocks, split = got = decode_plan(B, Hkv, G, S, D, elt)
+    assert got == want
+    assert 1 <= warps <= MAX_WARPS <= 32
+    assert 4 * (G * D + warps * G * (D + 2)) <= SMEM_MAX       # the block's partials
+    assert split == (blocks > 1)
+    assert not split or (blocks * B * Hkv <= 132 and -(-S // 32) >= blocks * BLOCK_CHUNKS)
+    for length in sorted({0, 1, 31, 32, 33, S // 2, S - 1, S, S + 5}):
+        seen = _decode_coverage(S, length, warps, blocks)
+        live = min(max(length, 0), S)
+        assert (seen[:live] == 1).all() and (seen[live:] == 0).all()
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("elt", [4, 2])
+def test_decode_lane_layout_covers_each_v_element_once(D, elt):
+    """P.V in csrc/decode_attention.cu: R = D/4 lanes share a V row, 4 head
+    dims each (one 16-byte load in f32, one 8-byte load in bf16, aligned
+    in a row of D*elt bytes); load i of a chunk gives lane l row
+    i*(32/R) + l//R, piece l % R."""
+    vn = 4
+    R = D // vn
+    assert 32 % R == 0 and vn * elt in (8, 16) and (D * elt) % (vn * elt) == 0
+    seen = np.zeros((32, D), np.int64)
+    for i in range(R):
+        for lane in range(32):
+            row, piece = i * (32 // R) + lane // R, lane % R
+            seen[row, piece * vn:(piece + 1) * vn] += 1
+    assert (seen == 1).all()
+
+
+def _mirror_lookup(keys, queries, pin_keys, pin_pos, geometry):
+    """csrc/path_lookup.cu's search, one query at a time in numpy: the
+    pinned level, the staged top level and the 32-way fence steps (each
+    probe lane by lane, the count of probes <= q as the ballot gives it),
+    then the tile."""
+    _, top_stride, n_top, _, _ = geometry
+    n = len(keys)
+    n_fences = -(-n // 128)
+    fences = keys[::128]
+
+    def step32(col, lo, hi, q):
+        while hi > lo:
+            step = (hi - lo + 31) >> 5
+            k = sum(1 for lane in range(32)
+                    if lo + lane * step < hi and col[lo + lane * step] <= q)
+            lo, hi = (lo, lo) if k == 0 else (lo + (k - 1) * step + 1,
+                                             min(hi, lo + k * step))
+        return lo, hi
+
+    out = []
+    for q in queries:
+        hit = np.flatnonzero(pin_keys == q)
+        if hit.size:
+            out.append(int(pin_pos[hit[0]]))
+            continue
+        if n == 0:
+            out.append(-1)
+            continue
+        lo, hi = 0, n_fences
+        if n_top:
+            tl, _ = step32(fences[::top_stride][:n_top], 0, n_top, q)
+            lo, hi = (0, 0) if tl == 0 else ((tl - 1) * top_stride + 1,
+                                             min(tl * top_stride, n_fences))
+        lo, _ = step32(fences, lo, hi, q)
+        tile = min(max(lo - 1, 0), n_fences - 1)
+        start = max(0, min(tile * 128, n - 128))
+        found = np.flatnonzero(keys[start:start + 128] == q)
+        out.append(int(start + found[0]) if found.size else -1)
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize("n_q,N,n_pin,want", [
+    (4096, 1052800, 24, (512, 32, 258, 24, 2352)),   # the Q1 wave at 2^20 paths
+    (1024, 1052800, 24, (128, 32, 258, 24, 2352)),   # Q2/Q3 waves
+    (256, 1052800, 24, (32, 32, 258, 24, 2352)),     # Q4C
+    (4096, 300_000, 24, (512, 32, 74, 24, 880)),
+    (65536, 300_000, 24, (8192, 32, 74, 24, 880)),   # many waves of blocks
+    (33, 4096, 8, (5, 32, 0, 8, 96)),                # 32 fences: no top level
+    (33, 4097, 8, (5, 32, 2, 8, 112)),               # 33 fences: a top level of 2
+    (1, 128, 0, (1, 32, 0, 0, 0)),
+    (8, 0, 0, (1, 32, 0, 0, 0)),                     # an empty table
+    (16, 1 << 27, 300, (2, 1024, 1024, 256, 11264)),  # 2^20 fences: stride 32^2
+])
+def test_path_lookup_geometry(n_q, N, n_pin, want):
+    from repro_torch.kernels.path_lookup import PIN_MAX, TOP_MAX, WARPS, lookup_geometry
+    blocks, top_stride, n_top, n_pin_staged, smem = got = lookup_geometry(n_q, N, n_pin)
+    assert got == want
+    assert (blocks - 1) * WARPS < n_q <= blocks * WARPS        # one query a warp
+    n_fences = -(-N // 128)
+    assert n_top <= TOP_MAX and (n_top == 0) == (n_fences <= 32)
+    assert n_top == 0 or (n_top - 1) * top_stride < n_fences <= n_top * top_stride
+    assert top_stride in (32, 32 ** 2, 32 ** 3)
+    assert n_pin_staged == min(n_pin, PIN_MAX) and smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("N", [0, 50, 128, 4095, 4096, 4097, 131_073, 300_000])
+@pytest.mark.parametrize("n_pin", [0, 8, 24, 300])
+def test_path_lookup_kernel_search_matches_plain(N, n_pin):
+    """The kernel's search, mirrored in numpy, against the plain version:
+    hits in every tile, pinned hits (the staged and the unstaged part past
+    PIN_MAX), misses below, between and above the keys, on the padded
+    table (INT64_MAX sentinels) and the unpadded one."""
+    from repro_torch.kernels.path_lookup import lookup_geometry
+    rs = np.random.RandomState(N + n_pin)
+    khi, klo = _key_table(rs, N) if N else (np.zeros(0, np.uint32),) * 2
+    n = len(khi)
+    real = key64(khi, klo)
+    pin_rows = rs.choice(n, size=min(n_pin, n), replace=False).astype(np.int32)
+    ph, pl, pp = pad_pinned(khi[pin_rows], klo[pin_rows], pin_rows)
+    pin_keys, pin_pos = key64(ph, pl), pp
+    qs = [real[rs.randint(0, n, size=200)] if n else np.zeros(0, np.int64),
+          real[::128], real[127::128], real[pin_rows],
+          np.array([np.iinfo(np.int64).min, -1, 0, 1, np.iinfo(np.int64).max - 1], np.int64)]
+    if n > 1:
+        qs.append(real[:-1] // 2 + real[1:] // 2 + 1)    # between neighbours: misses
+    queries = np.concatenate(qs)[:600]
+    for keys in (key64(*pad_keys(khi, klo)), real):
+        want = ref.path_lookup_pinned_ref(torch.from_numpy(keys), torch.from_numpy(queries),
+                                          torch.from_numpy(pin_keys),
+                                          torch.from_numpy(pin_pos)).numpy()
+        geometry = lookup_geometry(len(queries), len(keys), len(pin_keys))
+        got = _mirror_lookup(keys, queries, pin_keys, pin_pos, geometry)
+        assert np.array_equal(got, want)
