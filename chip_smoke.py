@@ -12,7 +12,10 @@ its main path on the card, printing one JSON line per phase:
   3. a synthetic wiki of 16 x 256 x 256 = 2^20 files (~1.05M paths) in a
      DeviceEngine on the card and a HostEngine over the same PathStore;
   4. the storage kernels (path_lookup, prefix_search) against their plain
-     versions on that engine's own tensors, timed;
+     versions on that engine's own tensors, timed (the card's own time,
+     the host's, one kernel node a call); prefix_search also at every row
+     length, Q = 1, 5, 64 and 300, on the table's rows in their own order
+     and shuffled;
   5. BatchPlanner waves of 4096 Q1, 1024 Q2, 1024 Q3, 64 Q4 and 256 Q4C
      ops, equal to the HostEngine's answers, then a write wave of 64
      admits whose refresh must patch, then the waves again;
@@ -30,7 +33,8 @@ its main path on the card, printing one JSON line per phase:
      at 2 layers and S=256;
  10. moe_router against its plain version at the dbrx prefill and decode,
      jamba, kimi-k2 and ragged shapes (tie-laden logits too), timed beside
-     the plain version and the softmax -> topk -> renorm composite; then
+     the plain version and the softmax -> topk -> renorm composite (the
+     card's own time, the host's, one kernel node a call); then
      dbrx-132b at full width (8 of its 40 layers, weights drawn on the
      card from the seed): make_prefill_step and make_eval_step at B=1,
      S=4096 and 16 make_serve_step decode steps at B=4, launches per
@@ -440,6 +444,55 @@ def attention_kernels(dev) -> dict:
     return {"flash_attention": entry}
 
 
+# lengths the extra prefix_search cases cycle through on the synthetic
+# wiki's rows (/dimDD/topic_DDTTT/entity_TTTKK: '/' at bytes 0, 6 and 18,
+# 32 bytes in all): empty, one byte, a dimension, a dimension and its '/',
+# a cut topic (the next byte a digit), a topic, a topic and its '/', a
+# whole path; L itself is added at each row length
+PREFIX_LENS = (0, 1, 6, 7, 17, 18, 19, 32)
+
+
+def prefix_search_cases(toks96) -> list:
+    """prefix_search against its plain version beyond the engine's own
+    call: at every L in ROW_LENGTHS (the engine's rows cut or padded to
+    L, every 5th row of the table, free and tombstone rows added), Q = 1,
+    5, 64 and 300 (two launches, output rows 300 bytes apart), lengths 0
+    and L and prefixes ending in '/' among them, rows in the table's own
+    order (the digest order, which clusters rows loosely by prefix) and
+    shuffled.  Returns one entry a case; fails on the first bitmap that
+    differs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.prefix_search import ROW_LENGTHS
+    g = torch.Generator(device="cpu").manual_seed(3)
+    dev = toks96.device
+    base = toks96[::5]
+    cases = []
+    for L in ROW_LENGTHS:
+        t = torch.zeros((base.shape[0] + 64, L), dtype=torch.uint8, device=dev)
+        t[:base.shape[0], :min(L, 96)] = base[:, :min(L, 96)]
+        t[-32:] = 255                                    # tombstones; the 32 before are free
+        for order in ("table", "shuffled"):
+            rows = t if order == "table" else t[torch.randperm(t.shape[0], generator=g)
+                                                 .to(dev)]
+            for Q in (1, 5, 64, 300):
+                pick = torch.randint(0, base.shape[0], (Q,), generator=g).to(dev)
+                lens = torch.tensor([(PREFIX_LENS + (L,))[i % (len(PREFIX_LENS) + 1)]
+                                     for i in range(Q)], dtype=torch.int32)
+                lens = lens.clamp(max=L).to(dev)
+                prefs = t[pick].clone()
+                if Q > 1:
+                    prefs[-1], lens[-1] = 255, 1                 # the engine's padding prefix
+                got = ops.prefix_search(rows, prefs, lens)
+                check(torch.equal(got, ref.prefix_search_ref(rows, prefs, lens)),
+                      f"prefix_search disagrees with its plain version at L={L}, Q={Q}, "
+                      f"{order} rows")
+                cases.append({"L": L, "Q": Q, "order": order, "rows": rows.shape[0],
+                              "matches": int(got.sum())})
+    check(all(c["matches"] > 0 for c in cases), "an extra prefix_search case matched nothing")
+    return cases
+
+
 def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
     """path_lookup and prefix_search on the DeviceEngine's own tensors
     (the sorted digest view with its pinned staging, the token matrix)
@@ -447,7 +500,7 @@ def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import tensorstore as TS
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import path_lookup as pl
     from repro_torch.kernels import prefix_search as ps
     st = eng.epoch_view()
@@ -495,25 +548,31 @@ def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
     want = ref.prefix_search_ref(toks, pt, lt)
     check(torch.equal(got, want), "prefix_search disagrees with its plain version")
     check(int(got.sum()) > 0, "prefix_search found no match at all")
+    extra = prefix_search_cases(toks)
     Nr, Qp = toks.shape[0], pt.shape[0]
     b, by = bound(Nr * L + Qp * L + Qp * 4 + Nr * Qp, Nr * Qp * L, INT8_OPS)
+    gm = graph_ms(ps.prefix_search, (toks, pt, lt), calls=20)
+    one_kernel_a_call("prefix_search", gm)
     prefix = {
         "name": "prefix_search", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/prefix_search.cu",
         "replaces": "src/repro/kernels/prefix_search.py:52",
         "shape": f"tokens ({Nr}, {L}) uint8, Q={Qp} prefixes",
+        "geometry": dict(zip(("blocks", "rows_per_tile", "smem_bytes"),
+                             ps.search_geometry(Nr, L, Qp, build.sm_count(toks.get_device())))),
         "max_abs_err": max_err(got, want),
         "ms": cuda_ms(lambda: ps.prefix_search(toks, pt, lt)),
-        "device_ms": graph_ms(ps.prefix_search, (toks, pt, lt), calls=20)["device_ms"],
+        "device_ms": gm["device_ms"],
+        "host_ms": host_ms(lambda: ps.prefix_search(toks, pt, lt), calls=200, warmup=20),
         "plain_ms": cuda_ms(lambda: ref.prefix_search_ref(toks, pt, lt), iters=5),
         "library_ms": None, "library_device_ms": None,
-        "bound_ms": b, "bound_by": by}
+        "bound_ms": b, "bound_by": by, "extra_shapes_equal": extra}
     torch.cuda.empty_cache()
     emit({"phase": "storage_kernels",
           "path_lookup": {k: v for k, v in lookup.items()
                           if k not in ("name", "route", "source", "replaces")},
-          "prefix_search_ms": prefix["ms"],
-          "prefix_search_device_ms": prefix["device_ms"],
+          "prefix_search": {k: v for k, v in prefix.items()
+                            if k not in ("name", "route", "source", "replaces")},
           "path_lookup_hits": int((got_np >= 0).sum())})
     return {"path_lookup": lookup, "prefix_search": prefix}
 
@@ -1027,12 +1086,18 @@ def router_kernels(dev) -> dict:
         # bytes: the logits read once, weights and indices written once;
         # operations: exp, subtract and divide per logit, k compare rounds
         b, by = bound(T * E * 4 + T * k * 8, T * E * (3.0 + k), F32_FLOPS)
+        gm = graph_ms(mr.moe_router, (x, k))
+        one_kernel_a_call(f"moe_router ({tag})", gm)
         rows.append({"shape": f"({tag}) T={T} E={E} k={k} float32 renormalized",
+                     "geometry": dict(zip(("tokens_a_warp", "v", "blocks"),
+                                          mr.router_geometry(T, E))),
                      "max_abs_err": err, "ms": cuda_ms(lambda: mr.moe_router(x, k)),
-                     "device_ms": graph_ms(mr.moe_router, (x, k))["device_ms"],
+                     "device_ms": gm["device_ms"],
+                     "host_ms": host_ms(lambda: mr.moe_router(x, k)),
                      "plain_ms": cuda_ms(lambda: ref.moe_router_ref(x, k)),
                      "library_ms": cuda_ms(lambda: router_library(x, k)),
                      "library_device_ms": graph_ms(router_library, (x, k))["device_ms"],
+                     "library_host_ms": host_ms(lambda: router_library(x, k)),
                      "bound_ms": b, "bound_by": by})
     emit({"phase": "moe_router", "shapes": rows, "rows_differing_at_near_ties": near_rows,
           "library": "softmax -> topk -> renorm (three calls)"})
@@ -1381,7 +1446,7 @@ def main() -> int:
                                           "max_abs_err", "ms", "device_ms", "host_ms",
                                           "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "library_device_ms", "library_host_ms", "shape",
-                                          "shapes")
+                                          "geometry", "shapes")
                         if k in e})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -12,74 +12,98 @@
 // flags), so the kernel rounds as the plain version does.
 //
 // Bound on this card: bytes (T*E*4 read, T*k*8 written; at every shape of
-// the model paths under 2 microseconds), so it is bound by launch
-// latency.  Design: one warp per token.  The TPU took k rounds of a
-// full-width VPU max plus one-hot masking on a (block_t, E) VMEM tile;
-// here lane l holds the probabilities of experts l, l + 32, l + 64, ...
-// in registers (V = ceil(E / 32) of them, a template parameter, E up to
-// 1024), the row max and the row sum go by __shfl_xor_sync, and each
-// round is a warp arg-max on (p, id) pairs: a lane's own best (the
-// lowest id on a tie, as its ids rise with the slot), then a butterfly
-// that keeps the larger p and, on equal p, the lower id, so every lane
-// ends with the same winner and the lane that holds it masks its slot.
-// Lane r keeps round r's weight; the renormalizing sum is one more warp
-// sum, and lanes 0..k-1 write the k weights and indices.  Any T (the
-// Pallas version needed T % block_t == 0); padding slots past E hold -1,
-// below every probability, and selected slots -1e30, the TPU's mask.
+// the model paths under 2 microseconds), so a call costs its launch.  The
+// TPU took k rounds of a full-width VPU max plus one-hot masking on a
+// (block_t, E) VMEM tile.  Design: a token per SUB = 32 / TPW lanes —
+// two tokens a warp (TPW = 2, a half-warp each) at E <= 16, which left
+// half of every warp idle at one token a warp; one token a warp above.
+// Sub-lane s holds the probabilities of experts s, s + SUB, s + 2 SUB, ...
+// in registers (V of them, a template parameter, E up to 1024); the row
+// max and the row sum go by __shfl_xor_sync over offsets SUB/2 .. 1,
+// which never leave the token's lanes; each round is an arg-max on
+// (p, id) pairs: a lane's own best (the lowest id on a tie, as its ids
+// rise with the slot), then a butterfly that keeps the larger p and, on
+// equal p, the lower id, so every lane of the token ends with the same
+// winner and the lane that holds it masks its slot.  Sub-lane r keeps
+// round r's weight; the renormalizing sum is one more such sum, and
+// sub-lanes 0..k-1 write the k weights and indices.  A token past T
+// (the second half of the last warp) still runs every shuffle, on zeros,
+// and writes nothing.  Any T (the Pallas version needed T % block_t ==
+// 0); padding slots past E hold -1, below every probability, and
+// selected slots -1e30, the TPU's mask.  The launch geometry (TPW, V,
+// blocks) comes from kernels/moe_router.py router_geometry.
 #include <cuda_runtime.h>
 #include <math.h>
 
+// The C entry's one argument: outside the anonymous namespace, so the
+// entry keeps its external linkage.
+struct RouterArgs {  // packed by kernels/moe_router.py (struct "<11q")
+  const float* logits;
+  float* w;
+  int* idx;
+  long long T;
+  long long E;
+  long long k;
+  long long renormalize;
+  long long tpw;
+  long long v;
+  long long blocks;
+  cudaStream_t stream;
+};
+
 namespace {
 
-constexpr int WARPS = 8;  // tokens per block
+constexpr int WARPS = 8;  // warps a block
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float MASKED = -1e30f;  // a selected expert (the TPU kernel's NEG_INF)
 constexpr float PADDING = -1.f;   // a slot past E: below any probability
 
-template <int V>
-__global__ void moe_router_kernel(const float* __restrict__ logits, float* __restrict__ w_out,
-                                  int* __restrict__ idx_out, int T, int E, int k,
-                                  int renormalize) {
+template <int V, int TPW>
+__global__ void __launch_bounds__(WARPS * 32)
+moe_router_kernel(const float* __restrict__ logits, float* __restrict__ w_out,
+                  int* __restrict__ idx_out, int T, int E, int k, int renormalize) {
+  constexpr int SUB = 32 / TPW;  // lanes a token
   const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (t >= T) return;  // the whole warp leaves together
-  const float* row = logits + (size_t)t * E;
+  const int sl = lane & (SUB - 1);
+  const int t = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * TPW + lane / SUB;
+  const bool live = t < T;  // a token past T takes part in every shuffle
+  const float* row = logits + (size_t)(live ? t : 0) * E;
 
   float p[V];
   float m = -INFINITY;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const int e = lane + 32 * v;
-    p[v] = e < E ? row[e] : -INFINITY;
+    const int e = sl + SUB * v;
+    p[v] = e < E ? (live ? row[e] : 0.f) : -INFINITY;
     m = fmaxf(m, p[v]);
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+  for (int o = SUB / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
   float s = 0.f;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    p[v] = lane + 32 * v < E ? expf(p[v] - m) : 0.f;
+    p[v] = sl + SUB * v < E ? expf(p[v] - m) : 0.f;
     s += p[v];
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  for (int o = SUB / 2; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
 #pragma unroll
-  for (int v = 0; v < V; ++v) p[v] = lane + 32 * v < E ? p[v] / s : PADDING;
+  for (int v = 0; v < V; ++v) p[v] = sl + SUB * v < E ? p[v] / s : PADDING;
 
-  float my_w = 0.f;  // lane r: the weight of round r
+  float my_w = 0.f;  // sub-lane r: the weight of round r
   int my_id = 0;
   for (int r = 0; r < k; ++r) {
     float best = p[0];
-    int id = lane;
+    int id = sl;
 #pragma unroll
     for (int v = 1; v < V; ++v) {
       if (p[v] > best) {  // strict: the lower id (earlier slot) keeps a tie
         best = p[v];
-        id = lane + 32 * v;
+        id = sl + SUB * v;
       }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
+    for (int o = SUB / 2; o > 0; o >>= 1) {
       const float ob = __shfl_xor_sync(FULL, best, o);
       const int oi = __shfl_xor_sync(FULL, id, o);
       if (ob > best || (ob == best && oi < id)) {
@@ -87,52 +111,62 @@ __global__ void moe_router_kernel(const float* __restrict__ logits, float* __res
         id = oi;
       }
     }
-    if ((id & 31) == lane) {
+    if ((id & (SUB - 1)) == sl) {
 #pragma unroll
       for (int v = 0; v < V; ++v)
-        if (lane + 32 * v == id) p[v] = MASKED;
+        if (sl + SUB * v == id) p[v] = MASKED;
     }
-    if (lane == r) {
+    if (sl == r) {
       my_w = best;
       my_id = id;
     }
   }
   if (renormalize) {
-    float total = lane < k ? my_w : 0.f;
+    float total = sl < k ? my_w : 0.f;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
+    for (int o = SUB / 2; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
     my_w = my_w / total;
   }
-  if (lane < k) {
-    w_out[(size_t)t * k + lane] = my_w;
-    idx_out[(size_t)t * k + lane] = my_id;
+  if (live && sl < k) {
+    w_out[(size_t)t * k + sl] = my_w;
+    idx_out[(size_t)t * k + sl] = my_id;
   }
 }
 
-template <int V>
-void launch(const float* logits, float* w, int* idx, int T, int E, int k, int renormalize,
-            cudaStream_t stream) {
-  const int blocks = (T + WARPS - 1) / WARPS;
-  moe_router_kernel<V><<<blocks, WARPS * 32, 0, stream>>>(logits, w, idx, T, E, k, renormalize);
+template <int V, int TPW>
+void launch(const RouterArgs* a) {
+  moe_router_kernel<V, TPW><<<(int)a->blocks, WARPS * 32, 0, a->stream>>>(
+      a->logits, a->w, a->idx, (int)a->T, (int)a->E, (int)a->k, (int)a->renormalize);
 }
 
 }  // namespace
 
 // logits (T, E) float32, contiguous; w (T, k) float32 and idx (T, k) int32
-// out.  1 <= k <= min(E, 32), E <= 1024.
-extern "C" int moe_router_launch(const float* logits, float* w, int* idx, int T, int E, int k,
-                                 int renormalize, cudaStream_t stream) {
-  if (k < 1 || k > 32 || k > E || E > 1024) return (int)cudaErrorInvalidValue;
-  if (T > 0) {
-    const int v = (E + 31) / 32;
-    if (v <= 1) launch<1>(logits, w, idx, T, E, k, renormalize, stream);
-    else if (v <= 2) launch<2>(logits, w, idx, T, E, k, renormalize, stream);
-    else if (v <= 4) launch<4>(logits, w, idx, T, E, k, renormalize, stream);
-    else if (v <= 8) launch<8>(logits, w, idx, T, E, k, renormalize, stream);
-    else if (v <= 12) launch<12>(logits, w, idx, T, E, k, renormalize, stream);
-    else if (v <= 16) launch<16>(logits, w, idx, T, E, k, renormalize, stream);
-    else if (v <= 24) launch<24>(logits, w, idx, T, E, k, renormalize, stream);
-    else launch<32>(logits, w, idx, T, E, k, renormalize, stream);
+// out.  1 <= k <= min(E, 32 / tpw), E <= 1024, (tpw, v) from
+// router_geometry: (2, 1) for E <= 16, else (1, ceil(E / 32) rounded up to
+// an instance).
+extern "C" int moe_router_launch(const RouterArgs* a) {
+  if (a->tpw < 1 || a->tpw > 2 || a->k < 1 || a->k > 32 / a->tpw || a->k > a->E ||
+      a->E > 32 / a->tpw * a->v)
+    return (int)cudaErrorInvalidValue;
+  if (a->T > 0) {
+    if (a->tpw == 2 && a->v == 1) {
+      launch<1, 2>(a);
+    } else if (a->tpw == 1) {
+      switch (a->v) {
+        case 1: launch<1, 1>(a); break;
+        case 2: launch<2, 1>(a); break;
+        case 4: launch<4, 1>(a); break;
+        case 8: launch<8, 1>(a); break;
+        case 12: launch<12, 1>(a); break;
+        case 16: launch<16, 1>(a); break;
+        case 24: launch<24, 1>(a); break;
+        case 32: launch<32, 1>(a); break;
+        default: return (int)cudaErrorInvalidValue;
+      }
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

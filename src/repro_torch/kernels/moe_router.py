@@ -1,21 +1,29 @@
 """Fused MoE router (softmax + top-k gate) on Hopper — CUDA kernel.
 
 Replaces ``repro/kernels/moe_router.py::moe_router`` (Pallas body
-``_router_kernel``).  The kernel is ``csrc/moe_router.cu``: one warp per
-token, the token's E probabilities spread over the warp's registers
-(ceil(E / 32) a lane), the softmax's max and sum and each of the k
-selection rounds done by warp shuffles.  Ties go to the lowest expert
-id, as the TPU kernel's first-match rule and ``lax.top_k`` order them:
-each round is an exact arg-max on (probability, id) pairs.
+``_router_kernel``).  The kernel is ``csrc/moe_router.cu``: a token per
+32 / TPW lanes — two tokens a warp (a half-warp each) at E <= 16, the
+dbrx and jamba routers, one token a warp above — the token's E
+probabilities spread over its lanes' registers (V a lane), the softmax's
+max and sum and each of the k selection rounds done by shuffles that stay
+within the token's lanes.  Ties go to the lowest expert id, as the TPU
+kernel's first-match rule and ``lax.top_k`` order them: each round is an
+exact arg-max on (probability, id) pairs.
 
 What bounds it on the card: bytes (T*E*4 read, T*k*8 written), which at
-every model shape is under 2 microseconds, so a launch costs its
-latency.  It takes any T (the Pallas version asserted T % block_t == 0)
-and f32 logits; every model path casts the router logits to f32 first.
+every model shape is under 2 microseconds, so a call costs its launch and
+the host work around it.  So the host path is lean: the C entry is bound
+once, its arguments go packed in one buffer, the checks are one
+comparison, the weights and indices share one allocation, and the
+geometry comes from ``router_geometry`` (cached, pure Python).  It takes
+any T (the Pallas version asserted T % block_t == 0) and f32 logits;
+every model path casts the router logits to f32 first.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 
 import torch
 
@@ -23,37 +31,62 @@ from . import build
 
 MAX_EXPERTS = 1024
 MAX_K = 32
+WARPS = 8                                 # warps a block (csrc/moe_router.cu)
+V_INSTANCES = (1, 2, 4, 8, 12, 16, 24, 32)  # probabilities a lane, compiled
+#: the C entry's arguments (csrc/moe_router.cu RouterArgs), packed in one
+#: buffer: ctypes would convert each separate argument on every call
+_PACK = struct.Struct("<11q").pack
+_FN = None
+
+
+@functools.lru_cache(maxsize=256)
+def router_geometry(T: int, E: int) -> tuple[int, int, int]:
+    """(tokens a warp, probabilities a lane V, blocks) of one launch over
+    ``T`` tokens of ``E`` experts.
+
+    Two tokens a warp (16 lanes each) when E <= 16, else one; V is the
+    least compiled instance that holds E over the token's lanes; blocks of
+    WARPS warps cover T.  k (<= E <= 16 at two tokens a warp) changes
+    nothing here."""
+    tpw = 2 if E <= 16 else 1
+    need = -(-E // (32 // tpw))
+    v = next(v for v in V_INSTANCES if v >= need)
+    return tpw, v, -(-T // (WARPS * tpw))
 
 
 def _launcher():
-    fn = build.library("moe_router").moe_router_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p]
+    global _FN
+    if _FN is None:
+        fn = build.library("moe_router").moe_router_launch
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
-    return fn
+        _FN = fn
+    return _FN
 
 
 def moe_router(logits: torch.Tensor, k: int, *, renormalize: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """logits: (T, E) float32.  Returns (weights (T, k) float32, indices
-    (T, k) int32).  CUDA tensors only; E <= MAX_EXPERTS, 1 <= k <=
-    min(E, MAX_K)."""
+    (T, k) int32), two planes of one buffer.  CUDA tensors only;
+    E <= MAX_EXPERTS, 1 <= k <= min(E, MAX_K)."""
     if not logits.is_cuda:
         raise ValueError("moe_router kernel: tensors must be on a CUDA device")
-    if logits.dim() != 2 or logits.dtype != torch.float32:
-        raise ValueError(f"moe_router: logits must be 2-D float32, got "
-                         f"{tuple(logits.shape)} {logits.dtype}")
+    if (logits.dtype, logits.dim(), logits.is_contiguous()) != (torch.float32, 2, True):
+        if logits.dtype != torch.float32 or logits.dim() != 2:
+            raise ValueError(f"moe_router: logits must be 2-D float32, got "
+                             f"{tuple(logits.shape)} {logits.dtype}")
+        logits = logits.contiguous()
     T, E = logits.shape
     if not (1 <= k <= min(E, MAX_K)) or E > MAX_EXPERTS:
         raise ValueError(f"moe_router: unsupported E={E}, k={k}")
-    logits = logits.contiguous()
-    w = torch.empty((T, k), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((T, k), dtype=torch.int32, device=logits.device)
+    buf = torch.empty((2, T, k), dtype=torch.int32, device=logits.device)
+    w, idx = buf.unbind(0)
+    w = w.view(torch.float32)
     if T == 0:
         return w, idx
-    rc = _launcher()(logits.data_ptr(), w.data_ptr(), idx.data_ptr(), T, E, k,
-                     int(renormalize), build.stream_of(logits))
+    rc = _launcher()(_PACK(logits.data_ptr(), w.data_ptr(), idx.data_ptr(), T, E, k,
+                           renormalize, *router_geometry(T, E),
+                           build.stream_of(logits)))
     build.check("moe_router", rc)
     build.count_launch("moe_router")
     return w, idx

@@ -216,23 +216,25 @@ def test_cuda_path_lookup_exact_at_every_geometry(cuda, N):
                 assert torch.equal(got.cpu(), ops.path_lookup(keys, queries)), (P, Q, kind)
 
 
-# (T, E, k): dbrx prefill and decode, jamba, kimi-k2, a ragged T, a tiny E
+# (T, E, k): dbrx prefill and decode, jamba, kimi-k2, a ragged T, a tiny E;
+# odd T at E = 16 (two tokens a warp: the last warp's second token past T)
 ROUTER_SHAPES = [(4096, 16, 4), (4, 16, 4), (4096, 16, 2), (4096, 384, 8), (4099, 16, 4),
-                 (33, 4, 2), (5, 1000, 32)]
+                 (33, 4, 2), (5, 1000, 32), (1, 16, 1), (1, 16, 16), (3, 16, 1),
+                 (3, 16, 4), (3, 16, 16), (4099, 16, 1), (4099, 16, 16), (7, 17, 4)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("renormalize", [True, False])
 def test_cuda_moe_router_matches_plain(cuda, renormalize):
     """Weights within 1e-6; indices equal in every row of the tie-laden
-    input (logits on a grid of 0.5), and on normal input wherever no two
-    of the row's k + 1 largest probabilities lie within 1e-6 of each
-    other (the kernel's expf and the plain version's exp may order such a
-    pair apart)."""
+    inputs (logits on a grid of 0.5, and all equal), and on normal input
+    wherever no two of the row's k + 1 largest probabilities lie within
+    1e-6 of each other (the kernel's expf and the plain version's exp may
+    order such a pair apart)."""
     g = torch.Generator().manual_seed(0)
     for T, E, k in ROUTER_SHAPES:
         x = torch.randn(T, E, generator=g) * 2
-        for logits in (x, torch.round(x * 2) / 2):
+        for logits in (x, torch.round(x * 2) / 2, torch.zeros_like(x)):
             n0 = ops.LAUNCHES["moe_router"]
             w, idx = ops.moe_router(logits.to(cuda), k, renormalize=renormalize)
             assert ops.LAUNCHES["moe_router"] == n0 + 1
@@ -242,10 +244,35 @@ def test_cuda_moe_router_matches_plain(cuda, renormalize):
             if logits is not x:
                 assert not bool(differ.any())
             else:
-                p = torch.softmax(logits.double(), -1).sort(-1, descending=True).values
-                near = (p[:, :k] - p[:, 1:k + 1]).amin(-1) < 1e-6
+                top = torch.softmax(logits.double(), -1).sort(-1, descending=True).values
+                top = top[:, :k + 1]                    # k + 1 largest, or all E at k = E
+                near = (top[:, :-1] - top[:, 1:]).amin(-1) < 1e-6
                 assert not bool((differ.cpu() & ~near).any())
             torch.testing.assert_close(w[~differ], pw[~differ], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_one_kernel_node_per_call(cuda):
+    """Captured in a CUDA graph, three calls make three kernel nodes and
+    no other node, at two tokens a warp (dbrx's decode and prefill) and at
+    one (kimi-k2's E); the replay matches the plain version."""
+    from repro_torch.kernels import build
+    g0 = torch.Generator().manual_seed(1)
+    for T, E, k in ((4, 16, 4), (4099, 16, 4), (33, 384, 8)):
+        x = (torch.round(torch.randn(T, E, generator=g0) * 4) / 2).to(cuda)
+        ops.moe_router(x, k)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [ops.moe_router(x, k) for _ in range(3)]
+        assert build.graph_nodes(g) == (3, 3)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        pw, pidx = ref.moe_router_ref(x, k)
+        for w, idx in outs:
+            assert torch.equal(idx, pidx)
+            torch.testing.assert_close(w, pw, atol=1e-6, rtol=0)
 
 
 @pytest.mark.cuda
@@ -278,8 +305,69 @@ def test_cuda_path_lookup_matches_plain(cuda):
         assert torch.equal(got.cpu(), want)
 
 
+def search_case(L, Q, order, N=300):
+    """N rows: a sorted tree of /dNN/tNN/eNNN paths (packed, cut at L),
+    rows that fill all L bytes and L - 1 bytes, free (zero) and tombstone
+    (255) rows; Q prefixes cycling through the kernel's edge cases: len 0,
+    1, 3, 4, 5, L - 1 and L taken from a row, a directory ending in '/',
+    a prefix whose next byte is neither 0 nor '/', a padding prefix
+    (0xFF, len 1)."""
+    rs = np.random.RandomState(L * 1000 + Q)
+    alphabet = np.frombuffer(b"abcd/", np.uint8)
+    paths = [f"/d{d:02d}/t{t:02d}/e{e:03d}" for d in range(3) for t in range(4)
+             for e in range(rs.randint(3, 12))] + ["/", "/d01", "/d01/t02", "/d1"]
+    toks = np.zeros((len(paths), L), np.uint8)
+    for i, s in enumerate(paths):
+        b = s.encode()[:L]
+        toks[i, :len(b)] = np.frombuffer(b, np.uint8)
+    full = alphabet[rs.randint(0, 5, size=(8, L))].astype(np.uint8)
+    full[:, 0] = ord("/")
+    full[4:, L - 1] = 0                            # four rows of L - 1 bytes
+    toks = np.concatenate([toks, full, np.zeros((6, L), np.uint8),
+                           np.full((6, L), 255, np.uint8)])
+    toks = toks[rs.randint(0, len(toks), size=N)]
+    if order == "sorted":
+        toks = toks[np.lexsort(toks.T[::-1])]
+    prefs = np.zeros((Q, L), np.uint8)
+    lens = np.zeros((Q,), np.int32)
+    kinds = ("len0", "len1", "len3", "len4", "len5", "lenL-1", "lenL", "dir/", "other",
+             "padding", "row")
+    for i in range(Q):
+        kind = kinds[(i + Q) % len(kinds)]
+        src = toks[rs.randint(0, N)] if kind != "lenL-1" and kind != "lenL" \
+            else full[rs.randint(0, 8)]
+        if kind == "padding":
+            prefs[i], lens[i] = 255, 1
+            continue
+        n = {"len0": 0, "len1": 1, "len3": 3, "len4": 4, "len5": 5, "lenL-1": L - 1,
+             "lenL": L}.get(kind)
+        if kind == "dir/":
+            prefs[i, :9] = np.frombuffer(b"/d01/t02/", np.uint8)
+            n = 9
+        elif kind == "other":
+            prefs[i, :3] = np.frombuffer(b"/d1", np.uint8)   # "/d10/..." must not match
+            n = 3
+        elif kind == "row":
+            n = rs.randint(1, L + 1)
+        if kind not in ("dir/", "other"):
+            prefs[i, :n] = src[:n]
+        prefs[i, n:] = rs.randint(0, 256, size=L - n)     # bytes past len never count
+        lens[i] = n
+    return toks, prefs, lens
+
+
+
 @pytest.mark.cuda
 def test_cuda_prefix_search_matches_plain(cuda):
+    """Exactly the plain version's bitmap: on random rows (Q = 300 is two
+    launches, the output's rows 300 bytes apart); on ``search_case`` at
+    every row length, Q in {1, 3, 4, 5, 64, 257}, sorted and shuffled
+    (len 0, 1, 3, 4, 5, L - 1 and L, prefixes ending in '/', free and
+    tombstone rows, N a multiple of neither 32 nor the tile); with int64
+    lengths; and on a sorted table of more than 3 tiles a block, so each
+    block walks several tiles."""
+    from repro_torch.kernels.prefix_search import (BLOCKS_PER_SM, ROW_LENGTHS, TILE,
+                                                   search_geometry)
     rs = np.random.RandomState(5)
     alphabet = np.frombuffer(b"abcd/", np.uint8)
     for N, L, Q in [(1000, 96, 64), (333, 48, 5), (300, 32, 300)]:
@@ -289,6 +377,45 @@ def test_cuda_prefix_search_matches_plain(cuda):
         t, p, ln = (torch.from_numpy(a) for a in (toks, prefs, plens))
         got = ops.prefix_search(t.to(cuda), p.to(cuda), ln.to(cuda))
         assert torch.equal(got.cpu(), ops.prefix_search(t, p, ln))
+    for L in ROW_LENGTHS:
+        for Q in (1, 3, 4, 5, 64, 257):
+            for order in ("sorted", "shuffled"):
+                t, p, ln = (torch.from_numpy(a) for a in search_case(L, Q, order))
+                n0 = ops.LAUNCHES["prefix_search"]
+                got = ops.prefix_search(t.to(cuda), p.to(cuda), ln.to(cuda))
+                assert ops.LAUNCHES["prefix_search"] == n0 + (1 if Q <= 256 else 2)
+                assert torch.equal(got.cpu(), ops.prefix_search(t, p, ln)), (L, Q, order)
+    t, p, ln = (torch.from_numpy(a).to(cuda) for a in search_case(64, 5, "shuffled"))
+    assert torch.equal(ops.prefix_search(t, p, ln.long()), ref.prefix_search_ref(t, p, ln))
+    toks, prefs, lens = search_case(96, 64, "sorted")
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    N = 3 * n_sm * BLOCKS_PER_SM * TILE + 77
+    assert -(-N // TILE) > 3 * search_geometry(N, 96, 64, n_sm)[0]   # 3+ tiles a block
+    t = torch.from_numpy(np.repeat(toks, -(-N // len(toks)), axis=0)[:N]).to(cuda)
+    p, ln = torch.from_numpy(prefs).to(cuda), torch.from_numpy(lens).to(cuda)
+    got = ops.prefix_search(t, p, ln)
+    assert got.any() and torch.equal(got, ref.prefix_search_ref(t, p, ln))
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_search_one_kernel_node_per_call(cuda):
+    """Captured in a CUDA graph, three calls at Q <= Q_CHUNK make three
+    kernel nodes and no other node; the replay matches the plain version."""
+    from repro_torch.kernels import build
+    for L, Q in ((96, 64), (32, 5), (128, 256)):
+        t, p, ln = (torch.from_numpy(a).to(cuda) for a in search_case(L, Q, "sorted"))
+        ops.prefix_search(t, p, ln)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [ops.prefix_search(t, p, ln) for _ in range(3)]
+        assert build.graph_nodes(g) == (3, 3)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        want = ref.prefix_search_ref(t, p, ln)
+        for got in outs:
+            assert torch.equal(got, want), (L, Q)
 
 
 @pytest.mark.cuda

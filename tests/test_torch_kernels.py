@@ -22,6 +22,7 @@ from repro.kernels.prefix_search import prefix_search as j_prefix  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as j_rmsnorm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.path_lookup import key64, pad_keys, pad_pinned  # noqa: E402
+from test_torch_cuda import search_case  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 
@@ -194,6 +195,260 @@ def test_prefix_search_plain_matches_pallas(N, L, Q, bn):
     assert np.array_equal(ref.prefix_search_one_ref(
         torch.from_numpy(toks), torch.from_numpy(prefs[1]),
         torch.tensor(plens[1])).numpy(), np.asarray(one))
+
+
+# the new kernel body of csrc/prefix_search.cu, mirrored in numpy
+_SLASH = ord("/")
+
+
+def _search_descriptors(prefs, lens):
+    """Per prefix, as the kernel stages it: two heads (words 0 and 1, and
+    words 2 and 3, under their masks, and the masks: p_a & m_a, m_a,
+    p_b & m_b, m_b; masks 0 past the word count) and the descriptor (word
+    count, last-word mask, index of the byte after the prefix, whether
+    the boundary rule applies)."""
+    L = prefs.shape[1]
+    pwords = np.ascontiguousarray(prefs).view("<u4")
+    out = []
+    for q, raw in enumerate(lens):
+        n = max(int(raw), 0)
+        nw = min((n + 3) >> 2, L // 4)
+        rem = n - 4 * (nw - 1)
+        last_mask = 0xFFFFFFFF if rem >= 4 else (1 << (8 * rem)) - 1
+        m = [0 if k >= nw else last_mask if k == nw - 1 else 0xFFFFFFFF for k in range(4)]
+        pm = [np.uint32(int(pwords[q, k]) & m[k]) for k in range(4)]
+        heads = ((pm[0], np.uint32(m[0]), pm[1], np.uint32(m[1])),
+                 (pm[2], np.uint32(m[2]), pm[3], np.uint32(m[3])))
+        last = prefs[q, min(max(n - 1, 0), L - 1)]
+        out.append((heads, (nw, last_mask, min(n, L - 1), n < L and last != _SLASH)))
+    return out
+
+
+def _head_match(w, a, head):
+    """Lanes whose words a and a + 1 match a head (p_a & m_a, m_a, ...)."""
+    pa, ma, pb, mb = head
+    return (((w[:, a] & ma) ^ pa) | ((w[:, a + 1] & mb) ^ pb)) == 0
+
+
+def _mirror_prefix_search(toks, prefs, lens):
+    """The kernel's compare, one warp (32 neighbouring rows; lanes past N
+    hold zeros and do not match) at a time, four prefixes at a time:
+    words 0 and 1 of the four under their heads; then, for each prefix
+    some lane still matches (the warp's OR), words 2 and 3 under the
+    second head, past word 3 word by word up to the word count while a
+    lane still matches, the warp leaving the prefix once none does, and
+    the byte after it where the boundary rule applies.  Returns the
+    bitmap and the words compared past word 3 over all (warp, prefix)
+    pairs."""
+    N, L = toks.shape
+    words = np.ascontiguousarray(toks).view("<u4")
+    pwords = np.ascontiguousarray(prefs).view("<u4")
+    desc = _search_descriptors(prefs, lens)
+    Q = len(desc)
+    out = np.zeros((N, Q), bool)
+    compared = 0
+    for r0 in range(0, N, 32):
+        w = np.zeros((32, L // 4), np.uint32)
+        row = np.zeros((32, L), np.uint8)
+        valid = np.arange(r0, r0 + 32) < N
+        w[valid] = words[r0:r0 + 32]
+        row[valid] = toks[r0:r0 + 32]
+        for q4 in range(0, Q, 4):
+            group = range(q4, min(q4 + 4, Q))
+            live = {q: valid & _head_match(w, 0, desc[q][0][0]) for q in group}
+            for q in group:
+                if not live[q].any():                  # not in the warp's OR
+                    continue
+                nw, last_mask, nxt, boundary = desc[q][1]
+                alive = live[q] & _head_match(w, 2, desc[q][0][1])
+                if nw > 4 and alive.any():
+                    for k in range(4, nw):
+                        m = last_mask if k == nw - 1 else 0xFFFFFFFF
+                        alive &= ((w[:, k] ^ pwords[q, k]) & np.uint32(m)) == 0
+                        compared += 1
+                        if not alive.any():
+                            break
+                if boundary:
+                    alive &= (row[:, nxt] == 0) | (row[:, nxt] == _SLASH)
+                live[q] = alive
+            for q in group:
+                out[r0:r0 + 32, q] = live[q][valid]
+    return out, compared
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("Q", [1, 3, 4, 5, 64, 257])
+@pytest.mark.parametrize("L", [32, 48, 64, 96, 128])
+def test_prefix_search_kernel_body_matches_plain_and_pallas(L, Q, order):
+    """csrc/prefix_search.cu's body (descriptors, the compare up to each
+    prefix's word count, the warp's early exit), mirrored in numpy, equals
+    the plain version and the Pallas kernel in interpret mode, at every
+    row length and on sorted and shuffled rows; N = 300 is a multiple of
+    neither 32 nor the 256-row tile."""
+    from repro_torch.kernels.prefix_search import ROW_LENGTHS
+    assert L in ROW_LENGTHS
+    toks, prefs, lens = search_case(L, Q, order)
+    want = ref.prefix_search_ref(torch.from_numpy(toks), torch.from_numpy(prefs),
+                                 torch.from_numpy(lens)).numpy()
+    got, compared = _mirror_prefix_search(toks, prefs, lens)
+    assert np.array_equal(got, want)
+    pallas = np.asarray(j_prefix(jnp.asarray(toks), jnp.asarray(prefs), jnp.asarray(lens),
+                                 block_n=128, interpret=True))
+    assert np.array_equal(pallas, want)
+    warps = -(-toks.shape[0] // 32)
+    assert compared < warps * Q * (L // 4 - 4)      # never more than every word
+    if Q >= 64:
+        assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("case", ["zeros", "tombstones", "next_zero", "next_slash",
+                                  "next_other", "ends_in_slash", "len_L_no_boundary"])
+def test_prefix_search_kernel_body_edge_rows(case):
+    """One row kind against one prefix at a time, where the boundary byte
+    decides: the mirror equals the plain version, and the expected bit."""
+    L = 32
+    rows = {"zeros": "", "tombstones": None, "next_zero": "/ab", "next_slash": "/ab/c",
+            "next_other": "/abc", "ends_in_slash": "/ab/c", "len_L_no_boundary": "/" + "a" * 31}
+    prefix, n, want = {"zeros": ("/", 1, False), "tombstones": ("/", 1, False),
+                       "next_zero": ("/ab", 3, True), "next_slash": ("/ab", 3, True),
+                       "next_other": ("/ab", 3, False), "ends_in_slash": ("/ab/", 4, True),
+                       "len_L_no_boundary": ("/" + "a" * 31, 32, True)}[case]
+    toks = (np.full((1, L), 255, np.uint8) if rows[case] is None
+            else _pack([rows[case]], L))
+    toks = np.repeat(toks, 33, axis=0)              # a full warp and one lane more
+    prefs, lens = _pack([prefix], L), np.array([n], np.int32)
+    got, _ = _mirror_prefix_search(toks, prefs, lens)
+    plain = ref.prefix_search_ref(torch.from_numpy(toks), torch.from_numpy(prefs),
+                                  torch.from_numpy(lens)).numpy()
+    assert np.array_equal(got, plain) and (plain == want).all()
+
+
+def test_prefix_search_kernel_body_leaves_early_on_sorted_rows():
+    """On the smoke's kind of table (sorted /dimDD/topic_DDTTT/... rows)
+    and its kind of prefix (a topic, 18 bytes = 5 words), the warps go
+    past word 3 only where their rows share the prefix's dimension and
+    the first digit of its topic: on average at most one more word a
+    (warp, prefix), where a full walk would compare all 24 words of a row
+    at L = 96."""
+    L = 96
+    paths = sorted(f"/dim{d:02d}/topic_{d:02d}{t:03d}/entity_{t:03d}{k:03d}"
+                   for d in range(4) for t in range(16) for k in range(8))
+    toks = _pack(paths, L)
+    topics = [f"/dim{d:02d}/topic_{d:02d}{t:03d}" for d, t in ((0, 3), (1, 7), (3, 15), (2, 0))]
+    prefs = _pack(topics, L)
+    lens = np.array([len(p) for p in topics], np.int32)
+    got, compared = _mirror_prefix_search(toks, prefs, lens)
+    assert np.array_equal(got, ref.prefix_search_ref(
+        torch.from_numpy(toks), torch.from_numpy(prefs), torch.from_numpy(lens)).numpy())
+    assert got.sum() == 4 * 8
+    warps = len(paths) // 32
+    assert compared <= warps * len(topics)          # a word past word 1 on average, not 22
+
+
+def _writeout_coverage(N, Q, out_stride, base):
+    """Bytes of the (N, out_stride) output written by the kernels of one
+    call (Q split into Q_CHUNK launches), each tile's bitmap copied out in
+    pieces of 16, 4 or 1 bytes as the alignment of base + q0, out_stride
+    and nq allows, as csrc/prefix_search.cu does."""
+    from repro_torch.kernels.prefix_search import Q_CHUNK, TILE
+    seen = np.zeros((N, out_stride), np.int64)
+    for q0 in range(0, Q, Q_CHUNK):
+        nq = min(Q_CHUNK, Q - q0)
+        align = (base + q0) | out_stride | nq
+        piece = 16 if align % 16 == 0 else 4 if align % 4 == 0 else 1
+        rs = -(-nq // 16) * 16 + 16
+        assert rs % 16 == 0 and rs >= -(-nq // 4) * 4      # the packs fit the padded row
+        for row0 in range(0, N, TILE):
+            rows, per_row = min(TILE, N - row0), nq // piece
+            for i in range(rows * per_row):
+                r, c = divmod(i, per_row)
+                seen[row0 + r, q0 + c * piece:q0 + (c + 1) * piece] += 1
+    return seen
+
+
+@pytest.mark.parametrize("N,Q,out_stride,base", [
+    (300, 64, 64, 0), (300, 5, 5, 0), (513, 257, 257, 0), (513, 300, 300, 0),
+    (256, 16, 16, 0), (257, 4, 4, 0), (33, 1, 1, 0), (40, 64, 64, 4), (40, 512, 512, 0)])
+def test_prefix_search_writeout_covers_each_byte_once(N, Q, out_stride, base):
+    seen = _writeout_coverage(N, Q, out_stride, base)
+    assert (seen[:, :Q] == 1).all() and (seen[:, Q:] == 0).all()
+
+
+@pytest.mark.parametrize("n_rows,L,n_q,want", [
+    (1_316_000, 96, 64, (528, 256, 29184)),     # the smoke's Q4 launch: 4 blocks an SM
+    (1_316_000, 96, 4, (528, 256, 8736)),       # a short Q4 wave (Q padded to 4)
+    (1_316_000, 96, 256, (264, 256, 104448)),   # a full Q chunk: 2 blocks an SM
+    (1_316_000, 128, 256, (264, 256, 112640)),  # the largest block
+    (1_316_000, 128, 128, (396, 256, 58368)),   # above 48 KB: 3 an SM
+    (1_316_000, 32, 256, (264, 256, 88064)),
+    (1_316_000, 32, 4, (528, 256, 8480)),
+    (300, 32, 44, (2, 256, 19552)),             # the second chunk of Q = 300
+    (300, 48, 5, (2, 256, 8752)),
+    (33, 32, 1, (1, 256, 8384)),
+    (256, 64, 3, (1, 256, 8544)),
+    (257, 64, 3, (2, 256, 8544)),
+])
+def test_prefix_search_geometry(n_rows, L, n_q, want):
+    from repro_torch.kernels.prefix_search import (BLOCKS_PER_SM, Q_CHUNK, SMEM_MAX, SMEM_SM,
+                                                   TILE, search_geometry)
+    blocks, tile, smem = got = search_geometry(n_rows, L, n_q)
+    assert got == want
+    assert tile == TILE and smem <= SMEM_MAX
+    assert smem == n_q * L + 40 * (-(-n_q // 4) * 4) + TILE * (-(-n_q // 16) * 16 + 16)
+    per_sm = -(-blocks // 132)
+    assert per_sm <= BLOCKS_PER_SM and per_sm * (smem + 1024) <= SMEM_SM
+    assert blocks == min(-(-n_rows // TILE), 132 * per_sm) or blocks == -(-n_rows // TILE)
+    assert search_geometry(n_rows, 128, Q_CHUNK)[2] <= SMEM_MAX
+
+
+# ---------------------------------------------------------------------------
+# moe_router launch geometry and lane layout (csrc/moe_router.cu)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("T,E,k,want", [
+    (4096, 16, 4, (2, 1, 256)),     # dbrx prefill: two tokens a warp
+    (4, 16, 4, (2, 1, 1)),          # dbrx decode
+    (4096, 16, 2, (2, 1, 256)),     # jamba
+    (4099, 16, 4, (2, 1, 257)),     # ragged: the last warp's second token is past T
+    (3, 16, 16, (2, 1, 1)),
+    (1, 4, 2, (2, 1, 1)),
+    (4096, 17, 4, (1, 1, 512)),     # one expert more: one token a warp
+    (4096, 32, 4, (1, 1, 512)),
+    (33, 33, 2, (1, 2, 5)),
+    (4096, 384, 8, (1, 12, 512)),   # kimi-k2
+    (5, 700, 32, (1, 24, 1)),
+    (8, 1024, 8, (1, 32, 1)),
+    (0, 16, 4, (2, 1, 0)),
+])
+def test_router_geometry(T, E, k, want):
+    from repro_torch.kernels.moe_router import V_INSTANCES, WARPS, router_geometry
+    tpw, v, blocks = got = router_geometry(T, E)
+    assert got == want
+    sub = 32 // tpw
+    assert (tpw == 2) == (E <= 16) and k <= sub
+    assert v == min(u for u in V_INSTANCES if sub * u >= E)     # the least that holds E
+    assert (blocks - 1) * WARPS * tpw < T <= blocks * WARPS * tpw or T == blocks == 0
+
+
+@pytest.mark.parametrize("E", [1, 4, 15, 16, 17, 32, 384, 1024])
+def test_router_lane_layout_holds_each_expert_once(E):
+    """A token's experts over its lanes' slots (sub-lane s, slot v holds
+    expert s + SUB v): each expert of each token of a warp is held once,
+    by one of that token's lanes, and every shuffle offset (SUB/2 .. 1)
+    pairs a lane with a lane of the same token."""
+    from repro_torch.kernels.moe_router import router_geometry
+    tpw, v, _ = router_geometry(8, E)
+    sub = 32 // tpw
+    held = np.zeros((tpw, E), np.int64)
+    for lane in range(32):
+        token, sl = lane // sub, lane % sub
+        for slot in range(v):
+            if sl + sub * slot < E:
+                held[token, sl + sub * slot] += 1
+        o = sub // 2
+        while o:
+            assert (lane ^ o) // sub == token
+            o >>= 1
+    assert (held == 1).all()
 
 
 # ---------------------------------------------------------------------------
