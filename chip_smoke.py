@@ -19,19 +19,31 @@ its main path on the card, printing one JSON line per phase:
   5. BatchPlanner waves of 4096 Q1, 1024 Q2, 1024 Q3, 64 Q4 and 256 Q4C
      ops, equal to the HostEngine's answers, then a write wave of 64
      admits whose refresh must patch, then the waves again;
-  6. the wikikv-router serving loop at full width over the AuthTrace wiki
+  6. the durable tier (``durable``): a child process builds the same
+     2^20-file wiki into a 4-shard durable store (WAL fsync at every
+     commit), mirrors it in a DeviceEngine on the card, commits a patched
+     write wave and wave A, flushes wave B uncommitted and exits with no
+     close; this process reopens the directory, rehydrates a DeviceEngine
+     on the card from the WAL's journal (wave A present, wave B lost, the
+     committed epoch), drives the waves against a HostEngine over the
+     reopened store, commits one more wave and reopens once more with
+     nothing pending; then the wikikv-router serving loop over a durable
+     AuthTrace wiki, restarted from disk between two halves of its
+     requests, equal to the same run on the CPU and to an uninterrupted
+     run over a MemKV store;
+  7. the wikikv-router serving loop at full width over the AuthTrace wiki
      on the card, against the same run on the CPU (plain versions);
-  7. flash_attention against its plain version at the oracle's, qwen3
+  8. flash_attention against its plain version at the oracle's, qwen3
      prefill, chunked-prefill, non-causal ragged and group-6 shapes, timed
      beside the plain version and SDPA;
-  8. LM-routed navigation: the same serving run with a wikikv-router
+  9. LM-routed navigation: the same serving run with a wikikv-router
      ModelOracle (two loss evaluations per decision, flash_attention in
      every layer) on the card and on the CPU, decisions and traces equal;
-  9. qwen3-1.7B at full width (28 layers, random weights from the seed):
+ 10. qwen3-1.7B at full width (28 layers, random weights from the seed):
      make_prefill_step and make_eval_step at B=1, S=4096 on the card,
      launches per forward, a finite loss, and logit parity with the CPU
      at 2 layers and S=256;
- 10. moe_router against its plain version at the dbrx prefill and decode,
+ 11. moe_router against its plain version at the dbrx prefill and decode,
      jamba, kimi-k2 and ragged shapes (tie-laden logits too), timed beside
      the plain version and the softmax -> topk -> renorm composite (the
      card's own time, the host's, one kernel node a call); then
@@ -42,21 +54,27 @@ its main path on the card, printing one JSON line per phase:
      first 2 layers with the CPU (router indices, logits), the bf16 run's
      share of changed expert assignments, and teacher-forced decode
      against the prefill;
- 11. one JSON line of every kernel with its launches, error, times and
+ 12. one JSON line of every kernel with its launches, error, times and
      bound; the card's name and power limit; the final ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
 final line.  It needs a card (it exits non-zero when CUDA is not
 available) and the rest of the checkout (it exits non-zero when run from
-a directory that holds only this file).  It imports nothing of JAX.
+a directory that holds only this file).  It imports nothing of JAX.  The
+durable phase needs 4 GB free in the temporary directory (the store takes
+about 0.7 GB) and runs its crash half as ``chip_smoke.py --durable-child
+ROOT SCALE_LOG2`` in a process of its own.
 """
 from __future__ import annotations
 
 import json
+import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -580,15 +598,18 @@ def storage_kernels(dev, eng, q1_paths, q4_prefixes) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3 / 5: the query operators at deployment size
 # ---------------------------------------------------------------------------
-def synthetic_store(scale_log2: int):
+def synthetic_store(scale_log2: int, store=None):
     """/dimDD/topic_DDTTT/entity_TTTKK: 16 dimensions x 256 topics x
     2^scale_log2 / 4096 entities — a depth-3 tree, every path <= 40
-    bytes, built through PathStore.put_record into one MemKV whose
-    memtable is compacted into a single sorted run at the end."""
+    bytes, built through put_record into ``store`` (one MemKV unless
+    given) and compacted into a single sorted run at the end.  A durable
+    store takes the load as the Table II durable backend does: one group
+    commit of the whole load, then a major compaction."""
     from repro_torch.core import records as R
     from repro_torch.core.store import MemKV, PathStore
     n_files = (1 << scale_log2) // (N_DIMS * N_TOPICS)
-    store = PathStore(MemKV(memtable_limit=1 << 62))
+    if store is None:
+        store = PathStore(MemKV(memtable_limit=1 << 62))
     dims = [f"dim{d:02d}" for d in range(N_DIMS)]
     store.put_record("/", R.DirRecord(name="", sub_dirs=dims))
     for d, dim in enumerate(dims):
@@ -601,7 +622,9 @@ def synthetic_store(scale_log2: int):
             base = f"/{dim}/{topic}/"
             for f in files:
                 store.put_record(base + f, R.FileRecord(name=f, text=f"{topic} {f} note"))
-    store.engine.compact()
+    if store.durable:
+        store.flush()
+    store.compact()
     return store, dims, n_files
 
 
@@ -681,29 +704,305 @@ def drive_waves(tag, dev_eng, host, batches) -> dict:
     return out
 
 
-def write_wave(dev_eng, dims, rng):
+def queue_admits(planner, dims, rng, name: str, n: int, n_topics: int) -> list[str]:
+    """Queue ``n`` file admits ``<name>_<i>`` under random topics among
+    the first ``n_topics`` of each dimension; returns their paths."""
     from repro_torch.core import records as R
+    out = []
+    for i in range(n):
+        d, t = rng.randrange(N_DIMS), rng.randrange(n_topics)
+        path = f"/{dims[d]}/topic_{d:02d}{t:03d}/{name}_{i:03d}"
+        planner.admit(path, R.FileRecord(name=f"{name}_{i:03d}", text=f"{name} {i}"))
+        out.append(path)
+    return out
+
+
+def write_wave(dev_eng, dims, rng, phase="write_wave", name="online"):
+    """64 admits through a BatchPlanner on the DeviceEngine and the
+    refresh that must patch (on a durable store it also group-commits
+    the wave with a DEVMARK); returns the new paths and the refresh ms."""
     from repro_torch.core.engine import BatchPlanner
     planner = BatchPlanner(dev_eng)
-    new = []
-    for i in range(64):
-        d, t = rng.randrange(N_DIMS), rng.randrange(4)
-        path = f"/{dims[d]}/topic_{d:02d}{t:03d}/online_{i:03d}"
-        planner.admit(path, R.FileRecord(name=f"online_{i:03d}", text=f"admitted {i}"))
-        new.append(path)
+    new = queue_admits(planner, dims, rng, name, 64, 4)
     futs_done = planner.flush()
     t0 = time.perf_counter()
     epoch = dev_eng.refresh()
     ms = (time.perf_counter() - t0) * 1e3
     check(dev_eng.last_refresh_kind == "patch",
           f"write wave refresh took the {dev_eng.last_refresh_kind} path, not patch")
-    emit({"phase": "write_wave", "admits": len(new), "flushed": futs_done,
+    emit({"phase": phase, "admits": len(new), "flushed": futs_done,
           "epoch": epoch, "refresh_kind": dev_eng.last_refresh_kind, "refresh_ms": ms})
-    return new
+    return new, ms
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 8: serving at full width, with the heuristic or the LM oracle
+# phase 6: the durable tier — a crash in a child process, a reopen here
+# ---------------------------------------------------------------------------
+DURABLE_SHARDS = 4
+DURABLE_MIN_FREE = 4 << 30     # bytes free the 2^20-file store needs (it takes ~0.7 GB)
+WAVE_A, WAVE_B = 64, 16        # admits committed before the crash, and flushed only
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
+               for f in files)
+
+
+def durable_child(dev, root: str, scale_log2: int) -> int:
+    """The crash half of the durable phase, run in a process of its own:
+    the synthetic wiki into a durable store at ``root`` (WAL fsync at
+    every commit), a DeviceEngine on the card (which attaches the WAL's
+    invalidation journal), a 64-admit write wave whose refresh patches
+    and group-commits with a DEVMARK, wave A committed by a HostEngine
+    sharing the device writer (the device never refreshes it), wave B
+    flushed and never committed; one JSON line, then a process exit with
+    no close."""
+    import torch
+    from repro_torch.core.engine import BatchPlanner, DeviceEngine, HostEngine
+    from repro_torch.kernels import ops
+    from repro_torch.storage import open_durable_store
+    free = shutil.disk_usage(root).free
+    check(free >= DURABLE_MIN_FREE, f"durable: {root} has {free} bytes free, the store "
+          f"needs {DURABLE_MIN_FREE}; point TMPDIR at a larger disk")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    store, dims, n_files = synthetic_store(
+        scale_log2, open_durable_store(root, n_shards=DURABLE_SHARDS, sync="fsync"))
+    build_s = time.perf_counter() - t0
+    store_bytes = dir_bytes(root)
+    t0 = time.perf_counter()
+    eng = DeviceEngine.from_store(store, device=dev)
+    from_store_s = time.perf_counter() - t0
+    rng = random.Random(1)
+    _, refresh_ms = write_wave(eng, dims, rng, phase="durable_write_wave")
+    written_epoch = eng.epoch
+    host = HostEngine(store, writer=eng.writer)
+    planner = BatchPlanner(host)
+    wave_a = queue_admits(planner, dims, rng, "wave_a", WAVE_A, N_TOPICS)
+    planner.flush()
+    committed = host.refresh()
+    wave_b = queue_admits(planner, dims, rng, "wave_b", WAVE_B, N_TOPICS)
+    planner.flush()
+    check(all(store.get(p) is not None for p in wave_b), "durable: wave B was not applied")
+    torch.cuda.synchronize()
+    emit({"phase": "durable_child", "paths": eng.wiki.n, "shards": DURABLE_SHARDS,
+          "sync": "fsync", "build_store_s": build_s, "store_bytes": store_bytes,
+          "device_engine_s": from_store_s, "write_wave_epoch": written_epoch,
+          "refresh_ms": refresh_ms, "committed_epoch": committed,
+          "pending_before_crash": len(store.pending_invalidations()),
+          "wave_a": wave_a, "wave_b": wave_b, "launches": dict(ops.LAUNCHES)})
+    sys.stderr.flush()
+    os._exit(0)                      # the crash: no close, no commit of wave B
+
+
+def durable_crash_and_reopen(dev, scale_log2: int) -> tuple[dict, dict]:
+    """Run ``durable_child`` in a child process, then reopen its store
+    here and hold the reopened tier to what was committed; returns the
+    child's launch counts and the phase's numbers."""
+    from repro_torch.core.engine import DeviceEngine, HostEngine
+    from repro_torch.runtime.serving import ServingEngine
+    root = tempfile.mkdtemp(prefix="wikikv_durable_")
+    try:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--durable-child",
+                              root, str(scale_log2)], capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        sys.stdout.write(run.stdout)
+        sys.stdout.flush()
+        if run.returncode != 0:
+            sys.stderr.write(run.stderr[-8000:])
+        check(run.returncode == 0, f"durable: the child exited with {run.returncode}")
+        child = json.loads(run.stdout.strip().splitlines()[-1])
+        check(child.get("phase") == "durable_child", "durable: the child printed no result")
+        committed, wave_a, wave_b = child["committed_epoch"], child["wave_a"], child["wave_b"]
+        check(child["write_wave_epoch"] + 1 == committed,
+              f"durable: wave A committed epoch {committed}, the write wave "
+              f"{child['write_wave_epoch']}")
+
+        t0 = time.perf_counter()
+        store = ServingEngine.reopen_store(root)
+        reopen_s = time.perf_counter() - t0
+        check(store.n_shards == DURABLE_SHARDS, f"durable: reopened {store.n_shards} shards")
+        check(store.last_epoch() == committed,
+              f"durable: reopened epoch {store.last_epoch()} != committed {committed}")
+        pending = store.pending_invalidations()
+        check(set(wave_a) <= set(pending), "durable: the journal lacks paths of wave A")
+        check(not set(wave_b) & set(pending), "durable: the journal holds uncommitted wave B")
+        t0 = time.perf_counter()
+        eng = DeviceEngine.from_store(store, device=dev)
+        from_store_s = time.perf_counter() - t0
+        check(eng.epoch == committed, f"durable: rehydrated epoch {eng.epoch} != {committed}")
+        check(sorted(eng.rehydrated_paths) == sorted(pending),
+              "durable: rehydrated paths differ from the journal's pending set")
+        check(store.pending_invalidations() == [], "durable: the journal is still pending")
+        got = eng.q1_get(wave_a)
+        check([r.text if r is not None else None for r in got]
+              == [f"wave_a {i}" for i in range(WAVE_A)], "durable: Q1 lost a record of wave A")
+        check(eng.q1_get(wave_b) == [None] * WAVE_B and
+              all(store.get(p) is None for p in wave_b), "durable: wave B survived the crash")
+
+        dims = [f"dim{d:02d}" for d in range(N_DIMS)]
+        n_files = (1 << scale_log2) // (N_DIMS * N_TOPICS)
+        rng = random.Random(2)
+        batches = wave_batches(rng, dims, n_files, extra=wave_a)
+        batches["q4"] = ("search", batches["q4"][1][:-8] + sorted(
+            {p.rsplit("/", 1)[0] for p in wave_a})[:8])
+        waves = drive_waves("durable_reopened", eng, HostEngine(store), batches)
+        new, refresh_ms = write_wave(eng, dims, rng, phase="durable_write_wave_reopened",
+                                     name="reopened")
+        check(eng.epoch == committed + 1,
+              f"durable: the write wave after the reopen made epoch {eng.epoch}")
+        check(all(r is not None for r in eng.q1_get(new)), "durable: a reopened admit is lost")
+        store.close()
+        del eng, store
+        t0 = time.perf_counter()
+        again = ServingEngine.reopen_store(root)
+        reopen2_s = time.perf_counter() - t0
+        device_epochs = [s.engine.device_epoch() for s in again.shards]
+        check(again.pending_invalidations() == [], "durable: the second reopen has pending paths")
+        check(again.last_epoch() == committed + 1 and device_epochs == [committed + 1] * len(
+            device_epochs), f"durable: second reopen epochs {again.last_epoch()} {device_epochs}")
+        again.close()
+        out = {"child_s": child_s, "build_store_s": child["build_store_s"],
+               "store_bytes": child["store_bytes"], "child_device_engine_s":
+               child["device_engine_s"], "child_refresh_ms": child["refresh_ms"],
+               "reopen_s": reopen_s, "device_engine_s": from_store_s,
+               "rehydrated_paths": len(pending), "committed_epoch": committed,
+               "reopened_refresh_ms": refresh_ms, "second_reopen_s": reopen2_s,
+               "waves": waves}
+        return child["launches"], out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_restart(device, root=None, n_docs=160, seed=0, n_requests=8) -> dict:
+    """serve_once's wiki and requests, served in two halves: the first
+    half with 8 online admits queued, ``snapshot()``, then the second.
+    With ``root`` the wiki is built into ``open_durable_store(root,
+    n_shards=2)``, and between the halves the store is closed, reopened
+    by ``ServingEngine.reopen_store`` and served by a new ServingEngine
+    over ``DeviceEngine.from_store`` of it; without, one ServingEngine
+    over a MemKV store serves both halves.  Returns the requests, the
+    decode log, the serve calls and the epochs and path counts."""
+    import torch
+    from repro_torch.core import records as R
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.core.oracle import HeuristicOracle
+    from repro_torch.runtime.serving import Request, ServingEngine
+    from repro_torch.storage import open_durable_store
+
+    store = open_durable_store(root, n_shards=2, sync="fsync") if root else None
+    pipe, docs, questions = authtrace_wiki(n_docs, seed, store)
+    cfg, tok, params = router_lm(device, docs, seed)
+    log, calls = [], []
+
+    def serving(st):
+        eng = ServingEngine(cfg, params, tok, DeviceEngine.from_store(st, device=device),
+                            HeuristicOracle(), batch_size=4, max_len=512, device=device)
+        calls.append(log_decode(eng, cfg, log))
+        return eng
+
+    reqs = [Request(rid=q.qid, query=q.text, max_new_tokens=16) for q in questions[:n_requests]]
+    half = n_requests // 2
+    eng = serving(pipe.store)
+    admits = [f"/entities/durable_{i}" for i in range(8)]
+    for i, p in enumerate(admits):
+        eng.submit_admit(p, R.FileRecord(name=f"durable_{i}", text=f"durable admit {i}"))
+    t0 = time.perf_counter()
+    done = eng.run(reqs[:half])
+    snap = eng.snapshot()
+    out = {"snapshot": snap, "reopen_s": None}
+    if root is not None:
+        pipe.store.close()
+        del eng
+        t1 = time.perf_counter()
+        reopened = ServingEngine.reopen_store(root)
+        out["reopen_s"] = time.perf_counter() - t1
+        eng = serving(reopened)
+        out.update(reopened_epoch=eng.engine.epoch, reopened_paths=reopened.count())
+    done += eng.run(reqs[half:])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    check(len(done) == n_requests, f"served {len(done)} of {n_requests} requests")
+    check(all(r is not None for r in eng.engine.q1_get(admits)), "an online admit is lost")
+    if root is not None:
+        eng.engine.store.close()
+    out.update(done=done, log=log, calls=sum(c["n"] for c in calls))
+    return out
+
+
+def decoded(log) -> list:
+    """The decoding lanes and their next tokens at every step of a
+    ``log_decode`` log (an idle lane's output is not a token)."""
+    return [[(i, t) for i, (t, on) in enumerate(zip(g[0], g[3])) if on] for g in log]
+
+
+def durable_serving(dev) -> tuple[dict, dict]:
+    """The serving restart over a durable store on the card, against the
+    same run on the CPU and an uninterrupted run over MemKV on the card;
+    returns the card run's launch counts and the phase's numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    roots = [tempfile.mkdtemp(prefix="wikikv_serving_") for _ in range(2)]
+    try:
+        ops.reset_launches()
+        card = serve_restart(dev, roots[0])
+        counts = dict(ops.LAUNCHES)
+        mem = serve_restart(dev)
+        cpu = serve_restart(torch.device("cpu"), roots[1])
+    finally:
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    snap = card["snapshot"]
+    check(card["reopened_epoch"] == snap["epoch"] and card["reopened_paths"] == snap["paths"],
+          f"durable serving: reopened at epoch {card['reopened_epoch']} with "
+          f"{card['reopened_paths']} paths, snapshot {snap}")
+    check(snap == cpu["snapshot"] == mem["snapshot"], "durable serving: snapshots differ")
+    traces = [nav_trace(r) for r in card["done"]]
+    check(traces == [nav_trace(r) for r in mem["done"]],
+          "durable serving: traces differ from the uninterrupted MemKV run")
+    check(decoded(card["log"]) == decoded(mem["log"]) and
+          [r.answer for r in card["done"]] == [r.answer for r in mem["done"]],
+          "durable serving: tokens differ from the uninterrupted MemKV run")
+    check(traces == [nav_trace(r) for r in cpu["done"]],
+          "durable serving: traces differ between the card and the CPU")
+    near_tie, compared = decode_parity(card["log"], cpu["log"])
+    if near_tie is None:
+        check(len(card["log"]) == len(cpu["log"]) and
+              [r.answer for r in card["done"]] == [r.answer for r in cpu["done"]],
+              "durable serving: tokens differ between the card and the CPU")
+    emit({"phase": "durable_serving", "requests": len(card["done"]),
+          "serve_steps": card["calls"], "snapshot": snap, "reopen_s": card["reopen_s"],
+          "wall_s": {"card_durable": card["wall_s"], "card_memkv": mem["wall_s"],
+                     "cpu_durable": cpu["wall_s"]},
+          "tokens_equal_memkv": True, "tokens_equal_cpu": near_tie is None,
+          "near_tie": near_tie, "decode_steps_compared": compared, "launches": counts})
+    return counts, {"serve_steps": card["calls"], "wall_s": card["wall_s"]}
+
+
+def durable_phase(dev, scale_log2: int, query_refresh_ms: float) -> dict:
+    """The durable path: the crash and reopen of the synthetic wiki, then
+    the serving restart.  Counts are set to 0 before each part that runs
+    here and summed with the child's; returns them.  ``query_refresh_ms``
+    (the query phase's patch refresh over MemKV) is printed beside the
+    durable ones."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    child_counts, crash = durable_crash_and_reopen(dev, scale_log2)
+    reopen_counts = dict(ops.LAUNCHES)
+    serve_counts, serving = durable_serving(dev)
+    counts = {k: child_counts.get(k, 0) + reopen_counts[k] + serve_counts[k]
+              for k in reopen_counts}
+    emit({"phase": "durable", **crash, "query_phase_refresh_ms": query_refresh_ms,
+          "serving": serving, "launches": counts})
+    for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention"):
+        check(counts[name] > 0, f"the durable phase ran no {name}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 9: serving at full width, with the heuristic or the LM oracle
 # ---------------------------------------------------------------------------
 NEAR_TIE = 1e-4   # a decision margin below this may flip on float rounding
 
@@ -746,46 +1045,40 @@ def instrument_oracle(oracle) -> dict:
     return log
 
 
-def serve_once(device, model_oracle=False, n_docs=160, seed=0, n_requests=8) -> dict:
-    """Serve AuthTrace questions with wikikv-router over a DeviceEngine on
-    ``device``; the navigation oracle is the heuristic one, or with
-    ``model_oracle`` a ModelOracle over the same LM.  Returns the requests,
-    their evidence answers, the per-decode-step log, the serve calls, the
-    wall time and the oracle's log."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core import records as R
-    from repro_torch.core.engine import DeviceEngine
+def authtrace_wiki(n_docs: int, seed: int, store=None):
+    """The AuthTrace wiki the serving runs navigate, built by the
+    construction pipeline into ``store`` (a MemKV PathStore unless
+    given); returns the pipeline, the documents and the questions."""
     from repro_torch.core.oracle import HeuristicOracle
     from repro_torch.core.pipeline import ConstructionPipeline, PipelineConfig
     from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
-    from repro_torch.data.tokenizer import HashTokenizer
-    from repro_torch.models import model as M
-    from repro_torch.runtime.model_oracle import ModelOracle
-    from repro_torch.runtime.serving import Request, ServingEngine
-
     docs, questions = generate_authtrace(
         AuthTraceConfig(n_docs=n_docs, n_questions=100, seed=seed))
-    pipe = ConstructionPipeline(PipelineConfig(), HeuristicOracle())
-    pipe.writer.clock = lambda: 0.0          # the two runs build the same bytes
+    pipe = ConstructionPipeline(PipelineConfig(), HeuristicOracle(), store=store)
+    pipe.writer.clock = lambda: 0.0          # every run builds the same bytes
     pipe.bootstrap(docs)
     for i in range(0, len(docs), 16):
         pipe.ingest(docs[i:i + 16])
+    return pipe, docs, questions
+
+
+def router_lm(device, docs, seed: int):
+    """wikikv-router at full width with random weights from ``seed`` on
+    ``device``, and the tokenizer fitted on ``docs``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import model as M
     cfg = get_config("wikikv-router")
     tok = HashTokenizer(vocab_size=cfg.vocab).fit([d["text"] for d in docs])
-    params = M.init_params(cfg, seed=seed, device=device)
-    olog = None
-    if model_oracle:
-        oracle = ModelOracle(cfg, params, tok, device=device)
-        olog = instrument_oracle(oracle)
-    else:
-        oracle = HeuristicOracle()
-    eng = ServingEngine(cfg, params, tok, DeviceEngine.from_store(pipe.store, device=device),
-                        oracle, batch_size=4, max_len=512, device=device)
-    for i in range(4):
-        eng.submit_admit(f"/entities/online_{i}",
-                         R.FileRecord(name=f"online_{i}", text=f"online admit {i}"))
-    log, calls = [], {"n": 0, "prefill": False}
+    return cfg, tok, M.init_params(cfg, seed=seed, device=device)
+
+
+def log_decode(eng, cfg, log: list) -> dict:
+    """Wrap ``eng``'s serve step: count its calls and append one entry a
+    decode step (not a prefill step) to ``log``: the next tokens, the
+    top-2 logit gap and |top-1| of every lane, the decoding lanes."""
+    import torch
+    calls = {"n": 0, "prefill": False}
     serve, prefill = eng._serve, eng._prefill
 
     def logged_serve(params_, state, batch):
@@ -805,6 +1098,37 @@ def serve_once(device, model_oracle=False, n_docs=160, seed=0, n_requests=8) -> 
             calls["prefill"] = False
 
     eng._serve, eng._prefill = logged_serve, flagged_prefill
+    return calls
+
+
+def serve_once(device, model_oracle=False, n_docs=160, seed=0, n_requests=8) -> dict:
+    """Serve AuthTrace questions with wikikv-router over a DeviceEngine on
+    ``device``; the navigation oracle is the heuristic one, or with
+    ``model_oracle`` a ModelOracle over the same LM.  Returns the requests,
+    their evidence answers, the per-decode-step log, the serve calls, the
+    wall time and the oracle's log."""
+    import torch
+    from repro_torch.core import records as R
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.core.oracle import HeuristicOracle
+    from repro_torch.runtime.model_oracle import ModelOracle
+    from repro_torch.runtime.serving import Request, ServingEngine
+
+    pipe, docs, questions = authtrace_wiki(n_docs, seed)
+    cfg, tok, params = router_lm(device, docs, seed)
+    olog = None
+    if model_oracle:
+        oracle = ModelOracle(cfg, params, tok, device=device)
+        olog = instrument_oracle(oracle)
+    else:
+        oracle = HeuristicOracle()
+    eng = ServingEngine(cfg, params, tok, DeviceEngine.from_store(pipe.store, device=device),
+                        oracle, batch_size=4, max_len=512, device=device)
+    for i in range(4):
+        eng.submit_admit(f"/entities/online_{i}",
+                         R.FileRecord(name=f"online_{i}", text=f"online admit {i}"))
+    log = []
+    calls = log_decode(eng, cfg, log)
     reqs = [Request(rid=q.qid, query=q.text, max_new_tokens=16) for q in questions[:n_requests]]
     t0 = time.perf_counter()
     done = eng.run(reqs)
@@ -835,6 +1159,29 @@ def decision_parity(gpu_log, cpu_log) -> tuple[dict | None, float]:
     check(len(gpu_log["decisions"]) == len(cpu_log["decisions"]),
           "the two runs made different numbers of oracle decisions")
     return None, max_dnll
+
+
+def nav_trace(r):
+    """A served request's navigation: route, calls, pages and results."""
+    return (r.rid, r.trace.route, r.trace.llm_calls, r.trace.tool_calls, r.trace.pages_read,
+            [(x.kind, x.path, x.text) for x in r.nav_results])
+
+
+def decode_parity(gpu_log, cpu_log) -> tuple[dict | None, int]:
+    """Greedy tokens of two decode logs (``log_decode``): equal at every
+    step, unless the CPU run's top-2 logit gap at the first differing step
+    is below the f32 tolerance.  Returns (that near tie or None, the steps
+    compared before it)."""
+    for step, (g, c) in enumerate(zip(gpu_log, cpu_log)):
+        lanes = [i for i, on in enumerate(c[3]) if on]
+        diff = [i for i in lanes if g[0][i] != c[0][i]]
+        if diff:
+            i = diff[0]
+            gap, tol = c[1][i], F32_TOL["atol"] + F32_TOL["rtol"] * c[2][i]
+            check(gap < tol, f"decode step {step} lane {i}: tokens differ "
+                  f"(card {g[0][i]}, cpu {c[0][i]}) with a top-2 gap {gap} >= {tol}")
+            return {"step": step, "lane": i, "gap": gap, "tol": tol}, step
+    return None, min(len(gpu_log), len(cpu_log))
 
 
 def serving_phase(dev, model_oracle=False) -> dict:
@@ -879,28 +1226,12 @@ def serving_phase(dev, model_oracle=False) -> dict:
         emit({"phase": f"{phase}_parity", "near_tie": near_tie, "max_abs_dnll": max_dnll})
         return counts
 
-    def nav(r):
-        return (r.rid, r.trace.route, r.trace.llm_calls, r.trace.tool_calls, r.trace.pages_read,
-                [(x.kind, x.path, x.text) for x in r.nav_results])
-    check([nav(r) for r in gpu["done"]] == [nav(r) for r in cpu["done"]],
+    check([nav_trace(r) for r in gpu["done"]] == [nav_trace(r) for r in cpu["done"]],
           "navigation traces differ between the card and the CPU")
     check(gpu["evidence"] == cpu["evidence"],
           "evidence answers differ between the card and the CPU")
-    # greedy tokens: equal at every decode step, unless the CPU run's top-2
-    # logit gap at the first differing step is below the f32 tolerance
     gpu_log, cpu_log = gpu["log"], cpu["log"]
-    compared = 0
-    for step, (g, c) in enumerate(zip(gpu_log, cpu_log)):
-        lanes = [i for i, on in enumerate(c[3]) if on]
-        diff = [i for i in lanes if g[0][i] != c[0][i]]
-        if diff:
-            i = diff[0]
-            gap, tol = c[1][i], F32_TOL["atol"] + F32_TOL["rtol"] * c[2][i]
-            check(gap < tol, f"decode step {step} lane {i}: tokens differ "
-                  f"(card {g[0][i]}, cpu {c[0][i]}) with a top-2 gap {gap} >= {tol}")
-            near_tie = {"step": step, "lane": i, "gap": gap, "tol": tol}
-            break
-        compared += 1
+    near_tie, compared = decode_parity(gpu_log, cpu_log)
     if near_tie is None:
         check(len(gpu_log) == len(cpu_log) and gpu["calls"] == cpu["calls"],
               "the two runs took different numbers of steps")
@@ -925,7 +1256,7 @@ def serving_phase(dev, model_oracle=False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: qwen3-1.7B prefill / eval at full width
+# phase 10: qwen3-1.7B prefill / eval at full width
 # ---------------------------------------------------------------------------
 def tree_map(fn, tree):
     if isinstance(tree, dict):
@@ -1037,7 +1368,7 @@ def prefill_phase(dev, seed=0, seq=4096, parity_layers=2, parity_seq=256) -> dic
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the MoE path — moe_router, then dbrx-132b at full width
+# phase 11: the MoE path — moe_router, then dbrx-132b at full width
 # ---------------------------------------------------------------------------
 # (tag, T, E, k): dbrx prefill (S=4096) and decode (B=4), jamba, kimi-k2,
 # and a ragged T
@@ -1379,7 +1710,7 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
 
 
 # ---------------------------------------------------------------------------
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; run it "
               "from a checkout of the repository", file=sys.stderr)
@@ -1391,6 +1722,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    if argv[:1] == ["--durable-child"]:
+        return durable_child(dev, argv[1], int(argv[2]))
     from repro_torch.kernels import build, ops
     from repro_torch.models.layers import set_fp32_matmul
     set_fp32_matmul()
@@ -1420,7 +1753,7 @@ def main() -> int:
     # the query path: counts from zero, read just after
     ops.reset_launches()
     drive_waves("before_write", dev_eng, host, batches)
-    new = write_wave(dev_eng, dims, rng)
+    new, refresh_ms = write_wave(dev_eng, dims, rng)
     batches2 = wave_batches(rng, dims, n_files, extra=new)
     batches2["q4"] = ("search", batches2["q4"][1][:-8] + sorted(
         {p.rsplit("/", 1)[0] for p in new})[:8])
@@ -1433,8 +1766,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # each path below sets the counts to 0 just before it and reads them just after
-    path_counts = [query_counts, serving_phase(dev), serving_phase(dev, model_oracle=True),
-                   prefill_phase(dev), moe_phase(dev)]
+    path_counts = [query_counts, durable_phase(dev, SCALE_LOG2, refresh_ms), serving_phase(dev),
+                   serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev)]
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
@@ -1457,4 +1790,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """WikiKV core for the PyTorch port: the JAX-free host tier copied from
-``repro.core`` plus the torch device tier (``tensorstore``,
-``engine.DeviceEngine``).  The durable storage tier and ``backends``
-come with a later slice."""
+``repro.core`` (the Table II ``backends`` among it, their device backend
+taking a torch device) plus the torch device tier (``tensorstore``,
+``engine.DeviceEngine``).  The durable tier under both engines is
+``repro_torch.storage``, copied from ``repro.storage``."""
 from . import paths, records  # noqa: F401
 from .store import DictKV, KVEngine, MemKV, PathStore  # noqa: F401
 from .engine import (BatchPlanner, DeviceEngine, EngineStats,  # noqa: F401

@@ -904,8 +904,18 @@ class DeviceEngine(QueryEngine):
         st.tok_rows = np.asarray(t_rows, dtype=np.int32)
         st.tok_patch = {}
         st.tok_extra = {}
-        self._st = st
+        self._publish(st)
         self.last_refresh_kind = wiki.refresh_kind
+
+    def _publish(self, st: _EpochView) -> None:
+        """Install ``st`` as the current epoch view.  On a card its
+        tensors were written on this thread's current stream, and a reader
+        on another stream must not launch on them before those writes
+        land, so the stream is synchronised before the swap."""
+        if self.device.type == "cuda":
+            import torch
+            torch.cuda.current_stream(self.device).synchronize()
+        self._st = st          # the swap: one assignment, atomic in python
 
     def _stage_pinned(self, wiki, khi_view: np.ndarray, klo_view: np.ndarray):
         """Stage the pinned hot set ("/" + every dimension — the paper's
@@ -982,7 +992,7 @@ class DeviceEngine(QueryEngine):
                 _overlay(tok)
         st.tok_patch = tok_patch
         st.tok_extra = tok_extra
-        self._st = st          # the swap: one assignment, atomic in python
+        self._publish(st)
         self.last_refresh_kind = "patch"
 
     # ------------------------------------------------------------------

@@ -40,12 +40,15 @@ LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
                             "moe_router": 0}
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _SM_COUNT: dict[int, int] = {}
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    # readers on several threads launch at once; an unlocked += can drop one
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

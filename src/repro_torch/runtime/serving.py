@@ -15,8 +15,9 @@ every decoding lane advances one token.  The storage substrate is a host
 (``core.engine.DeviceEngine``) whose Q1–Q4 run in the port's kernels.
 
 The decode tokens and lengths live on the model's device; the host reads
-them once per step.  The KV cache is updated in place.  Reopening a
-durable store comes with the storage slice of the port.
+them once per step.  The KV cache is updated in place.  ``snapshot()``
+commits a durable store and ``reopen_store`` reopens its directory in a
+later process with the same epoch.
 """
 from __future__ import annotations
 
@@ -252,8 +253,9 @@ class ServingEngine:
     def stats_snapshot(self) -> dict:
         """JSON-able live telemetry: per-op latency percentiles out of the
         shared histograms, planner queue depth + dedup ratios, refresh
-        patch-vs-rebuild accounting, and the serving write queue.
-        Top-level keys are the reference's stable schema."""
+        patch-vs-rebuild accounting, durable bloom/cache rates, and the
+        serving write queue.  Top-level keys are the reference's stable
+        schema."""
         return obs.build_snapshot(
             self.engine, self.planner,
             extra={"pending_writes": self.pending_writes(),
@@ -270,9 +272,13 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def snapshot(self) -> dict:
-        """Quiesce the write path: drain the queued write batches through
-        planner waves and refresh (commits the epoch), then flush the
-        store.  On a volatile store this is a planner drain."""
+        """Quiesce the write path and commit the durable tier: drain the
+        queued write batches through planner waves, refresh (commits the
+        epoch), then flush the store so every committed record is in the
+        WAL/segments.  After this returns, the store directory can be
+        reopened — ``ServingEngine.reopen_store`` — with zero
+        re-ingestion and the same epoch.  On a volatile store this is
+        just a planner drain (flush/commit no-op)."""
         while self.pending_writes():
             self._enqueue_write_batch()
             self.planner.flush()
@@ -286,6 +292,17 @@ class ServingEngine:
             store.flush()
         return {"epoch": self.engine.epoch,
                 "paths": store.count() if store is not None else 0}
+
+    @staticmethod
+    def reopen_store(root: str, n_shards: int | None = None, **kw):
+        """Reopen a durable store directory written by a previous
+        process (crash recovery included): recovers manifest + segments,
+        replays the WAL's committed waves, and returns a
+        ``PathStore``/``ShardedPathStore`` ready to hand to
+        ``ServingEngine`` (the engine then restores the committed
+        epoch)."""
+        from ..storage import open_durable_store
+        return open_durable_store(root, n_shards=n_shards, **kw)
 
     def run(self, requests: list[Request]) -> list[Request]:
         """Drive a queue through the continuous-batching loop; also

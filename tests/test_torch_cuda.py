@@ -1,7 +1,9 @@
 """On the card only: each of the port's CUDA kernels against its
-plain PyTorch version, at small shapes and at the main path's.  This file
-imports neither JAX nor the JAX package, so it runs on a machine with a
-card and no JAX:
+plain PyTorch version, at small shapes and at the main path's, and the
+durable tier under a DeviceEngine on the card (rehydration after a
+crash, and reader threads on streams of their own against a committing
+writer).  This file imports neither JAX nor the JAX package, so it runs
+on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
@@ -545,3 +547,43 @@ def test_cuda_moe_forward_and_serve_match_cpu(cuda, arch):
                                    atol=3e-5, rtol=3e-5)
         assert torch.equal(n_card.cpu(), n_cpu)
         tk, lens = n_cpu, lens + 1
+
+
+# ---------------------------------------------------------------------------
+# the durable tier under a DeviceEngine on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_durable_device_rehydration_epoch_consistent(cuda, tmp_path):
+    """The rehydration scenario of the durable engine suite with the
+    DeviceEngine on the card: the reopened engine's epoch and
+    rehydrated paths, its Q1/Q4 answers against the HostEngine, and the
+    DEVMARK that leaves the next reopen nothing to rehydrate."""
+    from test_torch_durable_engine import rehydration_scenario
+    ops.reset_launches()
+    rehydration_scenario(tmp_path, "cuda")
+    assert ops.LAUNCHES["path_lookup"] > 0 and ops.LAUNCHES["prefix_search"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_delta_one_wave_all_features_on(cuda, tmp_path, monkeypatch):
+    """The concurrency suite's Δ = 1 case (fan-out pool, commit pipeline
+    and background compaction on) with its DeviceEngines on the card."""
+    import test_torch_concurrency as tc
+    monkeypatch.setattr(tc, "DEVICE", "cuda")
+    ops.reset_launches()
+    tc.test_delta_one_wave_all_features_on(tmp_path)
+    assert ops.LAUNCHES["path_lookup"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_device_readers_never_see_a_partial_epoch(cuda, tmp_path):
+    """Reader threads, each on a stream of its own, launch Q1 and Q4
+    batches while a writer thread on another stream commits and patches:
+    no batch sees a partial epoch, and every batch launched its kernel
+    exactly once (the launch counts are exact across threads)."""
+    from test_torch_concurrency import device_readers_scenario
+    ops.reset_launches()
+    batches, seen = device_readers_scenario(tmp_path, "cuda")
+    assert ops.LAUNCHES["path_lookup"] == batches["q1"]
+    assert ops.LAUNCHES["prefix_search"] == batches["q4"]
+    assert 10 in seen and len(seen) >= 2

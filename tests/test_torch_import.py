@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, calls no library kernel in place of its own, adds no new
-``REPRO_*`` names, and its entry points never fall back to the CPU."""
+``REPRO_*`` names, and its entry points never fall back to the CPU.  The
+JAX-free modules it keeps as copies equal the reference's text once the
+absolute ``repro`` imports are repointed."""
 import ast
+import difflib
 import json
 import os
 import re
@@ -15,7 +18,19 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+REF = ROOT / "src" / "repro"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: modules the port keeps as copies of the reference's: the host tier,
+#: obs, the durable storage tier and the model configurations
+COPIED = (
+    [f"core/{m}.py" for m in ("cache", "coldstart", "consistency", "errorbook", "evolution",
+                              "executor", "navigate", "oracle", "paths", "pipeline",
+                              "records", "schema", "store")]
+    + ["data/corpus.py", "data/tokenizer.py", "models/config.py"]
+    + [f"obs/{m}.py" for m in ("__init__", "metrics", "trace")]
+    + [f"storage/{m}.py" for m in ("__init__", "failpoints", "lsm", "manifest", "sstable",
+                                   "wal")]
+    + sorted(str(p.relative_to(REF)) for p in (REF / "configs").glob("*.py")))
 # library calls that would stand in for the port's own kernels
 BANNED = ("scaled_dot_product_attention", "torch.compile", "F.rms_norm",
           "functional.rms_norm", "torch.searchsorted", "torch.topk")
@@ -45,7 +60,7 @@ def test_importing_every_module_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 30
+    assert res["n"] >= 64
     assert res["jax"] == [] and res["repro"] == []
 
 
@@ -54,6 +69,34 @@ def test_port_sources_import_no_jax_and_no_reference_package(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+def _repointed(path: Path) -> list[str]:
+    """The reference file's lines with its absolute ``repro`` imports
+    (statements and ``importlib.import_module`` names) pointed at
+    ``repro_torch``."""
+    text = path.read_text(encoding="utf-8")
+    text = re.sub(r"^(\s*)(from|import) repro\b", r"\1\2 repro_torch", text, flags=re.M)
+    text = re.sub(r"import_module\((f?[\"'])repro\.", r"import_module(\1repro_torch.", text)
+    return text.splitlines()
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_equals_the_reference(rel):
+    assert (PKG / rel).read_text(encoding="utf-8").splitlines() == _repointed(REF / rel)
+
+
+def test_backends_differ_from_the_reference_only_in_device_lines():
+    """``core/backends.py`` is a copy whose device backend takes the torch
+    device: every hunk that differs from the reference names the device."""
+    ref = _repointed(REF / "core" / "backends.py")
+    port = (PKG / "core" / "backends.py").read_text(encoding="utf-8").splitlines()
+    hunks = [(ref[i1:i2], port[j1:j2]) for tag, i1, i2, j1, j2 in
+             difflib.SequenceMatcher(a=ref, b=port, autojunk=False).get_opcodes()
+             if tag != "equal"]
+    assert hunks, "the device backend takes no device"
+    for old, new in hunks:
+        assert "device" in "\n".join(old + new), (old, new)
 
 
 def test_port_calls_no_library_kernel():
