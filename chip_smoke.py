@@ -54,7 +54,20 @@ its main path on the card, printing one JSON line per phase:
      first 2 layers with the CPU (router indices, logits), the bf16 run's
      share of changed expert assignments, and teacher-forced decode
      against the prefill;
- 12. one JSON line of every kernel with its launches, error, times and
+ 12. the training path: flash_attention_bwd and rmsnorm_bwd against their
+     plain versions at the router's, qwen3's, a ragged, a non-causal and
+     dbrx's group-6 shapes (and the norms' at qwen3's block and qk-norm
+     shapes, one without scale), timed beside the autograd backward of
+     SDPA and ``F.rms_norm``; wikikv-router at full width trained by a
+     TrainLoop on the AuthTrace pipeline (B=8, S=128) for 20 steps on the
+     card and on the CPU, losses equal within 2e-3 and falling, then a
+     crash at step 8 and a restart that ends bit for bit where an
+     uninterrupted 12-step run ends; qwen3-1.7B at full width (28 layers,
+     bf16, f32 AdamW moments, B=1, S=4096) for 5 train steps on one batch,
+     a falling loss, step ms, tokens/s, peak memory, launches per step and
+     the model FLOPs' share of the bf16 peak, and f32 parity of its first
+     2 layers' loss and gradients with the CPU at S=256;
+ 13. one JSON line of every kernel with its launches, error, times and
      bound; the card's name and power limit; the final ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
@@ -68,6 +81,7 @@ ROOT SCALE_LOG2`` in a process of its own.
 from __future__ import annotations
 
 import json
+import math
 import os
 import random
 import shutil
@@ -144,9 +158,21 @@ def host_ms(fn, calls: int = 500, warmup: int = 50) -> float:
     return t / calls * 1e3
 
 
+def device_events(prof) -> list:
+    """(name, count, device us) of each kernel and copy a ``torch.profiler``
+    run put on the card.  Only the device's own events count: an operator's
+    row on the host carries the time of the kernels it launched as its
+    "self" device time too, so summing every row would count each kernel
+    twice (the profiler's own table sums the device rows alone)."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+
+
 def profiled_ms(fn, inputs, calls: int) -> float | None:
-    """Device time of one call ``fn(*inputs)`` in ms from ``torch.profiler``'s
-    ``key_averages()`` over ``calls`` eager calls; None where the profiler
+    """Device time of one call ``fn(*inputs)`` in ms from ``torch.profiler``
+    over ``calls`` eager calls (``device_events``); None where the profiler
     shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -154,9 +180,40 @@ def profiled_ms(fn, inputs, calls: int) -> float | None:
         for _ in range(calls):
             fn(*inputs)
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages())
+    us = sum(t for _, _, t in device_events(prof))
     return us / 1e3 / calls if us > 0 else None
+
+
+# a kernel's category is the first whose name fragment its name contains
+STEP_CATEGORIES = (("flash_attention_bwd", ("flash_bwd_kernel",)),
+                   ("flash_attention", ("flash_fwd",)),
+                   ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_dscale")),
+                   ("rmsnorm", ("rmsnorm",)),
+                   ("matmul", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def device_split(fn, untraced_ms: float) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's busy ms (its
+    kernels and copies, on one stream, so they do not overlap), its idle
+    share of ``untraced_ms`` (the same work timed without the profiler,
+    whose host tracing lengthens a step), and the busy ms by
+    STEP_CATEGORIES ("other": elementwise, reductions, the optimizer,
+    copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name, _ in STEP_CATEGORIES}
+    split["other"] = 0.0
+    for key, _, us in device_events(prof):
+        cat = next((name for name, frags in STEP_CATEGORIES
+                    if any(f in key.lower() for f in frags)), "other")
+        split[cat] += us / 1e3
+    busy = sum(split.values())
+    return {"busy_ms": busy, "untraced_ms": untraced_ms,
+            "idle_share": max(0.0, 1.0 - busy / untraced_ms), "busy_ms_by_kind": split}
 
 
 def graph_ms(fn, inputs, calls: int = 32, replays: int = 5, warmup: int = 3) -> dict:
@@ -1710,6 +1767,364 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 12: the training path — the backward kernels, then wikikv-router and
+# qwen3-1.7B training at full width
+# ---------------------------------------------------------------------------
+# (tag, B, Hq, Hkv, Sq, Skv, D, dtype, causal): the router's training shape
+# (B=8, S=128), qwen3-1.7B's (B=1, S=4096), a ragged Sq < Skv (qwen3's
+# heads, 128 queries over 4096 keys), a non-causal one (whisper-medium's
+# cross-attention shape) and dbrx's group of 6
+FLASH_BWD_SHAPES = [
+    ("router", 8, 4, 2, 128, 128, 64, "float32", True),
+    ("qwen3", 1, 16, 8, 4096, 4096, 128, "bfloat16", True),
+    ("ragged", 1, 16, 8, 128, 4096, 128, "bfloat16", True),
+    ("non-causal", 1, 16, 16, 448, 1500, 64, "bfloat16", False),
+    ("dbrx", 1, 48, 8, 1024, 1024, 128, "bfloat16", True),
+]
+# (tag, rows, D, dtype, scaled): the router's block norms at B*S = 1024,
+# qwen3's block norms and its qk-norm at S = 4096, and a norm without scale
+NORM_BWD_SHAPES = [
+    ("router", 1024, 256, "float32", True),
+    ("qwen3 block", 4096, 2048, "bfloat16", True),
+    ("qwen3 qk-norm", 65536, 128, "bfloat16", True),
+    ("no scale", 1024, 256, "float32", False),
+]
+# a gradient sums Sq * group (dK, dV) or Skv (dQ) products in f32 in
+# another order than the plain version: f32 is held to 1e-4, bf16 outputs
+# to the forward's bf16 tolerance
+BWD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def check_grad(name, got, want, dtype) -> float:
+    import torch
+    tol = BF16_TOL if dtype == torch.bfloat16 else BWD_F32_TOL
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: shape/dtype {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite gradient")
+    err = max_err(got, want)
+    check(torch.allclose(got.float(), want.float(), **tol),
+          f"{name}: backward kernel and plain version disagree (max abs err {err})")
+    return err
+
+
+def library_grad(fn, inputs, dout):
+    """The yardstick: autograd's backward of one PyTorch call ``fn`` (its
+    forward run once, outside the timing), as a function of no arguments."""
+    import torch
+    leaves_ = [t.detach().requires_grad_(True) if t is not None else None for t in inputs]
+    out = fn(*leaves_)
+    wrt = [t for t in leaves_ if t is not None]
+    return lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)
+
+
+def backward_kernels(dev) -> dict:
+    """flash_attention_bwd and rmsnorm_bwd against their plain versions
+    (``ref.attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``) at the training
+    shapes, on the same inputs (the attention's o and lse from the
+    forward kernel), timed beside the plain version, the autograd backward
+    of the library call (SDPA, ``F.rms_norm``) and their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device="cpu").manual_seed(3)
+    flash_rows = []
+    for tag, B, Hq, Hkv, Sq, Skv, D, dt, causal in FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, Hq, Sq, D), generator=g).to(dev, dtype)
+        k = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
+        v = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
+        do = torch.randn((B, Hq, Sq, D), generator=g).to(dev, dtype)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        _, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+        lse_err = max_err(lse, want_lse)
+        check(lse_err <= 1e-4 * max(1.0, float(want_lse.abs().max())),
+              f"flash_attention lse ({tag}) differs by {lse_err}")
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        err = max(check_grad(f"flash_attention_bwd ({tag}) {n}", a, b, dtype)
+                  for n, a, b in zip(("dq", "dk", "dv"), got, want))
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd ({tag}) is not bit for bit repeatable")
+        del got, want, again
+        elt = q.element_size()
+        _, fwd_flops = attn_work(B, Hq, Hkv, Sq, Skv, D, causal, elt)
+        flops = 2.5 * fwd_flops        # 5 products of 2 * D a visible pair, the forward's 2
+        nbytes = elt * (3 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) + 4 * B * Hq * Sq \
+            + elt * (B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
+        b, by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        n = 5 if Sq * Skv * Hq > (1 << 24) else 20
+        ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), iters=n)
+        gm = graph_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal),
+                      (q, k, v, o, lse, do), calls=4 if n == 5 else 20, replays=3)
+        one_kernel_a_call(f"flash_attention_bwd ({tag})", gm)
+        mask = sdpa_mask(q, k, causal)
+        lib = library_grad(lambda a, b_, c: sdpa(a, b_, c, causal, mask), (q, k, v), do)
+        plain_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
+                           iters=3, warmup=1)
+        lib_ms = cuda_ms(lib, iters=n)
+        flash_rows.append({
+            "shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
+                     f"{'causal' if causal else 'non-causal'}",
+            "max_abs_err": err, "lse_max_abs_err": lse_err, "gflop": flops / 1e9,
+            "ms": ms, "device_ms": gm["device_ms"], "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_device_ms": profiled_ms(lambda: lib(), (), 3),
+            "bound_ms": b, "bound_by": by, "tflop_per_s": flops / ms / 1e9,
+            "share_of_bound": b / ms, "vs_library": ms / lib_ms})
+        del q, k, v, do, o, lse, lib
+        torch.cuda.empty_cache()
+    emit({"phase": "flash_attention_bwd", "tolerance_f32": BWD_F32_TOL, "shapes": flash_rows,
+          "library": "autograd backward of scaled_dot_product_attention"})
+
+    norm_rows = []
+    for tag, rows, D, dt, scaled in NORM_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn((rows, D), generator=g).to(dev, dtype)
+        dy = torch.randn((rows, D), generator=g).to(dev, dtype)
+        s = torch.randn((D,), generator=g).to(dev, dtype) if scaled else None
+        dx, ds = rn.rmsnorm_bwd(x, s, dy)
+        wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
+        err = check_grad(f"rmsnorm_bwd ({tag}) dx", dx, wx, dtype)
+        if scaled:
+            # dscale sums `rows` terms: its rounding grows with sqrt(rows)
+            ds_err = max_err(ds, ws)
+            check(torch.allclose(ds.float(), ws.float(), rtol=2e-2,
+                                 atol=1e-4 * rows ** 0.5 * (100 if dtype == torch.bfloat16 else 1)),
+                  f"rmsnorm_bwd ({tag}) dscale differs by {ds_err}")
+            check(torch.equal(rn.rmsnorm_bwd(x, s, dy)[1], ds),
+                  f"rmsnorm_bwd ({tag}) dscale is not bit for bit repeatable")
+        elt = x.element_size()
+        nbytes = 3 * rows * D * elt + (2 * D * s.element_size() if scaled else 0)
+        b, by = bound(nbytes, 10 * rows * D, F32_FLOPS)
+        ms = cuda_ms(lambda: rn.rmsnorm_bwd(x, s, dy))
+        gm = graph_ms(rn.rmsnorm_bwd, (x, s, dy))
+        check(gm["by"] == "cuda graph" and gm["kernel_nodes"] == gm["nodes"]
+              == gm["calls"] * (2 if scaled else 1),
+              f"rmsnorm_bwd ({tag}): {gm}; not {2 if scaled else 1} kernel nodes a call")
+        lib = library_grad(lambda a, w: F.rms_norm(a, (D,), w, eps=1e-6), (x, s), dy)
+        lib_ms = cuda_ms(lib)
+        norm_rows.append({
+            "shape": f"({tag}) x ({rows}, {D}) {dt} {'with' if scaled else 'without'} scale",
+            "geometry": dict(zip(("threads_a_row", "columns_a_thread", "blocks"),
+                                 rn.bwd_geometry(rows, D))),
+            "max_abs_err": err, "ms": ms, "device_ms": gm["device_ms"],
+            "plain_ms": cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy)),
+            "library_ms": lib_ms, "library_device_ms": profiled_ms(lambda: lib(), (), 10),
+            "bound_ms": b, "bound_by": by, "gb_per_s": nbytes / ms / 1e6,
+            "share_of_bound": b / ms, "vs_library": ms / lib_ms,
+            "device_share_of_bound": b / gm["device_ms"] if gm["device_ms"] else None})
+        del x, dy, s, dx, ds, wx, ws, lib
+    torch.cuda.empty_cache()
+    emit({"phase": "rmsnorm_bwd", "shapes": norm_rows,
+          "library": "autograd backward of F.rms_norm"})
+    return {
+        "flash_attention_bwd": {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:94",
+            "note": "the Pallas kernel has no backward: jax.value_and_grad of its jnp reference",
+            **flash_rows[1], "shapes": flash_rows[:1] + flash_rows[2:]},
+        "rmsnorm_bwd": {
+            "name": "rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:37",
+            "note": "the Pallas kernel has no backward: jax.value_and_grad of its jnp reference",
+            **norm_rows[1], "shapes": norm_rows[:1] + norm_rows[2:]}}
+
+
+TRAIN_LOSS_RTOL = 2e-3   # router losses, card against CPU, over 20 AdamW steps
+
+
+def router_loop(device, ckpt_dir: str, total: int, every: int, seed=0):
+    """A TrainLoop of the full-width wikikv-router on the AuthTrace
+    pipeline at B = 8, S = 128, as examples/train_router.py builds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_pipeline
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+    cfg = get_config("wikikv-router")
+    pipeline, _ = build_pipeline(cfg.vocab, seq_len=128, global_batch=8, seed=seed)
+    return TrainLoop(cfg, AdamWConfig(lr=3e-4),
+                     TrainLoopConfig(total_steps=total, checkpoint_every=every,
+                                     checkpoint_dir=ckpt_dir, log_every=10 ** 9),
+                     pipeline, device=device, seed=seed)
+
+
+def router_training(dev, steps=20) -> dict:
+    """wikikv-router at full width: ``steps`` TrainLoop steps on the card
+    (the launches counted) and the same steps on the CPU (plain
+    versions), per-step losses within TRAIN_LOSS_RTOL and falling; then a
+    crash and restart: 12 steps with a checkpoint at 8, a fresh loop that
+    restores and runs to 12, bit for bit the uninterrupted 12-step run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.tree import leaves
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ops.reset_launches()
+        card = router_loop(dev, f"{root}/card", steps, steps)
+        m = card.run()
+        counts = dict(ops.LAUNCHES)
+        cpu = router_loop("cpu", f"{root}/cpu", steps, steps).run()
+        diffs = [abs(a - b) / abs(b) for a, b in zip(m.losses, cpu.losses)]
+        check(len(m.losses) == len(cpu.losses) == steps, "router: steps missing")
+        check(all(math.isfinite(x) for x in m.losses), f"router: non-finite losses {m.losses}")
+        check(max(diffs) <= TRAIN_LOSS_RTOL,
+              f"router: card and CPU losses differ by {max(diffs)} (relative)")
+        check(m.losses[-1] < m.losses[0], f"router: the loss did not fall {m.losses}")
+        per_step = {k: v / steps for k, v in counts.items()}
+        n_layers = card.cfg.n_layers
+        for name, want in (("flash_attention", n_layers), ("flash_attention_bwd", n_layers),
+                           ("rmsnorm", 4 * n_layers + 1), ("rmsnorm_bwd", 4 * n_layers + 1),
+                           ("decode_attention", 0), ("moe_router", 0)):
+            check(per_step[name] == want, f"router: {name} launches a step {per_step[name]} "
+                                          f"!= {want}")
+        step_ms = statistics.median(m.step_times[1:]) * 1e3
+        batch = card._batch()
+        split = device_split(lambda: card._step(card.params, card.opt_state, batch), step_ms)
+
+        # crash and restart on the card
+        a = router_loop(dev, f"{root}/restart", 12, 8)
+        a.run(n_steps=8)
+        check(a.ckpt.latest_step() == 8, "router: no checkpoint at step 8")
+        del a                                   # the crash: nothing but the checkpoint is kept
+        b = router_loop(dev, f"{root}/restart", 12, 8)
+        mb = b.run()
+        whole = router_loop(dev, f"{root}/whole", 12, 8)
+        mw = whole.run()
+        check(b.step_no == 12 and len(mb.losses) == 4, "router: the restart did not resume at 8")
+        bitwise = (mb.losses == mw.losses[8:]
+                   and all(torch.equal(x, y) for x, y in zip(leaves(b.params),
+                                                             leaves(whole.params)))
+                   and all(torch.equal(x, y) for x, y in zip(leaves(b.opt_state),
+                                                             leaves(whole.opt_state))))
+        check(bitwise, "router: the restarted run is not bit for bit the uninterrupted one")
+        out = {"phase": "train_router", "arch": "wikikv-router", "batch": 8, "seq": 128,
+               "steps": steps, "losses_card": m.losses, "losses_cpu": cpu.losses,
+               "max_rel_loss_diff": max(diffs), "tolerance_rel": TRAIN_LOSS_RTOL,
+               "step_ms": step_ms, "step_ms_all": [t * 1e3 for t in m.step_times],
+               "cpu_step_ms": statistics.median(cpu.step_times[1:]) * 1e3,
+               "tokens_per_s": 8 * 128 / step_ms * 1e3, "launches_per_step": per_step,
+               "step_split": split,
+               "restart": {"resumed_at": 8, "final_step": b.step_no,
+                           "losses_after_restart": mb.losses, "bitwise_equal": bitwise}}
+        emit(out)
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def qwen3_training(dev, seed=0, steps=5, seq=4096, parity_layers=2, parity_seq=256) -> dict:
+    """qwen3-1.7B at full width (28 layers, weights drawn on the card from
+    ``seed``, bf16, AdamW f32 moments): ``steps`` make_train_step steps on
+    one fixed batch at B = 1, S = ``seq`` (the launches counted), a finite
+    loss that falls, step ms, tokens/s, peak memory and the model FLOPs'
+    share of the bf16 peak; then the first ``parity_layers`` layers upcast
+    to f32 at S = ``parity_seq``: the loss and every gradient leaf, card
+    against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import leaves
+    cfg = get_config("qwen3-1.7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    n_params = sum(t.numel() for t in leaves(params))
+    opt_cfg = AdamWConfig(lr=3e-4)
+    opt = adamw_init(params, opt_cfg)
+    step = M.make_train_step(cfg, opt_cfg, total_steps=steps)
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(1, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((1, 1), -1, np.int32)], axis=1)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+    host = tree_map(lambda t: t.to("cpu"), first_layers(params, parity_layers))
+
+    # the main path: counts from zero, `steps` train steps, read just after
+    ops.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, aux = step(params, opt, batch)
+        losses.append(float(aux["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses), f"qwen3: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"qwen3: the loss did not fall {losses}")
+    L = cfg.n_layers
+    n_norm = L * (2 + 2 * int(cfg.qk_norm)) + 1
+    per_step = {k: v / steps for k, v in counts.items()}
+    for name, want in (("flash_attention", L), ("flash_attention_bwd", L), ("rmsnorm", n_norm),
+                       ("rmsnorm_bwd", n_norm), ("decode_attention", 0), ("moe_router", 0)):
+        check(per_step[name] == want, f"qwen3: {name} launches a step {per_step[name]} != {want}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    # model FLOPs: 6 N a token (forward and backward of every weight, the
+    # tied head included) plus attention, 3 times the forward's 4 * D a
+    # visible pair
+    _, attn_fwd = attn_work(1, cfg.n_heads, cfg.n_kv_heads, seq, seq, cfg.head_dim, True, 2)
+    model_flops = 6.0 * n_params * seq + 3 * L * attn_fwd
+    mfu = model_flops / (step_ms / 1e3) / BF16_FLOPS
+    split = device_split(lambda: step(params, opt, batch), step_ms)
+    _, grads = M.loss_and_grads(params, batch, cfg)
+    opt_ms = cuda_ms(lambda: adamw_update(params, grads, opt, opt_cfg), iters=2, warmup=1)
+    del grads
+    out = {"phase": "train_qwen3", "arch": cfg.name, "layers": L, "batch": 1, "seq": seq,
+           "params": n_params, "param_dtype": cfg.param_dtype, "moments": "float32",
+           "losses": losses, "step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": seq / step_ms * 1e3, "peak_gib": peak,
+           "launches_per_step": per_step, "model_tflop_per_step": model_flops / 1e12,
+           "step_split": split, "adamw_ms": opt_ms, "remat": False}
+    emit(out)
+    print(f"qwen3-1.7b train model FLOPs share of the bf16 peak: {mfu:.6f} "
+          f"({model_flops / 1e12:.3f} TFLOP in {step_ms:.2f} ms, {nvidia_smi()})", flush=True)
+    del params, opt, aux, batch
+    torch.cuda.empty_cache()
+
+    # parity: the first layers in f32 (the bf16 weights upcast), card vs CPU
+    cfg_32 = dataclasses.replace(cfg, n_layers=parity_layers, dtype="float32",
+                                 param_dtype="float32")
+    host = tree_map(lambda t: t.float(), host)
+    pb = {"tokens": torch.from_numpy(toks[:, :parity_seq]),
+          "labels": torch.from_numpy(labels[:, :parity_seq])}
+    loss_c, grads_c = M.loss_and_grads(tree_map(lambda t: t.to(dev), host),
+                                       {k: v.to(dev) for k, v in pb.items()}, cfg_32)
+    grads_c = tree_map(lambda t: t.cpu(), grads_c)
+    loss_h, grads_h = M.loss_and_grads(host, pb, cfg_32)
+    worst = 0.0
+    for gc, gh in zip(leaves(grads_c), leaves(grads_h)):
+        scale = float(gh.abs().max())
+        worst = max(worst, float((gc - gh).abs().max()) / max(scale, 1e-30))
+    loss_rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    par = {"phase": "train_qwen3_parity", "layers": parity_layers, "seq": parity_seq,
+           "loss_card": float(loss_c), "loss_cpu": float(loss_h), "loss_rel_diff": loss_rel,
+           "grad_leaves": len(leaves(grads_h)), "worst_grad_diff_rel_to_leaf_max": worst,
+           "tolerance": {"loss_rel": 3e-5, "grad_rel_to_leaf_max": 1e-4}}
+    emit(par)
+    check(loss_rel <= 3e-5 and worst <= 1e-4, f"qwen3 f32 gradients, card vs CPU: {par}")
+    del host, grads_c, grads_h
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_phase(dev) -> dict:
+    """The training path's main runs (the router's card loop and qwen3's
+    steps), their launch counts summed."""
+    a = router_training(dev)
+    b = qwen3_training(dev)
+    return {k: a[k] + b[k] for k in a}
+
+
 def main(argv: list[str]) -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; run it "
@@ -1744,6 +2159,7 @@ def main(argv: list[str]) -> int:
     entries = model_kernels(dev)
     entries.update(attention_kernels(dev))
     entries.update(router_kernels(dev))
+    entries.update(backward_kernels(dev))
 
     rng = random.Random(0)
     store, dims, n_files, dev_eng, host = query_phase(dev, SCALE_LOG2)
@@ -1767,11 +2183,12 @@ def main(argv: list[str]) -> int:
 
     # each path below sets the counts to 0 just before it and reads them just after
     path_counts = [query_counts, durable_phase(dev, SCALE_LOG2, refresh_ms), serving_phase(dev),
-                   serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev)]
+                   serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev),
+                   train_phase(dev)]
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
-                 "flash_attention", "moe_router"):
+                 "flash_attention", "moe_router", "flash_attention_bwd", "rmsnorm_bwd"):
         e = entries[name]
         e["launches"] = sum(c[name] for c in path_counts)
         check(e["launches"] > 0, f"{name} was never launched on the main path")
@@ -1779,7 +2196,7 @@ def main(argv: list[str]) -> int:
                                           "max_abs_err", "ms", "device_ms", "host_ms",
                                           "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "library_device_ms", "library_host_ms", "shape",
-                                          "geometry", "shapes")
+                                          "geometry", "note", "shapes")
                         if k in e})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

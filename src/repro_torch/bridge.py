@@ -10,6 +10,11 @@ packages.  This module imports nothing of JAX: the caller converts.
 A bfloat16 leaf arrives as numpy's ``ml_dtypes.bfloat16``, which torch
 cannot read; its bits cross as int16 and are reinterpreted as
 ``torch.bfloat16`` (the same bits, no float round trip).
+
+``opt_state_from_jax(state)`` moves an AdamW state the same way: its
+``{"m", "v", "step"}`` layout is the reference's, int8 moments included
+(``{"q", "scale"}`` leaves), so the port's ``adamw_update`` continues a
+trajectory the JAX package began.
 """
 from __future__ import annotations
 
@@ -37,3 +42,15 @@ def _leaf(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def opt_state_from_jax(state, device=None):
+    """The JAX package's ``adamw_init``/``adamw_update`` state (numpy
+    leaves) as the port's: the same tree, ``step`` a 0-d int32 tensor,
+    int8 moments as ``{"q": int8, "scale": float32}`` tensors, on
+    ``device`` (``cuda`` unless given)."""
+    if set(state) != {"m", "v", "step"}:
+        raise ValueError(f"opt_state_from_jax: keys {sorted(state)}; need m, v and step")
+    out = params_from_jax(state, device)
+    out["step"] = out["step"].to(torch.int32).reshape(())
+    return out

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("path_lookup", "prefix_search", "decode_attention", "flash_attention",
-           "moe_router", "rmsnorm")
+           "flash_attention_bwd", "moe_router", "rmsnorm")
 #: streaming multiprocessors of an H100 SXM: the launch geometries' default
 #: for callers without a card (the wrappers pass ``sm_count`` of theirs)
 N_SM = 132
@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
                             "decode_attention": 0, "flash_attention": 0, "rmsnorm": 0,
-                            "moe_router": 0}
+                            "moe_router": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -54,6 +54,20 @@ def count_launch(name: str) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+#: why a kernel with a backward refuses an input that requires grad
+VIA_OPS = "call kernels.ops, whose autograd Function runs the backward kernel"
+
+
+def refuse_grad(name: str, *tensors, why: str = VIA_OPS) -> None:
+    """Raise when autograd would need the gradient of a kernel's output:
+    the wrappers write through raw pointers, so their outputs carry no
+    ``grad_fn``, and returning one would silently drop every gradient
+    behind it."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad; {why}")
 
 
 def nvcc() -> str:

@@ -61,6 +61,12 @@
 //    on their own; issuing tile i's S beside tile i-1's P V inside one
 //    warpgroup (FlashAttention-3's overlap) was no faster at qwen3
 //    prefill on an H100, and needs a third K/V stage at D = 128.
+//
+// Both bodies write the rows' log-sum-exp of the scaled scores (natural
+// log, f32, (B, Hq, Sq)) when `lse` is not null: the training forward
+// keeps it for flash_attention_bwd.cu; the inference paths pass null.
+// The wgmma body's running max is in the exp2 domain, so its lse is
+// (m + log2 l) * ln 2.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,8 +103,8 @@ constexpr int smem_floats() {
 template <int D, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int causal,
-                 float scale, int n_qt) {
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int Hq, int Hkv, int Sq, int Skv, int causal, float scale, int n_qt) {
   constexpr int NC = BK / 8;   // score columns per lane
   constexpr int ND = D / 8;    // output dims per lane
   constexpr int QLD = D + 1, KLD = D + 1, PLD = BK + 1;
@@ -217,6 +223,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + ((size_t)bh * Sq + row) * D;
 #pragma unroll
     for (int c = 0; c < ND; ++c) o[rx + 8 * c] = acc[i][c] / denom;
+    if (lse != nullptr && rx == 0)
+      lse[(size_t)bh * Sq + row] = l[i] == 0.f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
   }
 }
 
@@ -448,8 +456,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       const __grid_constant__ CUtensorMap o_map, int Hq, int Hkv, int Sq,
-                       int Skv, int causal, float scale_log2, int n_qt) {
+                       const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse, int Hq,
+                       int Hkv, int Sq, int Skv, int causal, float scale_log2, int n_qt) {
   using G = Geo<D>;
   constexpr int ST = G::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -579,6 +587,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       l[r] += __shfl_xor_sync(FULL, l[r], 1);
       l[r] += __shfl_xor_sync(FULL, l[r], 2);
       inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+      const int row = row_wg + warp * 16 + g + 8 * r;
+      if (lse != nullptr && t == 0 && row < Sq)
+        lse[(size_t)bh * Sq + row] = l[r] == 0.f ? __int_as_float(0x7f800000)
+                                                 : (m[r] + log2f(l[r])) * 0.6931471805599453f;
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // Q reads are over
 #pragma unroll
@@ -650,8 +662,8 @@ int tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads, int box_r
 }
 
 template <int D, int NWG>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-                 int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Hq,
+                 int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
   constexpr int smem = wgmma_smem_bytes<D, NWG>();
   auto kernel = flash_fwd_wgmma_kernel<D, NWG>;
   static const cudaError_t attr =  // once per instantiation: it is host work on every launch
@@ -665,24 +677,25 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   if (rc) return rc;
   const int n_qt = (Sq + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
   const dim3 grid(B * Hq, n_qt);
-  kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(qm, km, vm, om, Hq, Hkv, Sq, Skv, causal,
+  kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(qm, km, vm, om, lse, Hq, Hkv, Sq, Skv, causal,
                                                    scale * 1.4426950408889634f, n_qt);
   return 0;
 }
 
 template <int D>
-int launch_bf16(int block_q, const void* q, const void* k, const void* v, void* out, int B,
-                int Hq, int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+int launch_bf16(int block_q, const void* q, const void* k, const void* v, void* out, float* lse,
+                int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+                cudaStream_t stream) {
   if (block_q == 128)
-    return launch_wgmma<D, 2>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    return launch_wgmma<D, 2>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
   if (block_q == 64)
-    return launch_wgmma<D, 1>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    return launch_wgmma<D, 1>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int D, int BK>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-               int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Hq,
+               int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D, BK>() * sizeof(float);
   auto kernel = flash_fwd_kernel<D, BK>;
   const cudaError_t err =
@@ -692,29 +705,35 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(B * Hq, n_qt);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Hq, Hkv, Sq, Skv, causal, scale, n_qt);
+      static_cast<float*>(out), lse, Hq, Hkv, Sq, Skv, causal, scale, n_qt);
   return 0;
 }
 
-int by_dim_f32(int D, const void* q, const void* k, const void* v, void* out, int B, int Hq,
-               int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+int by_dim_f32(int D, const void* q, const void* k, const void* v, void* out, float* lse, int B,
+               int Hq, int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_f32<16, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 32: return launch_f32<32, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 64: return launch_f32<64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 128: return launch_f32<128, 32>(q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 16: return launch_f32<16, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 32: return launch_f32<32, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 64: return launch_f32<64, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 128:
+      return launch_f32<128, 32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v, void* out,
-                int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                 cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_bf16<16>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 32: return launch_bf16<32>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 64: return launch_bf16<64>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 128: return launch_bf16<128>(block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 16:
+      return launch_bf16<16>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 32:
+      return launch_bf16<32>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 64:
+      return launch_bf16<64>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 128:
+      return launch_bf16<128>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale,
+                              stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -722,19 +741,20 @@ int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
-// out like q, all contiguous and 16-byte aligned; Hq % Hkv == 0,
+// out like q, all contiguous and 16-byte aligned; lse (B, Hq, Sq) f32 or
+// null (not written); Hq % Hkv == 0,
 // 0 < Sq <= Skv.  block_q: the bf16 body's queries a block, 128 (two
 // consumer warpgroups) or 64 (one); the f32 body always takes 64.
 // ceil(Sq / 64) <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                                      float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                       int dtype, int causal, float scale, int block_q,
                                       cudaStream_t stream) {
   if (B > 0 && Hq > 0 && Sq > 0) {
     const int rc = dtype == 0
-        ? by_dim_f32(D, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
+        ? by_dim_f32(D, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
         : dtype == 1
-        ? by_dim_bf16(D, block_q, q, k, v, out, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
+        ? by_dim_bf16(D, block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
         : (int)cudaErrorInvalidValue;
     if (rc) return rc;
   }

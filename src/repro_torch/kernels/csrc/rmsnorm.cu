@@ -22,6 +22,22 @@
 // the row is a whole number of 16-byte vectors and every base is 16-byte
 // aligned; otherwise a scalar body that reads the row twice (the second
 // read hits L1/L2).  x in {f32, bf16} x scale in {none, f32, bf16}.
+//
+// The backward (rmsnorm_bwd_launch) has no Pallas counterpart: the JAX
+// package differentiates its jnp reference.  It computes what
+// ref.rmsnorm_bwd_ref computes: with r = rsqrt(mean(x^2) + eps) and
+// g = dy * scale, dx = r * (g - x * r^2 * mean(g * x)) and dscale = the
+// sum over rows of dy * x * r, in f32.  Bound on this card: bytes (x and
+// dy read, dx written).  Two launches with a scale, one without:
+//  * rmsnorm_bwd_kernel: TPR threads a row (32..256, a power of two; the
+//    row's sums by warp shuffles, and shared memory above a warp), 256 / TPR
+//    rows in flight, a grid of at most 4 waves of blocks walking the rows.
+//    Each thread owns the columns t + TPR * k, so it adds its share of
+//    dscale over all its rows in registers; the block then sums its row
+//    groups in a fixed order and writes one partial row of D;
+//  * rmsnorm_dscale_kernel: a thread per column sums the blocks' partial
+//    rows in block order.
+// No atomics: the result does not depend on the order blocks run in.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,6 +237,154 @@ int by_scale(const void* x, const void* s, void* out, int rows, int D, int s_dty
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+// The sums of a and b over the TPR threads of each row group (all threads
+// of the block call it the same number of times).
+__device__ __forceinline__ void row_sums(float& a, float& b, int tpr) {
+  const int w = tpr < 32 ? tpr : 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o < w) {
+      a += __shfl_xor_sync(FULL, a, o);
+      b += __shfl_xor_sync(FULL, b, o);
+    }
+  }
+  if (tpr > 32) {
+    __shared__ float part[2][8];
+    const int warp = threadIdx.x >> 5, per = tpr >> 5, first = (threadIdx.x / tpr) * per;
+    __syncthreads();   // the previous row's reads of part are over
+    if ((threadIdx.x & 31) == 0) {
+      part[0][warp] = a;
+      part[1][warp] = b;
+    }
+    __syncthreads();
+    a = b = 0.f;
+    for (int i = 0; i < per; ++i) {
+      a += part[0][first + i];
+      b += part[1][first + i];
+    }
+  }
+}
+
+template <typename T, typename S, int CPT>
+__global__ void __launch_bounds__(256)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ s, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, int rows, int D, float eps,
+                   int tpr) {
+  constexpr bool SCALED = !std::is_same<S, NoScale>::value;
+  const int R = 256 / tpr;                       // rows in flight
+  const int t = threadIdx.x % tpr, rg = threadIdx.x / tpr;
+  float sc[CPT], acc[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int j = t + tpr * k;
+    sc[k] = j < D ? scale_at(s, j) : 0.f;
+    acc[k] = 0.f;
+  }
+  for (int base = blockIdx.x * R; base < rows; base += gridDim.x * R) {
+    const int row = base + rg;
+    const bool valid = row < rows;
+    const T* xr = x + (size_t)row * D;
+    const T* dyr = dy + (size_t)row * D;
+    float xv[CPT], dv[CPT];
+    float ss = 0.f, sg = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int j = t + tpr * k;
+      xv[k] = dv[k] = 0.f;
+      if (valid && j < D) {
+        xv[k] = to_f(xr[j]);
+        dv[k] = to_f(dyr[j]);
+      }
+      ss = fmaf(xv[k], xv[k], ss);
+      sg = fmaf(SCALED ? dv[k] * sc[k] : dv[k], xv[k], sg);
+    }
+    row_sums(ss, sg, tpr);
+    const float r = rsqrtf(ss / (float)D + eps);
+    const float c = r * r * (sg / (float)D);
+    T* dxr = dx + (size_t)row * D;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int j = t + tpr * k;
+      if (valid && j < D) {
+        const float g = SCALED ? dv[k] * sc[k] : dv[k];
+        dxr[j] = from_f<T>(r * (g - xv[k] * c));
+        if (SCALED) acc[k] = fmaf(dv[k] * xv[k], r, acc[k]);
+      }
+    }
+  }
+  if constexpr (SCALED) {
+    __shared__ float part[256 * CPT];            // row group g's columns at g * TPR * CPT
+    const int width = tpr * CPT;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) part[rg * width + t + tpr * k] = acc[k];
+    __syncthreads();
+    for (int j = threadIdx.x; j < D; j += blockDim.x) {
+      float v = 0.f;
+      for (int g = 0; g < R; ++g) v += part[g * width + j];
+      partial[(size_t)blockIdx.x * D + j] = v;
+    }
+  }
+}
+
+template <typename S>
+__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partial, S* __restrict__ ds,
+                                      int blocks, int D) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= D) return;
+  float v = 0.f;
+  for (int b = 0; b < blocks; ++b) v += partial[(size_t)b * D + j];
+  ds[j] = from_f<S>(v);
+}
+
+template <typename T, typename S, int CPT>
+int launch_bwd_cpt(const void* x, const void* s, const void* dy, void* dx, float* partial,
+                   void* ds, int rows, int D, float eps, int tpr, int blocks,
+                   cudaStream_t stream) {
+  rmsnorm_bwd_kernel<T, S, CPT><<<blocks, 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(s), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, rows, D, eps, tpr);
+  if constexpr (!std::is_same<S, NoScale>::value) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    rmsnorm_dscale_kernel<S><<<(D + 255) / 256, 256, 0, stream>>>(partial, static_cast<S*>(ds),
+                                                                  blocks, D);
+  }
+  return 0;
+}
+
+template <typename T, typename S>
+int launch_bwd(const void* x, const void* s, const void* dy, void* dx, float* partial, void* ds,
+               int rows, int D, float eps, int tpr, int cpt, int blocks, cudaStream_t stream) {
+  switch (cpt) {
+    case 1: return launch_bwd_cpt<T, S, 1>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, blocks, stream);
+    case 2: return launch_bwd_cpt<T, S, 2>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, blocks, stream);
+    case 4: return launch_bwd_cpt<T, S, 4>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, blocks, stream);
+    case 8: return launch_bwd_cpt<T, S, 8>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, blocks, stream);
+    case 16: return launch_bwd_cpt<T, S, 16>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, blocks, stream);
+    case 32: return launch_bwd_cpt<T, S, 32>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, blocks, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int bwd_by_scale(const void* x, const void* s, const void* dy, void* dx, float* partial, void* ds,
+                 int rows, int D, int s_dtype, float eps, int tpr, int cpt, int blocks,
+                 cudaStream_t stream) {
+  switch (s_dtype) {
+    case -1:
+      return launch_bwd<T, NoScale>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, cpt, blocks, stream);
+    case 0:
+      return launch_bwd<T, float>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, cpt, blocks, stream);
+    case 1:
+      return launch_bwd<T, __nv_bfloat16>(x, s, dy, dx, partial, ds, rows, D, eps, tpr, cpt, blocks,
+                                          stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x (rows, D) contiguous, out like x; s (D,) or null.  x_dtype and s_dtype:
@@ -238,6 +402,29 @@ extern "C" int rmsnorm_launch(const void* x, const void* s, void* out, int rows,
         : x_dtype == 1
         ? by_scale<__nv_bfloat16>(x, s, out, rows, D, s_dtype, eps, threads, rows_per_block, vec,
                                   stream)
+        : (int)cudaErrorInvalidValue;
+    if (rc) return rc;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward: x, dy and dx (rows, D) contiguous in x_dtype; s (D,) or null
+// (s_dtype -1, then partial and ds are unused); partial (blocks, D) f32
+// scratch; ds (D,) in s_dtype.  tpr in {32, 64, 128, 256} threads a row,
+// cpt in {1, 2, 4, 8, 16, 32} with tpr * cpt >= D.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* s, const void* dy, void* dx,
+                                  float* partial, void* ds, int rows, int D, int x_dtype,
+                                  int s_dtype, float eps, int tpr, int cpt, int blocks,
+                                  cudaStream_t stream) {
+  if (rows > 0 && D > 0) {
+    if ((tpr != 32 && tpr != 64 && tpr != 128 && tpr != 256) || tpr * cpt < D || blocks < 1)
+      return (int)cudaErrorInvalidValue;
+    const int rc = x_dtype == 0
+        ? bwd_by_scale<float>(x, s, dy, dx, partial, ds, rows, D, s_dtype, eps, tpr, cpt, blocks,
+                              stream)
+        : x_dtype == 1
+        ? bwd_by_scale<__nv_bfloat16>(x, s, dy, dx, partial, ds, rows, D, s_dtype, eps, tpr, cpt,
+                                      blocks, stream)
         : (int)cudaErrorInvalidValue;
     if (rc) return rc;
   }

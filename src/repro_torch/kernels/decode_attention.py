@@ -27,6 +27,9 @@ lengths, not the cache size S.
 
 Scaling follows the TPU kernel (f32 scores times the scale), and the
 plain version in ``ref.decode_attention_ref`` does the same.
+
+There is no backward kernel: under grad mode an input that requires
+grad raises (``build.refuse_grad``) instead of a detached output.
 """
 from __future__ import annotations
 
@@ -116,6 +119,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     bfloat16, D in HEAD_DIMS, Hq/Hkv in GROUPS, any S."""
     if not q.is_cuda:
         raise ValueError("decode_attention kernel: tensors must be on a CUDA device")
+    build.refuse_grad("decode_attention", q, k_cache, v_cache,
+                      why="decode_attention has no backward kernel (decode is inference only)")
     dt = _DTYPES.get(q.dtype)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} must be 3-D and the "

@@ -18,6 +18,9 @@ comparison, the weights and indices share one allocation, and the
 geometry comes from ``router_geometry`` (cached, pure Python).  It takes
 any T (the Pallas version asserted T % block_t == 0) and f32 logits;
 every model path casts the router logits to f32 first.
+
+There is no backward kernel yet: under grad mode logits that require
+grad raise (``build.refuse_grad``) instead of detached weights.
 """
 from __future__ import annotations
 
@@ -71,6 +74,9 @@ def moe_router(logits: torch.Tensor, k: int, *, renormalize: bool = True
     E <= MAX_EXPERTS, 1 <= k <= min(E, MAX_K)."""
     if not logits.is_cuda:
         raise ValueError("moe_router kernel: tensors must be on a CUDA device")
+    build.refuse_grad("moe_router", logits,
+                      why="moe_router has no backward kernel (MoE training comes with a later "
+                          "slice)")
     if (logits.dtype, logits.dim(), logits.is_contiguous()) != (torch.float32, 2, True):
         if logits.dtype != torch.float32 or logits.dim() != 2:
             raise ValueError(f"moe_router: logits must be 2-D float32, got "

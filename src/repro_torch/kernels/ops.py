@@ -5,6 +5,14 @@ A tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor
 goes to the hand-written kernel, and any failure there raises — there is
 no fallback from the card to the plain version.  ``LAUNCHES`` counts the
 kernel launches of each wrapper.
+
+Under grad mode, with an input that requires grad, ``attention`` and
+``rmsnorm`` on the card go through autograd Functions whose forward is
+the kernel (the attention's with its log-sum-exp) and whose backward is
+the backward kernel (``flash_attention_bwd``, ``rmsnorm_bwd``); on the
+CPU autograd differentiates the plain versions.  ``decode_attention``
+and ``moe_router`` have no backward kernel and raise there.  Otherwise
+(inference) the kernels launch as they are.
 """
 from __future__ import annotations
 
@@ -14,15 +22,55 @@ from . import ref
 from .build import LAUNCHES, reset_launches
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
+from .flash_attention import flash_attention_bwd as _flash_bwd_kernel
 from .moe_router import moe_router as _router_kernel
 from .path_lookup import key64, pad_keys, pad_pinned
 from .path_lookup import path_lookup as _lookup_kernel
 from .prefix_search import prefix_search as _prefix_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
+from .rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+class _Attention(torch.autograd.Function):
+    """flash_attention with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_kernel(q, k, v, o, lse, do, causal=ctx.causal,
+                                       sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    """rmsnorm with its backward kernel; ``scale`` may be None."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_kernel(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = _rmsnorm_bwd_kernel(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None
 
 
 def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
@@ -36,6 +84,8 @@ def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
             return ref.chunked_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                                              chunk=1024)
         return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, causal, sm_scale)
     return _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
@@ -43,6 +93,8 @@ def rmsnorm(x, scale=None, eps: float = 1e-6):
     """RMSNorm over the last axis; ``scale=None`` is non-parametric."""
     if _on_cpu(x):
         return ref.rmsnorm_ref(x, scale, eps=eps)
+    if _needs_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
     return _rmsnorm_kernel(x, scale, eps=eps)
 
 

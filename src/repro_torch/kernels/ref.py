@@ -7,6 +7,11 @@ its plain version on the card.  Counterparts of
 ``repro/kernels/ref.py``'s ``attention_ref``, ``chunked_attention_ref``,
 ``rmsnorm_ref``, ``decode_attention_ref``, ``moe_router_ref``,
 ``path_lookup_ref``, ``path_lookup_pinned_ref`` and ``prefix_search_ref``.
+The JAX package has no backward kernel (``jax.value_and_grad``
+differentiates its jnp references); the port's backward kernels are held
+against ``attention_bwd_ref`` and ``rmsnorm_bwd_ref``, explicit formulas
+of the same gradients.  The float math is f32, or f64 for f64 inputs
+(``torch.autograd.gradcheck``).
 
 Digest tables hold one int64 per key, ``((hi << 32) | lo) ^ (1 << 63)``:
 torch has no ordering on uint32, and flipping the sign bit makes the
@@ -21,25 +26,71 @@ import torch
 NEG_INF = -1e30  # the finite mask value of the reference kernels
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The compute type of the plain versions: f64 stays f64, else f32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _causal_mask(Sq: int, Skv: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: query i (at position i + Skv - Sq) sees key j <= it."""
+    q_pos = torch.arange(Sq, device=device) + (Skv - Sq)
+    return q_pos[:, None] >= torch.arange(Skv, device=device)[None, :]
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+                  causal: bool = True, sm_scale: float | None = None,
+                  return_lse: bool = False):
     """Full softmax attention with GQA (query head h reads KV head
     h // group).  q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).  The queries
     are the last Sq positions of the Skv context.  Scores in f32 times the
-    scale, the finite -1e30 mask; returns (B, Hq, Sq, D) in q.dtype."""
+    scale, the finite -1e30 mask; returns (B, Hq, Sq, D) in q.dtype, and
+    with ``return_lse`` also the rows' log-sum-exp of the scaled scores
+    (B, Hq, Sq) in f32, which the backward reads."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    kf = _acc(k).repeat_interleave(group, dim=1)
+    vf = _acc(v).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", _acc(q), kf) * scale
     if causal:
-        q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
-        mask = q_pos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+        mask = _causal_mask(Sq, Skv, q.device)
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).to(torch.promote_types(s.dtype, torch.float32))
+    return out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                      lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                      sm_scale: float | None = None):
+    """The gradients (dq, dk, dv) of ``attention_ref`` given its output
+    ``o``, its ``lse`` and the output's gradient ``do``, as the backward
+    kernel computes them: P = exp(s * scale - lse) with masked keys at 0,
+    delta = rowsum(do * o), dS = P * (do v^T - delta), dq = scale * dS k,
+    dk = scale * dS^T q and dv = P^T do, the group's query heads summed
+    into their KV head.  Each gradient in its input's dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qf, dof = _acc(q), _acc(do)
+    kf = _acc(k).repeat_interleave(group, dim=1)
+    vf = _acc(v).repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.to(s.dtype)[..., None])
+    if causal:
+        p = torch.where(_causal_mask(Sq, Skv, q.device)[None, None], p, torch.zeros_like(p))
+    delta = (dof * _acc(o)).sum(dim=-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(B, Hkv, group, Skv, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, group, Skv, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -84,12 +135,29 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor | None,
                 eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = _acc(x)
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps)
     if scale is not None:
-        y = y * scale.float()
+        y = y * _acc(scale)
     return y.to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """The gradients (dx, dscale) of ``rmsnorm_ref`` given the output's
+    gradient ``dy``: with r = rsqrt(mean(x^2) + eps) and g = dy * scale,
+    dx = r * (g - x * r^2 * mean(g * x)) and dscale = sum over rows of
+    dy * x * r; dx in x's dtype, dscale in the scale's (None without a
+    scale)."""
+    xf, dyf = _acc(x), _acc(dy)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    g = dyf * _acc(scale) if scale is not None else dyf
+    dx = r * (g - xf * (r * r) * (g * xf).mean(dim=-1, keepdim=True))
+    dscale = None
+    if scale is not None:
+        dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0).to(scale.dtype)
+    return dx.to(x.dtype), dscale
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -13,6 +13,10 @@ contiguous, the output is one ``torch.empty_like``, and the launch geometry
 comes from ``launch_geometry`` (cached, pure Python): one warp per row
 up to D = 1024 in bf16, one block per row above, 16-byte vectors where
 the row and its bases allow them.
+
+Training: ``rmsnorm_bwd`` (the same library) gives dx and dscale, held
+against ``ref.rmsnorm_bwd_ref``; ``kernels.ops.rmsnorm`` joins the two in
+an autograd Function.  Its geometry is ``bwd_geometry``.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ NVMAX = 8           # 16-byte vectors a thread keeps in registers (csrc/rmsnorm.
 WARP_ROW_VECS = 4   # the most 16-byte vectors a lane takes in a warp row
 ROW_VECS = 4        # 16-byte vectors a thread of a block row aims at
 WARP_ROW_MAX_D = 1024   # the longest scalar row a warp takes
+BWD_MAX_D = 256 * 32    # the longest row the backward takes (256 threads x 32 columns)
 _FN = None
+_BWD = None
 
 
 @functools.lru_cache(maxsize=256)
@@ -62,6 +68,24 @@ def launch_geometry(rows: int, D: int, elt: int, vec_ok: bool, n_sm: int = N_SM
     return threads, 1, vec
 
 
+@functools.lru_cache(maxsize=256)
+def bwd_geometry(rows: int, D: int, n_sm: int = N_SM) -> tuple[int, int, int]:
+    """(threads a row, columns a thread, blocks) of the backward: a row
+    of D takes about D / 8 threads (32 to 256, a power of two; 256 / that
+    rows share a block of 256), each thread the columns t, t + tpr, ...
+    (a power of two of them, at most 32); at most 4 waves of blocks, so
+    the second pass sums at most 4 * n_sm partial rows."""
+    if D > BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: rows of {D} exceed {BWD_MAX_D}")
+    tpr = 32
+    while tpr < 256 and tpr * 8 < D:
+        tpr *= 2
+    cpt = 1
+    while tpr * cpt < D:
+        cpt *= 2
+    return tpr, cpt, max(1, min(-(-rows // (256 // tpr)), 4 * n_sm))
+
+
 def _launcher():
     global _FN
     if _FN is None:
@@ -79,6 +103,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor | None = None,
     float32 or bfloat16, or None (non-parametric)."""
     if not x.is_cuda:
         raise ValueError("rmsnorm kernel: tensors must be on a CUDA device")
+    build.refuse_grad("rmsnorm", x, scale)
     x_dt = _DTYPES.get(x.dtype)
     if x_dt is None:
         raise ValueError(f"rmsnorm: unsupported dtype {x.dtype}")
@@ -106,3 +131,58 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor | None = None,
     build.check("rmsnorm", rc)
     build.count_launch("rmsnorm")
     return out
+
+
+def _bwd_launcher():
+    global _BWD
+    if _BWD is None:
+        fn = build.library("rmsnorm").rmsnorm_bwd_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _BWD = fn
+    return _BWD
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
+                eps: float = 1e-6):
+    """The gradients (dx, dscale) of ``rmsnorm(x, scale, eps)`` given the
+    output's gradient ``dy``: dx like x, dscale like the scale (None
+    without one).  One launch without a scale, two with one (the rows'
+    pass writes per-block partial sums of dscale, a second sums them in
+    block order: no atomics).  Rows up to BWD_MAX_D."""
+    if not x.is_cuda:
+        raise ValueError("rmsnorm_bwd kernel: tensors must be on a CUDA device")
+    x_dt = _DTYPES.get(x.dtype)
+    if x_dt is None or dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)} {x.dtype} and dy {tuple(dy.shape)} "
+                         f"{dy.dtype}; need float32 or bfloat16 of one shape and dtype")
+    D = x.shape[-1]
+    dev = x.get_device()
+    s_dt = -1
+    if scale is not None:
+        s_dt = _DTYPES.get(scale.dtype)
+        if s_dt is None or scale.shape != (D,) or scale.get_device() != dev:
+            raise ValueError(f"rmsnorm_bwd: scale must be ({D},) float32 or bfloat16 on {x.device}")
+        scale = scale.contiguous()
+    if dy.get_device() != dev:
+        raise ValueError("rmsnorm_bwd: all tensors must be on one device")
+    build.refuse_grad("rmsnorm_bwd", x, scale, dy)
+    x, dy = x.contiguous(), dy.contiguous()
+    dx = torch.empty_like(x)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return dx, torch.zeros_like(scale) if scale is not None else None
+    tpr, cpt, blocks = bwd_geometry(rows, D, build.sm_count(dev))
+    partial = ds = None
+    if scale is not None:
+        partial = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+        ds = torch.empty_like(scale)
+    rc = _bwd_launcher()(x.data_ptr(), scale.data_ptr() if scale is not None else None,
+                         dy.data_ptr(), dx.data_ptr(),
+                         partial.data_ptr() if partial is not None else None,
+                         ds.data_ptr() if ds is not None else None,
+                         rows, D, x_dt, s_dt, eps, tpr, cpt, blocks, build.stream_of(x))
+    build.check("rmsnorm", rc)
+    build.count_launch("rmsnorm_bwd")
+    return dx, ds

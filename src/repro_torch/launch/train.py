@@ -1,0 +1,68 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wikikv-router \\
+        --steps 200 --batch 8 --seq 128
+
+Trains on the card (``--device cuda``, the default) through the port's
+backward kernels, or on the CPU with ``--device cpu`` (the plain
+versions; ``--reduced`` for a CPU-sized config).  The reference's
+``--mesh`` comes with the distribution slice.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import get_config
+from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
+from repro_torch.data.pipeline import DataPipeline
+from repro_torch.data.tokenizer import HashTokenizer
+from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+
+
+def build_pipeline(vocab: int, seq_len: int, global_batch: int,
+                   seed: int = 0):
+    docs, _ = generate_authtrace(AuthTraceConfig(n_docs=200, seed=seed))
+    tok = HashTokenizer(vocab_size=vocab).fit([d["text"] for d in docs])
+    token_docs = [tok.encode(d["text"]) for d in docs]
+    return DataPipeline(token_docs, seq_len=seq_len,
+                        global_batch=global_batch, seed=seed), tok
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="wikikv-router")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the reduced (CPU-sized) config")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--checkpoint-dir", default="checkpoints/train")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--opt-dtype", default="float32")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+
+    pipeline, _ = build_pipeline(cfg.vocab, args.seq, args.batch)
+    loop = TrainLoop(
+        cfg,
+        AdamWConfig(lr=3e-4, state_dtype=args.opt_dtype),
+        TrainLoopConfig(total_steps=args.steps,
+                        checkpoint_every=args.checkpoint_every,
+                        checkpoint_dir=args.checkpoint_dir),
+        pipeline, device=device)
+    metrics = loop.run()
+    print(f"final loss {metrics.losses[-1]:.4f} "
+          f"(first {metrics.losses[0]:.4f}) over {len(metrics.losses)} steps")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

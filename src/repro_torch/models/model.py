@@ -1,15 +1,21 @@
 """Public model facade (port of ``repro/models/model.py``): ``init_params``,
-``make_eval_step``, ``make_prefill_step`` and ``make_serve_step``.
+``make_train_step``, ``make_eval_step``, ``make_prefill_step`` and
+``make_serve_step``.
 
 The eval and prefill steps run the full-sequence forward (flash-attention
-kernel on the card) under ``torch.inference_mode()``.  Training and the
-sharding helpers come with the training and distribution slices.
+kernel on the card) under ``torch.inference_mode()``.  The train step runs
+it under grad mode, so on the card the attention and the norms go through
+their autograd Functions and their backward kernels (``kernels.ops``).
+The sharding helpers and ``mesh`` come with the distribution slice.
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve_device
+from ..optim.adamw import AdamWConfig, adamw_update
+from ..optim.schedule import cosine_schedule
+from ..tree import leaves, map_like, unflatten
 from . import layers as L
 from . import transformer as T
 from .config import ModelConfig
@@ -32,6 +38,51 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig):
+    """``(loss, grads)``: the 0-d f32 loss of ``transformer.loss_fn`` and
+    its gradient for every leaf of ``params`` (the same tree, each grad in
+    its parameter's dtype), as ``jax.value_and_grad(T.loss_fn)`` gives
+    them.  ``params`` are left as they are: the gradients are taken
+    through detached leaves, each per-period stack of ``params["body"]``
+    cut into its periods (views), so a period's gradient is its own
+    tensor and the stack's is assembled once at the end."""
+    def leaf(p):
+        return p.detach().requires_grad_(True)
+
+    work = map_like(leaf, {k: v for k, v in params.items() if k != "body"})
+    work["body"] = map_like(lambda t: [leaf(t[i]) for i in range(t.shape[0])], params["body"])
+    flat = leaves(work)
+    with torch.enable_grad():
+        loss = T.loss_fn(work, batch, cfg)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = unflatten(work, [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(flat, grads)])
+    grads["body"] = map_like(lambda _, parts: torch.stack(parts), params["body"], grads["body"])
+    return loss.detach(), {k: grads[k] for k in params}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 10000,
+                    warmup: int | None = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "lr_scale"})``: the loss and its gradient, the cosine
+    schedule's scale at ``opt_state["step"]`` and one AdamW update, with
+    the reference's warmup rule.  It returns new trees and leaves its
+    arguments as they were.  No remat: the activations of qwen3-1.7B at
+    B = 1, S = 4096 fit one card (the JAX body's ``jax.checkpoint``
+    changes no number)."""
+    T.check_supported(cfg)
+    L.set_fp32_matmul()
+    wu = warmup if warmup is not None else max(1, min(200, total_steps // 20))
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(params, batch, cfg)
+        lr_scale = cosine_schedule(opt_state["step"], warmup=wu, total=total_steps)
+        new_params, new_opt = adamw_update(params, grads, opt_state, opt_cfg,
+                                           lr_scale=lr_scale)
+        return new_params, new_opt, {"loss": loss, "lr_scale": lr_scale}
+    return train_step
 
 
 def make_eval_step(cfg: ModelConfig):

@@ -21,6 +21,7 @@ their slice.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import layers as L
 from . import moe as MoE
@@ -116,7 +117,10 @@ def _index(tree, i: int):
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    # F.embedding, not indexing: its backward sums each token's rows in a
+    # fixed order on both devices, where indexing's accumulates in any
+    # order on the CPU, and a resumed run must repeat an uninterrupted one
+    return F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,155 @@
+"""AdamW with optionally quantized first/second moments (port of
+``repro/optim/adamw.py``): functions on tensor trees, not
+``torch.optim.AdamW``, so the state has the reference's layout
+``{"m", "v", "step"}`` and a checkpoint crosses the packages.
+
+``state_dtype``:
+
+  "float32"  — reference Adam
+  "bfloat16" — 2× smaller; update math still in f32
+  "int8"     — per-row (last-axis) absmax int8 moments for leaves of at
+               least ``_QUANT_MIN`` elements and two axes, the second
+               moment stored in the sqrt domain; smaller leaves keep f32.
+
+The update math is f32 whatever the storage, as the reference's is, with
+weight decay on every leaf.  Leaves of at least ``scan_update_min``
+elements with three or more axes (the stacked per-period weights) update
+one leading-axis slice at a time, bounding the f32 temporaries to one
+slice (the reference's ``lax.map``).  ``adamw_update`` returns new
+tensors and leaves its arguments as they were.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..tree import leaves, map_like
+
+#: leaves smaller than this keep f32 moments (quantization overhead
+#: dominates below it)
+_QUANT_MIN = 1 << 16
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    state_dtype: str = "float32"   # float32 | bfloat16 | int8
+    #: stacked per-period leaves bigger than this (elements) update one
+    #: leading-axis slice at a time, bounding f32 temp memory
+    scan_update_min: int = 1 << 28
+
+
+def _q_init(x: torch.Tensor) -> dict:
+    """Per-row (last-axis) absmax int8: ``q`` keeps the param's shape."""
+    return {"q": torch.zeros(x.shape, dtype=torch.int8, device=x.device),
+            "scale": torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)}
+
+
+def _q_quant(val: torch.Tensor, *, root: bool = False) -> dict:
+    """``root=True`` stores the moment in the sqrt domain: the update
+    consumes ``sqrt(v)``, so quantizing the root bounds the error on the
+    quantity actually used."""
+    vf = val.float()
+    if root:
+        vf = torch.sqrt(vf)
+    scale = vf.abs().amax(dim=-1) / 127.0
+    q = torch.round(vf / torch.clamp(scale, min=1e-12)[..., None]).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def _q_dequant(st: dict, *, root: bool = False) -> torch.Tensor:
+    x = st["q"].float() * st["scale"][..., None]
+    return x * x if root else x
+
+
+def _leaf_quantized(p: torch.Tensor) -> bool:
+    return p.numel() >= _QUANT_MIN and p.dim() >= 2
+
+
+def adamw_init(params, cfg: AdamWConfig) -> dict:
+    if cfg.state_dtype == "int8":
+        def init_leaf(p):
+            if _leaf_quantized(p):
+                return _q_init(p)
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        m = map_like(init_leaf, params)
+        v = map_like(init_leaf, params)
+    else:
+        dt = getattr(torch, cfg.state_dtype)
+        m = map_like(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
+        v = map_like(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
+    return {"m": m, "v": v,
+            "step": torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)}
+
+
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
+    """Returns (new_params, new_state).  ``lr_scale`` is a float or a 0-d
+    float32 tensor (``cosine_schedule``'s).  Update math in f32
+    regardless of storage dtype, with the reference's float32 rounding of
+    the step's scalars (the bias corrections and the lr)."""
+    with torch.no_grad():
+        step = state["step"] + 1
+        t = step.to(torch.float32)
+        bc1 = 1.0 - cfg.b1 ** t
+        bc2 = 1.0 - cfg.b2 ** t
+        lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=t.device)
+        state_dt = torch.float32 if cfg.state_dtype == "int8" else getattr(torch, cfg.state_dtype)
+
+        def upd(p, g, m_st, v_st):
+            gf = g.float()
+            quant = isinstance(m_st, dict)
+            if quant:
+                m_prev = _q_dequant(m_st)
+                v_prev = _q_dequant(v_st, root=True)
+            else:
+                m_prev = m_st.float()
+                v_prev = v_st.float()
+            m_new = cfg.b1 * m_prev + (1 - cfg.b1) * gf
+            v_new = cfg.b2 * v_prev + (1 - cfg.b2) * gf * gf
+            mh = m_new / bc1
+            vh = v_new / bc2
+            pf = p.float()
+            pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf)
+            if quant:
+                return pf.to(p.dtype), _q_quant(m_new), _q_quant(v_new, root=True)
+            return pf.to(p.dtype), m_new.to(state_dt), v_new.to(state_dt)
+
+        def upd_leaf(p, g, m, v):
+            # chunk the update over the leading (period) axis of huge stacked
+            # leaves: bounds the f32 dequant/update temporaries to one slice
+            if p.dim() >= 3 and p.numel() >= cfg.scan_update_min and p.shape[0] > 1:
+                new = (torch.empty_like(p), _empty_like(m, state_dt), _empty_like(v, state_dt))
+                for i in range(p.shape[0]):
+                    for dst, part in zip(new, upd(p[i], g[i], _index(m, i), _index(v, i))):
+                        _put(dst, i, part)
+                return new
+            return upd(p, g, m, v)
+
+        out = map_like(upd_leaf, params, grads, state["m"], state["v"])
+        new_p = map_like(lambda _, o: o[0], params, out)
+        new_m = map_like(lambda _, o: o[1], params, out)
+        new_v = map_like(lambda _, o: o[2], params, out)
+    return new_p, {"m": new_m, "v": new_v, "step": step}
+
+
+def _index(st, i):
+    return {k: x[i] for k, x in st.items()} if isinstance(st, dict) else st[i]
+
+
+def _empty_like(st, dtype):
+    if isinstance(st, dict):
+        return {k: torch.empty_like(x) for k, x in st.items()}
+    return torch.empty(st.shape, dtype=dtype, device=st.device)
+
+
+def _put(dst, i, part) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            dst[k][i] = part[k]
+    else:
+        dst[i] = part

@@ -1,5 +1,7 @@
 """On the card only: each of the port's CUDA kernels against its
-plain PyTorch version, at small shapes and at the main path's, and the
+plain PyTorch version, at small shapes and at the main path's (the
+backward kernels of the training path too, and the router's train step
+against the CPU's), and the
 durable tier under a DeviceEngine on the card (rehydration after a
 crash, and reader threads on streams of their own against a committing
 writer).  This file imports neither JAX nor the JAX package, so it runs
@@ -587,3 +589,192 @@ def test_cuda_device_readers_never_see_a_partial_epoch(cuda, tmp_path):
     assert ops.LAUNCHES["path_lookup"] == batches["q1"]
     assert ops.LAUNCHES["prefix_search"] == batches["q4"]
     assert 10 in seen and len(seen) >= 2
+
+
+# ---------------------------------------------------------------------------
+# the training path: the backward kernels and the autograd Functions
+# ---------------------------------------------------------------------------
+def _bwd_tol(dtype):
+    # a gradient sums Sq * group (dK, dV) or Skv (dQ) products in f32 in
+    # another order than the plain version: 1e-4 in f32; bf16 outputs keep
+    # tests/test_kernels.py's bf16 tolerance
+    return dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, D):
+    """Every head_dim x dtype, causal and not, Sq = Skv and Sq < Skv (the
+    queries the last Sq positions), ragged tiles, groups 1, 2, 6 and 8;
+    the kernel and the plain version read the same o and lse (the
+    forward's, whose lse is held to the plain version's too)."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    cases = [(1, 2, 2, 37, 37, True), (2, 4, 2, 64, 64, True), (1, 6, 1, 70, 130, True),
+             (1, 8, 1, 129, 129, False), (2, 16, 2, 33, 100, False), (1, 12, 2, 1, 65, True),
+             (1, 16, 2, 128, 128, True)]
+    for B, Hq, Hkv, Sq, Skv, causal in cases:
+        q = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        k = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        v = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        _, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        do = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        n0 = ops.LAUNCHES["flash_attention_bwd"]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+        torch.cuda.synchronize()
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(g.float(), w.float(), **_bwd_tol(dtype))
+    # deterministic: no atomics, the same bits every call
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_rmsnorm_bwd_matches_plain(cuda, dtype):
+    """Rows the forward's vector body takes (64 ... 6144, aligned) and its
+    scalar body (D = 130, a misaligned base, a non-contiguous dy), with an
+    f32 scale, one in x's dtype and none; dscale summed over 65,536 rows
+    in two passes, the same bits every call."""
+    from repro_torch.kernels import rmsnorm as rn
+    dt = getattr(torch, dtype)
+    cases = [((1024, 256), "f32"), ((4096, 2048), "x"), ((65536, 128), "x"), ((8, 6144), "x"),
+             ((7, 130), "f32"), ((3, 5, 64), None), ((33, 16), "x"), ((4, 256), None)]
+    for shape, scaled in cases:
+        x = torch.randn(shape, dtype=dt, device=cuda)
+        dy = torch.randn(shape, dtype=dt, device=cuda)
+        s = {"f32": torch.randn(shape[-1], device=cuda),
+             "x": torch.randn(shape[-1], dtype=dt, device=cuda), None: None}[scaled]
+        n0 = ops.LAUNCHES["rmsnorm_bwd"]
+        dx, ds = rn.rmsnorm_bwd(x, s, dy)
+        assert ops.LAUNCHES["rmsnorm_bwd"] == n0 + 1
+        wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
+        assert dx.dtype == x.dtype and dx.shape == x.shape
+        torch.testing.assert_close(dx.float(), wx.float(), **_bwd_tol(dtype))
+        if s is None:
+            assert ds is None
+        else:
+            assert ds.dtype == s.dtype
+            rows = x.numel() // shape[-1]
+            # a column sum over `rows` terms: its rounding grows with sqrt(rows)
+            torch.testing.assert_close(ds.float(), ws.float(), rtol=2e-2,
+                                       atol=1e-4 * rows ** 0.5 * (100 if dtype == "bfloat16" else 1))
+            assert torch.equal(rn.rmsnorm_bwd(x, s, dy)[1], ds)
+    s = torch.randn(130, dtype=dt, device=cuda)
+    x = torch.randn(64 * 130 + 1, dtype=dt, device=cuda)[1:].view(64, 130)     # misaligned
+    dy = torch.randn(130, 64, dtype=dt, device=cuda).t()                      # non-contiguous
+    dx, ds = rn.rmsnorm_bwd(x, s, dy)
+    wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
+    torch.testing.assert_close(dx.float(), wx.float(), **_bwd_tol(dtype))
+    torch.testing.assert_close(ds.float(), ws.float(), **_bwd_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_in_a_captured_graph(cuda):
+    """Captured in a CUDA graph, three calls of flash_attention_bwd make
+    three kernel nodes, and of rmsnorm_bwd three (no scale) or six (the
+    rows' pass and the column pass) and no other node; the replay matches
+    the plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    q = torch.randn(2, 4, 128, 64, device=cuda)
+    k = torch.randn(2, 2, 128, 64, device=cuda)
+    v = torch.randn(2, 2, 128, 64, device=cuda)
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    do = torch.randn_like(o)
+    x = torch.randn(512, 256, device=cuda)
+    dy = torch.randn_like(x)
+    s = torch.randn(256, device=cuda)
+    for fn, calls, nodes in ((lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 3, 3),
+                             (lambda: rn.rmsnorm_bwd(x, None, dy), 3, 3),
+                             (lambda: rn.rmsnorm_bwd(x, s, dy), 3, 6)):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [fn() for _ in range(calls)]
+        assert build.graph_nodes(g) == (nodes, nodes)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            for a, b in zip(out, fn()):
+                assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_without_a_backward_raise_under_grad(cuda):
+    """decode_attention and moe_router have no backward kernel: with an
+    input that requires grad under grad mode they raise, naming it; under
+    no_grad they launch as for serving.  The kernel wrappers of flash and
+    rmsnorm refuse such an input too (ops routes it through the Function)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    q = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
+    kc = torch.randn(2, 2, 32, 64, device=cuda)
+    ln = torch.tensor([5, 32], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="decode_attention has no backward"):
+        ops.decode_attention(q, kc, kc, ln)
+    logits = torch.randn(16, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="moe_router has no backward"):
+        ops.moe_router(logits, 2)
+    with torch.no_grad():
+        assert ops.decode_attention(q, kc, kc, ln).shape == (2, 4, 64)
+        assert ops.moe_router(logits, 2)[0].shape == (16, 2)
+    x = torch.randn(4, 1, 8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(x, x, x)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        rn.rmsnorm(x)
+    # through ops the Functions carry the gradient
+    y = ops.attention(x, x, x)
+    assert y.grad_fn is not None and ops.rmsnorm(x, None).grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_cuda_router_train_step_matches_cpu(cuda):
+    """A reduced f32 router: the loss and every gradient on the card (the
+    flash and rmsnorm Functions and their backward kernels: one
+    flash_attention_bwd per layer, 4 rmsnorm_bwd per layer and one for the
+    final norm) against the CPU's autograd of the plain versions, within
+    1e-4 relative to each leaf's largest gradient; then 3 train steps,
+    parameters within 3 lr (tests/test_torch_train.py's reason)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+    cfg = get_config("wikikv-router").reduced(n_layers=3, d_model=128, vocab=1000)
+    params = M.init_params(cfg, seed=5, device="cpu")
+    card = M._to(params, cuda)
+    rs = np.random.RandomState(5)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, 77)).astype(np.int32))
+        labels = torch.roll(toks, -1, dims=1)
+        labels[:, -1] = -1
+        batches.append({"tokens": toks, "labels": labels})
+    ops.reset_launches()
+    loss, grads = M.loss_and_grads(card, {k: v.to(cuda) for k, v in batches[0].items()}, cfg)
+    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    assert ops.LAUNCHES["rmsnorm_bwd"] == 4 * cfg.n_layers + 1
+    want_loss, want = M.loss_and_grads(params, batches[0], cfg)
+    torch.testing.assert_close(loss.cpu(), want_loss, atol=3e-5, rtol=3e-5)
+    for g, w in zip(leaves(grads), leaves(want)):
+        assert float(g.abs().max()) > 0
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = M.make_train_step(cfg, opt_cfg, total_steps=10)
+    cp, cs, hp, hs = card, adamw_init(card, opt_cfg), params, adamw_init(params, opt_cfg)
+    for b in batches:
+        cp, cs, caux = step(cp, cs, {k: v.to(cuda) for k, v in b.items()})
+        hp, hs, haux = step(hp, hs, b)
+        torch.testing.assert_close(caux["loss"].cpu(), haux["loss"], atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves(cp), leaves(hp)):
+        torch.testing.assert_close(a.cpu(), b, atol=3e-3, rtol=0)

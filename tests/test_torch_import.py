@@ -21,12 +21,14 @@ PKG = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 #: modules the port keeps as copies of the reference's: the host tier,
-#: obs, the durable storage tier and the model configurations
+#: obs, the durable storage tier, the data pipeline, the straggler policy
+#: and the model configurations
 COPIED = (
     [f"core/{m}.py" for m in ("cache", "coldstart", "consistency", "errorbook", "evolution",
                               "executor", "navigate", "oracle", "paths", "pipeline",
                               "records", "schema", "store")]
-    + ["data/corpus.py", "data/tokenizer.py", "models/config.py"]
+    + ["data/corpus.py", "data/pipeline.py", "data/tokenizer.py", "models/config.py",
+       "runtime/straggler.py"]
     + [f"obs/{m}.py" for m in ("__init__", "metrics", "trace")]
     + [f"storage/{m}.py" for m in ("__init__", "failpoints", "lsm", "manifest", "sstable",
                                    "wal")]
@@ -138,9 +140,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                         torch.ones(1, 1, 4, 16))
     with pytest.raises(ValueError):
         moe_router.moe_router(torch.zeros(4, 16), 4)
+    q, kv = torch.ones(1, 2, 4, 16), torch.ones(1, 1, 4, 16)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bwd(q, kv, kv, q, torch.zeros(1, 2, 4), q)
+    with pytest.raises(ValueError):
+        rmsnorm.rmsnorm_bwd(torch.ones(2, 8), torch.ones(8), torch.ones(2, 8))
 
 
-def test_entry_points_without_a_device_need_cuda():
+def test_entry_points_without_a_device_need_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from repro_torch.bridge import params_from_jax
@@ -150,9 +157,12 @@ def test_entry_points_without_a_device_need_cuda():
     from repro_torch.core.oracle import HeuristicOracle
     from repro_torch.core.store import MemKV, PathStore
     from repro_torch.data.tokenizer import HashTokenizer
-    from repro_torch.launch import serve
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.serving import ServingEngine
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
 
     store = PathStore(MemKV())
     store.put_record("/", R.DirRecord(name=""))
@@ -169,5 +179,10 @@ def test_entry_points_without_a_device_need_cuda():
                       HeuristicOracle())
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--queries", "1"])
+    pipe = DataPipeline([list(range(4, 100))], seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainLoop(cfg, AdamWConfig(), TrainLoopConfig(checkpoint_dir=str(tmp_path)), pipe)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--checkpoint-dir", str(tmp_path)])
     # an explicit CPU request is honoured
     assert DeviceEngine.from_store(store, device="cpu").device.type == "cpu"

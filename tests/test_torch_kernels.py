@@ -465,8 +465,12 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
                       torch.ones(2, dtype=torch.int32))
     ops.attention(torch.randn(1, 2, 5, 16), torch.randn(1, 1, 9, 16), torch.randn(1, 1, 9, 16))
     ops.moe_router(torch.randn(6, 16), 4)
+    # a backward through the CPU dispatch is autograd of the plain versions
+    x = torch.randn(1, 2, 5, 16, requires_grad=True)
+    ops.rmsnorm(ops.attention(x, x[:, :1], x[:, :1]), torch.ones(16)).sum().backward()
     assert ops.LAUNCHES == {"path_lookup": 0, "prefix_search": 0, "decode_attention": 0,
-                            "flash_attention": 0, "rmsnorm": 0, "moe_router": 0}
+                            "flash_attention": 0, "rmsnorm": 0, "moe_router": 0,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,373 @@
+"""The port's training path against the JAX package's.
+
+* ``make_train_step`` on reduced wikikv-router and reduced qwen3 (qk-norm)
+  in f32, parameters bridged from JAX ``init_params``: the loss and every
+  gradient leaf against ``jax.value_and_grad(T.loss_fn)``, and the
+  parameters after 3 steps against JAX's ``make_train_step``;
+* a bf16 step (bf16 parameters and activations);
+* the plain backward versions (``ref.attention_bwd_ref``,
+  ``ref.rmsnorm_bwd_ref``) against torch autograd of the plain forwards
+  and against ``jax.vjp`` of ``repro.kernels.ref``;
+* the autograd Functions of ``kernels.ops`` with their kernel entry
+  points pointed at the plain versions (the CUDA kernels have no CPU
+  mode), through ``torch.autograd.gradcheck`` in f64;
+* the crash-restart of ``tests/test_checkpoint_runtime.py``, and
+  ``launch.train --device cpu --reduced``.
+
+Tolerances: f32 losses and gradients agree to 3e-5 (tests/test_kernels.py's
+f32 tolerance; the sums run in another order) — gradients with an
+absolute floor of 3e-5 times the leaf's largest gradient.  After 3 AdamW
+steps of lr 1e-3 the parameters agree to 3 lr: AdamW's first step moves a
+weight by about lr * sign(g), and a gradient within rounding of zero may
+take either sign in the two packages.  bf16: the packages round matmul
+and norm outputs to bf16 at different places, so a bf16 loss agrees to
+2e-2 relative (tests/test_kernels.py's bf16 tolerance) and a bf16
+gradient is held, in the mean, to 5% of the leaf's mean gradient."""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
+from repro.optim.adamw import adamw_init as j_adamw_init  # noqa: E402
+from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataPipeline  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
+
+TOL = dict(atol=3e-5, rtol=3e-5)
+LR = 1e-3
+
+
+def _batch(cfg, B, S, seed):
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1).astype(np.int32)
+    labels[:, -1] = -1
+    labels[0, :3] = -1
+    return ({"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
+            {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+
+
+def _jflat(tree):
+    return [np.asarray(x, np.float32) for x in jax.tree.leaves(tree)]
+
+
+def _grads_close(got, want, rel):
+    """Each leaf within TOL, with an absolute floor of ``rel`` times the
+    leaf's largest gradient."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=TOL["rtol"],
+                                   atol=max(TOL["atol"], rel * float(np.abs(w).max())))
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("wikikv-router", {}),
+    ("qwen3-1.7b", dict(d_model=64, n_heads=4, n_kv_heads=2, d_head=16, n_layers=2)),
+])
+def test_train_step_matches_jax(arch, overrides):
+    cfg_j = jget_config(arch).reduced(**overrides)
+    cfg = get_config(arch).reduced(**overrides)
+    assert cfg.qk_norm
+    jparams = JM.init_params(cfg_j, seed=1)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    jb, tb = _batch(cfg, 2, 24, seed=2)
+
+    # the loss and every gradient leaf
+    jloss, jgrads = jax.value_and_grad(lambda p: JT.loss_fn(p, jb, cfg_j))(jparams)
+    loss, grads = M.loss_and_grads(params, tb, cfg)
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+    tg = [g.numpy() for g in leaves(grads)]
+    assert len(tg) == len(jax.tree.leaves(jgrads))
+    _grads_close(tg, _jflat(jgrads), 3e-5)
+    assert all(g.requires_grad is False for g in leaves(params))
+
+    # three AdamW steps in both packages
+    jcfg, tcfg = JAdamWConfig(lr=LR), AdamWConfig(lr=LR)
+    jstep = jax.jit(JM.make_train_step(cfg_j, jcfg, total_steps=20))
+    tstep = M.make_train_step(cfg, tcfg, total_steps=20)
+    jp, js = jparams, j_adamw_init(jparams, jcfg)
+    tp, ts = params, adamw_init(params, tcfg)
+    for i in range(3):
+        jb_i, tb_i = _batch(cfg, 2, 24, seed=10 + i)
+        jp, js, jaux = jstep(jp, js, jb_i)
+        tp, ts, taux = tstep(tp, ts, tb_i)
+        np.testing.assert_allclose(float(taux["loss"]), float(jaux["loss"]), rtol=1e-4)
+        assert float(taux["lr_scale"]) == pytest.approx(float(jaux["lr_scale"]), rel=1e-6)
+    assert int(ts["step"]) == 3
+    for got, want in zip(leaves(tp), _jflat(jp)):
+        np.testing.assert_allclose(got.numpy(), want, atol=3 * LR, rtol=0)
+    # the step returned new trees: the bridged parameters are untouched
+    for got, want in zip(leaves(params), _jflat(jparams)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_bf16_train_step_within_bf16_tolerance():
+    over = dict(d_model=64, n_heads=4, n_kv_heads=2, d_head=16, n_layers=2,
+                dtype="bfloat16", param_dtype="bfloat16")
+    cfg_j = jget_config("qwen3-1.7b").reduced(**over)
+    cfg = get_config("qwen3-1.7b").reduced(**over)
+    jparams = JM.init_params(cfg_j, seed=4)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    assert all(p.dtype == torch.bfloat16 for p in leaves(params))
+    jb, tb = _batch(cfg, 2, 32, seed=5)
+    jloss, jgrads = jax.value_and_grad(lambda p: JT.loss_fn(p, jb, cfg_j))(jparams)
+    loss, grads = M.loss_and_grads(params, tb, cfg)
+    assert math.isfinite(float(loss))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=2e-2)
+    for g, w in zip(leaves(grads), _jflat(jgrads)):
+        assert g.dtype == torch.bfloat16
+        err = np.abs(g.float().numpy() - w).mean()
+        assert err <= 0.05 * np.abs(w).mean() + 1e-6
+    tp, ts, aux = M.make_train_step(cfg, AdamWConfig(lr=LR), total_steps=10)(
+        params, adamw_init(params, AdamWConfig(lr=LR)), tb)
+    assert ts["m"]["embed"].dtype == torch.float32
+    for new, old in zip(leaves(tp), leaves(params)):
+        assert new.dtype == torch.bfloat16
+        # one step moves a weight by at most ~lr (plus one bf16 rounding)
+        assert float((new.float() - old.float()).abs().max()) <= 2 * LR + 2 ** -7 * float(
+            old.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the plain backward versions
+# ---------------------------------------------------------------------------
+ATTN_CASES = [  # (B, Hq, Hkv, Sq, Skv, D, causal)
+    (2, 4, 2, 9, 9, 16, True), (1, 6, 1, 5, 12, 32, True), (1, 4, 4, 7, 11, 16, False),
+    (2, 8, 2, 16, 16, 64, True)]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_attention_bwd_ref_matches_autograd_and_jax_vjp(case):
+    B, Hq, Hkv, Sq, Skv, D, causal = case
+    rs = np.random.RandomState(sum(case))
+    qn = rs.standard_normal((B, Hq, Sq, D)).astype(np.float32)
+    kn = rs.standard_normal((B, Hkv, Skv, D)).astype(np.float32)
+    vn = rs.standard_normal((B, Hkv, Skv, D)).astype(np.float32)
+    don = rs.standard_normal((B, Hq, Sq, D)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in (qn, kn, vn))
+    o, lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    want = torch.autograd.grad(o, (q, k, v), torch.from_numpy(don))
+    lse = lse.detach()
+    got = ref.attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(), lse,
+                                torch.from_numpy(don), causal=causal)
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, causal=causal),
+                     jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    jgot = vjp(jnp.asarray(don))
+    for g, w, j in zip(got, want, jgot):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), **TOL)
+    # the lse is the rows' log-sum-exp of the scaled, masked scores
+    s = torch.einsum("bhqd,bhkd->bhqk", q.detach(), k.detach().repeat_interleave(
+        Hq // Hkv, 1)) / math.sqrt(D)
+    if causal:
+        s = s.masked_fill(~ref._causal_mask(Sq, Skv, "cpu"), -1e30)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("shape,scaled", [((5, 16), True), ((3, 4, 128), True), ((7, 64), False),
+                                          ((2, 256), True)])
+def test_rmsnorm_bwd_ref_matches_autograd_and_jax_vjp(shape, scaled):
+    rs = np.random.RandomState(len(shape) + shape[-1])
+    xn = rs.standard_normal(shape).astype(np.float32)
+    sn = rs.standard_normal(shape[-1]).astype(np.float32) if scaled else None
+    dyn = rs.standard_normal(shape).astype(np.float32)
+    x = torch.from_numpy(xn).requires_grad_(True)
+    s = torch.from_numpy(sn).requires_grad_(True) if scaled else None
+    y = ref.rmsnorm_ref(x, s)
+    want = torch.autograd.grad(y, (x, s) if scaled else (x,), torch.from_numpy(dyn))
+    dx, ds = ref.rmsnorm_bwd_ref(x.detach(), s.detach() if scaled else None,
+                                 torch.from_numpy(dyn))
+    if scaled:
+        _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b), jnp.asarray(xn), jnp.asarray(sn))
+        jdx, jds = vjp(jnp.asarray(dyn))
+        np.testing.assert_allclose(ds.numpy(), want[1].numpy(), **TOL)
+        np.testing.assert_allclose(ds.numpy(), np.asarray(jds), **TOL)
+    else:
+        assert ds is None
+        _, vjp = jax.vjp(lambda a: jref.rmsnorm_ref(a, None), jnp.asarray(xn))
+        (jdx,) = vjp(jnp.asarray(dyn))
+    np.testing.assert_allclose(dx.numpy(), want[0].numpy(), **TOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **TOL)
+
+
+def test_bwd_refs_cast_as_the_plain_versions_do():
+    x = torch.randn(4, 64).to(torch.bfloat16)
+    s = torch.randn(64)
+    dx, ds = ref.rmsnorm_bwd_ref(x, s, torch.randn(4, 64).to(torch.bfloat16))
+    assert dx.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    q = torch.randn(1, 2, 4, 16).to(torch.bfloat16)
+    k = torch.randn(1, 1, 4, 16).to(torch.bfloat16)
+    o, lse = ref.attention_ref(q, k, k, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    grads = ref.attention_bwd_ref(q, k, k, o, lse, torch.randn_like(o))
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    assert [tuple(g.shape) for g in grads] == [(1, 2, 4, 16), (1, 1, 4, 16), (1, 1, 4, 16)]
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions, wired to the plain versions
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def functions_on_plain(monkeypatch):
+    """ops as it runs on the card, its kernel entry points replaced by
+    the plain versions; the launches are counted per entry point."""
+    calls = {"fwd": 0, "bwd": 0, "rms": 0, "rms_bwd": 0}
+
+    def flash(q, k, v, *, causal, sm_scale, with_lse=False):
+        calls["fwd"] += 1
+        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale, return_lse=with_lse)
+
+    def flash_bwd(q, k, v, o, lse, do, *, causal, sm_scale):
+        calls["bwd"] += 1
+        return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale)
+
+    def rms(x, scale, eps):
+        calls["rms"] += 1
+        return ref.rmsnorm_ref(x, scale, eps=eps)
+
+    def rms_bwd(x, scale, dy, eps):
+        calls["rms_bwd"] += 1
+        return ref.rmsnorm_bwd_ref(x, scale, dy, eps=eps)
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "_flash_kernel", flash)
+    monkeypatch.setattr(ops, "_flash_bwd_kernel", flash_bwd)
+    monkeypatch.setattr(ops, "_rmsnorm_kernel", rms)
+    monkeypatch.setattr(ops, "_rmsnorm_bwd_kernel", rms_bwd)
+    return calls
+
+
+@pytest.mark.parametrize("case", [(1, 4, 2, 3, 5, 16, True), (2, 2, 1, 4, 4, 16, False),
+                                  (1, 6, 3, 2, 2, 32, True)], ids=str)
+def test_attention_function_gradcheck(functions_on_plain, case):
+    B, Hq, Hkv, Sq, Skv, D, causal = case
+    g = torch.Generator().manual_seed(sum(case))
+    q = torch.randn(B, Hq, Sq, D, generator=g, dtype=torch.float64, requires_grad=True)
+    k = torch.randn(B, Hkv, Skv, D, generator=g, dtype=torch.float64, requires_grad=True)
+    v = torch.randn(B, Hkv, Skv, D, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: ops.attention(a, b, c, causal=causal, sm_scale=0.3), (q, k, v))
+    assert functions_on_plain["fwd"] > 0 and functions_on_plain["bwd"] > 0
+    # without grad the kernel runs as for inference: no lse, no Function
+    with torch.no_grad():
+        n = functions_on_plain["fwd"]
+        assert ops.attention(q, k, v, causal=causal).grad_fn is None
+        assert functions_on_plain["fwd"] == n + 1
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+def test_rmsnorm_function_gradcheck(functions_on_plain, scaled):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3, 5, 16, generator=g, dtype=torch.float64, requires_grad=True)
+    s = torch.randn(16, generator=g, dtype=torch.float64, requires_grad=True) if scaled else None
+    inputs = (x, s) if scaled else (x,)
+    assert torch.autograd.gradcheck(lambda *a: ops.rmsnorm(a[0], a[1] if scaled else None,
+                                                           eps=1e-5), inputs)
+    assert functions_on_plain["rms_bwd"] > 0
+    # a scale alone requiring grad still reaches the Function
+    if scaled:
+        n = functions_on_plain["rms_bwd"]
+        ops.rmsnorm(x.detach(), s).sum().backward()
+        assert functions_on_plain["rms_bwd"] == n + 1 and s.grad is not None
+
+
+def test_train_step_through_the_functions_matches_cpu_autograd(functions_on_plain):
+    """The whole loss through the Functions (the card's path, plain
+    versions inside) gives the CPU path's gradients: every weight behind
+    the first norm gets its gradient, as on the CPU."""
+    cfg = get_config("wikikv-router").reduced(n_layers=2)
+    params = M.init_params(cfg, seed=3, device="cpu")
+    _, tb = _batch(cfg, 2, 16, seed=6)
+    loss_f, grads_f = M.loss_and_grads(params, tb, cfg)
+    assert functions_on_plain["bwd"] == cfg.n_layers
+    assert functions_on_plain["rms_bwd"] == cfg.n_layers * 4 + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "_on_cpu", lambda t: True)
+        loss_c, grads_c = M.loss_and_grads(params, tb, cfg)
+    np.testing.assert_allclose(float(loss_f), float(loss_c), **TOL)
+    for a, b in zip(leaves(grads_f), leaves(grads_c)):
+        assert float(a.abs().max()) > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the loop
+# ---------------------------------------------------------------------------
+def _mini_loop(tmp_path, steps, total=12, seed=0):
+    cfg = get_config("wikikv-router").reduced(d_model=32, vocab=256, n_layers=2)
+    docs = [list(range(4, 200))] * 4
+    pipe = DataPipeline(docs, seq_len=16, global_batch=4, seed=2)
+    loop = TrainLoop(cfg, AdamWConfig(lr=1e-3),
+                     TrainLoopConfig(total_steps=total, checkpoint_every=4,
+                                     checkpoint_dir=str(tmp_path),
+                                     async_checkpoint=False, log_every=100),
+                     pipe, device="cpu", seed=seed)
+    loop.run(n_steps=steps)
+    return loop
+
+
+def test_train_loop_crash_restart(tmp_path):
+    """Run 8 steps, 'crash', restart a fresh loop → it resumes from the
+    step-8 checkpoint and continues to 12 with identical data order, and
+    ends bit for bit where an uninterrupted run ends."""
+    l1 = _mini_loop(tmp_path / "a", steps=8)
+    assert l1.ckpt.latest_step() == 8
+    l2 = _mini_loop(tmp_path / "a", steps=None)   # restores, runs to total
+    assert l2.step_no == 12 and len(l2.metrics.losses) == 4
+    assert l2.pipeline.state.index == 12 % l2.pipeline.steps_per_epoch or \
+        l2.pipeline.state.epoch > 0
+    whole = _mini_loop(tmp_path / "b", steps=12)
+    assert whole.metrics.losses[8:] == l2.metrics.losses
+    for a, b in zip(leaves(l2.params), leaves(whole.params)):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(l2.opt_state), leaves(whole.opt_state)):
+        assert torch.equal(a, b)
+
+
+def test_train_loop_loss_falls_and_async_checkpoints(tmp_path):
+    cfg = get_config("wikikv-router").reduced(d_model=32, vocab=256, n_layers=2)
+    pipe = DataPipeline([list(range(4, 60)) * 3] * 4, seq_len=16, global_batch=4, seed=1)
+    loop = TrainLoop(cfg, AdamWConfig(lr=3e-3),
+                     TrainLoopConfig(total_steps=10, checkpoint_every=5,
+                                     checkpoint_dir=str(tmp_path), log_every=100),
+                     pipe, device="cpu")
+    m = loop.run()
+    assert loop.ckpt.all_steps() == [5, 10]
+    assert m.losses[-1] < m.losses[0] and len(m.step_times) == 10
+    assert all(t > 0 for t in m.step_times)
+
+
+def test_launch_train_cpu_reduced(tmp_path, capsys):
+    metrics = launch_train.main(["--device", "cpu", "--reduced", "--steps", "3",
+                                 "--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2"])
+    assert len(metrics.losses) == 3 and all(math.isfinite(x) for x in metrics.losses)
+    assert "final loss" in capsys.readouterr().out
+    assert (tmp_path / "step_2" / "meta.json").exists()
+
+
+def test_build_pipeline_is_the_references():
+    from repro.launch.train import build_pipeline as j_build
+    pipe, tok = launch_train.build_pipeline(512, seq_len=32, global_batch=4)
+    jpipe, jtok = j_build(512, seq_len=32, global_batch=4)
+    for _ in range(3):
+        a, b = pipe.next_batch(), jpipe.next_batch()
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        np.testing.assert_array_equal(a["labels"], b["labels"])
+
