@@ -58,7 +58,10 @@ its main path on the card, printing one JSON line per phase:
      plain versions at the router's, qwen3's, a ragged, a non-causal and
      dbrx's group-6 shapes (and the norms' at qwen3's block and qk-norm
      shapes, one without scale), timed beside the autograd backward of
-     SDPA and ``F.rms_norm``; wikikv-router at full width trained by a
+     SDPA and ``F.rms_norm`` (each row with its launch geometry; a bf16
+     flash_attention_bwd call is two kernel nodes, the delta pre-pass and
+     the wgmma body, an f32 call one, an rmsnorm_bwd call one with or
+     without a scale); wikikv-router at full width trained by a
      TrainLoop on the AuthTrace pipeline (B=8, S=128) for 20 steps on the
      card and on the CPU, losses equal within 2e-3 and falling, then a
      crash at step 8 and a restart that ends bit for bit where an
@@ -185,9 +188,11 @@ def profiled_ms(fn, inputs, calls: int) -> float | None:
 
 
 # a kernel's category is the first whose name fragment its name contains
-STEP_CATEGORIES = (("flash_attention_bwd", ("flash_bwd_kernel",)),
+# (the backward's kernels: flash_bwd_kernel, flash_bwd_delta_kernel and
+# flash_bwd_wgmma_kernel; rmsnorm_bwd_kernel)
+STEP_CATEGORIES = (("flash_attention_bwd", ("flash_bwd",)),
                    ("flash_attention", ("flash_fwd",)),
-                   ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_dscale")),
+                   ("rmsnorm_bwd", ("rmsnorm_bwd",)),
                    ("rmsnorm", ("rmsnorm",)),
                    ("matmul", ("gemm", "nvjet", "xmma", "cutlass")))
 
@@ -268,11 +273,12 @@ def graph_ms(fn, inputs, calls: int = 32, replays: int = 5, warmup: int = 3) -> 
             "calls": calls, "input_copies": n_copies}
 
 
-def one_kernel_a_call(name: str, gm: dict) -> None:
+def one_kernel_a_call(name: str, gm: dict, kernels: int = 1) -> None:
     """Fail unless ``gm`` (from ``graph_ms``) captured its calls and each
-    made exactly one kernel node and no other node."""
-    check(gm["by"] == "cuda graph" and gm["kernel_nodes"] == gm["nodes"] == gm["calls"],
-          f"{name}: {gm}; not one kernel node a call")
+    made exactly ``kernels`` kernel nodes and no other node."""
+    check(gm["by"] == "cuda graph"
+          and gm["kernel_nodes"] == gm["nodes"] == gm["calls"] * kernels,
+          f"{name}: {gm}; not {kernels} kernel node(s) a call")
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -1826,8 +1832,8 @@ def backward_kernels(dev) -> dict:
     of the library call (SDPA, ``F.rms_norm``) and their bounds."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     g = torch.Generator(device="cpu").manual_seed(3)
     flash_rows = []
@@ -1860,20 +1866,30 @@ def backward_kernels(dev) -> dict:
         ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), iters=n)
         gm = graph_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal),
                       (q, k, v, o, lse, do), calls=4 if n == 5 else 20, replays=3)
-        one_kernel_a_call(f"flash_attention_bwd ({tag})", gm)
+        # bf16: the delta pre-pass and the wgmma body; f32: one kernel
+        one_kernel_a_call(f"flash_attention_bwd ({tag})", gm,
+                          2 if dtype == torch.bfloat16 else 1)
         mask = sdpa_mask(q, k, causal)
         lib = library_grad(lambda a, b_, c: sdpa(a, b_, c, causal, mask), (q, k, v), do)
         plain_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
                            iters=3, warmup=1)
         lib_ms = cuda_ms(lib, iters=n)
+        # the library's card time and ours by one instrument (the profiler)
+        lib_dev = profiled_ms(lambda: lib(), (), 3)
+        prof = profiled_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+                           (), 3)
         flash_rows.append({
             "shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
                      f"{'causal' if causal else 'non-causal'}",
+            "geometry": fa.bwd_geometry(B, Hq, Hkv, Sq, Skv, dtype == torch.bfloat16,
+                                        build.sm_count(0))._asdict(),
             "max_abs_err": err, "lse_max_abs_err": lse_err, "gflop": flops / 1e9,
-            "ms": ms, "device_ms": gm["device_ms"], "plain_ms": plain_ms,
-            "library_ms": lib_ms, "library_device_ms": profiled_ms(lambda: lib(), (), 3),
+            "ms": ms, "device_ms": gm["device_ms"], "device_ms_profiled": prof,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,
             "bound_ms": b, "bound_by": by, "tflop_per_s": flops / ms / 1e9,
-            "share_of_bound": b / ms, "vs_library": ms / lib_ms})
+            "share_of_bound": b / ms, "vs_library": ms / lib_ms,
+            "device_share_of_bound": b / gm["device_ms"] if gm["device_ms"] else None,
+            "device_vs_library": prof / lib_dev if prof and lib_dev else None})
         del q, k, v, do, o, lse, lib
         torch.cuda.empty_cache()
     emit({"phase": "flash_attention_bwd", "tolerance_f32": BWD_F32_TOL, "shapes": flash_rows,
@@ -1901,21 +1917,24 @@ def backward_kernels(dev) -> dict:
         b, by = bound(nbytes, 10 * rows * D, F32_FLOPS)
         ms = cuda_ms(lambda: rn.rmsnorm_bwd(x, s, dy))
         gm = graph_ms(rn.rmsnorm_bwd, (x, s, dy))
-        check(gm["by"] == "cuda graph" and gm["kernel_nodes"] == gm["nodes"]
-              == gm["calls"] * (2 if scaled else 1),
-              f"rmsnorm_bwd ({tag}): {gm}; not {2 if scaled else 1} kernel nodes a call")
+        one_kernel_a_call(f"rmsnorm_bwd ({tag})", gm)   # with or without a scale
         lib = library_grad(lambda a, w: F.rms_norm(a, (D,), w, eps=1e-6), (x, s), dy)
         lib_ms = cuda_ms(lib)
+        lib_dev = profiled_ms(lambda: lib(), (), 10)
+        prof = profiled_ms(lambda: rn.rmsnorm_bwd(x, s, dy), (), 10)
         norm_rows.append({
             "shape": f"({tag}) x ({rows}, {D}) {dt} {'with' if scaled else 'without'} scale",
-            "geometry": dict(zip(("threads_a_row", "columns_a_thread", "blocks"),
-                                 rn.bwd_geometry(rows, D))),
+            "geometry": dict(zip(("threads_a_row", "units_a_thread", "elements_a_unit",
+                                  "blocks", "cluster"),
+                                 rn.bwd_geometry(rows, D, elt, True, build.sm_count(0)))),
             "max_abs_err": err, "ms": ms, "device_ms": gm["device_ms"],
+            "device_ms_profiled": prof,
             "plain_ms": cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, s, dy)),
-            "library_ms": lib_ms, "library_device_ms": profiled_ms(lambda: lib(), (), 10),
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
             "bound_ms": b, "bound_by": by, "gb_per_s": nbytes / ms / 1e6,
             "share_of_bound": b / ms, "vs_library": ms / lib_ms,
-            "device_share_of_bound": b / gm["device_ms"] if gm["device_ms"] else None})
+            "device_share_of_bound": b / gm["device_ms"] if gm["device_ms"] else None,
+            "device_vs_library": prof / lib_dev if prof and lib_dev else None})
         del x, dy, s, dx, ds, wx, ws, lib
     torch.cuda.empty_cache()
     emit({"phase": "rmsnorm_bwd", "shapes": norm_rows,
@@ -2193,7 +2212,8 @@ def main(argv: list[str]) -> int:
         e["launches"] = sum(c[name] for c in path_counts)
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",
-                                          "max_abs_err", "ms", "device_ms", "host_ms",
+                                          "max_abs_err", "ms", "device_ms",
+                                          "device_ms_profiled", "host_ms",
                                           "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "library_device_ms", "library_host_ms", "shape",
                                           "geometry", "note", "shapes")

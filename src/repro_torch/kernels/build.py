@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use, one ``nvcc`` per source and all of them started together,
-into ``_build/<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source is rebuilt and a stale library never loads).
+into ``_build/<name>-<hash>.so`` (the hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and a stale library never loads).
 The build directory is listed in ``.gitignore``.  No PyTorch header is
 included, so a build takes seconds, not minutes.
 
@@ -84,6 +85,8 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
-// Backward of the blocked GQA attention (FlashAttention-2's schedule): the
-// gradients dQ, dK, dV of every attention layer of a training step.
+// Backward of the blocked GQA attention: the gradients dQ, dK, dV of every
+// attention layer of a training step.
 //
 // The Pallas kernel repro/kernels/flash_attention.py::flash_attention has
 // no backward: jax.value_and_grad differentiates the jnp references the
@@ -11,50 +11,103 @@
 //        causal, j <= i + Skv - Sq);
 //   delta = rowsum(dO * O);  dS = P * (dO.V - delta);
 //   dV = P^T dO;  dK = scale * dS^T Q;  dQ = scale * dS K,
-// the G = Hq / Hkv query heads of a group summed into their KV head.
-// f32 math throughout (bf16 inputs are widened as they are staged), each
+// the G = Hq / Hkv query heads of a group summed into their KV head, each
 // gradient written in its input's type.
 //
-// Bound on this card: operations (5 products of 2 * Sq * Skv * D flops a
-// head, half of it when causal; this simple version recomputes S and dP
-// in both of its roles, 7 products in all).  This first version runs the
-// products on the CUDA cores in f32: a later PR moves them to wgmma.
+// Bound on this card: operations (5 products of 2 * D flops a visible
+// (query, key) pair; at qwen3-1.7B's S = 4096, 16/8 heads, D = 128, 0.174 ms
+// at an H100 SXM's published 989 TFLOP/s of bf16).  Two roles share one
+// grid and no float atomics are used, so a call is bit for bit repeatable:
+// key-tile blocks own dK and dV of their keys (summing the group's heads in
+// registers), and query-tile blocks own dQ; both recompute S and dP, 7
+// products in all.
+// Two bodies:
 //
-// Schedule, one launch, no atomics (so a run is bit for bit repeatable):
-//  * blocks [0, B * Hkv * n_kt) own one key tile of 64 keys of one KV
-//    head: they walk the group's query heads and the query tiles that see
-//    the tile, and keep dK and dV in registers until the end;
-//  * the blocks after them own one query tile of 64 queries of one query
-//    head: they walk the visible key tiles and keep dQ in registers.
-// Each block stages its tiles in shared memory as f32 (row pitch D + 4,
-// so a thread's 16-byte loads of neighbouring rows hit distinct banks)
-// and computes delta for its query rows as it stages dO.  256 threads, a
-// thread owns a 4 x 4 piece of each 64 x 64 score tile (rows ty + 16 i,
-// columns tx + 16 j) and 4 rows x D / 16 columns of its accumulators.
+//  * float32 (flash_bwd_kernel): f32 on the CUDA cores with no TF32, so
+//    the wikikv-router's training matches the CPU to float tolerance and a
+//    restart is bit exact.  256 threads, tiles of 64 queries and 64 keys
+//    staged as f32 in shared memory (row pitch D + 4, so a thread's 16-byte
+//    loads of neighbouring rows hit distinct banks); delta is computed as a
+//    block stages dO.  A thread owns a 4 x 4 piece of each 64 x 64 score
+//    tile (rows ty + 16 i, columns tx + 16 j) and 4 rows x D / 16 columns of
+//    its accumulators.
+//  * bfloat16 (flash_bwd_wgmma_kernel, after flash_bwd_delta_kernel):
+//    Hopper's warp-specialised shape, the forward's made for the backward.
+//     - a pre-pass writes delta and lse * log2 e for every query row into a
+//       (B * Hq, ceil(Sq / 64) * 64) f32 workspace, padded rows 0 and +inf
+//       (a padded query then contributes exactly nothing);
+//     - a key-tile block: one or two consumer warpgroups of 64 keys of one
+//       KV head (the host picks, as the forward's query_tile does).  K and
+//       V stay in shared memory; dK and dV (64 x D f32 each) stay in
+//       registers across the group's heads and every query tile that sees
+//       the keys (causal: from the first such tile).  For each query tile
+//       S^T = K Q^T and dP^T = V dO^T are m64n64k16 wgmma with both operands
+//       in shared memory; P^T = exp2(S^T scale log2 e - lse2) and
+//       dS^T = P^T (dP^T - delta) on the accumulators; the accumulator
+//       layout rounded to bf16 is the A fragment of dV += P^T dO and
+//       dK += dS^T Q (m64n{D}k16), dO and Q read MN-major from the tiles
+//       they arrived in, so P and dS never pass through shared memory;
+//     - a query-tile block: one or two warpgroups of 64 queries of one
+//       query head, Q and dO resident; for each visible key tile S = Q K^T
+//       and dP = dO V^T, dS, then dQ += dS K (K read MN-major);
+//     - one producer thread issues every copy: TMA over 4-D tensor maps
+//       (D, rows, heads, sequences) that take q, k, v and dO at their own
+//       strides (dO arrives transposed from the attention layer: no copy),
+//       a ragged tail zero-filled, never the next head's rows, in the
+//       swizzle that fits rows of D bf16; the streamed tiles (Q, dO and
+//       their lse2 and delta by a bulk copy; or K, V) through a ring of
+//       three stages with full and empty mbarriers; with two consumer
+//       warpgroups the producer drops to 24 registers and they rise to 240;
+//     - only tiles that straddle the diagonal (or, for dQ, the ragged Skv
+//       tail) compute the mask; each role's longest blocks start first, and
+//       the role whose longest block is longer comes first in the grid;
+//     - the epilogue writes dK * scale, dV and dQ * scale through the
+//       warpgroup's own resident tiles and TMA stores that drop rows past
+//       the end.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+// The C entry's one argument, packed by the wrapper in one buffer: outside
+// the anonymous namespace, so the entry's signature names a type of its own.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const float* lse;
+  const void* dout;
+  void* dq;
+  void* dk;
+  void* dv;
+  float* ws;                   // bf16: 2 * B * Hq * Sq_pad floats (lse2, then delta)
+  long long B, Hq, Hkv, Sq, Skv, D, dtype, causal;
+  double scale;
+  long long block;             // bf16: keys or queries a block, 64 or 128
+  long long dq_first;          // bf16: the query-tile blocks come first
+  long long strides[12];       // bf16: (sequence, head, row) element strides of q, k, v, dout
+  cudaStream_t stream;
+};
+static_assert(sizeof(BwdArgs) == 34 * 8, "BwdArgs must match the wrapper's \"<18qd15q\"");
+
 namespace {
 
+using namespace hopper;
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
 constexpr int BT = 64;          // queries, and keys, a tile
 constexpr int THREADS = 256;    // 16 x 16 threads (ty, tx)
 constexpr int LP = BT + 4;      // the pitch of the P and dS tiles
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store_elt(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_elt(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 template <int D>
@@ -77,8 +130,8 @@ __device__ __forceinline__ int acc_col(int tx, int c) {
 
 // Rows [0, BT) of a (rows, D) matrix into a shared tile of pitch D + 4;
 // rows at or past n_valid are zero-filled.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int n_valid) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int n_valid) {
   constexpr int C4 = D / 4;
   for (int i = threadIdx.x; i < BT * C4; i += THREADS) {
     const int r = i / C4, c = (i % C4) * 4;
@@ -90,9 +143,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 // dO's tile like load_tile, and delta = rowsum(dO * O) of its rows: the
 // C4 = D / 4 threads of a row are adjacent lanes of one warp, and every
 // thread runs the same number of rounds (BT * C4 is a multiple of 256).
-template <int D, typename T>
-__device__ __forceinline__ void load_do_delta(float* dst, float* delta, const T* __restrict__ dout,
-                                              const T* __restrict__ o, int n_valid) {
+template <int D>
+__device__ __forceinline__ void load_do_delta(float* dst, float* delta, const float* __restrict__ dout,
+                                              const float* __restrict__ o, int n_valid) {
   constexpr int C4 = D / 4;
   static_assert((BT * C4) % THREADS == 0 && 32 % C4 == 0, "rows of dO within a warp");
   for (int i = threadIdx.x; i < BT * C4; i += THREADS) {
@@ -197,25 +250,26 @@ __device__ __forceinline__ void acc_product(const float* A, const float* B,
 }
 
 // Rows row0 + ty + 16 i (< n_rows) of a (rows, D) output, times mult.
-template <int D, typename T>
-__device__ __forceinline__ void write_rows(T* __restrict__ out, const float (&acc)[4][D / 16],
+template <int D>
+__device__ __forceinline__ void write_rows(float* __restrict__ out, const float (&acc)[4][D / 16],
                                            int ty, int tx, int n_rows, float mult) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= n_rows) continue;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) store_elt(out + (size_t)r * D + acc_col<D>(tx, c), acc[i][c] * mult);
+    for (int c = 0; c < D / 16; ++c) out[(size_t)r * D + acc_col<D>(tx, c)] = acc[i][c] * mult;
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ o, const float* __restrict__ lse,
-                 const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
-                 T* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
-                 int n_kv_blocks, int n_kt, int n_qt) {
+flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ o,
+                 const float* __restrict__ lse, const float* __restrict__ dout,
+                 float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int Hq,
+                 int Hkv, int Sq, int Skv, int causal, float scale, int n_kv_blocks, int n_kt,
+                 int n_qt) {
   using G = Geo<D>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -329,67 +383,498 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
-           const void* dout, void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
-           int causal, float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bfloat16: TMA + wgmma, one producer warp and one or two consumer
+// warpgroups; a delta pre-pass
+// ---------------------------------------------------------------------------
+constexpr int ROWS = 64;                      // a warpgroup's keys or queries; a streamed tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tiles : Atoms<D> {
+  static constexpr int STAGES = 3;
+  static constexpr int TILE = ROWS * D * 2;   // bytes of a tile of 64 rows
+};
+
+// resident tiles (K and V, or Q and dO: NWG of each), the ring's stages
+// (two tiles each, and 64 lse2 and 64 delta in the key role), and the
+// 1024-byte alignment of the 128-byte swizzle
+template <int D, int NWG>
+constexpr int wgmma_smem_bytes() {
+  return 2 * NWG * Tiles<D>::TILE + 2 * Tiles<D>::STAGES * Tiles<D>::TILE +
+         2 * Tiles<D>::STAGES * ROWS * 4 + 1024;
+}
+
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;   // loads: (D, rows, heads, sequences), any 16-byte strides
+  CUtensorMap dq, dk, dv;      // stores: contiguous; rows past the end are dropped
+};
+
+struct BwdShape {
+  const float* lse2;           // (B * Hq, Sq_pad): lse * log2 e, +inf past Sq
+  const float* delta;          // (B * Hq, Sq_pad): rowsum(dO * O), 0 past Sq
+  int B, Hq, Hkv, Sq, Skv, Sq_pad, causal;
+  int n_kv_blocks, n_kb, n_qb, n_qt, dq_first;
+  float scale, scale_log2;
+};
+
+// delta = rowsum(dO * O) in f32 and lse2 = lse * log2 e for every query
+// row, written to (B * Hq, Sq_pad) rows padded to whole tiles of 64 (0 and
+// +inf past Sq, so a padded query contributes nothing).  D / 8 lanes a row,
+// 16 bytes each, summed by xor shuffles in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, float* __restrict__ lse2,
+                       float* __restrict__ delta, int Hq, int Sq, int Sq_pad, long long do_b,
+                       long long do_h, long long do_s, long long rows_total) {
+  constexpr int LPR = D / 8;
+  constexpr int RPB = 256 / LPR;
+  const int lr = threadIdx.x % LPR;
+  const long long row = (long long)blockIdx.x * RPB + threadIdx.x / LPR;
+  const bool valid = row < rows_total;
+  const long long bh = row / Sq_pad;
+  const int s = (int)(row % Sq_pad);
+  const bool live = valid && s < Sq;
+  float dot = 0.f;
+  if (live) {
+    const long long b = bh / Hq, h = bh % Hq;
+    const uint4 a = *reinterpret_cast<const uint4*>(dout + b * do_b + h * do_h + s * do_s + lr * 8);
+    const uint4 c = *reinterpret_cast<const uint4*>(o + (bh * Sq + s) * D + lr * 8);
+    const __nv_bfloat162* ae = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* ce = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(ae[j]), y = __bfloat1622float2(ce[j]);
+      dot = fmaf(x.x, y.x, dot);
+      dot = fmaf(x.y, y.y, dot);
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
+  if (valid && lr == 0) {
+    lse2[row] = live ? lse[bh * Sq + s] * LOG2E : __int_as_float(0x7f800000);
+    delta[row] = live ? dot : 0.f;
+  }
+}
+
+// A warpgroup's accumulators (64 rows x D, rows of the thread as in
+// acc_to_a) times mult, as bf16 into a 64-row tile of the TMA layout.
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t tile, const float (&acc)[D / 2], float mult,
+                                           int warp, int g, int t) {
+  using A = Atoms<D>;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const int a = col / A::ATOM_E;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t off = (warp * 16 + g + 8 * r) * A::ATOM_B + (col % A::ATOM_E) * 2;
+      const uint32_t sw = off ^ (((off >> 7) & A::SW_MASK) << 4);
+      const uint32_t val = pack_bf16(acc[4 * j + 2 * r] * mult, acc[4 * j + 2 * r + 1] * mult);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(tile + a * ROWS * A::ATOM_B + sw), "r"(val)
+                   : "memory");
+    }
+  }
+}
+
+// s (+)= X Y^T over D: X and Y 64-row tiles, K-major, m64n64k16 steps.
+template <int D>
+__device__ __forceinline__ void product_ss(float (&s)[32], uint32_t x, uint32_t y) {
+  using A = Atoms<D>;
+  constexpr uint32_t SBO = 8 * A::ATOM_B;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int a = kk * 16 / A::ATOM_E, c = (kk * 16 % A::ATOM_E) * 2;
+    wgmma_ss_n64(s, make_desc(x + a * ROWS * A::ATOM_B + c, 16, SBO, A::LAYOUT),
+                 make_desc(y + a * ROWS * A::ATOM_B + c, 16, SBO, A::LAYOUT), kk > 0);
+  }
+}
+
+// acc += A Y over the 64 rows of tile y: A the bf16 fragments of a 64 x 64
+// accumulator, Y read MN-major (LBO steps the D atoms, SBO 8 rows).
+template <int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           uint32_t y) {
+  using A = Atoms<D>;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs<D>(acc, a[j], make_desc(y + j * 16 * A::ATOM_B, ROWS * A::ATOM_B, 8 * A::ATOM_B,
+                                     A::LAYOUT));
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) {
+  using G = Tiles<D>;
+  constexpr int ST = G::STAGES, T = G::TILE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * ST];   // resident full; ring full, empty
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t res0 = (raw + 1023u) & ~1023u;       // K (key role) or Q (dQ role), NWG tiles
+  const uint32_t res1 = res0 + NWG * T;               // V or dO
+  const uint32_t ring = res1 + NWG * T;               // stage st: tiles at ring + 2T st, + T
+  const uint32_t vecs = ring + 2 * ST * T;            // stage st: lse2 at vecs + 512 st, delta + 256
+  const uint32_t r_bar = smem_u32(bars), f_bar = r_bar + 8, e_bar = f_bar + 8 * ST;
+
+  // blocks [0, n_first) take the first role, the rest the other; each
+  // role's longest blocks come first
+  const int n_q_blocks = sh.B * sh.Hq * sh.n_qb;
+  int idx = blockIdx.x;
+  bool key_role;
+  if (sh.dq_first) {
+    key_role = idx >= n_q_blocks;
+    if (key_role) idx -= n_q_blocks;
+  } else {
+    key_role = idx < sh.n_kv_blocks;
+    if (!key_role) idx -= sh.n_kv_blocks;
+  }
+  const int group = sh.Hq / sh.Hkv, seq_off = sh.Skv - sh.Sq;
+  int b, hk, h = 0, k0 = 0, q0 = 0, qt0 = 0, nq = 1, n_iter;
+  if (key_role) {
+    // NWG * 64 keys of one KV head: every query tile of its group's heads
+    // that sees them (causal: from the first query at or past the keys)
+    const int bkv = idx % (sh.B * sh.Hkv);
+    b = bkv / sh.Hkv;
+    hk = bkv % sh.Hkv;
+    k0 = (idx / (sh.B * sh.Hkv)) * NWG * ROWS;
+    qt0 = sh.causal ? max(0, k0 - seq_off) / ROWS : 0;
+    nq = sh.n_qt - qt0;
+    n_iter = group * nq;
+  } else {
+    // NWG * 64 queries of one query head: every key tile they see
+    const int bh = idx % (sh.B * sh.Hq);
+    b = bh / sh.Hq;
+    h = bh % sh.Hq;
+    hk = h / group;
+    q0 = (sh.n_qb - 1 - idx / (sh.B * sh.Hq)) * NWG * ROWS;
+    const int q_rows = min(NWG * ROWS, sh.Sq - q0);
+    const int k_end = sh.causal ? min(sh.Skv, q0 + q_rows + seq_off) : sh.Skv;
+    n_iter = (k_end + ROWS - 1) / ROWS;
+  }
+  const int wg = threadIdx.x >> 7;    // warpgroups 0..NWG-1 consume, NWG produces
+
+  if (threadIdx.x == 0) {
+    mbar_init(r_bar, 1);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(f_bar + 8 * st, 1);
+      mbar_init(e_bar + 8 * st, 4 * NWG);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer: one thread issues every copy --------------------------
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == NWG * 128) {
+      const CUtensorMap* m0 = key_role ? &maps.k : &maps.q;
+      const CUtensorMap* m1 = key_role ? &maps.v : &maps.dout;
+      const int r0 = key_role ? k0 : q0, rh = key_role ? hk : h;
+      mbar_expect_tx(r_bar, 2 * NWG * T);
+#pragma unroll
+      for (int w = 0; w < NWG; ++w)
+#pragma unroll
+        for (int a = 0; a < G::ATOMS; ++a) {
+          const uint32_t off = w * T + a * ROWS * G::ATOM_B;
+          tma_load_4d(res0 + off, m0, r_bar, a * G::ATOM_E, r0 + w * ROWS, rh, b);
+          tma_load_4d(res1 + off, m1, r_bar, a * G::ATOM_E, r0 + w * ROWS, rh, b);
+        }
+      const CUtensorMap* s0 = key_role ? &maps.q : &maps.k;
+      const CUtensorMap* s1 = key_role ? &maps.dout : &maps.v;
+      for (int i = 0; i < n_iter; ++i) {
+        const int st = i % ST;
+        // the key role streams (Q, dO, lse2, delta) tiles of (head, query
+        // tile); the dQ role (K, V) tiles of its KV head
+        const int sh_h = key_role ? hk * group + i / nq : hk;
+        const int row = key_role ? (qt0 + i % nq) * ROWS : i * ROWS;
+        const uint32_t f = f_bar + 8 * st, t0 = ring + 2 * st * T;
+        mbar_wait(e_bar + 8 * st, ((i / ST) & 1) ^ 1);   // the first round passes at once
+        mbar_expect_tx(f, 2 * T + (key_role ? 2 * ROWS * 4 : 0));
+#pragma unroll
+        for (int a = 0; a < G::ATOMS; ++a) {
+          tma_load_4d(t0 + a * ROWS * G::ATOM_B, s0, f, a * G::ATOM_E, row, sh_h, b);
+          tma_load_4d(t0 + T + a * ROWS * G::ATOM_B, s1, f, a * G::ATOM_E, row, sh_h, b);
+        }
+        if (key_role) {
+          const size_t v0 = ((size_t)b * sh.Hq + sh_h) * sh.Sq_pad + row;
+          bulk_load(vecs + 512 * st, sh.lse2 + v0, ROWS * 4, f);
+          bulk_load(vecs + 512 * st + 256, sh.delta + v0, ROWS * 4, f);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ---------------------------------------------------------
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t x_wg = res0 + wg * T, y_wg = res1 + wg * T;
+    const unsigned char* gen = smem_raw + (vecs - raw);   // the lse2 / delta ring, generic
+    if (key_role) {
+      // S^T = K Q^T and dP^T = V dO^T (keys as rows), P^T, dS^T; then
+      // dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers
+      const int kw0 = k0 + wg * ROWS;          // the warpgroup's first key
+      const int key = kw0 + warp * 16 + g;     // this thread's keys: key, key + 8
+      float dk[D / 2], dv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(r_bar, 0);
+      for (int i = 0; i < n_iter; ++i) {
+        const int st = i % ST;
+        const int qs = (qt0 + i % nq) * ROWS + seq_off;   // the tile's first query position
+        const uint32_t q_t = ring + 2 * st * T, do_t = q_t + T;
+        const float* lse_s = reinterpret_cast<const float*>(gen + 512 * st);
+        const float* delta_s = lse_s + ROWS;
+        float s[32], dp[32];
+        mbar_wait(f_bar + 8 * st, (i / ST) & 1);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        product_ss<D>(s, x_wg, q_t);
+        product_ss<D>(dp, y_wg, do_t);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        const bool mask = sh.causal && kw0 + ROWS - 1 > qs;   // the tile straddles the diagonal
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+          float p = exp2f(fmaf(s[e], sh.scale_log2, -lse_s[col]));
+          if (mask) p = key + 8 * ((e >> 1) & 1) <= qs + col ? p : 0.f;
+          s[e] = p;
+          dp[e] = p * (dp[e] - delta_s[col]);
+        }
+        uint32_t pa[4][4], da[4][4];
+        acc_to_a<64>(s, pa);
+        acc_to_a<64>(dp, da);
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+        product_rs<D>(dv, pa, do_t);
+        product_rs<D>(dk, da, q_t);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(da);
+        if (lane == 0) mbar_arrive(e_bar + 8 * st);   // this warp is done with the stage
+      }
+      // epilogue: dK * scale and dV through the warpgroup's K and V tiles
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      stage_rows<D>(x_wg, dk, sh.scale, warp, g, t);
+      stage_rows<D>(y_wg, dv, 1.f, warp, g, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (tid == 0 && kw0 < sh.Skv) {
+#pragma unroll
+        for (int a = 0; a < G::ATOMS; ++a) {
+          tma_store_4d(&maps.dk, x_wg + a * ROWS * G::ATOM_B, a * G::ATOM_E, kw0, hk, b);
+          tma_store_4d(&maps.dv, y_wg + a * ROWS * G::ATOM_B, a * G::ATOM_E, kw0, hk, b);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+    } else {
+      // S = Q K^T and dP = dO V^T, dS; then dQ += dS K, dS from registers
+      const int qw0 = q0 + wg * ROWS;          // the warpgroup's first query
+      const int row = qw0 + warp * 16 + g;     // this thread's queries: row, row + 8
+      float l2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool live = row + 8 * r < sh.Sq;
+        const size_t v0 = ((size_t)b * sh.Hq + h) * sh.Sq_pad + row + 8 * r;
+        l2[r] = live ? sh.lse2[v0] : __int_as_float(0x7f800000);
+        dl[r] = live ? sh.delta[v0] : 0.f;
+      }
+      float dq[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+      mbar_wait(r_bar, 0);
+      for (int i = 0; i < n_iter; ++i) {
+        const int st = i % ST;
+        const int kt0 = i * ROWS;
+        const uint32_t k_t = ring + 2 * st * T, v_t = k_t + T;
+        float s[32], dp[32];
+        mbar_wait(f_bar + 8 * st, (i / ST) & 1);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        product_ss<D>(s, x_wg, k_t);
+        product_ss<D>(dp, y_wg, v_t);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        // the ragged Skv tail, or a tile that straddles the diagonal
+        const bool mask = kt0 + ROWS > sh.Skv || (sh.causal && kt0 + ROWS - 1 > qw0 + seq_off);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r = (e >> 1) & 1;
+          float p = exp2f(fmaf(s[e], sh.scale_log2, -l2[r]));
+          if (mask) {
+            const int kp = kt0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            p = kp < sh.Skv && (!sh.causal || kp <= row + 8 * r + seq_off) ? p : 0.f;
+          }
+          dp[e] = p * (dp[e] - dl[r]);
+        }
+        uint32_t da[4][4];
+        acc_to_a<64>(dp, da);
+        fence_regs(dq);
+        wgmma_fence();
+        product_rs<D>(dq, da, k_t);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq);
+        fence_regs(da);
+        if (lane == 0) mbar_arrive(e_bar + 8 * st);
+      }
+      // epilogue: dQ * scale through the warpgroup's Q tile
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      stage_rows<D>(x_wg, dq, sh.scale, warp, g, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (tid == 0 && qw0 < sh.Sq) {
+#pragma unroll
+        for (int a = 0; a < G::ATOMS; ++a)
+          tma_store_4d(&maps.dq, x_wg + a * ROWS * G::ATOM_B, a * G::ATOM_E, qw0, h, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_f32(const BwdArgs& a) {
   constexpr int smem = Geo<D>::SMEM_FLOATS * (int)sizeof(float);
-  auto kernel = flash_bwd_kernel<D, T>;
+  auto kernel = flash_bwd_kernel<D>;
   static const cudaError_t attr =   // once per instantiation
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
+  const int Hq = (int)a.Hq, Hkv = (int)a.Hkv, Sq = (int)a.Sq, Skv = (int)a.Skv;
   const int n_kt = (Skv + BT - 1) / BT, n_qt = (Sq + BT - 1) / BT;
-  const long long n_kv_blocks = (long long)B * Hkv * n_kt;
-  const long long blocks = n_kv_blocks + (long long)B * Hq * n_qt;
+  const long long n_kv_blocks = a.B * Hkv * n_kt;
+  const long long blocks = n_kv_blocks + a.B * Hq * n_qt;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), lse, static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq, Skv, causal, scale,
+  kernel<<<(unsigned)blocks, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o), a.lse,
+      static_cast<const float*>(a.dout), static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), Hq, Hkv, Sq, Skv, (int)a.causal, (float)a.scale,
       (int)n_kv_blocks, n_kt, n_qt);
   return 0;
 }
 
-template <typename T>
-int by_dim(int D, const void* q, const void* k, const void* v, const void* o, const float* lse,
-           const void* dout, void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
-           int causal, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<16, T>(q, k, v, o, lse, dout, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, scale,
-                           stream);
-    case 32:
-      return launch<32, T>(q, k, v, o, lse, dout, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, scale,
-                           stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, lse, dout, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, scale,
-                           stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, lse, dout, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal,
-                            scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// A 4-D map (D, rows, heads, sequences) over a bf16 tensor whose rows are
+// contiguous, with element strides (sequence, head, row); boxes of one
+// column atom by 64 rows.
+template <int D>
+int map4(CUtensorMap* map, const void* ptr, long long rows, long long heads, long long B,
+         const long long* st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Atoms<D>::ATOM_E, (cuuint32_t)ROWS, 1, 1};
+  return bf16_map<D>(map, ptr, 4, dims, strides, box);
+}
+
+template <int D, int NWG>
+int launch_wgmma(const BwdArgs& a) {
+  constexpr int smem = wgmma_smem_bytes<D, NWG>();
+  auto kernel = flash_bwd_wgmma_kernel<D, NWG>;
+  static const cudaError_t attr =   // once per instantiation: it is host work on every launch
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long B = a.B, Hq = a.Hq, Hkv = a.Hkv, Sq = a.Sq, Skv = a.Skv;
+  const long long Sq_pad = (Sq + ROWS - 1) / ROWS * ROWS;
+  const long long rows_total = B * Hq * Sq_pad;
+  float* lse2 = a.ws;
+  float* delta = a.ws + rows_total;
+
+  constexpr int RPB = 256 / (D / 8);
+  flash_bwd_delta_kernel<D><<<(unsigned)((rows_total + RPB - 1) / RPB), 256, 0, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.o), static_cast<const __nv_bfloat16*>(a.dout), a.lse,
+      lse2, delta, (int)Hq, (int)Sq, (int)Sq_pad, a.strides[9], a.strides[10], a.strides[11],
+      rows_total);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  BwdMaps maps;
+  const long long q_st[3] = {Hq * Sq * D, Sq * D, D}, k_st[3] = {Hkv * Skv * D, Skv * D, D};
+  int rc = map4<D>(&maps.q, a.q, Sq, Hq, B, a.strides);
+  if (!rc) rc = map4<D>(&maps.k, a.k, Skv, Hkv, B, a.strides + 3);
+  if (!rc) rc = map4<D>(&maps.v, a.v, Skv, Hkv, B, a.strides + 6);
+  if (!rc) rc = map4<D>(&maps.dout, a.dout, Sq, Hq, B, a.strides + 9);
+  if (!rc) rc = map4<D>(&maps.dq, a.dq, Sq, Hq, B, q_st);
+  if (!rc) rc = map4<D>(&maps.dk, a.dk, Skv, Hkv, B, k_st);
+  if (!rc) rc = map4<D>(&maps.dv, a.dv, Skv, Hkv, B, k_st);
+  if (rc) return rc;
+
+  BwdShape sh;
+  sh.lse2 = lse2;
+  sh.delta = delta;
+  sh.B = (int)B;
+  sh.Hq = (int)Hq;
+  sh.Hkv = (int)Hkv;
+  sh.Sq = (int)Sq;
+  sh.Skv = (int)Skv;
+  sh.Sq_pad = (int)Sq_pad;
+  sh.causal = (int)a.causal;
+  sh.n_kb = (int)((Skv + NWG * ROWS - 1) / (NWG * ROWS));
+  sh.n_qb = (int)((Sq + NWG * ROWS - 1) / (NWG * ROWS));
+  sh.n_qt = (int)(Sq_pad / ROWS);
+  sh.n_kv_blocks = (int)(B * Hkv * sh.n_kb);
+  sh.dq_first = (int)a.dq_first;
+  sh.scale = (float)a.scale;
+  sh.scale_log2 = (float)a.scale * LOG2E;
+  const long long blocks = (long long)sh.n_kv_blocks + B * Hq * sh.n_qb;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, (NWG + 1) * 128, smem, a.stream>>>(maps, sh);
+  return 0;
+}
+
+template <int D>
+int launch_bf16(const BwdArgs& a) {
+  if (a.block == 128) return launch_wgmma<D, 2>(a);
+  if (a.block == 64) return launch_wgmma<D, 1>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout and dq (B, Hq, Sq, D); k, v,
-// dk and dv (B, Hkv, Skv, D); lse (B, Hq, Sq) f32 from the forward; all
-// contiguous and 16-byte aligned; Hq % Hkv == 0, 0 < Sq <= Skv.
-extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                                          const void* o, const float* lse, const void* dout,
-                                          void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
-                                          int Sq, int Skv, int D, int dtype, int causal,
-                                          float scale, cudaStream_t stream) {
-  if (B > 0 && Hq > 0 && Sq > 0) {
-    if (Hkv <= 0 || Hq % Hkv || Sq > Skv) return (int)cudaErrorInvalidValue;
-    const int rc = dtype == 0
-        ? by_dim<float>(D, q, k, v, o, lse, dout, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, scale,
-                        stream)
-        : dtype == 1
-        ? by_dim<__nv_bfloat16>(D, q, k, v, o, lse, dout, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal,
-                                scale, stream)
-        : (int)cudaErrorInvalidValue;
+// dk and dv (B, Hkv, Skv, D); lse (B, Hq, Sq) f32 from the forward;
+// Hq % Hkv == 0, 0 < Sq <= Skv.  float32: every tensor contiguous and
+// 16-byte aligned.  bfloat16: o, lse and the outputs contiguous; q, k, v
+// and dout of any strides (in elements, `strides`) whose rows are
+// contiguous, each stride and base a multiple of 16 bytes; ws 2 * B * Hq *
+// ceil(Sq / 64) * 64 floats of scratch; block 128 (two consumer
+// warpgroups a block) or 64 (one).  Two kernel launches for bfloat16 (the
+// delta pre-pass and the body), one for float32.
+extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
+  if (a->B > 0 && a->Hq > 0 && a->Sq > 0) {
+    if (a->Hkv <= 0 || a->Hq % a->Hkv || a->Sq > a->Skv) return (int)cudaErrorInvalidValue;
+    int rc = (int)cudaErrorInvalidValue;
+    if (a->dtype == 0) {
+      switch (a->D) {
+        case 16: rc = launch_f32<16>(*a); break;
+        case 32: rc = launch_f32<32>(*a); break;
+        case 64: rc = launch_f32<64>(*a); break;
+        case 128: rc = launch_f32<128>(*a); break;
+      }
+    } else if (a->dtype == 1) {
+      switch (a->D) {
+        case 16: rc = launch_bf16<16>(*a); break;
+        case 32: rc = launch_bf16<32>(*a); break;
+        case 64: rc = launch_bf16<64>(*a); break;
+        case 128: rc = launch_bf16<128>(*a); break;
+      }
+    }
     if (rc) return rc;
   }
   return (int)cudaGetLastError();

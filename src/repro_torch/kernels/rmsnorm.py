@@ -16,12 +16,18 @@ the row and its bases allow them.
 
 Training: ``rmsnorm_bwd`` (the same library) gives dx and dscale, held
 against ``ref.rmsnorm_bwd_ref``; ``kernels.ops.rmsnorm`` joins the two in
-an autograd Function.  Its geometry is ``bwd_geometry``.
+an autograd Function.  It is one launch with or without a scale: dscale's
+column sums are taken by thread-block clusters, and over the clusters'
+rows, a share of the columns each, by the blocks that finish a share last
+(``bwd_geometry`` has the geometry), counted on integer counters that each
+stream has its own of (``_counters``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+import threading
 
 import torch
 
@@ -34,8 +40,20 @@ WARP_ROW_VECS = 4   # the most 16-byte vectors a lane takes in a warp row
 ROW_VECS = 4        # 16-byte vectors a thread of a block row aims at
 WARP_ROW_MAX_D = 1024   # the longest scalar row a warp takes
 BWD_MAX_D = 256 * 32    # the longest row the backward takes (256 threads x 32 columns)
+BWD_BLOCKS_PER_SM = 2   # the backward's grid: two blocks of 256 threads an SM
+BWD_MAX_CLUSTER = 8     # blocks of a cluster that sums dscale's rows
+COUNTER_SLOTS = 64      # streams a device's counter buffer serves
+COUNTERS_A_SLOT = 32    # a stream's counters (one a cluster rank) in one 128-byte line
+#: the backward's C entry arguments (csrc/rmsnorm.cu BwdArgs), packed in one buffer
+_BWD_PACK = struct.Struct("<11qd6q").pack
 _FN = None
 _BWD = None
+#: each device's dscale arrival counters (COUNTER_SLOTS x COUNTERS_A_SLOT
+#: int32, zeroed once; a launch leaves its slot's counters 0 again), and the
+#: slot of each (device, stream)
+_COUNTERS: dict[int, torch.Tensor] = {}
+_SLOTS: dict[tuple[int, int], int] = {}
+_SLOT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=256)
@@ -69,21 +87,66 @@ def launch_geometry(rows: int, D: int, elt: int, vec_ok: bool, n_sm: int = N_SM
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_geometry(rows: int, D: int, n_sm: int = N_SM) -> tuple[int, int, int]:
-    """(threads a row, columns a thread, blocks) of the backward: a row
-    of D takes about D / 8 threads (32 to 256, a power of two; 256 / that
-    rows share a block of 256), each thread the columns t, t + tpr, ...
-    (a power of two of them, at most 32); at most 4 waves of blocks, so
-    the second pass sums at most 4 * n_sm partial rows."""
+def bwd_geometry(rows: int, D: int, elt: int, vec_ok: bool, n_sm: int = N_SM
+                 ) -> tuple[int, int, int, int, int]:
+    """(threads a row, units a thread, elements a unit, blocks, cluster) of
+    the backward over ``rows`` rows of ``D`` elements of ``elt`` bytes on a
+    card of ``n_sm`` SMs.  ``vec_ok``: every base is 16-byte aligned, so a
+    row of whole 16-byte vectors takes the vector body (a unit is one
+    vector, 16 / elt elements), else the scalar one (a unit is one element).
+
+    The vector body: about two units a thread, so threads a row is the
+    power of two at or above half the row's units (1 to 256), and units a
+    thread the power of two that covers the row.  The scalar body: about
+    D / 8 threads a row (32 to 256), a power of two of elements each.  At
+    most 32 elements a thread.  256 / (threads a row) rows share a block of
+    256 threads; the grid is at most BWD_BLOCKS_PER_SM blocks an SM, in
+    clusters of up to BWD_MAX_CLUSTER blocks (a power of two that divides
+    the blocks) for dscale's sums."""
     if D > BWD_MAX_D:
         raise ValueError(f"rmsnorm_bwd: rows of {D} exceed {BWD_MAX_D}")
-    tpr = 32
-    while tpr < 256 and tpr * 8 < D:
-        tpr *= 2
-    cpt = 1
-    while tpr * cpt < D:
-        cpt *= 2
-    return tpr, cpt, max(1, min(-(-rows // (256 // tpr)), 4 * n_sm))
+    vec = 16 // elt if vec_ok and (D * elt) % 16 == 0 else 1
+    if vec > 1:
+        nu = D // vec
+        tpr = 1
+        while tpr < 256 and 2 * tpr < nu:
+            tpr *= 2
+    else:
+        nu = D
+        tpr = 32
+        while tpr < 256 and tpr * 8 < D:
+            tpr *= 2
+    units = 1
+    while tpr * units < nu:
+        units *= 2
+    blocks = max(1, min(-(-rows // (256 // tpr)), BWD_BLOCKS_PER_SM * n_sm))
+    cluster = 1
+    while 2 * cluster <= min(blocks, BWD_MAX_CLUSTER):
+        cluster *= 2
+    return tpr, units, vec, blocks // cluster * cluster, cluster
+
+
+def _counters(x: torch.Tensor, stream: int) -> int:
+    """The address of the dscale counters of ``stream`` on x's device: a
+    slot of the device's counter buffer, made (zeroed) on its first use,
+    which must therefore come outside CUDA graph capture (a warm-up call
+    does it).  Two streams never share a slot, so launches on both at
+    once do not count each other's blocks; a graph keeps the slot of the
+    stream it was captured on."""
+    dev = x.get_device()
+    with _SLOT_LOCK:
+        slot = _SLOTS.get((dev, stream))
+        if slot is None:
+            slot = sum(d == dev for d, _ in _SLOTS)
+            if slot >= COUNTER_SLOTS:
+                raise RuntimeError(f"rmsnorm_bwd: more than {COUNTER_SLOTS} streams on "
+                                   f"device {dev}")
+            _SLOTS[(dev, stream)] = slot
+        buf = _COUNTERS.get(dev)
+        if buf is None:
+            buf = _COUNTERS[dev] = torch.zeros(COUNTER_SLOTS * COUNTERS_A_SLOT,
+                                               dtype=torch.int32, device=x.device)
+    return buf.data_ptr() + 4 * COUNTERS_A_SLOT * slot
 
 
 def _launcher():
@@ -137,8 +200,7 @@ def _bwd_launcher():
     global _BWD
     if _BWD is None:
         fn = build.library("rmsnorm").rmsnorm_bwd_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
         _BWD = fn
     return _BWD
@@ -148,9 +210,10 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
                 eps: float = 1e-6):
     """The gradients (dx, dscale) of ``rmsnorm(x, scale, eps)`` given the
     output's gradient ``dy``: dx like x, dscale like the scale (None
-    without one).  One launch without a scale, two with one (the rows'
-    pass writes per-block partial sums of dscale, a second sums them in
-    block order: no atomics).  Rows up to BWD_MAX_D."""
+    without one).  One launch with or without a scale (dscale's rows
+    summed in a fixed order by clusters and by the blocks that finish a
+    share of the columns last: no float atomics, the same bits every
+    call).  Rows up to BWD_MAX_D."""
     if not x.is_cuda:
         raise ValueError("rmsnorm_bwd kernel: tensors must be on a CUDA device")
     x_dt = _DTYPES.get(x.dtype)
@@ -173,16 +236,22 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
     rows = x.numel() // D if D else 0
     if rows == 0:
         return dx, torch.zeros_like(scale) if scale is not None else None
-    tpr, cpt, blocks = bwd_geometry(rows, D, build.sm_count(dev))
+    xp, dyp, dxp = x.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    sp = scale.data_ptr() if scale is not None else 0
+    tpr, units, vec, blocks, cluster = bwd_geometry(rows, D, x.element_size(),
+                                                    (xp | dyp | dxp | sp) % 16 == 0,
+                                                    build.sm_count(dev))
+    stream = build.stream_of(x)
     partial = ds = None
+    counters = 0
     if scale is not None:
-        partial = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+        partial = torch.empty((blocks // cluster, D), dtype=torch.float32, device=x.device)
         ds = torch.empty_like(scale)
-    rc = _bwd_launcher()(x.data_ptr(), scale.data_ptr() if scale is not None else None,
-                         dy.data_ptr(), dx.data_ptr(),
-                         partial.data_ptr() if partial is not None else None,
-                         ds.data_ptr() if ds is not None else None,
-                         rows, D, x_dt, s_dt, eps, tpr, cpt, blocks, build.stream_of(x))
+        counters = _counters(x, stream)
+    rc = _bwd_launcher()(_BWD_PACK(
+        xp, sp, dyp, dxp, partial.data_ptr() if partial is not None else 0,
+        ds.data_ptr() if ds is not None else 0, counters,
+        rows, D, x_dt, s_dt, eps, tpr, units, vec, blocks, cluster, stream))
     build.check("rmsnorm", rc)
     build.count_launch("rmsnorm_bwd")
     return dx, ds

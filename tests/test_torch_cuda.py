@@ -635,6 +635,69 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, D):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _bwd_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, seed, strided=False):
+    """bf16 inputs of the backward from a seed, the forward kernel's o and
+    lse (its lse held to the plain one), and the plain gradients.  With
+    ``strided`` q, k, v and do hold the same values as transposed views of
+    (B, S, H, D) tensors, as the attention layer hands them over."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def make(H, S):
+        t = torch.randn((B, H, S, D), generator=g).to(cuda, torch.bfloat16)
+        return t.transpose(1, 2).contiguous().transpose(1, 2) if strided else t
+
+    q, k, v, do = make(Hq, Sq), make(Hkv, Skv), make(Hkv, Skv), make(Hq, Sq)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+    _, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    return (q, k, v, o, lse, do), ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Sq, Skv, D, causal): several ring stages in both roles,
+    # two consumer warpgroups a block, groups 2 and 6
+    (1, 16, 8, 1000, 1000, 128, True),
+    (2, 12, 2, 1000, 1000, 128, True),
+    # ragged: the last key block's second warpgroup holds no key (1037 keys
+    # in blocks of 128), the last query block's second 8 of its 64 queries
+    (2, 16, 8, 200, 1037, 128, True),
+    # whisper's non-causal cross-attention shape, D = 64
+    (1, 16, 16, 448, 1500, 64, False),
+    # one consumer warpgroup a block, ragged tails, D = 32 and 16
+    (1, 4, 2, 100, 300, 32, True),
+    (1, 6, 1, 77, 77, 16, False),
+])
+def test_cuda_flash_attention_bwd_bf16_wgmma_body(cuda, case):
+    """The bf16 body (TMA + wgmma, after the delta pre-pass) at shapes that
+    cross several stages of the ring in both roles, with one and two
+    consumer warpgroups a block, against the plain version at the bf16
+    tolerance; the same bits on a second call, and with q, k, v and do
+    handed over as strided views (read in place by the tensor maps)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Sq, Skv, D, causal = case
+    geo = fa.bwd_geometry(B, Hq, Hkv, Sq, Skv, True, build.sm_count(cuda.index or 0))
+    assert geo.warpgroups == (1 if D < 64 else 2)
+    args, want = _bwd_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, seed=sum(case))
+    n0 = ops.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(*args, causal=causal)
+    assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape and a.is_contiguous()
+        torch.testing.assert_close(a.float(), w.float(), **_bwd_tol("bfloat16"))
+    again = fa.flash_attention_bwd(*args, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    sargs, swant = _bwd_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, seed=sum(case), strided=True)
+    assert all(fa.tma_strides(t) is not None for t in (sargs[0], sargs[1], sargs[2], sargs[5]))
+    sgot = fa.flash_attention_bwd(*sargs, causal=causal)
+    for a, w in zip(sgot, swant):
+        torch.testing.assert_close(a.float(), w.float(), **_bwd_tol("bfloat16"))
+    # the same values laid out otherwise: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(sgot, got))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_rmsnorm_bwd_matches_plain(cuda, dtype):
@@ -678,9 +741,10 @@ def test_cuda_rmsnorm_bwd_matches_plain(cuda, dtype):
 @pytest.mark.cuda
 def test_cuda_backward_kernels_in_a_captured_graph(cuda):
     """Captured in a CUDA graph, three calls of flash_attention_bwd make
-    three kernel nodes, and of rmsnorm_bwd three (no scale) or six (the
-    rows' pass and the column pass) and no other node; the replay matches
-    the plain version."""
+    three kernel nodes in f32 and six in bf16 (the delta pre-pass and the
+    wgmma body), and of rmsnorm_bwd three with or without a scale (dscale's
+    column sums are taken by the blocks that arrive last), and no other
+    node; the replay matches an eager call bit for bit."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -689,12 +753,17 @@ def test_cuda_backward_kernels_in_a_captured_graph(cuda):
     v = torch.randn(2, 2, 128, 64, device=cuda)
     o, lse = fa.flash_attention(q, k, v, with_lse=True)
     do = torch.randn_like(o)
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    ob, lseb = fa.flash_attention(qb, kb, vb, with_lse=True)
     x = torch.randn(512, 256, device=cuda)
     dy = torch.randn_like(x)
     s = torch.randn(256, device=cuda)
+    xb, dyb, sb = (t.to(torch.bfloat16) for t in (x, dy, s))
     for fn, calls, nodes in ((lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 3, 3),
+                             (lambda: fa.flash_attention_bwd(qb, kb, vb, ob, lseb, dob), 3, 6),
                              (lambda: rn.rmsnorm_bwd(x, None, dy), 3, 3),
-                             (lambda: rn.rmsnorm_bwd(x, s, dy), 3, 6)):
+                             (lambda: rn.rmsnorm_bwd(x, s, dy), 3, 3),
+                             (lambda: rn.rmsnorm_bwd(xb, sb, dyb), 3, 3)):
         fn()
         torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -703,10 +772,35 @@ def test_cuda_backward_kernels_in_a_captured_graph(cuda):
         assert build.graph_nodes(g) == (nodes, nodes)
         g.instantiate()
         g.replay()
+        g.replay()          # the arrival counters are left 0 for the next replay
         torch.cuda.synchronize()
         for out in outs:
             for a, b in zip(out, fn()):
                 assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_bwd_on_two_streams_at_once(cuda):
+    """rmsnorm_bwd with a scale launched on two streams at once, many
+    times over: each stream has its own arrival counters, so neither
+    counts the other's blocks, and every dscale is the single-stream
+    result bit for bit."""
+    from repro_torch.kernels import rmsnorm as rn
+    x = [torch.randn(4096, 2048, device=cuda, dtype=torch.bfloat16) for _ in range(2)]
+    dy = [torch.randn_like(t) for t in x]
+    s = torch.randn(2048, device=cuda, dtype=torch.bfloat16)
+    want = [rn.rmsnorm_bwd(x[i], s, dy[i]) for i in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i in range(2):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(rn.rmsnorm_bwd(x[i], s, dy[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for dx, ds in outs[i]:
+            assert torch.equal(dx, want[i][0]) and torch.equal(ds, want[i][1])
 
 
 @pytest.mark.cuda

@@ -525,6 +525,165 @@ def test_rmsnorm_launch_geometry(rows, D, elt, vec_ok, want):
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels' launch geometry and the flash backward's bf16
+# rounding (pure Python, so they are tested here; the kernels follow them
+# on the card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,bf16,want", [
+    # qwen3-1.7B training: 256 key blocks of 128 keys walk up to 2 x 64
+    # query tiles, 512 query blocks up to 64 key tiles; keys first
+    ((1, 16, 8, 4096, 4096), True, (2, 128, 256, 512, 128, 64, False)),
+    # ragged 128 x 4096: 16 query blocks walk 64 key tiles each, so they start first
+    ((1, 16, 8, 128, 4096), True, (2, 128, 256, 16, 4, 64, True)),
+    # whisper's non-causal 448 x 1500
+    ((1, 16, 16, 448, 1500), True, (2, 128, 192, 64, 7, 24, True)),
+    # dbrx's group 6
+    ((1, 48, 8, 1024, 1024), True, (2, 128, 64, 384, 96, 16, False)),
+    # small grids keep one consumer warpgroup a block
+    ((1, 2, 2, 37, 37), True, (1, 64, 2, 2, 1, 1, False)),
+    ((1, 16, 8, 200, 1037), True, (1, 64, 136, 64, 8, 17, True)),
+    # the router's f32 training: the CUDA-core body, 64-row tiles
+    ((8, 4, 2, 128, 128), False, (0, 64, 32, 64, 4, 2, False)),
+])
+def test_flash_bwd_geometry(shape, bf16, want):
+    from repro_torch.kernels.flash_attention import BWD_ROWS, bwd_geometry
+    B, Hq, Hkv, Sq, Skv = shape
+    geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16)
+    assert tuple(geo) == want
+    assert geo.rows == BWD_ROWS * max(geo.warpgroups, 1)
+    # every key and every query has one block of its role
+    assert geo.key_blocks * geo.rows >= B * Hkv * Skv > (geo.key_blocks - B * Hkv) * geo.rows
+    assert geo.query_blocks * geo.rows >= B * Hq * Sq > (geo.query_blocks - B * Hq) * geo.rows
+    if bf16 and geo.warpgroups == 1:      # two warpgroups a block would leave SMs idle
+        assert B * Hkv * -(-Skv // 128) + B * Hq * -(-Sq // 128) < 132
+    assert bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, n_sm=1).warpgroups == (2 if bf16 else 0)
+
+
+@pytest.mark.parametrize("rows,D,elt,vec_ok,want", [
+    (1024, 256, 4, True, (32, 2, 4, 128, 8)),      # the router's norms, f32
+    (4096, 2048, 2, True, (128, 2, 8, 264, 8)),    # qwen3's block norms: two vectors a thread
+    (65536, 128, 2, True, (8, 2, 8, 264, 8)),      # its qk-norm: 32 rows a block
+    (8, 6144, 2, True, (256, 4, 8, 8, 8)),         # dbrx's rows: three vectors of four used
+    (7, 130, 4, True, (32, 8, 1, 1, 1)),           # 520-byte rows: the scalar body
+    (64, 130, 2, False, (32, 8, 1, 8, 8)),         # a misaligned base: the scalar body
+    (33, 16, 2, True, (1, 2, 8, 1, 1)),            # one thread a row, 256 rows a block
+    (15, 64, 2, True, (4, 2, 8, 1, 1)),            # one block, a cluster of one
+    (100, 8192, 4, True, (256, 8, 4, 96, 8)),      # the longest f32 row: whole clusters of 8
+    (100, 8192, 2, False, (256, 32, 1, 96, 8)),    # the longest scalar row
+])
+def test_rmsnorm_bwd_geometry(rows, D, elt, vec_ok, want):
+    from repro_torch.kernels.rmsnorm import (BWD_BLOCKS_PER_SM, BWD_MAX_CLUSTER, BWD_MAX_D,
+                                             bwd_geometry)
+    tpr, units, vec, blocks, cluster = got = bwd_geometry(rows, D, elt, vec_ok)
+    assert got == want
+    assert tpr & (tpr - 1) == 0 and 1 <= tpr <= 256 and units & (units - 1) == 0
+    assert vec in (1, 16 // elt) and (vec == 1 or (D * elt) % 16 == 0)
+    assert tpr * units * vec >= D and units * vec <= 32          # 32 floats a thread at most
+    assert tpr * (units // 2) * vec < D or units == 1              # no unit column wasted twice
+    assert blocks <= BWD_BLOCKS_PER_SM * 132 and blocks * (256 // tpr) < rows + 256 // tpr
+    assert cluster & (cluster - 1) == 0 and cluster <= BWD_MAX_CLUSTER and blocks % cluster == 0
+    with pytest.raises(ValueError, match="exceed"):
+        bwd_geometry(rows, BWD_MAX_D + 8, elt, vec_ok)
+
+
+def test_rmsnorm_bwd_counters_one_slot_a_stream(monkeypatch):
+    """Each (device, stream) gets its own slot of the device's counter
+    buffer, the same one on every call; more streams than slots raise."""
+    from repro_torch.kernels import rmsnorm as rn
+    monkeypatch.setattr(rn, "_COUNTERS", {})
+    monkeypatch.setattr(rn, "_SLOTS", {})
+    monkeypatch.setattr(rn, "COUNTER_SLOTS", 3)
+    x = torch.zeros(2, 8)
+    a, b = rn._counters(x, 11), rn._counters(x, 22)
+    assert b - a == 4 * rn.COUNTERS_A_SLOT and rn._counters(x, 11) == a
+    buf = rn._COUNTERS[x.get_device()]
+    assert buf.dtype == torch.int32 and int(buf.abs().sum()) == 0
+    rn._counters(x, 33)
+    with pytest.raises(RuntimeError, match="streams"):
+        rn._counters(x, 44)
+
+
+def test_flash_bwd_tensor_maps_take_the_layers_strides():
+    """q, k, v and dO of the attention layer are transposed views: a TMA
+    map reads them as they are; a size-1 dimension takes its contiguous
+    stride; a row that is not contiguous, or a base or stride off 16
+    bytes, is refused (the wrapper then copies)."""
+    from repro_torch.kernels.flash_attention import tma_strides
+    B, S, H, D = 2, 48, 4, 64
+    t = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    assert tma_strides(t) == (S * H * D, D, H * D)
+    assert tma_strides(torch.zeros(1, H, S, D, dtype=torch.bfloat16)) == (H * S * D, S * D, D)
+    one = torch.zeros(1, S, 1, D, dtype=torch.bfloat16).transpose(1, 2)
+    assert tma_strides(one) == (S * D, S * D, D)
+    assert tma_strides(torch.zeros(B, H, D, S, dtype=torch.bfloat16).transpose(2, 3)) is None
+    odd = torch.zeros(B * H * S * D + 1, dtype=torch.bfloat16)[1:].view(B, H, S, D)
+    assert tma_strides(odd) is None
+    pad = torch.zeros(B, H, S, D + 4, dtype=torch.bfloat16)[..., :D]
+    assert tma_strides(pad) is None                       # rows 136 bytes apart
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header names another library, so a stale build
+    is never loaded."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.lib_path("k")
+    assert build.lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build.lib_path("k") != first
+
+
+def _bf16_body_emulation(q, k, v, o, lse, do, causal=True):
+    """The arithmetic of the bf16 wgmma body on the CPU: products of bf16
+    operands summed in f32, P = exp2(s * scale * log2 e - lse * log2 e),
+    dS = P (dP - delta), and P and dS rounded to bf16 before they enter
+    dV += P^T dO, dK += dS^T Q and dQ += dS K; delta = rowsum(dO O) in f32;
+    outputs rounded once to bf16."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(D)
+    log2e = 1.4426950408889634
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    if causal:
+        pos = torch.arange(Sq)[:, None] + (Skv - Sq)
+        p = torch.where(pos >= torch.arange(Skv)[None, :], p, torch.zeros_like(p))
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])
+    p16, ds16 = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds16, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds16, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p16, dof)
+    dk = dk.reshape(B, Hkv, G, Skv, D).sum(2)
+    dv = dv.reshape(B, Hkv, G, Skv, D).sum(2)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def test_flash_bwd_bf16_rounding_holds_the_card_tolerance():
+    """Before any chip time: the bf16 body's roundings (P and dS to bf16
+    ahead of the register-A products, f32 sums) at 1024 x 1024, D = 128,
+    group 2, causal, stay within the card test's bf16 tolerance (2e-2
+    absolute and relative) of ref.attention_bwd_ref; dQ sums 1024 keys and
+    dK 2 x 1024 queries."""
+    rs = np.random.RandomState(19)
+    B, Hq, Hkv, S, D = 1, 4, 2, 1024, 128
+    q, k, v, do = (torch.from_numpy(rs.randn(B, H, S, D).astype(np.float32)).to(torch.bfloat16)
+                   for H in (Hq, Hkv, Hkv, Hq))
+    o, lse = ref.attention_ref(q, k, v, causal=True, return_lse=True)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    got = _bf16_body_emulation(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        assert float((g.float() - w.float()).abs().max()) > 0      # the roundings do show
+
+
+# ---------------------------------------------------------------------------
 # decode_attention's launch plan and path_lookup's block geometry (pure
 # Python, so they are tested here; the kernels follow them on the card)
 # ---------------------------------------------------------------------------
