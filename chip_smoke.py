@@ -54,7 +54,24 @@ its main path on the card, printing one JSON line per phase:
      first 2 layers with the CPU (router indices, logits), the bf16 run's
      share of changed expert assignments, and teacher-forced decode
      against the prefill;
- 12. the training path: flash_attention_bwd and rmsnorm_bwd against their
+ 12. the SSM and xLSTM families: jamba-v0.1-52b at full width (16 of its
+     32 layers: mamba, attention and MoE slots, weights drawn on the card)
+     and xlstm-350m at full width and depth (24 mLSTM and sLSTM layers):
+     make_prefill_step and make_eval_step at B=1, S=4096 and 16
+     make_serve_step decode steps at B=4 (ragged lengths), launches per
+     forward and per step checked exactly, times beside their bounds, the
+     prefill split into the scans (mamba, mLSTM, sLSTM per layer, timed
+     alone) and the rest; then f32 parity with the CPU: jamba cut to its
+     period's first four slots at S=128 (logits, router indices but at
+     near ties, teacher-forced decode against the prefill), xlstm whole
+     at S=512 (two mLSTM chunks) layer by layer (each layer's prefill
+     and 16 decode steps on the CPU's input to it, the decode against
+     the prefill), end to end through the final norm and head over its
+     first layers while the card's own logits moved by a 1e-7
+     perturbation of the embeddings stay within 2.5e-4 of the largest, and
+     at full depth the card-CPU distance within 10x that witness, since
+     its layers amplify rounding;
+ 13. the training path: flash_attention_bwd and rmsnorm_bwd against their
      plain versions at the router's, qwen3's, a ragged, a non-causal and
      dbrx's group-6 shapes (and the norms' at qwen3's block and qk-norm
      shapes, one without scale), timed beside the autograd backward of
@@ -70,7 +87,7 @@ its main path on the card, printing one JSON line per phase:
      a falling loss, step ms, tokens/s, peak memory, launches per step and
      the model FLOPs' share of the bf16 peak, and f32 parity of its first
      2 layers' loss and gradients with the CPU at S=256;
- 13. one JSON line of every kernel with its launches, error, times and
+ 14. one JSON line of every kernel with its launches, error, times and
      bound; the card's name and power limit; the final ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
@@ -338,9 +355,11 @@ def norm_row(x, s, err) -> dict:
 def model_kernels(dev) -> dict:
     """rmsnorm and decode_attention at the serving shapes (batch 4 lanes,
     wikikv-router: 4 query heads, 2 KV heads, head_dim 64, d_model 256,
-    max_len 512), the longer-cache shapes, qwen3-1.7B's prefill norms and
+    max_len 512), the longer-cache shapes, qwen3-1.7B's prefill norms,
     dbrx-132b's (d_model 6144; decode at group 6: 48 query heads, 8 KV
-    heads, head_dim 128, B=4, max_len 512); returns the JSON entries."""
+    heads, head_dim 128, B=4, max_len 512), jamba-v0.1-52b's (d_model
+    4096; decode at group 4: 32 / 8 heads, head_dim 128) and xlstm-350m's
+    norms (d_model 1024); returns the JSON entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
@@ -362,9 +381,11 @@ def model_kernels(dev) -> dict:
                     **norm_row(x, s, err)}
     # the prefill shapes of qwen3-1.7B at S=4096: a block norm over 4096
     # rows of d_model 2048, the qk-norm over 4096 x 16 rows of head_dim 128;
-    # dbrx-132b's block norm at S=4096 and at a decode step of B=4
+    # the block norms of dbrx-132b, jamba-v0.1-52b and xlstm-350m at S=4096
+    # and at a decode step of B=4
     shapes = []
-    for rows, D in ((4096, 2048), (4096 * 16, 128), (4096, 6144), (4, 6144)):
+    for rows, D in ((4096, 2048), (4096 * 16, 128), (4096, 6144), (4, 6144), (4096, 4096),
+                    (4, 4096), (4096, 1024), (4, 1024)):
         x = torch.randn((rows, D), generator=g).to(dev, torch.bfloat16)
         s = torch.randn((D,), generator=g).to(dev, torch.bfloat16)
         err = check_float(f"rmsnorm {rows}x{D}", ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
@@ -376,15 +397,16 @@ def model_kernels(dev) -> dict:
           "shapes": [{k: v for k, v in entries["rmsnorm"].items()
                       if k not in ("name", "route", "source", "replaces", "shapes")}] + shapes})
 
-    timings, group6 = [], []
+    timings, group6, group4 = [], [], []
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, lens, Hq, Hkv, D in (
                 (4, 512, [1, 97, 311, 512], 4, 2, 64),
                 (8, 512, [1, 7, 64, 129, 256, 300, 511, 512], 4, 2, 64),
                 (8, 4096, [1, 100, 1000, 2049, 3000, 4000, 4095, 4096], 4, 2, 64),
-                # dbrx's decode: the smoke's lanes at 0, 1/5, 1/2 and the
-                # end of a 512 cache, one token in
-                (4, 512, [1, 103, 257, 497], 48, 8, 128)):
+                # dbrx's and jamba's decode: the smoke's lanes at 0, 1/5,
+                # 1/2 and the end of a 512 cache, one token in
+                (4, 512, [1, 103, 257, 497], 48, 8, 128),
+                (4, 512, [1, 103, 257, 497], 32, 8, 128)):
             q = torch.randn((B, Hq, D), generator=g).to(dev, dtype)
             k = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
             v = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
@@ -428,17 +450,18 @@ def model_kernels(dev) -> dict:
                     "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
                     "replaces": "src/repro/kernels/decode_attention.py:74", **row}
             else:
-                group6.append(row)
-    entries["decode_attention"]["shapes"] = group6
+                (group6 if Hq == 48 else group4).append(row)
+    entries["decode_attention"]["shapes"] = group6 + group4
     emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings,
-          "group6": group6})
+          "group6": group6, "group4": group4})
     return entries
 
 
 # (tag, B, Hq, Hkv, Sq, Skv, D, dtype, causal): (a) the ModelOracle's
 # wikikv-router NLLs, (b) qwen3-1.7B prefill, (c) its chunked prefill,
 # (d) whisper-medium's cross-attention shape (448 decoder x 1500 encoder
-# positions, non-causal), (e) dbrx's group of 6 (48 / 8 heads)
+# positions, non-causal), (e) dbrx's group of 6 (48 / 8 heads), (f)
+# jamba-v0.1-52b's prefill, its group of 4 (32 / 8 heads)
 FLASH_SHAPES = [
     ("a S=7", 1, 4, 2, 7, 7, 64, "float32", True),
     ("a S=37", 1, 4, 2, 37, 37, 64, "float32", True),
@@ -447,6 +470,7 @@ FLASH_SHAPES = [
     ("c", 1, 16, 8, 128, 4096, 128, "bfloat16", True),
     ("d", 1, 16, 16, 448, 1500, 64, "bfloat16", False),
     ("e", 1, 48, 8, 1024, 1024, 128, "bfloat16", True),
+    ("f", 1, 32, 8, 4096, 4096, 128, "bfloat16", True),
 ]
 
 
@@ -1436,7 +1460,8 @@ def prefill_phase(dev, seed=0, seq=4096, parity_layers=2, parity_seq=256) -> dic
 # (tag, T, E, k): dbrx prefill (S=4096) and decode (B=4), jamba, kimi-k2,
 # and a ragged T
 ROUTER_SHAPES = [("dbrx prefill", 4096, 16, 4), ("dbrx decode", 4, 16, 4),
-                 ("jamba", 4096, 16, 2), ("kimi-k2", 4096, 384, 8), ("ragged", 4099, 16, 4)]
+                 ("jamba", 4096, 16, 2), ("jamba decode", 4, 16, 2), ("kimi-k2", 4096, 384, 8),
+                 ("ragged", 4099, 16, 4)]
 ROUTER_NEAR_TIE = 1e-6   # two candidates' probabilities this close may order either way
 
 
@@ -1705,14 +1730,35 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     small = {**params, "body": tree_map(lambda t: t[:n_par].clone(), params["body"])}
     del params, state, dec_logits, step
     torch.cuda.empty_cache()
-    cfg_p = dataclasses.replace(cfg, n_layers=n_par)
+    out = moe_parity(dev, dataclasses.replace(cfg, n_layers=n_par), small, toks, parity_seq,
+                     tf_tokens)
+    emit({"phase": "moe_parity", "layers": n_par,
+          "layers_note": None if n_par == 2 else "1 layer: the host is short of memory", **out})
+    return counts
+
+
+def moe_parity(dev, cfg_p, small: dict, toks, parity_seq: int, tf_tokens: int) -> dict:
+    """f32 parity of an MoE model's first layers with the CPU.  ``small``
+    (the card's weights of ``cfg_p``; emptied as they are upcast) runs once
+    in ``cfg_p``'s dtype with its router logged, then upcast to f32 on the
+    card and on the CPU at S=``parity_seq``: router indices equal but at
+    near ties, logits within 1e-3 of the largest; the bf16 run's share of
+    assignments whose expert differs from the f32 run; and teacher-forced
+    decode of ``tf_tokens`` tokens against the prefill logits at
+    capacity_factor 64.  Returns the numbers of the parity line."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    m = cfg_p.moe
     cfg32 = dataclasses.replace(cfg_p, dtype="float32", param_dtype="float32")
     cfg64 = dataclasses.replace(cfg32, moe=dataclasses.replace(m, capacity_factor=64.0))
     fwd32 = M.make_prefill_step(cfg32)
     tokens = torch.from_numpy(toks[:, :parity_seq])
     _, log_bf = logged_run(lambda: M.make_prefill_step(cfg_p)(small, {"tokens": tokens.to(dev)}))
     card32_p = tree_map(lambda t: t.float(), small)
-    del small
+    small.clear()
     torch.cuda.empty_cache()
     card, log_card = logged_run(lambda: fwd32(card32_p, {"tokens": tokens.to(dev)}).cpu())
     host32 = tree_map(lambda t: t.cpu(), card32_p)
@@ -1742,39 +1788,472 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     upto = parity_seq if flip is None else flip["token"]
     scale = float(cpu.abs().max())
     err = float((card[0, :upto] - cpu[0, :upto]).abs().max()) if upto else 0.0
-    check(err <= 1e-3 * scale, f"f32 logits card vs cpu differ by {err} > 1e-3 x {scale}")
+    check(err <= 1e-3 * scale,
+          f"{cfg_p.name} f32 logits card vs cpu differ by {err} > 1e-3 x {scale}")
     changed = total = 0
     for (_, i32), (_, ibf) in zip(log_card, log_bf):
         for a, b in zip(i32.tolist(), ibf.tolist()):
             changed += len(set(b) - set(a))
             total += len(a)
-    # decode: one router call per layer per step (T=1); regroup as the
+    # decode: one router call per MoE layer per step (T=1); regroup as the
     # prefill's (layer, token) rows
-    dec_log = [(torch.cat([log_tf_dec[t * n_par + layer][0] for t in range(tf_tokens)]),
-                torch.cat([log_tf_dec[t * n_par + layer][1] for t in range(tf_tokens)]))
-               for layer in range(n_par)]
+    n_r = len(log_tf_full)
+    dec_log = [(torch.cat([log_tf_dec[t * n_r + layer][0] for t in range(tf_tokens)]),
+                torch.cat([log_tf_dec[t * n_r + layer][1] for t in range(tf_tokens)]))
+               for layer in range(n_r)]
     tf_flip = first_flip(log_tf_full, dec_log, k)
     tf_upto = tf_tokens if tf_flip is None else tf_flip["token"]
     tf_scale = float(tf_full.abs().max())
     tf_err = float((got[0, :tf_upto] - tf_full[0, :tf_upto]).abs().max()) if tf_upto else 0.0
-    check(tf_err <= 1e-3 * tf_scale,
-          f"teacher-forced decode vs prefill differ by {tf_err} > 1e-3 x {tf_scale}")
-    emit({"phase": "moe_parity", "layers": n_par,
-          "layers_note": None if n_par == 2 else "1 layer: the host is short of memory",
-          "seq": parity_seq, "dtype": "float32 (bf16 weights upcast)", "cpu_forward_s": cpu_s,
-          "max_abs_card_cpu": err, "max_abs_logit": scale, "tolerance": 1e-3 * scale,
-          "router_near_tie": flip, "tokens_compared": upto,
-          "bf16_assignments_changed": changed, "bf16_assignments": total,
-          "bf16_share_changed": changed / max(total, 1),
-          "teacher_forced": {"tokens": tf_tokens, "capacity_factor": 64.0,
-                             "max_abs_decode_prefill": tf_err, "max_abs_logit": tf_scale,
-                             "router_near_tie": tf_flip, "tokens_compared": tf_upto}})
+    check(tf_err <= 1e-3 * tf_scale, f"{cfg_p.name} teacher-forced decode vs prefill differ "
+          f"by {tf_err} > 1e-3 x {tf_scale}")
+    return {"seq": parity_seq, "dtype": "float32 (bf16 weights upcast)", "cpu_forward_s": cpu_s,
+            "max_abs_card_cpu": err, "max_abs_logit": scale, "tolerance": 1e-3 * scale,
+            "router_near_tie": flip, "tokens_compared": upto,
+            "bf16_assignments_changed": changed, "bf16_assignments": total,
+            "bf16_share_changed": changed / max(total, 1),
+            "teacher_forced": {"tokens": tf_tokens, "capacity_factor": 64.0,
+                               "max_abs_decode_prefill": tf_err, "max_abs_logit": tf_scale,
+                               "router_near_tie": tf_flip, "tokens_compared": tf_upto}}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the SSM and xLSTM families — jamba-v0.1-52b and xlstm-350m
+# ---------------------------------------------------------------------------
+# launches of each kernel (per forward, per decode step) on the two paths:
+# jamba cut to 16 layers (2 attention, 8 MoE, 16 x 2 block norms + the
+# final one), xlstm at its 24 (one norm a block: the xLSTM blocks carry
+# their own FFN)
+RECURRENT_LAUNCHES = {
+    "jamba-v0.1-52b": {"rmsnorm": (33, 33), "flash_attention": (2, 0),
+                       "decode_attention": (0, 2), "moe_router": (8, 8)},
+    "xlstm-350m": {"rmsnorm": (25, 25), "flash_attention": (0, 0),
+                   "decode_attention": (0, 0), "moe_router": (0, 0)},
+}
+
+
+def path_launches(cfg) -> dict:
+    """(per forward, per decode step) launches of each model kernel,
+    counted from the config's layers."""
+    from repro_torch.models import transformer as T
+    kinds = list(cfg.block_pattern) * cfg.n_periods
+    n_attn = kinds.count("attn")
+    n_moe = cfg.n_periods * sum(T._slot_is_moe(cfg, s) for s in range(len(cfg.block_pattern)))
+    n_norm = sum(2 if k in ("attn", "mamba") else 1 for k in kinds) + 1
+    return {"rmsnorm": (n_norm, n_norm), "flash_attention": (n_attn, 0),
+            "decode_attention": (0, n_attn), "moe_router": (n_moe, n_moe)}
+
+
+def interleaved_ms(fns: dict, rounds: int = 3) -> dict:
+    """Median ms of each callable by CUDA events, the callables taking
+    turns (one warm-up call each first), so each samples the same host
+    conditions."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, iters=1, warmup=0))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def mixed_bound(bytes_moved: float, bf16_ops: float, f32_ops: float) -> tuple[float, str]:
+    """``bound`` for work of two types: bf16 products on the tensor cores
+    and float32 operations outside them, each at its own peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def recurrent_prefill_ops(cfg, seq: int, kept: int) -> tuple[float, float]:
+    """(bf16, float32) operations of one forward at B=1, S=``seq``: the
+    projections, causal attention, the dense FFNs, the router and the
+    ``kept`` (token, expert) assignments, the head (bf16); the mamba scan
+    (8 per state element a step: exp(Δ A), Δ B x, the step, the readout),
+    the mLSTM chunks' products (f32, TF32 off) and the sLSTM cell (f32)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as X
+    S, D, V = seq, cfg.d_model, cfg.padded_vocab
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Din, N, K = cfg.ssm_expand * D, cfg.d_state, cfg.d_conv
+    Hx, Dp = cfg.xlstm_heads, 2 * D
+    Dhx, c, f = Dp // Hx, min(256, S), X.slstm_ffn_width(D)
+    bf16 = 2.0 * S * D * V
+    f32 = 0.0
+    for _ in range(cfg.n_periods):
+        for s, kind in enumerate(cfg.block_pattern):
+            if kind == "attn":
+                bf16 += 2.0 * S * D * (2 * H * Dh + 2 * KV * Dh) + 4.0 * Dh * H * S * (S + 1) / 2
+            elif kind == "mamba":
+                bf16 += 2.0 * S * (D * 2 * Din + Din * 2 * N + Din * Din + Din * D + Din * K)
+                f32 += 8.0 * S * Din * N
+            elif kind == "mlstm":
+                bf16 += 2.0 * S * (D * 2 * Dp + 3 * Dp * Dp + Dp * 2 * Hx + Dp * D)
+                f32 += S * Hx * (4.0 * c * Dhx + 4.0 * Dhx * Dhx)
+            else:
+                bf16 += 2.0 * S * (D * 4 * D + D * 4 * (D // Hx) + D * 2 * f + f * D)
+                f32 += 20.0 * S * D
+            if kind in ("attn", "mamba"):
+                if T._slot_is_moe(cfg, s):
+                    bf16 += 2.0 * S * D * cfg.moe.n_experts
+                else:
+                    bf16 += 6.0 * S * D * cfg.d_ff
+    if cfg.moe is not None:
+        bf16 += 6.0 * D * cfg.moe.d_ff_expert * kept
+    return bf16, f32
+
+
+def recurrent_state_bytes(cfg, batch: int) -> int:
+    """Bytes of the recurrent states one decode step reads and writes
+    (float32), the KV caches left out."""
+    D = cfg.d_model
+    Din, Hx = cfg.ssm_expand * D, cfg.xlstm_heads
+    Dhx = 2 * D // Hx
+    per = {"attn": 0, "mamba": batch * ((cfg.d_conv - 1) * Din + Din * cfg.d_state),
+           "mlstm": batch * Hx * (Dhx * Dhx + Dhx + 1), "slstm": 4 * batch * D}
+    return 2 * 4 * cfg.n_periods * sum(per[k] for k in cfg.block_pattern)
+
+
+XLSTM_PREFIX_MAX = 6      # the deepest prefix of layers held end to end
+WITNESS_SHARE = 2.5e-4    # a prefix is held while the card's own witness stays within this share
+XLSTM_PREFIX_MIN = 3      # of the largest logit (a quarter of the tolerance), at least this deep
+
+
+def blockwise_parity(dev, cfg, card_p, host_p, tokens, tf_tokens, card_logits,
+                     cpu_logits) -> dict:
+    """f32 parity of a model whose layers amplify rounding (xlstm-350m
+    with random weights: a perturbation of 1e-7 in the embeddings grows
+    to the logits' own size by the last layer, so no two implementations
+    that round differently agree at full depth).  Three checks:
+
+    * each layer alone, on the CPU chain's input to it: the card's
+      prefill of the layer against the CPU's, within 1e-3 of the layer's
+      largest output (at S=512 the mLSTM runs two chunks of 256, so the
+      (C, n, m) carry between chunks is compared); on the first
+      ``tf_tokens`` of that input, the card's decode steps against the
+      CPU's (outputs and final states) and against the card's own
+      prefill of those tokens (the recurrent form against the
+      chunkwise one), within 1e-3;
+    * end to end over a prefix: the CPU's chain, the card's, and the
+      card's with its embeddings perturbed by 1e-7 (the witness of the
+      card's own sensitivity), each closed by the final norm and the head
+      after each of the first ``XLSTM_PREFIX_MAX`` layers.  Every prefix
+      up to the first whose witness moves the logits by more than
+      ``WITNESS_SHARE`` of the largest (a quarter of the tolerance: past
+      it the layers have amplified rounding towards the tolerance) holds
+      the card within 1e-3 of the largest logit; at least the first
+      ``XLSTM_PREFIX_MIN`` layers must qualify;
+    * at full depth, through the entry point: the card's distance from
+      the CPU must be of the witness's order (at most 10x it)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    def rel(a, b):
+        return float((a.cpu() - b.cpu()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def head(p, h):
+        return (L.norm_apply(p["final_norm"], h, cfg) @ T._head(p, cfg, h.dtype)).cpu()
+
+    worst = {"prefill": 0.0, "decode": 0.0, "decode_state": 0.0, "decode_vs_prefill": 0.0}
+    prefixes = []
+    zero = torch.zeros((1,), dtype=torch.int32)
+    with torch.inference_mode():
+        x = T.embed_tokens(host_p, tokens, cfg)
+        xg = T.embed_tokens(card_p, tokens.to(dev), cfg)
+        noise = torch.randn(xg.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+        xp = xg * (1 + 1e-7 * noise)
+        for p in range(cfg.n_periods):
+            for s, kind in enumerate(cfg.block_pattern):
+                pc = T._index(host_p["body"][f"slot{s}"], p)
+                pg = T._index(card_p["body"][f"slot{s}"], p)
+                y = T._slot_apply(kind, pc, x, cfg)
+                worst["prefill"] = max(worst["prefill"],
+                                       rel(T._slot_apply(kind, pg, x.to(dev), cfg), y))
+                xg = T._slot_apply(kind, pg, xg, cfg)
+                xp = T._slot_apply(kind, pg, xp, cfg)
+                xs = x[:, :tf_tokens]
+                pre = T._slot_apply(kind, pg, xs.to(dev), cfg)
+                st_c = T._state_init(kind, cfg, 1, tf_tokens, "cpu")
+                st_g = T._state_init(kind, cfg, 1, tf_tokens, dev)
+                dec_c, dec_g = [], []
+                for t in range(tf_tokens):
+                    dec_c.append(T._slot_decode(kind, pc, xs[:, t:t + 1], st_c, zero, cfg))
+                    dec_g.append(T._slot_decode(kind, pg, xs[:, t:t + 1].to(dev), st_g,
+                                                zero.to(dev), cfg))
+                dec_c, dec_g = torch.cat(dec_c, 1), torch.cat(dec_g, 1)
+                worst["decode"] = max(worst["decode"], rel(dec_g, dec_c))
+                worst["decode_state"] = max(worst["decode_state"], *(
+                    rel(a, b) for a, b in zip(leaves(st_g), leaves(st_c))))
+                worst["decode_vs_prefill"] = max(worst["decode_vs_prefill"], rel(dec_g, pre))
+                x = y
+                if len(prefixes) < XLSTM_PREFIX_MAX:
+                    want, got = head(host_p, x), head(card_p, xg)
+                    prefixes.append({"layers": len(prefixes) + 1,
+                                     "max_abs_logit": float(want.abs().max()),
+                                     "max_abs_card_cpu": float((got - want).abs().max()),
+                                     "max_abs_card_perturbed_1e-7":
+                                         float((head(card_p, xp) - got).abs().max())})
+        perturbed = head(card_p, xp)
+    for k, v in worst.items():
+        check(v <= 1e-3, f"{cfg.name} layerwise {k}: card vs reference differ by {v} of the "
+              "layer's largest output > 1e-3")
+    held = 0
+    for r in prefixes:
+        if r["max_abs_card_perturbed_1e-7"] > WITNESS_SHARE * r["max_abs_logit"]:
+            break
+        check(r["max_abs_card_cpu"] <= 1e-3 * r["max_abs_logit"],
+              f"{cfg.name} first {r['layers']} layers: f32 logits card vs cpu differ by "
+              f"{r['max_abs_card_cpu']} > 1e-3 x {r['max_abs_logit']}")
+        held = r["layers"]
+    check(held >= XLSTM_PREFIX_MIN, f"{cfg.name}: the card's own witness exceeds {WITNESS_SHARE} "
+          f"of the largest logit within {held + 1} layers, so no prefix of {XLSTM_PREFIX_MIN} "
+          f"layers can be held: {prefixes}")
+    e2e = float((card_logits - cpu_logits).abs().max())
+    witness = float((perturbed - card_logits).abs().max())
+    check(e2e <= 10 * witness, f"{cfg.name} end to end: card vs cpu {e2e} is more than 10x the "
+          f"card's own witness {witness}")
+    return {"layerwise_max_rel_err": worst, "tolerance_rel": 1e-3, "tf_tokens": tf_tokens,
+            "prefixes": prefixes, "prefix_layers_held": held, "witness_share": WITNESS_SHARE,
+            "end_to_end_max_abs_card_cpu": e2e, "end_to_end_max_abs_card_perturbed_1e-7": witness,
+            "max_abs_logit": float(cpu_logits.abs().max())}
+
+
+def recurrent_phase(dev, arch, layers, seed=0, seq=4096, dec_batch=4, dec_len=512, dec_steps=16,
+                    parity_seq=None, tf_tokens=16) -> dict:
+    """(a) ``arch`` at full width, cut to ``layers`` layers, weights drawn
+    on the card from ``seed``: one prefill and one eval at B=1, S=``seq``,
+    then ``dec_steps`` serve steps at B=``dec_batch`` (ragged lengths,
+    max_len ``dec_len``), the launches counted and checked against
+    ``RECURRENT_LAUNCHES``; their times beside their bounds, and the
+    prefill's split (the scans per layer, timed alone, against the rest).
+    (b) f32 parity of the card with the CPU.  jamba cut to its period's
+    first four slots (mamba, mamba+MoE, mamba, attention+MoE; the first
+    two when the host is short of memory) at S=128: logits within 1e-3 of
+    the largest, router indices equal but at near ties, the bf16 run's
+    share of changed expert assignments, and teacher-forced decode of
+    ``tf_tokens`` tokens against the prefill at capacity_factor 64
+    (``moe_parity``).  xlstm at all its layers at S=512
+    (``blockwise_parity``: its layers amplify rounding)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as X
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    tag = "ssm" if arch.startswith("jamba") else "xlstm"
+    m = cfg.moe
+    want = RECURRENT_LAUNCHES[arch]
+    check(path_launches(cfg) == want, f"{arch}: the config's launches {path_launches(cfg)} "
+          f"!= the table's {want}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    w_bytes = nbytes(params)
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(1, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((1, 1), -1, np.int32)], axis=1)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+    prefill, evals, serve = M.make_prefill_step(cfg), M.make_eval_step(cfg), M.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, dec_batch, dec_len, dev)
+    tk = torch.from_numpy(rs.randint(0, cfg.vocab, size=dec_batch).astype(np.int32)).to(dev)
+    lens0 = [0, dec_len // 5, dec_len // 2, dec_len - dec_steps]
+    lens = torch.tensor(lens0, dtype=torch.int32, device=dev)
+
+    # the main path: counts from zero, one prefill, one eval and the decode
+    # steps, read just after
+    ops.reset_launches()
+    logits, log_pre = logged_run(lambda: prefill(params, batch))
+    loss = float(evals(params, batch))
+    check(tuple(logits.shape) == (1, seq, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"non-finite {arch} prefill logits")
+    check(math.isfinite(loss) and loss > 0, f"{arch} eval loss {loss}")
+    del logits
+    fwd = dict(ops.LAUNCHES)
+    for _ in range(dec_steps):
+        tk, dec_logits, state = serve(params, state, {"tokens": tk, "lengths": lens})
+        lens = lens + 1
+    check(bool(torch.isfinite(dec_logits[:, :cfg.vocab]).all()), "non-finite decode logits")
+    counts = dict(ops.LAUNCHES)
+    dec = {k: counts[k] - fwd[k] for k in counts}
+    for name, (per_fwd, per_step) in want.items():
+        check(fwd[name] == 2 * per_fwd and dec[name] == dec_steps * per_step,
+              f"{arch} {name} launches {fwd[name]} (2 forwards) / {dec[name]} ({dec_steps} "
+              f"decode steps) != {2 * per_fwd} / {dec_steps * per_step}")
+    check(sum(counts[k] for k in counts if k not in want) == 0, f"{arch}: other launches {counts}")
+
+    eval_ms = cuda_ms(lambda: evals(params, batch), iters=3, warmup=1)
+    step = {"tokens": tk, "lengths": lens - 1}      # the last step again, in place
+    _, log_dec = logged_run(lambda: serve(params, state, step))
+    decode_ms = cuda_ms(lambda: serve(params, state, step), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # where the prefill's time goes: each scan of one layer at the prefill
+    # shape, timed alone (outside the count), and jamba's MoE FFN and flash
+    kinds = list(cfg.block_pattern) * cfg.n_periods
+
+    def split_parts() -> dict:
+        """One layer's parts at the prefill shape, as callables (their
+        inputs are freed with them)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        act = getattr(torch, cfg.dtype)
+        D = cfg.d_model
+        split = {}
+        if "mamba" in kinds:
+            Din, N = cfg.ssm_expand * D, cfg.d_state
+            ssm0 = tree_map(lambda t: t[0], params["body"]["slot0"]["ssm"])
+            u = torch.randn((1, seq, Din), generator=gen, device=dev)
+            dt = SSM._softplus(torch.randn((1, seq, Din), generator=gen, device=dev) - 4.0)
+            bc = torch.randn((2, 1, seq, N), generator=gen, device=dev)
+            split["mamba_scan_per_layer"] = \
+                lambda: SSM._ssm_core(u, dt, bc[0], bc[1], ssm0["A_log"], ssm0["D_skip"])
+        if "mlstm" in kinds:
+            Hx = cfg.xlstm_heads
+            Dhx = 2 * D // Hx
+            qkv = torch.randn((3, 1, Hx, seq, Dhx), generator=gen, device=dev)
+            gates = torch.randn((2, 1, Hx, seq), generator=gen, device=dev)
+            log_f = torch.nn.functional.logsigmoid(gates[1] + 3.0)
+            st0 = X.mlstm_state_init_raw(1, Hx, Dhx, dev)
+            split["mlstm_scan_per_layer"] = \
+                lambda: X.mlstm_chunkwise(qkv[0], qkv[1], qkv[2], gates[0], log_f, st0,
+                                          chunk=X._pick_chunk(seq))
+        if "slstm" in kinds:
+            s_slot = f"slot{cfg.block_pattern.index('slstm')}"
+            sl0 = tree_map(lambda t: t[0], params["body"][s_slot]["slstm"])
+            xin = torch.randn((1, seq, 4 * D), generator=gen, device=dev)
+            split["slstm_scan_per_layer"] = lambda: X._slstm_scan(
+                xin, sl0["w_h"], sl0["bias"], X.slstm_state_init(cfg, 1, dev), act)
+        if m is not None:
+            m_slot = next(f"slot{s}" for s in range(len(cfg.block_pattern))
+                          if T._slot_is_moe(cfg, s))
+            moe0 = tree_map(lambda t: t[0], params["body"][m_slot]["moe"])
+            h = torch.randn((seq, D), generator=gen, device=dev).to(act)
+            split["moe_ffn_per_layer"] = lambda: MoE.moe_apply_local(moe0, h, cfg)
+        if "attn" in kinds:
+            q = torch.randn((1, cfg.n_heads, seq, cfg.head_dim), generator=gen,
+                            device=dev).to(act)
+            kv = torch.randn((2, 1, cfg.n_kv_heads, seq, cfg.head_dim), generator=gen,
+                             device=dev).to(act)
+            split["flash_per_layer"] = lambda: ops.attention(q, kv[0], kv[1], causal=True)
+        return split
+
+    # timed in turns with the whole prefill, and under inference mode as
+    # the prefill runs them: the loops are host-bound, and outside it every
+    # in-place step on a view also pays autograd's view and version
+    # bookkeeping on the host
+    with torch.inference_mode():
+        split = interleaved_ms({"prefill": lambda: prefill(params, batch), **split_parts()},
+                               rounds=3)
+    prefill_ms = split.pop("prefill")
+    n_of = {"mamba_scan_per_layer": kinds.count("mamba"),
+            "mlstm_scan_per_layer": kinds.count("mlstm"),
+            "slstm_scan_per_layer": kinds.count("slstm"),
+            "moe_ffn_per_layer": want["moe_router"][0],
+            "flash_per_layer": kinds.count("attn")}
+    totals = {k.replace("_per_layer", ""): n_of[k] * v for k, v in split.items()}
+    scans = sum(v for k, v in totals.items() if k.endswith("_scan"))
+    breakdown = {**split, **totals, "scans": scans,
+                 "rest": prefill_ms - sum(totals.values())}
+
+    # bounds.  Prefill: operations (bf16 products at the bf16 peak, the
+    # scans' float32 work at the f32 peak; the experts counted for the
+    # assignments kept under capacity).  A decode step: bytes (every
+    # weight but an untied embedding and the unrouted experts, the
+    # recurrent states read and written, the live KV caches).
+    kept, routed, expert_bytes, n_moe = 0, [], 0, want["moe_router"][0]
+    if m is not None:
+        cap = MoE._capacity(seq, m.top_k, m.n_experts, m.capacity_factor)
+        kept = sum(int(torch.bincount(idx.flatten().long(), minlength=m.n_experts)
+                       .clamp(max=cap).sum()) for _, idx in log_pre)
+        routed = [len(set(idx.flatten().tolist())) for _, idx in log_dec]
+        check(len(log_pre) == len(log_dec) == n_moe, "router calls per forward / step")
+        elt = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+        expert_bytes = 3 * cfg.d_model * m.d_ff_expert * elt
+    bf16_ops, f32_ops = recurrent_prefill_ops(cfg, seq, kept)
+    b_pre, by_pre = mixed_bound(w_bytes, bf16_ops, f32_ops)
+    emb_bytes = nbytes(params["embed"])
+    n_attn = kinds.count("attn")
+    kv_bytes = 2 * n_attn * cfg.n_kv_heads * cfg.head_dim * 2 * sum(n + dec_steps for n in lens0)
+    st_bytes = recurrent_state_bytes(cfg, dec_batch)
+    w_dec = w_bytes - (0 if cfg.tie_embeddings else emb_bytes) \
+        - (n_moe * m.n_experts * expert_bytes if m is not None else 0) + expert_bytes * sum(routed)
+    dec_bytes = w_dec + kv_bytes + st_bytes
+    # each weight read is one multiply-add a lane (bf16: 2 bytes a weight)
+    b_dec, by_dec = bound(dec_bytes, 2.0 * dec_batch * w_dec / 2, BF16_FLOPS)
+    emit({"phase": tag, "arch": cfg.name, "layers": layers, "of": full.n_layers,
+          "params_b": n_params / 1e9, "weights_gib": w_bytes / 2**30, "init_s": t_init,
+          "seq": seq, "loss": loss, "launches": counts,
+          "per_forward": {k: fwd[k] // 2 for k in want},
+          "per_decode_step": {k: dec[k] // dec_steps for k in want},
+          "prefill_ms": prefill_ms, "prefill_tokens_per_s": seq / prefill_ms * 1e3,
+          "eval_ms": eval_ms, "decode_batch": dec_batch, "decode_step_ms": decode_ms,
+          "peak_gib": peak, "prefill_assignments_kept": kept,
+          "prefill_bf16_tflop": bf16_ops / 1e12, "prefill_f32_tflop": f32_ops / 1e12,
+          "prefill_bound_ms": b_pre, "prefill_bound_by": by_pre,
+          "decode_experts_routed": routed, "decode_state_mb": st_bytes / 1e6,
+          "decode_gb": dec_bytes / 1e9, "decode_bound_ms": b_dec, "decode_bound_by": by_dec,
+          "prefill_breakdown_ms": breakdown})
+
+    # (b) parity, the rest of the card's weights freed
+    del state, dec_logits, step
+    if m is not None:
+        # f32 bytes of the period's first four slots, the embedding and the head
+        first4 = sum(nbytes(params["body"][f"slot{s}"]) for s in range(4)) // cfg.n_periods
+        f32_bytes = 2 * (w_bytes - nbytes(params["body"]) + first4)
+        n_slots = 4 if host_mem_available() >= 1.5 * f32_bytes else 2
+        cfg_p = dataclasses.replace(cfg, n_layers=n_slots,
+                                    block_pattern=cfg.block_pattern[:n_slots])
+        small = {**params, "body": {f"slot{s}": tree_map(lambda t: t[:1].clone(),
+                                                         params["body"][f"slot{s}"])
+                                    for s in range(n_slots)}}
+        del params
+        torch.cuda.empty_cache()
+        out = moe_parity(dev, cfg_p, small, toks, parity_seq or 128, tf_tokens)
+        emit({"phase": f"{tag}_parity", "arch": cfg.name, "layers": cfg_p.n_layers,
+              "block_pattern": list(cfg_p.block_pattern),
+              "layers_note": None if n_slots == 4 else "2 slots: the host is short of memory",
+              **out})
+        return counts
+    par_seq = parity_seq or 512
+    card32_p = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    fwd32 = M.make_prefill_step(dataclasses.replace(cfg, dtype="float32", param_dtype="float32"))
+    tokens = torch.from_numpy(toks[:, :par_seq])
+    card = fwd32(card32_p, {"tokens": tokens.to(dev)}).cpu()
+    host32 = tree_map(lambda t: t.cpu(), card32_p)
+    t0 = time.perf_counter()
+    cpu = fwd32(host32, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    out = blockwise_parity(dev, dataclasses.replace(cfg, dtype="float32", param_dtype="float32"),
+                           card32_p, host32, tokens, tf_tokens, card, cpu)
+    del card32_p, host32
+    torch.cuda.empty_cache()
+    emit({"phase": f"{tag}_parity", "arch": cfg.name, "layers": cfg.n_layers, "seq": par_seq,
+          "mlstm_chunk": X._pick_chunk(par_seq), "dtype": "float32 (bf16 weights upcast)",
+          "cpu_forward_s": cpu_s, **out})
     return counts
 
 
 # ---------------------------------------------------------------------------
-# ---------------------------------------------------------------------------
-# phase 12: the training path — the backward kernels, then wikikv-router and
+# phase 13: the training path — the backward kernels, then wikikv-router and
 # qwen3-1.7B training at full width
 # ---------------------------------------------------------------------------
 # (tag, B, Hq, Hkv, Sq, Skv, D, dtype, causal): the router's training shape
@@ -2203,7 +2682,8 @@ def main(argv: list[str]) -> int:
     # each path below sets the counts to 0 just before it and reads them just after
     path_counts = [query_counts, durable_phase(dev, SCALE_LOG2, refresh_ms), serving_phase(dev),
                    serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev),
-                   train_phase(dev)]
+                   recurrent_phase(dev, "jamba-v0.1-52b", 16),
+                   recurrent_phase(dev, "xlstm-350m", 24), train_phase(dev)]
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",

@@ -6,7 +6,8 @@
 Trains on the card (``--device cuda``, the default) through the port's
 backward kernels, or on the CPU with ``--device cpu`` (the plain
 versions; ``--reduced`` for a CPU-sized config).  The reference's
-``--mesh`` comes with the distribution slice.
+``--mesh`` comes with the distribution slice; an ``--arch`` of the SSM or
+xLSTM families is refused until their training slice.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve_device
+from repro_torch.models.model import check_trainable
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
 
@@ -49,6 +51,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_trainable(cfg)
 
     pipeline, _ = build_pipeline(cfg.vocab, args.seq, args.batch)
     loop = TrainLoop(

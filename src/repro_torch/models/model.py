@@ -3,10 +3,14 @@
 ``make_serve_step``.
 
 The eval and prefill steps run the full-sequence forward (flash-attention
-kernel on the card) under ``torch.inference_mode()``.  The train step runs
-it under grad mode, so on the card the attention and the norms go through
-their autograd Functions and their backward kernels (``kernels.ops``).
-The sharding helpers and ``mesh`` come with the distribution slice.
+kernel on the card) under ``torch.inference_mode()``, for every family
+``transformer`` runs.  The train step runs it under grad mode, so on the
+card the attention and the norms go through their autograd Functions and
+their backward kernels (``kernels.ops``).  Training of the SSM and xLSTM
+families waits for their training slice: until a test holds their
+gradients against ``jax.value_and_grad``, ``make_train_step`` and
+``loss_and_grads`` refuse them.  The sharding helpers and ``mesh`` come
+with the distribution slice.
 """
 from __future__ import annotations
 
@@ -40,6 +44,16 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config the port does not train yet."""
+    T.check_supported(cfg)
+    kinds = T.recurrent_kinds(cfg)
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: training block kinds {kinds} comes with the SSM and xLSTM "
+            "training slice of the port")
+
+
 def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig):
     """``(loss, grads)``: the 0-d f32 loss of ``transformer.loss_fn`` and
     its gradient for every leaf of ``params`` (the same tree, each grad in
@@ -48,6 +62,8 @@ def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig):
     through detached leaves, each per-period stack of ``params["body"]``
     cut into its periods (views), so a period's gradient is its own
     tensor and the stack's is assembled once at the end."""
+    check_trainable(cfg)
+
     def leaf(p):
         return p.detach().requires_grad_(True)
 
@@ -72,7 +88,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
     arguments as they were.  No remat: the activations of qwen3-1.7B at
     B = 1, S = 4096 fit one card (the JAX body's ``jax.checkpoint``
     changes no number)."""
-    T.check_supported(cfg)
+    check_trainable(cfg)
     L.set_fp32_matmul()
     wu = warmup if warmup is not None else max(1, min(200, total_steps // 20))
 

@@ -63,7 +63,17 @@ class ServingEngine:
 
     ``device`` places the LM (``cuda`` unless given); ``params`` must
     already live there (``models.model.init_params(..., device=...)`` or
-    ``bridge.params_from_jax``)."""
+    ``bridge.params_from_jax``).
+
+    A model with a recurrent block kind (mamba, mLSTM, sLSTM) is refused:
+    the reference's ``_prefill`` steps every lane through the decode path
+    for each prompt token and never resets the prefilled lane's state, so
+    a recurrent lane would start from the previous request's state and
+    every other lane's state would advance once per prompt token.  An
+    attention lane is unharmed (its cache is masked by length and the
+    same position is rewritten), so the port keeps the reference's loop
+    for attention models and refuses the others until the loop resets a
+    lane's state and masks the other lanes' writes."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: HashTokenizer,
                  store, oracle: Oracle,
@@ -71,6 +81,12 @@ class ServingEngine:
                  batch_size: int = 4, max_len: int = 512,
                  write_batch: int = 8, device=None):
         self.device = resolve_device(device)
+        kinds = T.recurrent_kinds(cfg)
+        if kinds:
+            raise NotImplementedError(
+                f"{cfg.name}: ServingEngine does not serve block kinds {kinds}: the "
+                "reference's per-lane prefill neither resets a recurrent lane's state nor "
+                "keeps the other lanes' states from advancing")
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer

@@ -551,6 +551,61 @@ def test_cuda_moe_forward_and_serve_match_cpu(cuda, arch):
         tk, lens = n_cpu, lens + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_cuda_recurrent_forward_and_serve_match_cpu(cuda, arch):
+    """Reduced jamba (mamba, attention and MoE slots) and xlstm (mLSTM and
+    sLSTM) in f32: the forward, the loss, 8 serve steps and the decode
+    state after them on the card against the same weights on the CPU,
+    with the launches of each
+    kernel the path runs counted exactly.  jamba within 3e-5; xlstm within
+    1e-3, the tolerance tests/test_torch_recurrent.py holds it to against
+    JAX, because its 16 layers amplify rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    cfg = get_config(arch).reduced()
+    tol = dict(atol=3e-5, rtol=3e-5) if arch.startswith("jamba") else dict(atol=1e-3, rtol=1e-3)
+    kinds = list(cfg.block_pattern) * cfg.n_periods
+    n_attn = kinds.count("attn")
+    n_moe = cfg.n_periods * sum(T._slot_is_moe(cfg, s) for s in range(len(cfg.block_pattern)))
+    n_norm = sum(2 if k in ("attn", "mamba") else 1 for k in kinds) + 1
+    params = M.init_params(cfg, seed=6, device="cpu")
+    card_params = M._to(params, cuda)
+    rs = np.random.RandomState(6)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, 48)).astype(np.int32))
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    ops.reset_launches()
+    logits = M.make_prefill_step(cfg)(card_params, on_card)
+    assert dict(ops.LAUNCHES) == {**dict.fromkeys(ops.LAUNCHES, 0), "rmsnorm": n_norm,
+                                  "flash_attention": n_attn, "moe_router": n_moe}
+    torch.testing.assert_close(logits.cpu(), M.make_prefill_step(cfg)(params, batch), **tol)
+    torch.testing.assert_close(M.make_eval_step(cfg)(card_params, on_card).cpu(),
+                               M.make_eval_step(cfg)(params, batch), **tol)
+    serve = M.make_serve_step(cfg)
+    B = 3
+    st_card = T.init_decode_state(cfg, B, 32, cuda)
+    st_cpu = T.init_decode_state(cfg, B, 32, "cpu")
+    tk = toks[0, :B].clone()
+    lens = torch.tensor([0, 3, 7], dtype=torch.int32)
+    for _ in range(8):
+        ops.reset_launches()
+        n_card, l_card, st_card = serve(card_params, st_card,
+                                        {"tokens": tk.to(cuda), "lengths": lens.to(cuda)})
+        assert dict(ops.LAUNCHES) == {**dict.fromkeys(ops.LAUNCHES, 0), "rmsnorm": n_norm,
+                                      "decode_attention": n_attn, "moe_router": n_moe}
+        n_cpu, l_cpu, st_cpu = serve(params, st_cpu, {"tokens": tk, "lengths": lens})
+        torch.testing.assert_close(l_card.cpu()[:, :cfg.vocab], l_cpu[:, :cfg.vocab], **tol)
+        assert torch.equal(n_card.cpu(), n_cpu)
+        tk, lens = n_cpu, lens + 1
+    for got, want in zip(leaves(st_card), leaves(st_cpu)):      # caches and recurrent states
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
 # ---------------------------------------------------------------------------
 # the durable tier under a DeviceEngine on the card
 # ---------------------------------------------------------------------------

@@ -152,12 +152,15 @@ def test_bf16_forward_matches_reference():
 
 
 def test_forward_refuses_later_families():
-    """MoE (dbrx, kimi) runs since the moe_router slice; SSM, xLSTM,
-    enc-dec and vision still refuse, naming their slice."""
-    for arch in ("dbrx-132b", "kimi-k2-1t-a32b"):
-        M.make_prefill_step(get_config(arch).reduced())
-    for arch, slice_ in (("jamba-v0.1-52b", "SSM"), ("xlstm-350m", "xLSTM"),
-                         ("whisper-medium", "enc-dec"), ("internvl2-1b", "vision")):
+    """MoE (dbrx, kimi) runs since the moe_router slice, the SSM and xLSTM
+    families (jamba, xlstm) since theirs; enc-dec and vision still refuse,
+    naming their slice."""
+    for arch in ("dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "xlstm-350m"):
+        cfg = get_config(arch).reduced()
+        logits = M.make_prefill_step(cfg)(M.init_params(cfg, device="cpu"),
+                                          {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        assert logits.shape == (1, 4, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    for arch, slice_ in (("whisper-medium", "enc-dec"), ("internvl2-1b", "vision")):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match=f"{slice_}.* slice"):
             M.make_prefill_step(cfg)
