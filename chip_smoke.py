@@ -71,7 +71,23 @@ its main path on the card, printing one JSON line per phase:
      perturbation of the embeddings stay within 2.5e-4 of the largest, and
      at full depth the card-CPU distance within 10x that witness, since
      its layers amplify rounding;
- 13. the training path: flash_attention_bwd and rmsnorm_bwd against their
+ 13. the encoder-decoder and vision paths: whisper-medium at full width
+     and depth (24 encoder and 24 decoder layers, weights drawn on the
+     card) over 1500 frames and 448 tokens at B=4, make_prefill_step and
+     make_eval_step, the encoder's output, and 16 make_serve_step decode
+     steps given it (each recomputes the cross-attention's keys and values
+     over the 1500 frames, as the reference does); internvl2-1b at full
+     width and depth (24 layers, 14 / 2 heads) over 256 patch embeddings
+     and 3840 tokens at B=1, and 16 text-only decode steps at B=4
+     (decode_attention at group 7); launches per forward and per step
+     checked exactly, times beside their bounds, peak memory; then f32
+     parity with the CPU on 2 (+ 2 encoder) layers at full width: whisper
+     at 256 frames / 64 tokens and at 64 frames / 128 tokens (more queries
+     than keys in the cross-attention), internvl2 at 256 + 128 positions,
+     each with teacher-forced decode against the prefill (internvl2's
+     against the prefill without the prefix, which the reference's decode
+     never sees);
+ 14. the training path: flash_attention_bwd and rmsnorm_bwd against their
      plain versions at the router's, qwen3's, a ragged, a non-causal and
      dbrx's group-6 shapes (and the norms' at qwen3's block and qk-norm
      shapes, one without scale), timed beside the autograd backward of
@@ -87,7 +103,7 @@ its main path on the card, printing one JSON line per phase:
      a falling loss, step ms, tokens/s, peak memory, launches per step and
      the model FLOPs' share of the bf16 peak, and f32 parity of its first
      2 layers' loss and gradients with the CPU at S=256;
- 14. one JSON line of every kernel with its launches, error, times and
+ 15. one JSON line of every kernel with its launches, error, times and
      bound; the card's name and power limit; the final ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
@@ -358,8 +374,11 @@ def model_kernels(dev) -> dict:
     max_len 512), the longer-cache shapes, qwen3-1.7B's prefill norms,
     dbrx-132b's (d_model 6144; decode at group 6: 48 query heads, 8 KV
     heads, head_dim 128, B=4, max_len 512), jamba-v0.1-52b's (d_model
-    4096; decode at group 4: 32 / 8 heads, head_dim 128) and xlstm-350m's
-    norms (d_model 1024); returns the JSON entries."""
+    4096; decode at group 4: 32 / 8 heads, head_dim 128), xlstm-350m's
+    norms (d_model 1024), whisper-medium's (d_model 1024: 1792 decoder and
+    6000 encoder rows at B=4; decode at group 1, 16 / 16 heads, head_dim
+    64, max_len 448) and internvl2-1b's (d_model 896; decode at group 7,
+    14 / 2 heads, head_dim 64, max_len 512); returns the JSON entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
@@ -382,10 +401,13 @@ def model_kernels(dev) -> dict:
     # the prefill shapes of qwen3-1.7B at S=4096: a block norm over 4096
     # rows of d_model 2048, the qk-norm over 4096 x 16 rows of head_dim 128;
     # the block norms of dbrx-132b, jamba-v0.1-52b and xlstm-350m at S=4096
-    # and at a decode step of B=4
+    # and at a decode step of B=4; whisper-medium's decoder (4 x 448 rows)
+    # and encoder (4 x 1500), internvl2-1b's prefill (256 + 3840 rows) and
+    # decode step
     shapes = []
     for rows, D in ((4096, 2048), (4096 * 16, 128), (4096, 6144), (4, 6144), (4096, 4096),
-                    (4, 4096), (4096, 1024), (4, 1024)):
+                    (4, 4096), (4096, 1024), (4, 1024), (1792, 1024), (6000, 1024),
+                    (4096, 896), (4, 896)):
         x = torch.randn((rows, D), generator=g).to(dev, torch.bfloat16)
         s = torch.randn((D,), generator=g).to(dev, torch.bfloat16)
         err = check_float(f"rmsnorm {rows}x{D}", ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
@@ -397,16 +419,23 @@ def model_kernels(dev) -> dict:
           "shapes": [{k: v for k, v in entries["rmsnorm"].items()
                       if k not in ("name", "route", "source", "replaces", "shapes")}] + shapes})
 
-    timings, group6, group4 = [], [], []
+    timings = []
+    # the rows timed beside SDPA, by the model whose decode shape they are
+    models = {(48, 8): "dbrx (group 6)", (32, 8): "jamba (group 4)",
+              (14, 2): "internvl2 (group 7)", (16, 16): "whisper (group 1)"}
+    by_model = {name: [] for name in models.values()}
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, lens, Hq, Hkv, D in (
                 (4, 512, [1, 97, 311, 512], 4, 2, 64),
                 (8, 512, [1, 7, 64, 129, 256, 300, 511, 512], 4, 2, 64),
                 (8, 4096, [1, 100, 1000, 2049, 3000, 4000, 4095, 4096], 4, 2, 64),
-                # dbrx's and jamba's decode: the smoke's lanes at 0, 1/5,
-                # 1/2 and the end of a 512 cache, one token in
+                # dbrx's, jamba's and internvl2's decode: the smoke's lanes
+                # at 0, 1/5, 1/2 and the end of a 512 cache, one token in;
+                # whisper's at max_len 448
                 (4, 512, [1, 103, 257, 497], 48, 8, 128),
-                (4, 512, [1, 103, 257, 497], 32, 8, 128)):
+                (4, 512, [1, 103, 257, 497], 32, 8, 128),
+                (4, 512, [1, 103, 257, 497], 14, 2, 64),
+                (4, 448, [1, 90, 225, 433], 16, 16, 64)):
             q = torch.randn((B, Hq, D), generator=g).to(dev, dtype)
             k = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
             v = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
@@ -426,7 +455,7 @@ def model_kernels(dev) -> dict:
             timings.append({"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "dtype": str(dtype),
                             "plan": {"warps": warps, "blocks": blocks, "split": split},
                             "ms": ms, "device_ms": gm["device_ms"], "bound_ms": b, "err": err})
-            if S != 512 or B != 4 or (Hq == 4 and dtype != torch.float32):
+            if B != 4 or (Hq == 4 and (dtype != torch.float32 or S != 512)):
                 continue
             # the yardstick: one SDPA call over the group-expanded cache with
             # the length mask (expanded outside the timing)
@@ -450,10 +479,9 @@ def model_kernels(dev) -> dict:
                     "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
                     "replaces": "src/repro/kernels/decode_attention.py:74", **row}
             else:
-                (group6 if Hq == 48 else group4).append(row)
-    entries["decode_attention"]["shapes"] = group6 + group4
-    emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings,
-          "group6": group6, "group4": group4})
+                by_model[models[(Hq, Hkv)]].append(row)
+    entries["decode_attention"]["shapes"] = [r for rows in by_model.values() for r in rows]
+    emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings, **by_model})
     return entries
 
 
@@ -461,7 +489,12 @@ def model_kernels(dev) -> dict:
 # wikikv-router NLLs, (b) qwen3-1.7B prefill, (c) its chunked prefill,
 # (d) whisper-medium's cross-attention shape (448 decoder x 1500 encoder
 # positions, non-causal), (e) dbrx's group of 6 (48 / 8 heads), (f)
-# jamba-v0.1-52b's prefill, its group of 4 (32 / 8 heads)
+# jamba-v0.1-52b's prefill, its group of 4 (32 / 8 heads); the shapes of
+# whisper-medium's path at B=4, all non-causal: (g) the encoder's
+# self-attention over 1500 frames, (h) the decoder's cross-attention, (i)
+# a decode step's cross-attention (one query over 1500 frames); (j)
+# internvl2-1b's prefill (256 patch embeddings + 3840 tokens, 14 / 2
+# heads); (k) more queries than keys, non-causal, in both types
 FLASH_SHAPES = [
     ("a S=7", 1, 4, 2, 7, 7, 64, "float32", True),
     ("a S=37", 1, 4, 2, 37, 37, 64, "float32", True),
@@ -471,6 +504,12 @@ FLASH_SHAPES = [
     ("d", 1, 16, 16, 448, 1500, 64, "bfloat16", False),
     ("e", 1, 48, 8, 1024, 1024, 128, "bfloat16", True),
     ("f", 1, 32, 8, 4096, 4096, 128, "bfloat16", True),
+    ("g", 4, 16, 16, 1500, 1500, 64, "bfloat16", False),
+    ("h", 4, 16, 16, 448, 1500, 64, "bfloat16", False),
+    ("i", 4, 16, 16, 1, 1500, 64, "bfloat16", False),
+    ("j", 1, 14, 2, 4096, 4096, 64, "bfloat16", True),
+    ("k f32", 1, 16, 16, 128, 64, 64, "float32", False),
+    ("k", 1, 16, 16, 128, 64, 64, "bfloat16", False),
 ]
 
 
@@ -2253,7 +2292,399 @@ def recurrent_phase(dev, arch, layers, seed=0, seq=4096, dec_batch=4, dec_len=51
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the training path — the backward kernels, then wikikv-router and
+# phase 13: the encoder-decoder and vision paths — whisper-medium and
+# internvl2-1b at full width and depth
+# ---------------------------------------------------------------------------
+# whisper-medium's context sizes (OpenAI's ModelDimensions for medium:
+# n_audio_ctx 1500 frames, n_text_ctx 448 tokens)
+AUDIO_CTX, TEXT_CTX = 1500, 448
+
+
+def encdec_launches(cfg) -> tuple[dict, dict, dict]:
+    """(per forward, per encoder pass, per decode step) launches of each
+    model kernel of an encoder-decoder, counted from the config: an
+    encoder block has two norms and one non-causal flash_attention, a
+    decoder block three norms (norm_x before its cross-attention) and two
+    flash_attention (causal self, non-causal cross), each stack ends in
+    the shared final norm; a decode step runs decode_attention and the
+    cross-attention's flash_attention in every block."""
+    Ld, Le = cfg.n_layers, cfg.n_enc_layers
+    enc = {"rmsnorm": 2 * Le + 1, "flash_attention": Le}
+    return ({"rmsnorm": enc["rmsnorm"] + 3 * Ld + 1, "flash_attention": Le + 2 * Ld}, enc,
+            {"rmsnorm": 3 * Ld + 1, "flash_attention": Ld, "decode_attention": Ld})
+
+
+def attn_layer_flops(cfg, S: int, Skv: int, causal: bool) -> float:
+    """One attention block's products at B=1: the four projections,
+    attention over ``Skv`` keys (the visible pairs when causal) and the
+    gated MLP."""
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pairs = S * (S + 1) / 2 if causal else S * Skv
+    return 2.0 * S * D * (2 * H * Dh + 2 * KV * Dh) + 4.0 * Dh * H * pairs + 6.0 * S * D * cfg.d_ff
+
+
+def cross_flops(cfg, S: int, Se: int) -> float:
+    """One cross-attention at B=1: q and o over the ``S`` queries, k and v
+    over the ``Se`` encoder positions (recomputed at every decode step, as
+    the reference does), non-causal attention."""
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return 2.0 * S * D * 2 * H * Dh + 2.0 * Se * D * 2 * KV * Dh + 4.0 * Dh * H * S * Se
+
+
+def check_launches(tag: str, got: dict, want: dict) -> None:
+    """``got`` (LAUNCHES differences) equals ``want``, every other kernel 0."""
+    full = {k: want.get(k, 0) for k in got}
+    check(got == full, f"{tag} launches {got} != {full}")
+
+
+def encdec_phase(dev, seed=0, batch=4, n_frames=AUDIO_CTX, n_tok=TEXT_CTX, dec_steps=16,
+                 parity=((256, 64), (64, 128)), tf_tokens=16) -> dict:
+    """(a) whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, bf16, weights drawn on the card from ``seed``): one
+    prefill and one eval at B=``batch`` over frames (B, ``n_frames``,
+    1024) and tokens (B, ``n_tok``), the encoder's output of the same
+    frames, then ``dec_steps`` serve steps at B=``batch`` (ragged lengths,
+    max_len ``n_tok``), each given that output as ``enc_out`` — the
+    launches counted and checked exactly; their times beside their bounds,
+    the flash_attention of one layer of each kind timed alone, and the
+    peak memory.  (b) ``encdec_parity``: 2 encoder and 2 decoder layers in
+    f32 on the card and on the CPU."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_config("whisper-medium")
+    per_fwd, per_enc, per_step = encdec_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(gen, cfg)
+    act = getattr(torch, cfg.dtype)
+    frames = torch.randn((batch, n_frames, cfg.d_model), generator=gen, device=dev).to(act)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params, w_bytes = sum(t.numel() for t in tree_leaves(params)), nbytes(params)
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(batch, n_tok)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)], axis=1)
+    b = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev),
+         "frames": frames}
+    prefill, evals, serve = M.make_prefill_step(cfg), M.make_eval_step(cfg), M.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, batch, n_tok, dev)
+    tk = torch.from_numpy(rs.randint(0, cfg.vocab, size=batch).astype(np.int32)).to(dev)
+    lens0 = [0, n_tok // 5, n_tok // 2, n_tok - dec_steps][:batch]
+    lens = torch.tensor(lens0, dtype=torch.int32, device=dev)
+
+    def encode():
+        with torch.inference_mode():
+            return T._encode(params, frames, cfg)
+
+    # the main path: counts from zero, one prefill, one eval, the encoder's
+    # output for the decode steps, the decode steps; read just after
+    ops.reset_launches()
+    logits = prefill(params, b)
+    loss = float(evals(params, b))
+    check(tuple(logits.shape) == (batch, n_tok, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite whisper prefill logits")
+    check(math.isfinite(loss) and loss > 0, f"whisper eval loss {loss}")
+    del logits
+    fwd = dict(ops.LAUNCHES)
+    enc_out = encode()
+    enc = {k: ops.LAUNCHES[k] - fwd[k] for k in fwd}
+    before = dict(ops.LAUNCHES)
+    for _ in range(dec_steps):
+        tk, dec_logits, state = serve(params, state, {"tokens": tk, "lengths": lens,
+                                                      "enc_out": enc_out})
+        lens = lens + 1
+    check(bool(torch.isfinite(dec_logits[:, :cfg.vocab]).all()), "non-finite decode logits")
+    counts = dict(ops.LAUNCHES)
+    dec = {k: counts[k] - before[k] for k in counts}
+    check_launches("whisper 2 forwards", fwd, {k: 2 * v for k, v in per_fwd.items()})
+    check_launches("whisper encoder", enc, per_enc)
+    check_launches(f"whisper {dec_steps} decode steps", dec,
+                   {k: dec_steps * v for k, v in per_step.items()})
+
+    prefill_ms = cuda_ms(lambda: prefill(params, b), iters=3, warmup=1)
+    eval_ms = cuda_ms(lambda: evals(params, b), iters=3, warmup=1)
+    encode_ms = cuda_ms(encode, iters=3, warmup=1)
+    step = {"tokens": tk, "lengths": lens - 1, "enc_out": enc_out}   # the last step again
+    decode_ms = cuda_ms(lambda: serve(params, state, step), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one flash_attention of each kind at the path's shapes, alone
+    H, Dh = cfg.n_heads, cfg.head_dim
+    qe = torch.randn((batch, H, n_frames, Dh), generator=gen, device=dev).to(act)
+    qd = torch.randn((batch, H, n_tok, Dh), generator=gen, device=dev).to(act)
+    flash = {"encoder_self_per_layer": cuda_ms(lambda: ops.attention(qe, qe, qe, causal=False),
+                                               iters=5, warmup=1),
+             "decoder_self_per_layer": cuda_ms(lambda: ops.attention(qd, qd, qd, causal=True),
+                                               iters=5, warmup=1),
+             "cross_per_layer": cuda_ms(lambda: ops.attention(qd, qe, qe, causal=False),
+                                        iters=5, warmup=1),
+             "cross_decode_per_layer": cuda_ms(lambda: ops.attention(qd[:, :, :1], qe, qe,
+                                                                     causal=False),
+                                               iters=10, warmup=2)}
+    del qe, qd
+    Ld, Le = cfg.n_layers, cfg.n_enc_layers
+    flash.update({"encoder_self": Le * flash["encoder_self_per_layer"],
+                  "decoder_self": Ld * flash["decoder_self_per_layer"],
+                  "cross": Ld * flash["cross_per_layer"],
+                  "decode_cross": Ld * flash["cross_decode_per_layer"]})
+    # bounds.  A forward: operations (the encoder's and the decoder's
+    # blocks, the cross-attention, the tied head), or the weights' bytes.
+    # The encoder alone likewise.  A decode step: the larger of the bytes
+    # (the decoder's weights, the embedding that the tied head reads, the
+    # live KV caches, enc_out once) and the products (the decoder's
+    # projections and MLP for one token a lane, the cross-attention with
+    # its K and V recomputed over all frames, the head; attention over the
+    # cache is under 0.1% of them and left out).
+    D, V = cfg.d_model, cfg.padded_vocab
+    enc_flops = batch * Le * attn_layer_flops(cfg, n_frames, n_frames, False)
+    fwd_flops = enc_flops + batch * (Ld * (attn_layer_flops(cfg, n_tok, n_tok, True)
+                                           + cross_flops(cfg, n_tok, n_frames))
+                                     + 2.0 * n_tok * D * V)
+    b_fwd, by_fwd = bound(w_bytes, fwd_flops, BF16_FLOPS)
+    enc_bytes = nbytes(params["enc_body"])
+    b_enc, by_enc = bound(enc_bytes + 2 * enc_out.numel() * enc_out.element_size(), enc_flops,
+                          BF16_FLOPS)
+    kv_bytes = 2 * Ld * cfg.n_kv_heads * Dh * 2 * sum(n + dec_steps for n in lens0)
+    dec_bytes = w_bytes - enc_bytes + kv_bytes + enc_out.numel() * enc_out.element_size()
+    dec_flops = batch * (Ld * (2.0 * D * (2 * H * Dh + 2 * cfg.n_kv_heads * Dh)
+                               + 6.0 * D * cfg.d_ff + cross_flops(cfg, 1, n_frames))
+                         + 2.0 * D * V)
+    b_dec, by_dec = bound(dec_bytes, dec_flops, BF16_FLOPS)
+    emit({"phase": "encdec", "arch": cfg.name, "encoder_layers": Le, "decoder_layers": Ld,
+          "params_b": n_params / 1e9, "weights_gib": w_bytes / 2**30, "init_s": t_init,
+          "batch": batch, "frames": n_frames, "tokens": n_tok, "loss": loss,
+          "launches": counts, "per_forward": {k: fwd[k] // 2 for k in per_fwd},
+          "per_encoder_pass": {k: enc[k] for k in per_enc}, "per_decode_step": {k: dec[k] // dec_steps for k in per_step},
+          "prefill_ms": prefill_ms, "eval_ms": eval_ms, "encode_ms": encode_ms,
+          "prefill_tokens_per_s": batch * (n_frames + n_tok) / prefill_ms * 1e3,
+          "decode_step_ms": decode_ms, "decode_tokens_per_s": batch / decode_ms * 1e3,
+          "decode_lengths": lens0, "peak_gib": peak,
+          "prefill_tflop": fwd_flops / 1e12, "prefill_bound_ms": b_fwd, "prefill_bound_by": by_fwd,
+          "encode_tflop": enc_flops / 1e12, "encode_bound_ms": b_enc, "encode_bound_by": by_enc,
+          "decode_tflop": dec_flops / 1e12, "decode_gb": dec_bytes / 1e9,
+          "decode_bound_ms": b_dec, "decode_bound_by": by_dec, "flash_ms": flash})
+
+    # (b) parity on the first layers, the rest of the card's weights freed
+    small = {"embed": params["embed"], "final_norm": params["final_norm"],
+             "body": tree_map(lambda t: t[:2].clone(), params["body"]),
+             "enc_body": tree_map(lambda t: t[:2].clone(), params["enc_body"])}
+    del params, state, dec_logits, step, enc_out, frames, b
+    torch.cuda.empty_cache()
+    cfg_p = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2, dtype="float32",
+                                param_dtype="float32")
+    out = encdec_parity(dev, cfg_p, small, rs, parity, tf_tokens)
+    emit({"phase": "encdec_parity", "arch": cfg.name, "encoder_layers": 2, "decoder_layers": 2,
+          "dtype": "float32 (bf16 weights upcast)", "shapes": out})
+    return counts
+
+
+def teacher_forced(dev, cfg, params, tokens, extra: dict, enc_out=None) -> float:
+    """Decode ``tokens`` (1, n) one at a time on the card (each step given
+    ``enc_out``) and hold the logits to the prefill's over the same tokens
+    (with ``extra`` inputs), within 1e-3 of its largest logit; returns
+    the largest difference."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    n = tokens.shape[1]
+    full = M.make_prefill_step(cfg)(params, {"tokens": tokens, **extra}).float().cpu()
+    st, got = T.init_decode_state(cfg, 1, n, dev), []
+    with torch.inference_mode():
+        for t in range(n):
+            lg, st = T.decode_step(params, st, tokens[:, t],
+                                   torch.full((1,), t, dtype=torch.int32, device=dev), cfg,
+                                   enc_out=enc_out)
+            got.append(lg.float().cpu())
+    err = float((torch.stack(got, dim=1) - full).abs().max())
+    scale = float(full.abs().max())
+    check(err <= 1e-3 * scale, f"{cfg.name} teacher-forced decode vs prefill differ by {err} "
+          f"> 1e-3 x {scale}")
+    return err
+
+
+def encdec_parity(dev, cfg_p, small: dict, rs, shapes, tf_tokens: int) -> list:
+    """f32 parity of whisper's first 2 encoder and 2 decoder layers (the
+    card's bf16 weights ``small`` upcast, on the card and on the CPU) at
+    each (frames, tokens) of ``shapes``, B=1: logits within 1e-3 of the
+    largest; then teacher-forced decode of ``tf_tokens`` tokens against
+    the prefill, each step given the encoder's output of the same frames.
+    Frames fewer than tokens put more queries than keys in the
+    cross-attention."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    card32 = tree_map(lambda t: t.float(), small)
+    small.clear()
+    host32 = tree_map(lambda t: t.cpu(), card32)
+    fwd = M.make_prefill_step(cfg_p)
+    out = []
+    for n_frames, n_tok in shapes:
+        frames = torch.from_numpy(rs.randn(1, n_frames, cfg_p.d_model).astype(np.float32))
+        tokens = torch.from_numpy(rs.randint(0, cfg_p.vocab, size=(1, n_tok)).astype(np.int32))
+        card = fwd(card32, {"tokens": tokens.to(dev), "frames": frames.to(dev)}).cpu()
+        t0 = time.perf_counter()
+        cpu = fwd(host32, {"tokens": tokens, "frames": frames})
+        cpu_s = time.perf_counter() - t0
+        scale = float(cpu.abs().max())
+        err = float((card - cpu).abs().max())
+        check(err <= 1e-3 * scale, f"whisper f32 logits at {n_frames} frames, {n_tok} tokens: "
+              f"card vs cpu differ by {err} > 1e-3 x {scale}")
+        tf, fr = tokens[:, :tf_tokens].to(dev), frames.to(dev)
+        with torch.inference_mode():
+            enc_out = T._encode(card32, fr, cfg_p)
+        tf_err = teacher_forced(dev, cfg_p, card32, tf, {"frames": fr}, enc_out=enc_out)
+        out.append({"frames": n_frames, "tokens": n_tok, "cross_more_queries": n_tok > n_frames,
+                    "cpu_forward_s": cpu_s, "max_abs_card_cpu": err, "max_abs_logit": scale,
+                    "tolerance": 1e-3 * scale, "teacher_forced_tokens": tf.shape[1],
+                    "max_abs_decode_prefill": tf_err})
+    del card32, host32
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_phase(dev, seed=0, n_text=3840, dec_batch=4, dec_len=512, dec_steps=16,
+              parity_text=128, tf_tokens=16) -> dict:
+    """(a) internvl2-1b at full width and depth (24 layers, 14 / 2 heads,
+    bf16, weights drawn on the card from ``seed``): one prefill and one
+    eval at B=1 over its 256 patch embeddings and ``n_text`` tokens (4096
+    positions: prefill_32k cut to 4096, as qwen3's), then ``dec_steps``
+    serve steps at B=``dec_batch`` (text only, as the reference decodes;
+    ragged lengths, max_len ``dec_len``) — decode_attention at group 7 —
+    the launches counted and checked exactly, their times beside their
+    bounds and the peak memory.  (b) f32 parity of the first 2 layers with
+    the CPU at 256 + ``parity_text`` positions, and teacher-forced decode
+    against the prefill of the same weights under ``frontend="none"`` (the
+    reference's decode never sees the prefix, ROADMAP §3)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_config("internvl2-1b")
+    want = path_launches(cfg)
+    per_fwd, per_step = ({k: v[i] for k, v in want.items() if v[i]} for i in (0, 1))
+    n_pfx = cfg.n_prefix_embeds
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(gen, cfg)
+    act = getattr(torch, cfg.dtype)
+    pe = torch.randn((1, n_pfx, cfg.d_model), generator=gen, device=dev).to(act)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params, w_bytes = sum(t.numel() for t in tree_leaves(params)), nbytes(params)
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(1, n_text)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((1, 1), -1, np.int32)], axis=1)
+    b = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev),
+         "prefix_embeds": pe}
+    S = n_pfx + n_text
+    prefill, evals, serve = M.make_prefill_step(cfg), M.make_eval_step(cfg), M.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, dec_batch, dec_len, dev)
+    tk = torch.from_numpy(rs.randint(0, cfg.vocab, size=dec_batch).astype(np.int32)).to(dev)
+    lens0 = [0, dec_len // 5, dec_len // 2, dec_len - dec_steps][:dec_batch]
+    lens = torch.tensor(lens0, dtype=torch.int32, device=dev)
+
+    # the main path: counts from zero, one prefill, one eval and the decode
+    # steps, read just after
+    ops.reset_launches()
+    logits = prefill(params, b)
+    loss = float(evals(params, b))
+    check(tuple(logits.shape) == (1, S, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite internvl2 prefill logits")
+    check(math.isfinite(loss) and loss > 0, f"internvl2 eval loss {loss}")
+    del logits
+    fwd = dict(ops.LAUNCHES)
+    for _ in range(dec_steps):
+        tk, dec_logits, state = serve(params, state, {"tokens": tk, "lengths": lens})
+        lens = lens + 1
+    check(bool(torch.isfinite(dec_logits[:, :cfg.vocab]).all()), "non-finite decode logits")
+    counts = dict(ops.LAUNCHES)
+    dec = {k: counts[k] - fwd[k] for k in counts}
+    check_launches("internvl2 2 forwards", fwd, {k: 2 * v for k, v in per_fwd.items()})
+    check_launches(f"internvl2 {dec_steps} decode steps", dec,
+                   {k: dec_steps * v for k, v in per_step.items()})
+
+    prefill_ms = cuda_ms(lambda: prefill(params, b), iters=3, warmup=1)
+    eval_ms = cuda_ms(lambda: evals(params, b), iters=3, warmup=1)
+    step = {"tokens": tk, "lengths": lens - 1}      # the last step again, in place
+    decode_ms = cuda_ms(lambda: serve(params, state, step), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((1, H, S, Dh), generator=gen, device=dev).to(act)
+    kv = torch.randn((2, 1, KV, S, Dh), generator=gen, device=dev).to(act)
+    flash_ms = cuda_ms(lambda: ops.attention(q, kv[0], kv[1], causal=True), iters=5, warmup=1)
+    del q, kv
+    # bounds.  Prefill: operations (the blocks over all S positions, the
+    # tied head over them, as the forward computes it) or the weights'
+    # bytes.  A decode step: bytes (every weight, the embedding read by the
+    # tied head, the live KV caches) or its products.
+    D, V, L_ = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    flops = L_ * attn_layer_flops(cfg, S, S, True) + 2.0 * S * D * V
+    b_pre, by_pre = bound(w_bytes, flops, BF16_FLOPS)
+    kv_bytes = 2 * L_ * KV * Dh * 2 * sum(n + dec_steps for n in lens0)
+    dec_flops = dec_batch * (L_ * (2.0 * D * (2 * H * Dh + 2 * KV * Dh) + 6.0 * D * cfg.d_ff)
+                             + 2.0 * D * V)
+    b_dec, by_dec = bound(w_bytes + kv_bytes, dec_flops, BF16_FLOPS)
+    emit({"phase": "vlm", "arch": cfg.name, "layers": L_, "params_b": n_params / 1e9,
+          "weights_gib": w_bytes / 2**30, "init_s": t_init, "prefix_embeds": n_pfx,
+          "text_tokens": n_text, "seq": S, "loss": loss, "launches": counts,
+          "per_forward": {k: fwd[k] // 2 for k in per_fwd},
+          "per_decode_step": {k: dec[k] // dec_steps for k in per_step},
+          "prefill_ms": prefill_ms, "prefill_tokens_per_s": S / prefill_ms * 1e3,
+          "eval_ms": eval_ms, "decode_batch": dec_batch, "decode_step_ms": decode_ms,
+          "decode_lengths": lens0, "peak_gib": peak,
+          "prefill_tflop": flops / 1e12, "prefill_bound_ms": b_pre, "prefill_bound_by": by_pre,
+          "decode_gb": (w_bytes + kv_bytes) / 1e9, "decode_bound_ms": b_dec,
+          "decode_bound_by": by_dec,
+          "prefill_breakdown_ms": {"flash_per_layer": flash_ms, "flash": L_ * flash_ms,
+                                   "rest": prefill_ms - L_ * flash_ms}})
+
+    # (b) parity on the first 2 layers in f32, the rest freed
+    cfg_p = dataclasses.replace(cfg, n_layers=2, dtype="float32", param_dtype="float32")
+    card32 = {"embed": params["embed"].float(), "final_norm": tree_map(lambda t: t.float(),
+                                                                       params["final_norm"]),
+              "body": tree_map(lambda t: t[:2].float(), params["body"])}
+    del params, state, dec_logits, step, b, pe
+    torch.cuda.empty_cache()
+    host32 = tree_map(lambda t: t.cpu(), card32)
+    pe = torch.from_numpy(rs.randn(1, n_pfx, cfg.d_model).astype(np.float32))
+    tokens = torch.from_numpy(toks[:, :parity_text])
+    fwd32 = M.make_prefill_step(cfg_p)
+    card = fwd32(card32, {"tokens": tokens.to(dev), "prefix_embeds": pe.to(dev)}).cpu()
+    t0 = time.perf_counter()
+    cpu = fwd32(host32, {"tokens": tokens, "prefix_embeds": pe})
+    cpu_s = time.perf_counter() - t0
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    check(err <= 1e-3 * scale, f"internvl2 f32 logits card vs cpu differ by {err} > 1e-3 x {scale}")
+    tf_err = teacher_forced(dev, dataclasses.replace(cfg_p, frontend="none"), card32,
+                            tokens[:, :tf_tokens].to(dev), {})
+    del card32, host32
+    torch.cuda.empty_cache()
+    emit({"phase": "vlm_parity", "arch": cfg.name, "layers": 2, "prefix_embeds": n_pfx,
+          "text_tokens": parity_text, "dtype": "float32 (bf16 weights upcast)",
+          "cpu_forward_s": cpu_s, "max_abs_card_cpu": err, "max_abs_logit": scale,
+          "tolerance": 1e-3 * scale,
+          "teacher_forced": {"tokens": tf_tokens, "against": "prefill, frontend none",
+                             "max_abs_decode_prefill": tf_err}})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training path — the backward kernels, then wikikv-router and
 # qwen3-1.7B training at full width
 # ---------------------------------------------------------------------------
 # (tag, B, Hq, Hkv, Sq, Skv, D, dtype, causal): the router's training shape
@@ -2683,7 +3114,8 @@ def main(argv: list[str]) -> int:
     path_counts = [query_counts, durable_phase(dev, SCALE_LOG2, refresh_ms), serving_phase(dev),
                    serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev),
                    recurrent_phase(dev, "jamba-v0.1-52b", 16),
-                   recurrent_phase(dev, "xlstm-350m", 24), train_phase(dev)]
+                   recurrent_phase(dev, "xlstm-350m", 24), encdec_phase(dev), vlm_phase(dev),
+                   train_phase(dev)]
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",

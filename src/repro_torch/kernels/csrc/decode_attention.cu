@@ -270,15 +270,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
 template <typename T, int D, int G>
 int launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-           float* ws, int B, int Hkv, int S, float scale, int warps, int nblk,
-           cudaStream_t stream) {
+           unsigned* tickets, float* part, int B, int Hkv, int S, float scale, int warps,
+           int nblk, cudaStream_t stream) {
   const int smem = smem_floats(warps, G, D) * (int)sizeof(float);
-  if (warps < 1 || warps > 16 || nblk < 1 || smem > SMEM_MAX || (nblk > 1 && ws == nullptr))
+  if (warps < 1 || warps > 16 || nblk < 1 || smem > SMEM_MAX ||
+      (nblk > 1 && (tickets == nullptr || part == nullptr)))
     return 1;
   const int BH = B * Hkv;
-  // the workspace: BH tickets (rounded up to 32), then BH * nblk partials
-  unsigned* tickets = reinterpret_cast<unsigned*>(ws);
-  float* part = ws == nullptr ? nullptr : ws + (BH + 31) / 32 * 32;
   decode_kernel<T, D, G><<<dim3(BH, nblk), warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
       static_cast<T*>(out), part, tickets, Hkv, S, scale);
@@ -287,52 +285,58 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
 
 template <typename T, int D>
 int by_group(int G, const void* q, const void* k, const void* v, const int* lengths, void* out,
-             float* ws, int B, int Hkv, int S, float scale, int warps, int nblk,
-             cudaStream_t stream) {
+             unsigned* tickets, float* part, int B, int Hkv, int S, float scale, int warps,
+             int nblk, cudaStream_t stream) {
   switch (G) {
-    case 1: return launch<T, D, 1>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 2: return launch<T, D, 2>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 4: return launch<T, D, 4>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 6: return launch<T, D, 6>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 8: return launch<T, D, 8>(q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 1: return launch<T, D, 1>(q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 2: return launch<T, D, 2>(q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 4: return launch<T, D, 4>(q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 6: return launch<T, D, 6>(q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 7: return launch<T, D, 7>(q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 8: return launch<T, D, 8>(q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
     default: return 1;
   }
 }
 
 template <typename T>
 int by_dim(int D, int G, const void* q, const void* k, const void* v, const int* lengths,
-           void* out, float* ws, int B, int Hkv, int S, float scale, int warps, int nblk,
-           cudaStream_t stream) {
+           void* out, unsigned* tickets, float* part, int B, int Hkv, int S, float scale,
+           int warps, int nblk, cudaStream_t stream) {
   switch (D) {
-    case 16: return by_group<T, 16>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 32: return by_group<T, 32>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 64: return by_group<T, 64>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
-    case 128: return by_group<T, 128>(G, q, k, v, lengths, out, ws, B, Hkv, S, scale, warps, nblk, stream);
+    case 16: return by_group<T, 16>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 32: return by_group<T, 32>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 64: return by_group<T, 64>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 128: return by_group<T, 128>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
     default: return 1;
   }
 }
 
 }  // namespace
 
-// The launch's arguments, which the wrapper packs as 16 little-endian
-// 8-byte fields (struct "<12qd3q", a null pointer as 0): ctypes then
-// passes one buffer instead of converting 16 arguments.  dtype: 0 =
+// The launch's arguments, which the wrapper packs as 17 little-endian
+// 8-byte fields (struct "<13qd3q", a null pointer as 0): ctypes then
+// passes one buffer instead of converting 17 arguments.  dtype: 0 =
 // float32, 1 = bfloat16.  q (B, Hkv*G, D), caches (B, Hkv, S, D), all
-// contiguous; (warps, nblk) from decode_plan; ws: the zeroed float32
-// workspace of the split path (nblk > 1), null otherwise.
+// contiguous; (warps, nblk) from decode_plan.  The split path (nblk > 1)
+// takes two buffers, null otherwise: `tickets`, at least B*Hkv counters
+// that are 0 (each launch leaves its own at 0), and `part`, room for
+// B*Hkv*nblk partials of G*(D+2) floats.  They are apart so that no
+// launch's partials land where a later launch with more (sequence, KV
+// head) pairs keeps its tickets.
 struct DecodeArgs {
   const void* q;
   const void* k;
   const void* v;
   const int* lengths;
   void* out;
-  float* ws;
+  unsigned* tickets;
+  float* part;
   long long B, Hkv, G, S, D, dtype;
   double scale;
   long long warps, nblk;
   cudaStream_t stream;
 };
-static_assert(sizeof(DecodeArgs) == 16 * 8, "DecodeArgs must match the wrapper's \"<12qd3q\"");
+static_assert(sizeof(DecodeArgs) == 17 * 8, "DecodeArgs must match the wrapper's \"<13qd3q\"");
 
 extern "C" int decode_attention_launch(const DecodeArgs* a) {
   const int B = (int)a->B, Hkv = (int)a->Hkv, G = (int)a->G, S = (int)a->S, D = (int)a->D;
@@ -340,9 +344,9 @@ extern "C" int decode_attention_launch(const DecodeArgs* a) {
   const float scale = (float)a->scale;
   if (B > 0 && Hkv > 0) {
     const int bad = a->dtype == 0
-        ? by_dim<float>(D, G, a->q, a->k, a->v, a->lengths, a->out, a->ws, B, Hkv, S, scale, warps, nblk, a->stream)
+        ? by_dim<float>(D, G, a->q, a->k, a->v, a->lengths, a->out, a->tickets, a->part, B, Hkv, S, scale, warps, nblk, a->stream)
         : a->dtype == 1
-        ? by_dim<__nv_bfloat16>(D, G, a->q, a->k, a->v, a->lengths, a->out, a->ws, B, Hkv, S, scale, warps, nblk, a->stream)
+        ? by_dim<__nv_bfloat16>(D, G, a->q, a->k, a->v, a->lengths, a->out, a->tickets, a->part, B, Hkv, S, scale, warps, nblk, a->stream)
         : 1;
     if (bad) return (int)cudaErrorInvalidValue;
   }

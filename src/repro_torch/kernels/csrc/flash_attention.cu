@@ -557,8 +557,9 @@ int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
 // out like q, all contiguous and 16-byte aligned; lse (B, Hq, Sq) f32 or
-// null (not written); Hq % Hkv == 0,
-// 0 < Sq <= Skv.  block_q: the bf16 body's queries a block, 128 (two
+// null (not written); Hq % Hkv == 0; 0 < Sq, and Sq <= Skv when causal (a
+// non-causal call may have more queries than keys: seq_off = Skv - Sq then
+// enters no mask).  block_q: the bf16 body's queries a block, 128 (two
 // consumer warpgroups) or 64 (one); the f32 body always takes 64.
 // ceil(Sq / 64) <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,

@@ -44,7 +44,7 @@ from . import build
 from .build import N_SM
 
 HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 6, 8)
+GROUPS = (1, 2, 4, 6, 7, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WARPS = 16            # warps a block (the kernel's __launch_bounds__(512))
 SMEM_MAX = 48 * 1024      # a block's dynamic shared memory without opting in
@@ -52,16 +52,19 @@ BLOCK_CHUNKS = 4          # 32-position chunks a block takes at least, split or 
 MIN_WARPS = 8             # warps a block has at least: they share q's staging and the merge
 #: the C entry's arguments (csrc/decode_attention.cu DecodeArgs), packed in
 #: one buffer: ctypes would convert each separate argument on every call
-_PACK = struct.Struct("<12qd3q").pack
+_PACK = struct.Struct("<13qd3q").pack
 _FN = None
-#: the split path's workspace on each device: BH tickets (the kernel
-#: leaves them 0), then the blocks' partials.  One launch at a time uses
-#: it, because the port issues every call on the current stream of its
-#: one serving thread and launches on one stream run in order: a launch
-#: writes each partial before the last block reads it, and leaves every
-#: ticket 0 for the next.  A CUDA graph captured over the split path keeps
-#: this buffer's address, so it is replayed before a larger shape grows it.
-_WORKSPACE: dict[int, torch.Tensor] = {}
+#: the split path's workspace on each device: (tickets, partials).  The
+#: tickets are int32 counters, zeroed when made or grown, that each launch
+#: leaves at 0; the partials are scratch.  They are two buffers, so a
+#: launch's partials never land on the tickets of a later launch with more
+#: (sequence, KV head) pairs.  One launch at a time uses them, because the
+#: port makes every call on the current stream of its one serving thread
+#: and launches on one stream run in order: a launch writes each partial
+#: before the last block reads it, and leaves every ticket 0 for the next.
+#: A CUDA graph captured over the split path keeps these buffers'
+#: addresses, so it is replayed before a larger shape grows them.
+_WORKSPACE: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 @functools.lru_cache(maxsize=256)
@@ -99,16 +102,20 @@ def _launcher():
     return _FN
 
 
-def _workspace(q: torch.Tensor, floats: int) -> int:
-    """The device's split workspace of at least ``floats`` float32, zeroed
-    when it is made or grown; its address."""
+def _workspace(q: torch.Tensor, pairs: int, floats: int) -> tuple[int, int]:
+    """The device's split workspace: the addresses of at least ``pairs``
+    zeroed tickets and of at least ``floats`` float32 partials; each
+    buffer at least doubles when it grows."""
     dev = q.get_device()
-    ws = _WORKSPACE.get(dev)
-    if ws is None or ws.numel() < floats:
-        ws = torch.zeros((max(floats, 2 * ws.numel() if ws is not None else 0),),
-                         dtype=torch.float32, device=q.device)
-        _WORKSPACE[dev] = ws
-    return ws.data_ptr()
+    tickets, part = _WORKSPACE.get(dev, (None, None))
+    if tickets is None or tickets.numel() < pairs:
+        tickets = torch.zeros((max(pairs, 2 * tickets.numel() if tickets is not None else 32),),
+                              dtype=torch.int32, device=q.device)
+    if part is None or part.numel() < floats:
+        part = torch.empty((max(floats, 2 * part.numel() if part is not None else 0),),
+                           dtype=torch.float32, device=q.device)
+    _WORKSPACE[dev] = (tickets, part)
+    return tickets.data_ptr(), part.data_ptr()
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -152,10 +159,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         return out
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)
     warps, blocks, _ = decode_plan(B, Hkv, G, S, D, q.element_size(), build.sm_count(dev))
-    ws = _workspace(q, (B * Hkv + 31) // 32 * 32 + B * Hkv * blocks * G * (D + 2)) \
-        if blocks > 1 else 0
-    rc = _launcher()(_PACK(q.data_ptr(), kp, vp, lengths.data_ptr(), out.data_ptr(), ws,
-                           B, Hkv, G, S, D, dt, scale, warps, blocks, build.stream_of(q)))
+    tickets, part = _workspace(q, B * Hkv, B * Hkv * blocks * G * (D + 2)) \
+        if blocks > 1 else (0, 0)
+    rc = _launcher()(_PACK(q.data_ptr(), kp, vp, lengths.data_ptr(), out.data_ptr(), tickets,
+                           part, B, Hkv, G, S, D, dt, scale, warps, blocks, build.stream_of(q)))
     build.check("decode_attention", rc)
     build.count_launch("decode_attention")
     return out

@@ -146,8 +146,9 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return st
 
 
-def _check(q, k, v):
-    """Raise for what the kernels do not take; return (B, Hq, Hkv, Sq, Skv, D)."""
+def _check(q, k, v, long_q: bool = False):
+    """Raise for what the kernels do not take; return (B, Hq, Hkv, Sq, Skv, D).
+    Sq > Skv only where ``long_q`` allows it (the non-causal forward)."""
     if not q.is_cuda:
         raise ValueError("flash_attention kernel: tensors must be on a CUDA device")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -157,9 +158,10 @@ def _check(q, k, v):
     Hkv, Skv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if Sq > Skv:
+    if Sq > Skv and not long_q:
         raise ValueError(f"flash_attention: Sq={Sq} > Skv={Skv}; the queries are the "
-                         "last Sq positions of the context")
+                         "last Sq positions of the context (more queries than keys: "
+                         "non-causal forward only)")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: unsupported head_dim {D}; need one of {HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -176,12 +178,13 @@ def _check(q, k, v):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float | None = None,
                     with_lse: bool = False):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0 and
-    Sq <= Skv.  Returns (B, Hq, Sq, D) in q.dtype, and with ``with_lse``
-    also the rows' log-sum-exp of the scaled scores, (B, Hq, Sq) float32.
-    CUDA tensors only; float32 or bfloat16, D in HEAD_DIMS, any Sq, Skv
-    and group."""
-    B, Hq, Hkv, Sq, Skv, D = _check(q, k, v)
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0, and
+    Sq <= Skv when causal (whisper's cross-attention takes more queries
+    than keys, non-causal).  Returns (B, Hq, Sq, D) in q.dtype, and with
+    ``with_lse`` also the rows' log-sum-exp of the scaled scores,
+    (B, Hq, Sq) float32.  CUDA tensors only; float32 or bfloat16, D in
+    HEAD_DIMS, any Sq, Skv and group."""
+    B, Hq, Hkv, Sq, Skv, D = _check(q, k, v, long_q=not causal)
     build.refuse_grad("flash_attention", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)

@@ -11,7 +11,9 @@ attention through ``kernels.ops.decode_attention``; the projections stay
 
 Float32 products run in full float32: ``set_fp32_matmul()`` turns TF32
 off for matmuls and cuDNN, so the card computes what the CPU computes.
-Cross-attention (``cross_attn_apply``) comes with the enc-dec slice.
+Cross-attention (``cross_attn_apply``, whisper's decoder over the
+encoder's output) goes through ``kernels.ops.attention`` too, non-causal
+and without RoPE.
 """
 from __future__ import annotations
 
@@ -121,13 +123,14 @@ def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
     return q, k, v.transpose(1, 2)  # (B, H, S, Dh), (B, KV, S, Dh) x2
 
 
-def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence causal (prefill / loss) attention: x (B, S, D) ->
-    (B, S, D), positions 0 .. S-1."""
+def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence (prefill / loss) attention: x (B, S, D) -> (B, S, D),
+    positions 0 .. S-1; causal, or not for an encoder."""
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     q, k, v = _project_qkv(params, x, positions, cfg)
-    o = ops.attention(q, k, v, causal=True)  # (B, H, S, Dh)
+    o = ops.attention(q, k, v, causal=causal)  # (B, H, S, Dh)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return o @ params["wo"]
 
@@ -156,6 +159,28 @@ def attn_decode(params: dict, x: torch.Tensor, cache: dict, lengths: torch.Tenso
     o = ops.decode_attention(q[:, :, 0, :], cache["k"], cache["v"], lengths + 1)
     o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return o @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+def cross_attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return attn_init(gen, cfg)
+
+
+def cross_attn_apply(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, Sq, D) queries; enc_out: (B, Se, D) keys and values.  No
+    RoPE and no qk-norm (whisper's positions are folded into the stub's
+    frames); non-causal, so Sq may exceed Se."""
+    B, Sq, _ = x.shape
+    Se = enc_out.shape[1]
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, Sq, H, Dh).transpose(1, 2)
+    k = (enc_out @ params["wk"]).reshape(B, Se, KV, Dh).transpose(1, 2)
+    v = (enc_out @ params["wv"]).reshape(B, Se, KV, Dh).transpose(1, 2)
+    o = ops.attention(q, k, v, causal=False)
+    return o.transpose(1, 2).reshape(B, Sq, H * Dh) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -4,12 +4,14 @@
 
 The eval and prefill steps run the full-sequence forward (flash-attention
 kernel on the card) under ``torch.inference_mode()``, for every family
-``transformer`` runs.  The train step runs it under grad mode, so on the
-card the attention and the norms go through their autograd Functions and
-their backward kernels (``kernels.ops``).  Training of the SSM and xLSTM
-families waits for their training slice: until a test holds their
-gradients against ``jax.value_and_grad``, ``make_train_step`` and
-``loss_and_grads`` refuse them.  The sharding helpers and ``mesh`` come
+``transformer`` runs; the serve step passes ``batch["enc_out"]`` to an
+encoder-decoder's decode step.  The train step runs it under grad mode, so
+on the card the attention and the norms go through their autograd
+Functions and their backward kernels (``kernels.ops``).  Training of the
+SSM and xLSTM families, of the encoder-decoder and of the vision stub
+waits for their training slices: until a test holds their gradients
+against ``jax.value_and_grad``, ``make_train_step`` and ``loss_and_grads``
+refuse them.  The sharding helpers and ``mesh`` come
 with the distribution slice.
 """
 from __future__ import annotations
@@ -46,12 +48,16 @@ def _to(tree, device):
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a config the port does not train yet."""
-    T.check_supported(cfg)
     kinds = T.recurrent_kinds(cfg)
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: training block kinds {kinds} comes with the SSM and xLSTM "
             "training slice of the port")
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder or a vision/audio stub comes with the "
+            "enc-dec and vision training slice of the port (flash_attention_bwd at "
+            "non-causal Sq != Skv, gradient parity on the CPU)")
 
 
 def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig):
@@ -104,8 +110,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
 def make_eval_step(cfg: ModelConfig):
     """``eval_step(params, batch) -> loss`` (0-d f32): the masked mean
     next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (labels < 0 masked)."""
-    T.check_supported(cfg)
+    ``batch["labels"]`` (labels < 0 masked); with ``prefix_embeds`` or
+    ``frames`` for the vision and audio stubs."""
     L.set_fp32_matmul()
 
     def eval_step(params, batch):
@@ -115,9 +121,9 @@ def make_eval_step(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, batch) -> logits`` (B, S, V_pad) over
-    ``batch["tokens"]``."""
-    T.check_supported(cfg)
+    """``prefill_step(params, batch) -> logits`` (B, S_total, V_pad) over
+    ``batch["tokens"]`` (after ``prefix_embeds`` for the vision stub; the
+    encoder reads ``frames``)."""
     L.set_fp32_matmul()
 
     def prefill_step(params, batch):
@@ -129,13 +135,13 @@ def make_prefill_step(cfg: ModelConfig):
 def make_serve_step(cfg: ModelConfig):
     """One-token decode over the cache: ``serve_step(params, state, batch)
     -> (next_tok (B,) int32, logits (B, V_pad), state)``, greedy over the
-    real vocabulary (the padded ids are masked to -inf)."""
-    T.check_supported(cfg)
+    real vocabulary (the padded ids are masked to -inf).  An
+    encoder-decoder reads the encoder's output from ``batch["enc_out"]``."""
     L.set_fp32_matmul()
 
     def serve_step(params, state, batch):
         logits, state = T.decode_step(params, state, batch["tokens"],
-                                      batch["lengths"], cfg)
+                                      batch["lengths"], cfg, enc_out=batch.get("enc_out"))
         # mask vocab-padding ids (embed table is padded to a 256 multiple)
         if cfg.padded_vocab != cfg.vocab:
             valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab

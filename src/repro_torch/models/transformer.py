@@ -1,14 +1,19 @@
 """LM assembly (port of ``repro/models/transformer.py``): the full-sequence
 forward (``hidden_states``, ``forward``, ``loss_fn``) and the decode step.
 
-The port runs every decoder-only family of the zoo: the ``"attn"`` block
+The port runs every family of the zoo: the ``"attn"`` block
 kind (GQA, optional qk-norm, RMSNorm or OLMo's non-parametric LN), the
 selective SSM (``"mamba"``, ``models/ssm.py``) and the xLSTM blocks
 (``"mlstm"``, ``"slstm"``, ``models/xlstm.py``).  ``"attn"`` and
 ``"mamba"`` slots carry a dense gated-MLP or a MoE FFN (``_slot_is_moe``);
 the xLSTM blocks carry their own.  Kimi's dense prefix layers are
-unrolled.  So wikikv-router, qwen3, olmo, granite, codeqwen, dbrx,
-kimi-k2, jamba (mamba, attention and MoE) and xlstm run.
+unrolled.  whisper's encoder-decoder runs its frames through a stack of
+non-causal attention blocks (``params["enc_body"]``), normed by the
+shared final norm, and its decoder blocks add a cross-attention over
+that output after the mixer (``norm_x``, ``cross``); internvl2's patch
+embeddings are prepended to the text.  So wikikv-router and the ten
+configs of the zoo run: qwen3, olmo, granite, codeqwen, dbrx, kimi-k2,
+jamba (mamba, attention and MoE), xlstm, whisper and internvl2.
 Parameters keep the JAX tree: per-slot leaves are stacked over periods on
 axis 0 (``params["body"]["slot{i}"]``) and the dense prefix is the list
 ``params["prefix"]``, so the JAX parameter pytree moves over leaf by leaf
@@ -18,10 +23,10 @@ axis 0 (``params["body"]["slot{i}"]``) and the dense prefix is the list
 attention families lives in ``models/model.py``.  Decode state is stacked
 the same way (the prefix's as a list): a KV cache ``{"k", "v"}`` for an
 attention slot, a tuple of recurrent tensors for the others, each written
-in place in its period's row.
-
-The encoder-decoder and the vision/audio stubs wait for the enc-dec and
-vision slice and raise ``NotImplementedError`` naming it.
+in place in its period's row.  A decode step takes the encoder's output
+(``enc_out``) and recomputes the cross-attention's keys and values from
+it, as the reference does; it has no input for the vision prefix, as the
+reference's has none.
 """
 from __future__ import annotations
 
@@ -40,14 +45,6 @@ RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 def recurrent_kinds(cfg: ModelConfig) -> list[str]:
     """The block kinds of ``cfg`` that carry a recurrent state."""
     return sorted(set(cfg.block_pattern) & set(RECURRENT_KINDS))
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and vision/audio stubs come with the "
-            "enc-dec and vision slice of the port")
 
 
 def _slot_is_moe(cfg: ModelConfig, slot: int) -> bool:
@@ -70,9 +67,13 @@ _BLOCKS = {"attn": ("attn", L.attn_init, L.attn_apply, None,
                      lambda cfg, b, n, dev: X.slstm_state_init(cfg, b, dev))}
 
 
-def _slot_init(gen: torch.Generator, cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
+def _slot_init(gen: torch.Generator, cfg: ModelConfig, kind: str, is_moe: bool,
+               with_cross: bool = False) -> dict:
     name, init = _BLOCKS[kind][:2]
     params = {"norm1": L.norm_init(gen, cfg), name: init(gen, cfg)}
+    if with_cross:                       # a decoder block of an encoder-decoder
+        params["norm_x"] = L.norm_init(gen, cfg)
+        params["cross"] = L.cross_attn_init(gen, cfg)
     if kind in ("attn", "mamba"):        # the xLSTM blocks carry their own FFN
         params["norm2"] = L.norm_init(gen, cfg)
         if is_moe:
@@ -117,8 +118,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     device: a CPU generator gives the same numbers on every device, a CUDA
     one draws a model too large for the host on the card.  The numbers
     differ from JAX's for the same seed; tests that compare the packages
-    bridge the JAX parameters instead."""
-    check_supported(cfg)
+    bridge the JAX parameters instead.  An encoder-decoder adds
+    ``enc_body = {"slot0": ...}``, one attention slot stacked
+    ``n_enc_layers`` times, and its decoder slots carry the cross-attention."""
     dt = getattr(torch, cfg.param_dtype)
     emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, dtype=torch.float32,
                       device=gen.device)
@@ -128,9 +130,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if prefix:
         params["prefix"] = prefix
     params["body"] = {
-        f"slot{s_idx}": _stacked(lambda: _slot_init(gen, cfg, kind, _slot_is_moe(cfg, s_idx)),
+        f"slot{s_idx}": _stacked(lambda: _slot_init(gen, cfg, kind, _slot_is_moe(cfg, s_idx),
+                                                    with_cross=cfg.is_encdec),
                                  cfg.n_periods)
         for s_idx, kind in enumerate(cfg.block_pattern)}
+    if cfg.is_encdec:
+        params["enc_body"] = {"slot0": _stacked(lambda: _slot_init(gen, cfg, "attn", False),
+                                                cfg.n_enc_layers)}
     params["final_norm"] = L.norm_init(gen, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab, cfg)
@@ -162,26 +168,55 @@ def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.mlp_apply(params["mlp"], h)
 
 
-def _slot_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence apply of one block."""
+def _cross(params: dict, x: torch.Tensor, enc_out, cfg: ModelConfig) -> torch.Tensor:
+    """A decoder block's cross-attention branch, after the mixer."""
+    if "cross" not in params or enc_out is None:
+        return x
+    hx = L.norm_apply(params["norm_x"], x, cfg)
+    return x + L.cross_attn_apply(params["cross"], hx, enc_out, cfg)
+
+
+def _slot_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
+                enc_out=None) -> torch.Tensor:
+    """Full-sequence apply of one block.  An attention block of an
+    encoder-decoder is causal exactly when it is given the encoder's
+    output: the encoder's own blocks run non-causal."""
     name, _, apply = _BLOCKS[kind][:3]
     h = L.norm_apply(params["norm1"], x, cfg)
-    x = x + apply(params[name], h, cfg)
+    kw = {"causal": not cfg.is_encdec or enc_out is not None} if kind == "attn" else {}
+    x = _cross(params, x + apply(params[name], h, cfg, **kw), enc_out, cfg)
     if "norm2" not in params:
         return x
     h2 = L.norm_apply(params["norm2"], x, cfg)
     return x + _ffn(params, h2, cfg)
 
 
+def _encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's output (B, Se, D): ``frames`` (B, Se, D) through the
+    non-causal ``enc_body``, normed by the shared ``final_norm``.  A decode
+    step takes it as ``enc_out``."""
+    e = frames.to(getattr(torch, cfg.dtype))
+    for p in range(cfg.n_enc_layers):
+        e = _slot_apply("attn", _index(params["enc_body"]["slot0"], p), e, cfg)
+    return L.norm_apply(params["final_norm"], e, cfg)
+
+
 def hidden_states(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Forward up to (but not including) the LM head: (B, S, D)."""
-    check_supported(cfg)
+    """Forward up to (but not including) the LM head: (B, S_total, D).
+
+    ``batch`` holds ``tokens`` (B, S) int; for the vision stub also
+    ``prefix_embeds`` (B, Np, D), prepended (S_total = Np + S); for an
+    encoder-decoder ``frames`` (B, Se, D), the encoder's input."""
     x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.frontend == "vision_stub":
+        x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+    enc_out = _encode(params, batch["frames"], cfg) if cfg.is_encdec else None
     for p in params.get("prefix", []):
         x = _slot_apply("attn", p, x, cfg)
     for p in range(cfg.n_periods):
         for s_idx, kind in enumerate(cfg.block_pattern):
-            x = _slot_apply(kind, _index(params["body"][f"slot{s_idx}"], p), x, cfg)
+            x = _slot_apply(kind, _index(params["body"][f"slot{s_idx}"], p), x, cfg,
+                            enc_out=enc_out)
     return L.norm_apply(params["final_norm"], x, cfg)
 
 
@@ -198,13 +233,17 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
             loss_chunks: int = 8) -> torch.Tensor:
-    """Mean next-token cross entropy (0-d f32); labels < 0 are masked.
+    """Mean next-token cross entropy (0-d f32); labels < 0 are masked, and
+    so is the vision stub's prefix (labels of -1 prepended over it).
 
     The LM head and the CE run in ``loss_chunks`` token chunks (one chunk
     when B * S does not divide), so only one chunk of f32 logits is live
     at a time: qwen3's vocabulary is 151,936."""
     x = hidden_states(params, batch, cfg)
     labels = batch["labels"]
+    if cfg.frontend == "vision_stub":
+        pad = labels.new_full((labels.shape[0], batch["prefix_embeds"].shape[1]), -1)
+        labels = torch.cat([pad, labels], dim=1)
     head = _head(params, cfg, x.dtype)
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
@@ -236,7 +275,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device) -> dic
     mamba slot's ``(conv (P, B, d_conv-1, Din), h (P, B, Din, N))``, an
     mLSTM's ``(C, n, m)`` and an sLSTM's ``(h, c, n, m)``, all float32.
     The dense prefix's caches are the list ``state["prefix"]``."""
-    check_supported(cfg)
     state = {f"slot{s_idx}": _stacked(lambda: _state_init(kind, cfg, batch, max_len, device),
                                       cfg.n_periods)
              for s_idx, kind in enumerate(cfg.block_pattern)}
@@ -248,7 +286,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device) -> dic
 
 
 def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, enc_out=None) -> torch.Tensor:
     """One token through one block; ``state`` (a KV cache, or the views
     of a recurrent state's period row) is written in place."""
     h = L.norm_apply(params["norm1"], x, cfg)
@@ -259,7 +297,7 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
         o, new = decode(params[name], h, state, cfg)
         for dst, src in zip(state, new):
             dst.copy_(src)
-    x = x + o
+    x = _cross(params, x + o, enc_out, cfg)
     if "norm2" not in params:
         return x
     h2 = L.norm_apply(params["norm2"], x, cfg)
@@ -267,19 +305,22 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
 
 
 def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, enc_out: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens: (B,) int — the freshly sampled token;
-    lengths: (B,) current context lengths.  Returns (logits (B, V), state);
-    the caches in ``state`` are written in place at ``lengths``, the
-    recurrent states in place in their period's row."""
+    lengths: (B,) current context lengths; ``enc_out`` (B, Se, D): the
+    encoder's output (``_encode``) for an encoder-decoder, whose blocks
+    skip their cross-attention without it, as the reference's do.  Returns
+    (logits (B, V), state); the caches in ``state`` are written in place at
+    ``lengths``, the recurrent states in place in their period's row."""
     x = embed_tokens(params, tokens[:, None], cfg)      # (B, 1, D)
     for p, cache in zip(params.get("prefix", []), state.get("prefix", [])):
-        x = _slot_decode("attn", p, x, cache, lengths, cfg)
+        x = _slot_decode("attn", p, x, cache, lengths, cfg, enc_out=enc_out)
     for p in range(cfg.n_periods):
         for s_idx, kind in enumerate(cfg.block_pattern):
             slot = f"slot{s_idx}"
             x = _slot_decode(kind, _index(params["body"][slot], p), x,
-                             _index(state[slot], p), lengths, cfg)
+                             _index(state[slot], p), lengths, cfg, enc_out=enc_out)
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = (x @ _head(params, cfg, x.dtype))[:, 0, :]
     return logits, state

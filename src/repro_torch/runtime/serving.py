@@ -73,7 +73,12 @@ class ServingEngine:
     attention lane is unharmed (its cache is masked by length and the
     same position is rewritten), so the port keeps the reference's loop
     for attention models and refuses the others until the loop resets a
-    lane's state and masks the other lanes' writes."""
+    lane's state and masks the other lanes' writes.
+
+    An encoder-decoder is refused too: the reference's ``_prefill`` and
+    ``step`` call the serve step with only ``tokens`` and ``lengths``, so
+    its decoder would run without the encoder's output.  internvl2 is
+    served as the reference serves it: text only."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: HashTokenizer,
                  store, oracle: Oracle,
@@ -87,6 +92,11 @@ class ServingEngine:
                 f"{cfg.name}: ServingEngine does not serve block kinds {kinds}: the "
                 "reference's per-lane prefill neither resets a recurrent lane's state nor "
                 "keeps the other lanes' states from advancing")
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: ServingEngine does not serve an encoder-decoder: the "
+                "reference's _prefill and step never pass enc_out to the serve step, so the "
+                "decoder would run without its encoder")
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer

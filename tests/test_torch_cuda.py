@@ -157,6 +157,59 @@ def test_cuda_decode_attention_every_group_and_dim(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_split_calls_of_more_pairs_after_fewer(cuda, dtype):
+    """Split calls over 2, 64, 8 and 64 (sequence, KV head) pairs in a row
+    on one workspace: each matches the plain version.  A call's partials
+    must not land on the tickets of a later call with more pairs (whisper
+    decodes 64 pairs after the router's 8: when tickets and partials
+    shared one buffer, the second call read stale partials as tickets)."""
+    from repro_torch.kernels.decode_attention import decode_plan
+    dt = getattr(torch, dtype)
+    for B, Hq, Hkv, S, D, lens in ((1, 4, 2, 4096, 64, [4000]),
+                                   (4, 16, 16, 448, 64, [1, 90, 225, 433]),
+                                   (4, 4, 2, 512, 64, [1, 97, 311, 512]),
+                                   (4, 16, 16, 448, 64, [448, 2, 100, 300])):
+        assert decode_plan(B, Hkv, Hq // Hkv, S, D, dt.itemsize)[2]
+        q, k, v, ln = _decode_inputs(cuda, dt, B, Hq, Hkv, S, D, lens)
+        torch.testing.assert_close(ops.decode_attention(q, k, v, ln).float(),
+                                   ref.decode_attention_ref(q, k, v, ln).float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_decode_attention_group_7_in_a_captured_graph(cuda, dtype, D):
+    """internvl2's group of 7 (14 query heads over 2 KV heads) at every
+    head_dim, on both launch plans (split at its decode shape, B = 4 over
+    512 positions; one block per (sequence, KV head) at 66 x 2): three
+    calls captured in a CUDA graph are three kernel nodes and no other,
+    and the replay matches the plain version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_plan
+    dt = getattr(torch, dtype)
+    plans = set()
+    for B, S, lens in ((4, 512, [1, 103, 257, 497]), (66, 256, [256, 100, 1] * 22)):
+        plans.add(decode_plan(B, 2, 7, S, D, dt.itemsize)[2])
+        q, k, v, ln = _decode_inputs(cuda, dt, B, 14, 2, S, D, lens)
+        ops.decode_attention(q, k, v, ln)              # makes the split path's workspace
+        torch.cuda.synchronize()
+        n0 = ops.LAUNCHES["decode_attention"]
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [ops.decode_attention(q, k, v, ln) for _ in range(3)]
+        assert ops.LAUNCHES["decode_attention"] == n0 + 3
+        assert build.graph_nodes(g) == (3, 3)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, k, v, ln).float()
+        for got in outs:
+            torch.testing.assert_close(got.float(), want, **_tol(dtype))
+    assert plans == {False, True}
+
+
+@pytest.mark.cuda
 def test_cuda_decode_attention_one_kernel_node_per_call(cuda):
     """Captured in a CUDA graph, three calls make three kernel nodes and no
     other node, on both plans (one block per (sequence, KV head) at S =
@@ -474,8 +527,34 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         ops.attention(q, q, q)
     q = torch.randn(1, 2, 8, 64, device=cuda)
-    with pytest.raises(ValueError):                      # Sq > Skv
+    with pytest.raises(ValueError):                      # Sq > Skv, causal
         ops.attention(q, q[:, :, :4], q[:, :, :4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_flash_attention_more_queries_than_keys_and_cross_decode(cuda, dtype, D):
+    """Non-causal attention with more queries than keys (whisper's decoder
+    longer than its frames), and one query over 1500 keys (a decode
+    step's cross-attention), with q, k and v the strided views that
+    ``layers.cross_attn_apply`` makes, at every head_dim in both bodies:
+    one launch a call, equal to the plain version."""
+    dt = getattr(torch, dtype)
+    for B, Hq, Hkv, Sq, Skv in ((1, 16, 16, 128, 64), (2, 4, 2, 300, 129), (1, 14, 2, 257, 1),
+                                (2, 16, 16, 1, 1500), (4, 4, 4, 448, 1500)):
+        x = torch.randn(B, Sq, Hq * D, dtype=dt, device=cuda)
+        e = torch.randn(B, Skv, 2 * Hkv * D, dtype=dt, device=cuda)
+        q = x.reshape(B, Sq, Hq, D).transpose(1, 2)
+        k = e[..., :Hkv * D].reshape(B, Skv, Hkv, D).transpose(1, 2)
+        v = e[..., Hkv * D:].reshape(B, Skv, Hkv, D).transpose(1, 2)
+        n0 = ops.LAUNCHES["flash_attention"]
+        got = ops.attention(q, k, v, causal=False)
+        assert ops.LAUNCHES["flash_attention"] == n0 + 1
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, causal=False)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
 @pytest.mark.cuda
@@ -603,6 +682,73 @@ def test_cuda_recurrent_forward_and_serve_match_cpu(cuda, arch):
         assert torch.equal(n_card.cpu(), n_cpu)
         tk, lens = n_cpu, lens + 1
     for got, want in zip(leaves(st_card), leaves(st_cpu)):      # caches and recurrent states
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b"])
+def test_cuda_encdec_and_vision_forward_and_serve_match_cpu(cuda, arch):
+    """Reduced whisper (a non-causal encoder of 24 frames, a decoder of 40
+    tokens whose cross-attention takes more queries than keys) and
+    internvl2 (8 patch embeddings before the text) in f32: the forward,
+    the loss, 8 serve steps (whisper's with the encoder's output) and the
+    caches after them on the card against the same weights on the CPU
+    within 3e-5, with the launches of each kernel the path runs counted
+    exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    cfg = get_config(arch).reduced()
+    Ld, Le = cfg.n_layers, cfg.n_enc_layers
+    if cfg.is_encdec:    # encoder blocks, the final norm of each stack; cross in every decoder block
+        fwd = {"rmsnorm": 2 * Le + 1 + 3 * Ld + 1, "flash_attention": Le + 2 * Ld}
+        step = {"rmsnorm": 3 * Ld + 1, "flash_attention": Ld, "decode_attention": Ld}
+    else:
+        fwd = {"rmsnorm": 2 * Ld + 1, "flash_attention": Ld}
+        step = {"rmsnorm": 2 * Ld + 1, "decode_attention": Ld}
+    params = M.init_params(cfg, seed=7, device="cpu")
+    card_params = M._to(params, cuda)
+    rs = np.random.RandomState(7)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, 40)).astype(np.int32))
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rs.randn(2, 24, cfg.d_model).astype(np.float32))
+    else:
+        batch["prefix_embeds"] = torch.from_numpy(
+            rs.randn(2, cfg.n_prefix_embeds, cfg.d_model).astype(np.float32))
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    tol = dict(atol=3e-5, rtol=3e-5)
+    ops.reset_launches()
+    logits = M.make_prefill_step(cfg)(card_params, on_card)
+    assert dict(ops.LAUNCHES) == {**dict.fromkeys(ops.LAUNCHES, 0), **fwd}
+    torch.testing.assert_close(logits.cpu(), M.make_prefill_step(cfg)(params, batch), **tol)
+    torch.testing.assert_close(M.make_eval_step(cfg)(card_params, on_card).cpu(),
+                               M.make_eval_step(cfg)(params, batch), **tol)
+    serve = M.make_serve_step(cfg)
+    B = 2
+    st_card = T.init_decode_state(cfg, B, 32, cuda)
+    st_cpu = T.init_decode_state(cfg, B, 32, "cpu")
+    x_card, x_cpu = {}, {}
+    if cfg.is_encdec:
+        with torch.inference_mode():
+            x_card["enc_out"] = T._encode(card_params, on_card["frames"], cfg)
+            x_cpu["enc_out"] = T._encode(params, batch["frames"], cfg)
+        torch.testing.assert_close(x_card["enc_out"].cpu(), x_cpu["enc_out"], **tol)
+    tk = toks[:, 0].clone()
+    lens = torch.tensor([0, 5], dtype=torch.int32)
+    for _ in range(8):
+        ops.reset_launches()
+        n_card, l_card, st_card = serve(card_params, st_card, {"tokens": tk.to(cuda),
+                                                               "lengths": lens.to(cuda), **x_card})
+        assert dict(ops.LAUNCHES) == {**dict.fromkeys(ops.LAUNCHES, 0), **step}
+        n_cpu, l_cpu, st_cpu = serve(params, st_cpu, {"tokens": tk, "lengths": lens, **x_cpu})
+        torch.testing.assert_close(l_card.cpu()[:, :cfg.vocab], l_cpu[:, :cfg.vocab], **tol)
+        assert torch.equal(n_card.cpu(), n_cpu)
+        tk, lens = n_cpu, lens + 1
+    for got, want in zip(leaves(st_card), leaves(st_cpu)):
         torch.testing.assert_close(got.cpu(), want, **tol)
 
 

@@ -4,7 +4,6 @@ bridged from JAX ``init_params``, then ``forward``/``loss_fn`` and the
 in both.  Logits and losses within the f32 tolerance of
 tests/test_kernels.py (sums in another order).  Also the bfloat16 bridge:
 a bf16 parameter tree crosses bit for bit."""
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -153,18 +152,21 @@ def test_bf16_forward_matches_reference():
 
 def test_forward_refuses_later_families():
     """MoE (dbrx, kimi) runs since the moe_router slice, the SSM and xLSTM
-    families (jamba, xlstm) since theirs; enc-dec and vision still refuse,
-    naming their slice."""
-    for arch in ("dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "xlstm-350m"):
+    families (jamba, xlstm) since theirs, enc-dec and vision (whisper,
+    internvl2) since theirs: a finite prefill each.  Training still
+    refuses enc-dec and vision, naming the slice."""
+    for arch in ("dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "xlstm-350m",
+                 "whisper-medium", "internvl2-1b"):
         cfg = get_config(arch).reduced()
-        logits = M.make_prefill_step(cfg)(M.init_params(cfg, device="cpu"),
-                                          {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-        assert logits.shape == (1, 4, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
-    for arch, slice_ in (("whisper-medium", "enc-dec"), ("internvl2-1b", "vision")):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match=f"{slice_}.* slice"):
-            M.make_prefill_step(cfg)
-        base = dataclasses.replace(get_config("wikikv-router").reduced(), name=cfg.name)
-        params = M.init_params(base, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice"):
-            T.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, cfg)
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+        if cfg.is_encdec:
+            batch["frames"] = torch.ones((1, 6, cfg.d_model))
+        n_pfx = cfg.n_prefix_embeds if cfg.frontend == "vision_stub" else 0
+        if n_pfx:
+            batch["prefix_embeds"] = torch.ones((1, n_pfx, cfg.d_model))
+        logits = M.make_prefill_step(cfg)(M.init_params(cfg, device="cpu"), batch)
+        assert logits.shape == (1, 4 + n_pfx, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
+    for arch in ("whisper-medium", "internvl2-1b"):
+        with pytest.raises(NotImplementedError, match="enc-dec and vision training slice"):
+            M.check_trainable(get_config(arch).reduced())

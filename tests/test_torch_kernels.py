@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as j_decode  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from repro.kernels.path_lookup import pad_keys as j_pad_keys  # noqa: E402
 from repro.kernels.path_lookup import pad_pinned as j_pad_pinned  # noqa: E402
 from repro.kernels.path_lookup import path_lookup as j_lookup  # noqa: E402
@@ -63,7 +64,8 @@ def test_rmsnorm_plain_matches_pallas(shape, scaled, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,block_k", [
     (2, 8, 4, 256, 32, 64), (1, 4, 1, 512, 64, 128), (3, 2, 2, 128, 16, 32),
-    (8, 4, 2, 512, 64, 256)])
+    (8, 4, 2, 512, 64, 256),
+    (4, 14, 2, 512, 64, 128), (2, 7, 1, 256, 128, 64), (3, 7, 1, 64, 16, 32)])  # group 7
 def test_decode_attention_plain_matches_pallas(B, Hq, Hkv, S, D, block_k, dtype):
     rs = np.random.RandomState(B * 1000 + S)
     q = rs.randn(B, Hq, D).astype(np.float32)
@@ -78,6 +80,28 @@ def test_decode_attention_plain_matches_pallas(B, Hq, Hkv, S, D, block_k, dtype)
     got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,block", [
+    (1, 4, 4, 128, 64, 64, 64), (2, 4, 2, 96, 32, 16, 32), (1, 14, 2, 64, 32, 32, 32),
+    (2, 2, 2, 32, 64, 128, 32)])
+def test_noncausal_attention_plain_matches_pallas_with_more_queries(B, Hq, Hkv, Sq, Skv, D,
+                                                                    block, dtype):
+    """Whisper's cross-attention takes a decoder longer than its frames:
+    non-causal attention with Sq > Skv (and one Sq < Skv beside it), the
+    plain version against the Pallas kernel in interpret mode and the
+    JAX ``attention_ref``; the same through the CPU dispatch."""
+    rs = np.random.RandomState(Sq * 3 + Skv)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(rs.randn(B, h, n, D).astype(np.float32), dtype)
+                                    for h, n in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    got = ref.attention_ref(tq, tk, tv, causal=False)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    kern = j_flash(jq, jk, jv, causal=False, block_q=block, block_k=block, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(kern), **_tol(dtype))
+    np.testing.assert_allclose(_f32(got), _f32(jref.attention_ref(jq, jk, jv, causal=False)),
+                               **_tol(dtype))
+    assert torch.equal(ops.attention(tq, tk, tv, causal=False), got)
 
 
 def test_decode_attention_zero_length_gives_zeros():
@@ -721,6 +745,10 @@ def _decode_coverage(S, length, warps, blocks):
     (1, 1, 4, 2049, 64, 4, (8, 16, True)),      # one chunk more: 5 a block
     (1, 1, 1, 1, 16, 4, (8, 1, False)),
     (2, 1, 8, 0, 128, 2, (8, 1, False)),        # an empty cache
+    (4, 2, 7, 512, 64, 2, (8, 4, True)),        # internvl2-1b decode (14 / 2 heads), bf16
+    (4, 16, 1, 448, 64, 2, (8, 2, True)),       # whisper-medium decode (16 / 16 heads)
+    (64, 8, 7, 4096, 128, 2, (12, 1, False)),   # group 7 at D = 128: 48 KB caps 12 warps
+    (64, 8, 7, 4096, 64, 2, (16, 1, False)),    # and at D = 64, 16
 ])
 def test_decode_plan(B, Hkv, G, S, D, elt, want):
     from repro_torch.kernels.decode_attention import (BLOCK_CHUNKS, MAX_WARPS, SMEM_MAX,
