@@ -20,7 +20,7 @@ its main path on the card, printing one JSON line per phase:
      ops, equal to the HostEngine's answers, then a write wave of 64
      admits whose refresh must patch, then the waves again;
   6. the durable tier (``durable``): a child process builds the same
-     2^20-file wiki into a 4-shard durable store (WAL fsync at every
+     wiki at 2^19 files into a 4-shard durable store (WAL fsync at every
      commit), mirrors it in a DeviceEngine on the card, commits a patched
      write wave and wave A, flushes wave B uncommitted and exits with no
      close; this process reopens the directory, rehydrates a DeviceEngine
@@ -46,7 +46,10 @@ its main path on the card, printing one JSON line per phase:
  11. moe_router against its plain version at the dbrx prefill and decode,
      jamba, kimi-k2 and ragged shapes (tie-laden logits too), timed beside
      the plain version and the softmax -> topk -> renorm composite (the
-     card's own time, the host's, one kernel node a call); then
+     card's own time, the host's, one kernel node a call), and its
+     backward kernel moe_router_bwd at the dbrx, jamba, kimi-k2 and
+     ragged training shapes, renormalized and not, beside the composite's
+     autograd backward; then
      dbrx-132b at full width (8 of its 40 layers, weights drawn on the
      card from the seed): make_prefill_step and make_eval_step at B=1,
      S=4096 and 16 make_serve_step decode steps at B=4, launches per
@@ -70,7 +73,14 @@ its main path on the card, printing one JSON line per phase:
      first layers while the card's own logits moved by a 1e-7
      perturbation of the embeddings stay within 2.5e-4 of the largest, and
      at full depth the card-CPU distance within 10x that witness, since
-     its layers amplify rounding;
+     its layers amplify rounding; and each of the two cut models, on the
+     same weights, through the ServingEngine (``recurrent_serving``): 8
+     AuthTrace requests at B=4, max_len 512, prompts cut to 32 tokens,
+     over a DeviceEngine on the card with the heuristic oracle, launches
+     per serve call and per engine wave checked exactly, then each request
+     alone on a fresh engine: at B=4 its logits equal the batched run's
+     bit for bit, at B=1 bf16 rounding flips are reported through
+     ``first_flip``; decode step ms, prefill ms a prompt token, requests/s;
  13. the encoder-decoder and vision paths: whisper-medium at full width
      and depth (24 encoder and 24 decoder layers, weights drawn on the
      card) over 1500 frames and 448 tokens at B=4, make_prefill_step and
@@ -102,9 +112,14 @@ its main path on the card, printing one JSON line per phase:
      bf16, f32 AdamW moments, B=1, S=4096) for 5 train steps on one batch,
      a falling loss, step ms, tokens/s, peak memory, launches per step and
      the model FLOPs' share of the bf16 peak, and f32 parity of its first
-     2 layers' loss and gradients with the CPU at S=256;
- 15. one JSON line of every kernel with its launches, error, times and
-     bound; the card's name and power limit; the final ``{"ok": true, ...}``.
+     2 layers' loss and gradients with the CPU at S=256; dbrx-132b at full
+     width cut to 1 of its 40 layers (bf16, bf16 AdamW moments, B=1,
+     S=4096) for 3 train steps, one moe_router_bwd a MoE layer a step,
+     and a reduced dbrx's f32 loss and gradients, the router's included,
+     card against CPU;
+ 15. one JSON line of every kernel (nine) with its launches, error, times
+     and bound; the card's name and power limit; the final
+     ``{"ok": true, ...}``.
 
 Every check that fails raises, and the script then exits non-zero with no
 final line.  It needs a card (it exits non-zero when CUDA is not
@@ -140,6 +155,10 @@ F32_TOL = dict(atol=3e-5, rtol=3e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 SCALE_LOG2 = 20            # 2^20 files in the synthetic wiki
+# the durable phase's wiki: half the query phase's, so that the whole
+# smoke (its ingest with an fsync a commit and two from_store freezes
+# took ~380 s at 2^20) keeps well inside its time limit
+DURABLE_SCALE_LOG2 = 19
 N_DIMS, N_TOPICS = 16, 256
 
 
@@ -865,7 +884,7 @@ def write_wave(dev_eng, dims, rng, phase="write_wave", name="online"):
 # phase 6: the durable tier — a crash in a child process, a reopen here
 # ---------------------------------------------------------------------------
 DURABLE_SHARDS = 4
-DURABLE_MIN_FREE = 4 << 30     # bytes free the 2^20-file store needs (it takes ~0.7 GB)
+DURABLE_MIN_FREE = 4 << 30     # bytes free the store needs (~0.7 GB at 2^20 files)
 WAVE_A, WAVE_B = 64, 16        # admits committed before the crash, and flushed only
 
 
@@ -1120,7 +1139,9 @@ def durable_phase(dev, scale_log2: int, query_refresh_ms: float) -> dict:
     serve_counts, serving = durable_serving(dev)
     counts = {k: child_counts.get(k, 0) + reopen_counts[k] + serve_counts[k]
               for k in reopen_counts}
-    emit({"phase": "durable", **crash, "query_phase_refresh_ms": query_refresh_ms,
+    emit({"phase": "durable", "files_log2": scale_log2,
+          "cut": f"2^{scale_log2} files, the query phase's 2^{SCALE_LOG2} halved for time",
+          **crash, "query_phase_refresh_ms": query_refresh_ms,
           "serving": serving, "launches": counts})
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention"):
         check(counts[name] > 0, f"the durable phase ran no {name}")
@@ -1504,11 +1525,11 @@ ROUTER_SHAPES = [("dbrx prefill", 4096, 16, 4), ("dbrx decode", 4, 16, 4),
 ROUTER_NEAR_TIE = 1e-6   # two candidates' probabilities this close may order either way
 
 
-def router_library(logits, k):
+def router_library(logits, k, renormalize=True):
     """softmax -> topk -> renorm, three PyTorch calls (the yardstick only)."""
     import torch
     w, idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
-    return w / w.sum(dim=-1, keepdim=True), idx
+    return (w / w.sum(dim=-1, keepdim=True) if renormalize else w), idx
 
 
 def router_kernels(dev) -> dict:
@@ -1518,7 +1539,7 @@ def router_kernels(dev) -> dict:
     row may differ only where two of its k + 1 largest probabilities lie
     within ROUTER_NEAR_TIE (counted); weights within 1e-6 on the rows that
     agree.  Timed beside its bytes bound, the plain version and the
-    library composite."""
+    library composite.  (b) moe_router_bwd's rows (``router_bwd_rows``)."""
     import torch
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import ops, ref
@@ -1559,10 +1580,79 @@ def router_kernels(dev) -> dict:
                      "bound_ms": b, "bound_by": by})
     emit({"phase": "moe_router", "shapes": rows, "rows_differing_at_near_ties": near_rows,
           "library": "softmax -> topk -> renorm (three calls)"})
+    bwd_rows = router_bwd_rows(dev, g)
     return {"moe_router": {"name": "moe_router", "route": "cuda",
                            "source": "src/repro_torch/kernels/csrc/moe_router.cu",
                            "replaces": "src/repro/kernels/moe_router.py:55",
-                           **rows[0], "shapes": rows[1:]}}
+                           **rows[0], "shapes": rows[1:]},
+            "moe_router_bwd": {"name": "moe_router_bwd", "route": "cuda",
+                               "source": "src/repro_torch/kernels/csrc/moe_router.cu",
+                               "replaces": "src/repro/kernels/moe_router.py:55",
+                               "note": "the Pallas kernel has no backward: jax.value_and_grad "
+                                       "of its jnp reference",
+                               **bwd_rows[0], "shapes": bwd_rows[1:]}}
+
+
+# (tag, T, E, k): the training shapes of the MoE families at S = 4096
+ROUTER_BWD_SHAPES = [("dbrx prefill", 4096, 16, 4), ("jamba", 4096, 16, 2),
+                     ("kimi-k2", 4096, 384, 8), ("ragged", 4099, 16, 4)]
+
+
+def router_bwd_rows(dev, g) -> list:
+    """(b) moe_router_bwd against its plain version (``ref.moe_router_bwd_ref``)
+    at ROUTER_BWD_SHAPES, renormalized and not, on normal and tie-laden
+    logits (the forward kernel's weights and ids), within the f32 backward
+    tolerance; timed beside its bytes bound, the plain version and the
+    autograd backward of the softmax -> topk -> renorm composite, one
+    kernel node a call.  The first row (dbrx, renormalized, normal logits)
+    leads the kernels line."""
+    import torch
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    rows = []
+    for tag, T, E, k in ROUTER_BWD_SHAPES:
+        x = torch.randn((T, E), generator=g).to(dev) * 2
+        dw = torch.randn((T, k), generator=g).to(dev)
+        for renorm in (True, False):
+            err = 0.0
+            for logits in (x, torch.round(x * 2) / 2):
+                w, idx = mr.moe_router(logits, k, renormalize=renorm)
+                lg = None if renorm else logits
+                got = mr.moe_router_bwd(lg, w, idx, dw, renormalize=renorm, n_experts=E)
+                want = ref.moe_router_bwd_ref(logits, w, idx, dw, renormalize=renorm)
+                err = max(err, check_grad(f"moe_router_bwd ({tag})", got, want, torch.float32))
+                check(torch.equal(mr.moe_router_bwd(lg, w, idx, dw, renormalize=renorm,
+                                                    n_experts=E), got),
+                      f"moe_router_bwd ({tag}) is not bit for bit repeatable")
+            w, idx = mr.moe_router(x, k, renormalize=renorm)
+            lg = None if renorm else x
+
+            def kernel(a, b, c, d, renorm=renorm, E=E):
+                return mr.moe_router_bwd(a, b, c, d, renormalize=renorm, n_experts=E)
+            # bytes: the weights, ids and gradients read, the (T, E) gradient
+            # written (and the logits read without renormalize); operations:
+            # a product and a sum per chosen expert, and without renormalize
+            # two exponentials, a divide and a product per logit
+            nbytes = T * k * 12 + T * E * 4 + (0 if renorm else T * E * 4)
+            b, by = bound(nbytes, T * k * 4.0 + (0 if renorm else T * E * 8.0), F32_FLOPS)
+            gm = graph_ms(kernel, (lg, w, idx, dw))
+            one_kernel_a_call(f"moe_router_bwd ({tag})", gm)
+            lib = library_grad(lambda z, k=k, r=renorm: router_library(z, k, r)[0], (x,), dw)
+            lib_ms = cuda_ms(lib)
+            rows.append({"shape": f"({tag}) T={T} E={E} k={k} float32 "
+                                  f"{'renormalized' if renorm else 'not renormalized'}",
+                         "max_abs_err": err, "ms": cuda_ms(lambda: kernel(lg, w, idx, dw)),
+                         "device_ms": gm["device_ms"],
+                         "device_ms_profiled": profiled_ms(kernel, (lg, w, idx, dw), 10),
+                         "host_ms": host_ms(lambda: kernel(lg, w, idx, dw)),
+                         "plain_ms": cuda_ms(lambda: ref.moe_router_bwd_ref(
+                             x, w, idx, dw, renormalize=renorm)),
+                         "library_ms": lib_ms, "library_device_ms": profiled_ms(lib, (), 10),
+                         "bound_ms": b, "bound_by": by, "gb_per_s": nbytes / gm["device_ms"] / 1e6,
+                         "device_share_of_bound": b / gm["device_ms"]})
+    emit({"phase": "moe_router_bwd", "tolerance_f32": BWD_F32_TOL, "shapes": rows,
+          "library": "autograd backward of softmax -> topk -> renorm"})
+    return rows
 
 
 def tree_leaves(tree) -> list:
@@ -2064,6 +2154,189 @@ def blockwise_parity(dev, cfg, card_p, host_p, tokens, tf_tokens, card_logits,
             "max_abs_logit": float(cpu_logits.abs().max())}
 
 
+SERVE_REQUESTS = 8     # requests of the recurrent serving runs
+PROMPT_CAP = 32        # prompt tokens a request (its evidence prompt cut to this)
+SERVE_NEW_TOKENS = 16
+
+
+def served(eng, cfg, log: dict) -> None:
+    """Wrap ``eng``'s serve step: CUDA events around every call (prefill
+    and decode apart, read after the run), and for each decode step each
+    decoding lane's logits (on the card) under its request's id."""
+    import torch
+    serve, prefill = eng._serve, eng._prefill
+    state = {"prefill": False}
+
+    def logged_serve(params_, st, batch):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        nxt, logits, st = serve(params_, st, batch)
+        ev[1].record()
+        log["prefill" if state["prefill"] else "decode"].append(ev)
+        if not state["prefill"]:
+            for i, on in enumerate(eng._decoding):
+                if on:
+                    log["logits"].setdefault(eng.slots[i].rid, []).append(
+                        logits[i, :cfg.vocab].float().clone())
+        return nxt, logits, st
+
+    def flagged_prefill(slot, req):
+        state["prefill"] = True
+        try:
+            prefill(slot, req)
+        finally:
+            state["prefill"] = False
+        log["prompt_tokens"] += int(eng.lengths[slot])
+    eng._serve, eng._prefill = logged_serve, flagged_prefill
+
+
+def count_waves(dev_eng) -> dict:
+    """Count the DeviceEngine's kernel calls: each ``_lookup_rows`` of a
+    non-empty batch is one path_lookup launch, each ``_q4_search`` one
+    prefix_search launch."""
+    calls = {"path_lookup": 0, "prefix_search": 0}
+    lookup, search = dev_eng._lookup_rows, dev_eng._q4_search
+
+    def counted_lookup(st, digest_pairs, table=None):
+        calls["path_lookup"] += digest_pairs.shape[0] > 0
+        return lookup(st, digest_pairs, table)
+
+    def counted_search(prefixes, limit):
+        calls["prefix_search"] += 1
+        return search(prefixes, limit)
+    dev_eng._lookup_rows, dev_eng._q4_search = counted_lookup, counted_search
+    return calls
+
+
+def recurrent_serving(dev, cfg, params, tag, batch=4, max_len=512) -> dict:
+    """``cfg`` (as the ``ssm``/``xlstm`` phase cut it) through the
+    ServingEngine with the heuristic oracle over the AuthTrace wiki in a
+    DeviceEngine on the card: SERVE_REQUESTS requests at B=``batch``,
+    max_len ``max_len``, each prompt cut to PROMPT_CAP tokens, with the
+    launches counted from zero and checked exactly (the model kernels per
+    serve call, path_lookup and prefix_search per engine call).  Then each
+    request alone on a fresh ServingEngine, twice:
+
+    * at B=``batch``, the other lanes idle: the same products at the same
+      shapes, so the batched run's logits must be these to the bit (a
+      lane's state leaking into another's, or a prefill stepping another
+      lane, shows here);
+    * at B=1: the bf16 products round otherwise at one row than at four,
+      and random weights amplify that to the logits' own size over 16-24
+      layers (the ``xlstm_parity`` witness; the CPU tests' bf16 runs of
+      two packages 2.41 apart on jamba's logits), so greedy tokens may
+      part early: the first flip of each request is reported through
+      ``first_flip``, whose tolerance (the alone run's top-2 gap within the
+      two runs' difference at that step) holds it to a rounding flip.  In
+      f32 the tokens are equal batched, alone at B=1 and on the CPU
+      (``tests/test_torch_cuda.py``).
+
+    Returns the batched run's launch counts."""
+    import gc
+
+    import torch
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.core.oracle import HeuristicOracle
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import Request, ServingEngine
+    pipe, docs, questions = authtrace_wiki(160, 0)
+    tok = HashTokenizer(vocab_size=cfg.vocab).fit([d["text"] for d in docs])
+    full_encode = tok.encode
+    tok.encode = lambda text: full_encode(text)[:PROMPT_CAP]
+    dev_eng = DeviceEngine.from_store(pipe.store, device=dev)
+    waves = count_waves(dev_eng)
+
+    def requests():
+        return [Request(rid=q.qid, query=q.text, max_new_tokens=SERVE_NEW_TOKENS)
+                for q in questions[:SERVE_REQUESTS]]
+
+    def run(b, reqs):
+        eng = ServingEngine(cfg, params, tok, dev_eng, HeuristicOracle(), batch_size=b,
+                            max_len=max_len, device=dev)
+        log = {"prefill": [], "decode": [], "logits": {}, "prompt_tokens": 0}
+        served(eng, cfg, log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        log["wall_s"] = time.perf_counter() - t0
+        check(len(done) == len(reqs), f"{tag} serving: {len(done)} of {len(reqs)} requests done")
+        return log
+
+    def alone(b):
+        out = {"prefill": [], "decode": [], "logits": {}, "wall_s": 0.0}
+        for r in requests():
+            one = run(b, [r])
+            for key in ("prefill", "decode"):
+                out[key] += one[key]
+            out["logits"].update(one["logits"])
+            out["wall_s"] += one["wall_s"]
+        return out
+
+    def stacked(log, rid):
+        return torch.stack(log["logits"][rid]).cpu()
+
+    torch.cuda.reset_peak_memory_stats()
+    waves.update(path_lookup=0, prefix_search=0)
+    # the main path: counts from zero, the batched run, read just after
+    ops.reset_launches()
+    batched = run(batch, requests())
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = len(batched["prefill"]) + len(batched["decode"])
+    per_step = {k: v[1] for k, v in path_launches(cfg).items()}
+    want = {**dict.fromkeys(counts, 0), **{k: per_step[k] * calls for k in per_step}, **waves}
+    check(counts == want, f"{tag} serving launches {counts} != {want} ({calls} serve calls)")
+
+    same_shape, one_row = alone(batch), alone(1)
+    flips, first_diff, scale = {}, 0.0, 0.0
+    for rid in one_row["logits"]:
+        o, a4, a1 = stacked(batched, rid), stacked(same_shape, rid), stacked(one_row, rid)
+        check(o.shape == a4.shape == a1.shape, f"{tag} serving {rid}: {o.shape[0]} tokens in "
+              f"the batch, {a4.shape[0]} and {a1.shape[0]} alone")
+        check(torch.equal(o, a4), f"{tag} serving {rid}: the batched logits differ from the "
+              f"same request's alone at B={batch} by {float((o - a4).abs().max())}")
+        flip = first_flip([(a1, a1.argmax(-1, keepdim=True))], [(o, o.argmax(-1, keepdim=True))],
+                          1)
+        if flip is not None:
+            flips[rid] = {**flip, "max_abs_logit": float(a1[flip["token"]].abs().max())}
+        first_diff = max(first_diff, float((a1[0] - o[0]).abs().max()))
+        scale = max(scale, float(a1[0].abs().max()))
+
+    def ms(events):
+        return [e[0].elapsed_time(e[1]) for e in events]
+    dec_ms, pre_ms = ms(batched["decode"]), ms(batched["prefill"])
+    out = {"phase": "recurrent_serving", "arch": cfg.name, "layers": cfg.n_layers,
+           "batch": batch, "max_len": max_len, "requests": SERVE_REQUESTS,
+           "prompt_cap": PROMPT_CAP, "new_tokens": SERVE_NEW_TOKENS,
+           "cuts": [f"layers {cfg.n_layers}", f"prompts cut to {PROMPT_CAP} tokens",
+                    f"{SERVE_REQUESTS} requests"],
+           "serve_calls": calls, "prefill_calls": len(pre_ms), "decode_steps": len(dec_ms),
+           "prompt_tokens": batched["prompt_tokens"],
+           "decode_step_ms": statistics.median(dec_ms),
+           "decode_step_ms_mean": statistics.mean(dec_ms),
+           "prefill_ms_per_prompt_token": sum(pre_ms) / max(batched["prompt_tokens"], 1),
+           "prefill_share_of_serve_ms": sum(pre_ms) / (sum(pre_ms) + sum(dec_ms)),
+           "wall_s": batched["wall_s"], "requests_per_s": SERVE_REQUESTS / batched["wall_s"],
+           "alone_wall_s": {f"B={batch}": same_shape["wall_s"], "B=1": one_row["wall_s"]},
+           "alone_decode_step_ms": {f"B={batch}": statistics.median(ms(same_shape["decode"])),
+                                    "B=1": statistics.median(ms(one_row["decode"]))},
+           "peak_gib": peak, "launches": counts,
+           "per_serve_call": {k: per_step[k] for k in per_step},
+           f"equal_to_alone_at_B={batch}": "logits bit for bit",
+           "tokens_equal_to_alone_at_B=1": not flips, "requests_with_a_flip_at_B=1": len(flips),
+           "flips_at_B=1": flips, "first_token_max_abs_logit_diff_at_B=1": first_diff,
+           "first_token_max_abs_logit": scale, "nvidia_smi": nvidia_smi()}
+    emit(out)
+    # the engines' wrapped serve steps close over their engines (cycles
+    # that hold the weights until collected)
+    del batched, same_shape, one_row, dev_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def recurrent_phase(dev, arch, layers, seed=0, seq=4096, dec_batch=4, dec_len=512, dec_steps=16,
                     parity_seq=None, tf_tokens=16) -> dict:
     """(a) ``arch`` at full width, cut to ``layers`` layers, weights drawn
@@ -2250,8 +2523,13 @@ def recurrent_phase(dev, arch, layers, seed=0, seq=4096, dec_batch=4, dec_len=51
           "decode_gb": dec_bytes / 1e9, "decode_bound_ms": b_dec, "decode_bound_by": by_dec,
           "prefill_breakdown_ms": breakdown})
 
-    # (b) parity, the rest of the card's weights freed
+    # (c) the ServingEngine over the same weights, its own counts from zero
     del state, dec_logits, step
+    torch.cuda.empty_cache()
+    serve_counts = recurrent_serving(dev, cfg, params, tag)
+    counts = {k: counts[k] + serve_counts[k] for k in counts}
+
+    # (b) parity, the rest of the card's weights freed
     if m is not None:
         # f32 bytes of the period's first four slots, the embedding and the head
         first4 = sum(nbytes(params["body"][f"slot{s}"]) for s in range(4)) // cfg.n_periods
@@ -3046,12 +3324,116 @@ def qwen3_training(dev, seed=0, steps=5, seq=4096, parity_layers=2, parity_seq=2
     return counts
 
 
+def dbrx_training(dev, seed=0, layers=1, steps=3, seq=4096, parity_seq=128) -> dict:
+    """dbrx-132b at full width, cut to ``layers`` of its 40 layers (weights
+    drawn on the card from ``seed``, bf16; AdamW with bf16 moments, the
+    reference's ``state_dtype="bfloat16"``): ``steps`` make_train_step
+    steps on one fixed batch at B = 1, S = ``seq``, the launches counted
+    and checked per step (one moe_router and one moe_router_bwd a MoE
+    layer), finite losses, step ms with its device split, peak memory.
+    The depth: one layer is 16 x 3 x 6144 x 10752 = 3.17 B expert
+    parameters and ~0.09 B of attention, the untied embedding and head
+    1.23 B, so ~4.49 B in all; a step keeps the parameters, gradients,
+    moments and the new trees live at once (qwen3 peaks at ~22 B a
+    parameter), so f32 moments (~99 GB) do not fit and bf16 moments
+    (~63 GB plus activations) do at one layer.  Then ``train_dbrx_parity``:
+    a reduced dbrx (dbrx's 16 experts, top 4) in f32, the loss and every
+    gradient leaf, the router's included, card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import leaves
+    full = get_config("dbrx-132b")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    n_params = sum(t.numel() for t in leaves(params))
+    opt_cfg = AdamWConfig(lr=3e-4, state_dtype="bfloat16")
+    opt = adamw_init(params, opt_cfg)
+    step = M.make_train_step(cfg, opt_cfg, total_steps=steps)
+    rs = np.random.RandomState(seed)
+    toks = rs.randint(0, cfg.vocab, size=(1, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((1, 1), -1, np.int32)], axis=1)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+
+    # the main path: counts from zero, `steps` train steps, read just after
+    ops.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, aux = step(params, opt, batch)
+        losses.append(float(aux["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses), f"dbrx: non-finite losses {losses}")
+    per_step = {k: v / steps for k, v in counts.items()}
+    n_norm = 2 * layers + 1
+    want = {**dict.fromkeys(counts, 0), "flash_attention": layers, "flash_attention_bwd": layers,
+            "rmsnorm": n_norm, "rmsnorm_bwd": n_norm, "moe_router": layers,
+            "moe_router_bwd": layers}
+    check(per_step == want, f"dbrx: launches a step {per_step} != {want}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    split = device_split(lambda: step(params, opt, batch), step_ms)
+    _, grads = M.loss_and_grads(params, batch, cfg)
+    opt_ms = cuda_ms(lambda: adamw_update(params, grads, opt, opt_cfg), iters=2, warmup=1)
+    del grads
+    emit({"phase": "train_dbrx", "arch": cfg.name, "layers": layers, "of": full.n_layers,
+          "cuts": [f"{layers} of {full.n_layers} layers", "B=1", f"S={seq}",
+                   "bf16 AdamW moments", f"{steps} steps on one batch"],
+          "batch": 1, "seq": seq, "params": n_params, "param_dtype": cfg.param_dtype,
+          "moments": opt_cfg.state_dtype, "losses": losses, "step_ms": step_ms,
+          "step_ms_all": [t * 1e3 for t in times], "tokens_per_s": seq / step_ms * 1e3,
+          "peak_gib": peak, "launches_per_step": per_step,
+          "moe_router_bwd_per_step": per_step["moe_router_bwd"], "step_split": split,
+          "adamw_ms": opt_ms, "nvidia_smi": nvidia_smi()})
+    del params, opt, aux, batch
+    torch.cuda.empty_cache()
+
+    # parity: a reduced dbrx in f32 (its 16 experts, top 4), card vs CPU
+    red = full.reduced(n_layers=2, d_model=256, n_heads=8, n_kv_heads=2, d_head=32,
+                       vocab=4096, moe=dataclasses.replace(full.moe, d_ff_expert=256))
+    host = M.init_params(red, seed=seed + 1, device="cpu")
+    pb = {"tokens": torch.from_numpy(toks[:, :parity_seq] % red.vocab),
+          "labels": torch.from_numpy(np.where(labels[:, :parity_seq] < 0, -1,
+                                              labels[:, :parity_seq] % red.vocab))}
+    (loss_c, grads_c), log_c = logged_run(lambda: M.loss_and_grads(
+        M._to(host, dev), {k: v.to(dev) for k, v in pb.items()}, red))
+    grads_c = tree_map(lambda t: t.cpu(), grads_c)
+    (loss_h, grads_h), log_h = logged_run(lambda: M.loss_and_grads(host, pb, red))
+    par = {"phase": "train_dbrx_parity", "arch": red.name, "layers": red.n_layers,
+           "d_model": red.d_model, "experts": red.moe.n_experts, "top_k": red.moe.top_k,
+           "seq": parity_seq, "loss_card": float(loss_c), "loss_cpu": float(loss_h),
+           "router_near_tie": first_flip(log_h, log_c, red.moe.top_k),
+           "tolerance": {"loss_rel": 3e-5, "grad_rel_to_leaf_max": 1e-4}}
+    if par["router_near_tie"] is None:
+        def rel(gc, gh):
+            return float((gc - gh).abs().max()) / max(float(gh.abs().max()), 1e-30)
+        worst = max(rel(gc, gh) for gc, gh in zip(leaves(grads_c), leaves(grads_h)))
+        router = rel(grads_c["body"]["slot0"]["moe"]["router"],
+                     grads_h["body"]["slot0"]["moe"]["router"])
+        par.update(loss_rel_diff=abs(float(loss_c) - float(loss_h)) / abs(float(loss_h)),
+                   grad_leaves=len(leaves(grads_h)), worst_grad_diff_rel_to_leaf_max=worst,
+                   router_grad_diff_rel=router)
+        check(par["loss_rel_diff"] <= 3e-5 and worst <= 1e-4,
+              f"dbrx f32 gradients, card vs CPU: {par}")
+    emit(par)
+    return counts
+
+
 def train_phase(dev) -> dict:
-    """The training path's main runs (the router's card loop and qwen3's
-    steps), their launch counts summed."""
-    a = router_training(dev)
-    b = qwen3_training(dev)
-    return {k: a[k] + b[k] for k in a}
+    """The training path's main runs (the router's card loop, qwen3's and
+    dbrx's steps), their launch counts summed."""
+    runs = [router_training(dev), qwen3_training(dev), dbrx_training(dev)]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def main(argv: list[str]) -> int:
@@ -3111,7 +3493,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     # each path below sets the counts to 0 just before it and reads them just after
-    path_counts = [query_counts, durable_phase(dev, SCALE_LOG2, refresh_ms), serving_phase(dev),
+    path_counts = [query_counts, durable_phase(dev, DURABLE_SCALE_LOG2, refresh_ms), serving_phase(dev),
                    serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev),
                    recurrent_phase(dev, "jamba-v0.1-52b", 16),
                    recurrent_phase(dev, "xlstm-350m", 24), encdec_phase(dev), vlm_phase(dev),
@@ -3119,7 +3501,8 @@ def main(argv: list[str]) -> int:
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
-                 "flash_attention", "moe_router", "flash_attention_bwd", "rmsnorm_bwd"):
+                 "flash_attention", "moe_router", "flash_attention_bwd", "rmsnorm_bwd",
+                 "moe_router_bwd"):
         e = entries[name]
         e["launches"] = sum(c[name] for c in path_counts)
         check(e["launches"] > 0, f"{name} was never launched on the main path")

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel launches per wrapper since the last ``reset_launches()``
 LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
                             "decode_attention": 0, "flash_attention": 0, "rmsnorm": 0,
-                            "moe_router": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                            "moe_router": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                            "moe_router_bwd": 0}
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()

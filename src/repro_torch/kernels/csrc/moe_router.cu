@@ -32,6 +32,20 @@
 // 0); padding slots past E hold -1, below every probability, and
 // selected slots -1e30, the TPU's mask.  The launch geometry (TPW, V,
 // blocks) comes from kernels/moe_router.py router_geometry.
+//
+// The backward (moe_router_bwd_launch) has no Pallas counterpart: the JAX
+// package differentiates its jnp reference.  It takes the weights' gradient
+// g (T, k) and writes the logits' gradient (T, E): with renormalize the
+// weights are the softmax of the chosen logits alone, so dz_j =
+// w_j (g_j - S), S = sum_K w_i g_i, on the chosen ids K and 0 elsewhere;
+// without it p = softmax(logits) is recomputed (max and sum in the
+// forward's order, so p is the forward's to the bit) and dz_j =
+// p_j ([j in K] g_j - S), S = sum_K p_i g_i, for every j.  Bound: bytes
+// (T*k*12 read, T*E*4 written; the logits read too without renormalize).
+// Design: one token a warp; lanes r < k hold the row's r-th id, weight and
+// gradient, S is a butterfly sum; the warp writes the whole E-wide row
+// coalesced (zeros, or -p_j S), then __syncwarp orders the k lanes'
+// scattered writes of the chosen entries after it.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -47,6 +61,20 @@ struct RouterArgs {  // packed by kernels/moe_router.py (struct "<11q")
   long long renormalize;
   long long tpw;
   long long v;
+  long long blocks;
+  cudaStream_t stream;
+};
+
+struct RouterBwdArgs {  // packed by kernels/moe_router.py (struct "<11q")
+  const float* logits;  // read without renormalize only
+  const float* w;
+  const int* idx;
+  const float* dw;
+  float* dlogits;
+  long long T;
+  long long E;
+  long long k;
+  long long renormalize;
   long long blocks;
   cudaStream_t stream;
 };
@@ -139,6 +167,46 @@ void launch(const RouterArgs* a) {
       a->logits, a->w, a->idx, (int)a->T, (int)a->E, (int)a->k, (int)a->renormalize);
 }
 
+// One token a warp (t is uniform over the warp, so a warp past T leaves
+// whole and every shuffle has all 32 lanes).
+__global__ void __launch_bounds__(WARPS * 32)
+moe_router_bwd_kernel(const float* __restrict__ logits, const float* __restrict__ w,
+                      const int* __restrict__ idx, const float* __restrict__ dw,
+                      float* __restrict__ dz, int T, int E, int k, int renormalize) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const float* x = renormalize ? nullptr : logits + (size_t)t * E;
+  float* out = dz + (size_t)t * E;
+  const bool chosen = lane < k;
+  const int id = chosen ? idx[(size_t)t * k + lane] : 0;
+  const float g = chosen ? dw[(size_t)t * k + lane] : 0.f;
+  float m = 0.f, s = 1.f, wk;
+  if (renormalize) {
+    wk = chosen ? w[(size_t)t * k + lane] : 0.f;
+  } else {
+    m = -INFINITY;
+    for (int e = lane; e < E; e += 32) m = fmaxf(m, x[e]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+    s = 0.f;
+    for (int e = lane; e < E; e += 32) s += expf(x[e] - m);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    wk = chosen ? expf(x[id] - m) / s : 0.f;
+  }
+  float S = wk * g;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) S += __shfl_xor_sync(FULL, S, o);
+  if (renormalize) {
+    for (int e = lane; e < E; e += 32) out[e] = 0.f;
+  } else {
+    for (int e = lane; e < E; e += 32) out[e] = -(expf(x[e] - m) / s) * S;
+  }
+  __syncwarp();
+  if (chosen) out[id] = wk * (g - S);
+}
+
 }  // namespace
 
 // logits (T, E) float32, contiguous; w (T, k) float32 and idx (T, k) int32
@@ -168,6 +236,19 @@ extern "C" int moe_router_launch(const RouterArgs* a) {
       return (int)cudaErrorInvalidValue;
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// w, dw (T, k) float32, idx (T, k) int32, dlogits (T, E) float32 out, all
+// contiguous; logits (T, E) float32 without renormalize (else unread).
+// 1 <= k <= min(E, 32), blocks = ceil(T / WARPS).
+extern "C" int moe_router_bwd_launch(const RouterBwdArgs* a) {
+  if (a->k < 1 || a->k > 32 || a->k > a->E || (!a->renormalize && a->logits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (a->T > 0)
+    moe_router_bwd_kernel<<<(int)a->blocks, WARPS * 32, 0, a->stream>>>(
+        a->logits, a->w, a->idx, a->dw, a->dlogits, (int)a->T, (int)a->E, (int)a->k,
+        (int)a->renormalize);
   return (int)cudaGetLastError();
 }
 

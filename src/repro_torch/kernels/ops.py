@@ -6,13 +6,13 @@ goes to the hand-written kernel, and any failure there raises — there is
 no fallback from the card to the plain version.  ``LAUNCHES`` counts the
 kernel launches of each wrapper.
 
-Under grad mode, with an input that requires grad, ``attention`` and
-``rmsnorm`` on the card go through autograd Functions whose forward is
-the kernel (the attention's with its log-sum-exp) and whose backward is
-the backward kernel (``flash_attention_bwd``, ``rmsnorm_bwd``); on the
-CPU autograd differentiates the plain versions.  ``decode_attention``
-and ``moe_router`` have no backward kernel and raise there.  Otherwise
-(inference) the kernels launch as they are.
+Under grad mode, with an input that requires grad, ``attention``,
+``rmsnorm`` and ``moe_router`` on the card go through autograd Functions
+whose forward is the kernel (the attention's with its log-sum-exp) and
+whose backward is the backward kernel (``flash_attention_bwd``,
+``rmsnorm_bwd``, ``moe_router_bwd``); on the CPU autograd differentiates
+the plain versions.  ``decode_attention`` has no backward kernel and
+raises there.  Otherwise (inference) the kernels launch as they are.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .flash_attention import flash_attention_bwd as _flash_bwd_kernel
 from .moe_router import moe_router as _router_kernel
+from .moe_router import moe_router_bwd as _router_bwd_kernel
 from .path_lookup import key64, pad_keys, pad_pinned
 from .path_lookup import path_lookup as _lookup_kernel
 from .prefix_search import prefix_search as _prefix_kernel
@@ -73,6 +74,26 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dscale, None
 
 
+class _MoERouter(torch.autograd.Function):
+    """moe_router with its backward kernel; the ids carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, k, renormalize):
+        w, idx = _router_kernel(logits, k, renormalize=renormalize)
+        ctx.mark_non_differentiable(idx)
+        # with renormalize the backward reads the weights alone
+        ctx.save_for_backward(w, idx, None if renormalize else logits)
+        ctx.renormalize, ctx.n_experts = renormalize, logits.shape[-1]
+        return w, idx
+
+    @staticmethod
+    def backward(ctx, dw, _didx):
+        w, idx, logits = ctx.saved_tensors
+        dz = _router_bwd_kernel(logits, w, idx, dw, renormalize=ctx.renormalize,
+                                n_experts=ctx.n_experts)
+        return dz, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
     """(B, Hq, Sq, D) x (B, Hkv, Skv, D)^2 -> (B, Hq, Sq, D); the queries
     are the last Sq positions.  On the CPU the plain version the JAX
@@ -109,6 +130,8 @@ def moe_router(logits, k: int, *, renormalize: bool = True):
     """(T, E) f32 -> (weights (T, k) f32, indices (T, k) int32)."""
     if _on_cpu(logits):
         return ref.moe_router_ref(logits, k, renormalize=renormalize)
+    if _needs_grad(logits):
+        return _MoERouter.apply(logits, k, renormalize)
     return _router_kernel(logits, k, renormalize=renormalize)
 
 

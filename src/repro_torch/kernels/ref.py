@@ -9,9 +9,9 @@ its plain version on the card.  Counterparts of
 ``path_lookup_ref``, ``path_lookup_pinned_ref`` and ``prefix_search_ref``.
 The JAX package has no backward kernel (``jax.value_and_grad``
 differentiates its jnp references); the port's backward kernels are held
-against ``attention_bwd_ref`` and ``rmsnorm_bwd_ref``, explicit formulas
-of the same gradients.  The float math is f32, or f64 for f64 inputs
-(``torch.autograd.gradcheck``).
+against ``attention_bwd_ref``, ``rmsnorm_bwd_ref`` and
+``moe_router_bwd_ref``, explicit formulas of the same gradients.  The
+float math is f32, or f64 for f64 inputs (``torch.autograd.gradcheck``).
 
 Digest tables hold one int64 per key, ``((hi << 32) | lo) ^ (1 << 63)``:
 torch has no ordering on uint32, and flipping the sign bit makes the
@@ -197,23 +197,57 @@ def moe_router_ref(logits: torch.Tensor, k: int, *,
     probability, ties to the lowest expert id (the first match, as
     ``lax.top_k`` orders them; PyTorch's top-k promises no order among
     ties), and mask it.  Selection is on the probabilities, not the
-    logits.  With ``renormalize`` the k weights are divided by their sum."""
-    x = logits.float()
+    logits.  With ``renormalize`` the k weights are divided by their sum.
+    The ids are chosen on detached probabilities and the weights gathered
+    at them, so autograd's gradient reaches the chosen probabilities
+    alone, as ``jax.lax.top_k``'s does (an arg-max's would split among
+    ties)."""
+    x = _acc(logits)
     p = torch.exp(x - x.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     E = p.shape[-1]
     cols = torch.arange(E, device=p.device)
-    ws, ids = [], []
+    left, ids = p.detach(), []
     for _ in range(k):
-        w = p.amax(dim=-1)
-        idx = torch.where(p == w[..., None], cols, E).amin(dim=-1)
-        ws.append(w)
+        best = left.amax(dim=-1)
+        idx = torch.where(left == best[..., None], cols, E).amin(dim=-1)
         ids.append(idx)
-        p = p.masked_fill(cols == idx[..., None], NEG_INF)
-    w = torch.stack(ws, dim=-1)
+        left = left.masked_fill(cols == idx[..., None], NEG_INF)
+    idx = torch.stack(ids, dim=-1)
+    w = p.gather(-1, idx)
     if renormalize:
         w = w / w.sum(dim=-1, keepdim=True)
-    return w, torch.stack(ids, dim=-1).to(torch.int32)
+    return w, idx.to(torch.int32)
+
+
+def moe_router_bwd_ref(logits: torch.Tensor | None, weights: torch.Tensor, idx: torch.Tensor,
+                       dweights: torch.Tensor, *, renormalize: bool = True,
+                       n_experts: int | None = None) -> torch.Tensor:
+    """The gradient (T, E) of ``moe_router_ref``'s logits given the
+    weights' gradient ``dweights`` (T, k), from the maths, not from
+    autograd; the ids (the forward's, so ties stay as it broke them)
+    carry no gradient.  With g = dweights and K a row's chosen ids:
+
+    * ``renormalize``: the weights are the softmax of the chosen logits
+      alone, so dz_j = w_j (g_j - sum_K w_i g_i) on K and 0 elsewhere.
+      Only the shape of ``logits`` is read; it may be None, with
+      ``n_experts`` giving E.
+    * without it: p = softmax(logits) recomputed, and
+      dz_j = p_j ([j in K] g_j - sum_K p_i g_i) for every j."""
+    g = _acc(dweights)
+    ids = idx.long()
+    E = logits.shape[-1] if logits is not None else n_experts
+    if renormalize:
+        w = _acc(weights)
+        s = (w * g).sum(dim=-1, keepdim=True)
+        dz = torch.zeros(g.shape[:-1] + (E,), dtype=g.dtype, device=g.device)
+        return dz.scatter_(-1, ids, w * (g - s))
+    x = _acc(logits)
+    p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    pk = p.gather(-1, ids)
+    s = (pk * g).sum(dim=-1, keepdim=True)
+    return (-p * s).scatter_(-1, ids, pk * (g - s))
 
 
 def path_lookup_ref(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,14 @@ answer a query batch (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --queries 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --queries 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --reduced \
+        --device cpu --queries 2
 
 The LM and the device tier run on ``cuda`` unless ``--device`` says
-otherwise.
+otherwise.  Every family but the encoder-decoder serves, the recurrent
+ones (jamba's mamba slots, xlstm's mLSTM and sLSTM) included; a config
+wider than 512 is served reduced, as the reference does, and
+``--reduced`` asks for that whatever the width.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=4)
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the reduced (CPU-sized) config")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")
     args = ap.parse_args(argv)
@@ -44,7 +51,7 @@ def main(argv=None):
         pipe.ingest(docs[i:i + 16])
 
     cfg = get_config(args.arch)
-    if cfg.d_model > 512:
+    if args.reduced or cfg.d_model > 512:
         cfg = cfg.reduced()
     tok = HashTokenizer(vocab_size=cfg.vocab).fit([d["text"] for d in docs])
     params = M.init_params(cfg, seed=args.seed, device=device)

@@ -5,9 +5,12 @@
 
 Trains on the card (``--device cuda``, the default) through the port's
 backward kernels, or on the CPU with ``--device cpu`` (the plain
-versions; ``--reduced`` for a CPU-sized config).  The reference's
-``--mesh`` comes with the distribution slice; an ``--arch`` of the SSM or
-xLSTM families is refused until their training slice.
+versions; ``--reduced`` for a CPU-sized config).  The attention
+families train, MoE configs included (``--arch dbrx-132b --reduced
+--device cpu``; on the card the router's gradient is the
+``moe_router_bwd`` kernel).  The reference's ``--mesh`` comes with the
+distribution slice; an ``--arch`` of the SSM or xLSTM families is refused
+until their training slice.
 """
 from __future__ import annotations
 

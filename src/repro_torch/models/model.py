@@ -6,8 +6,9 @@ The eval and prefill steps run the full-sequence forward (flash-attention
 kernel on the card) under ``torch.inference_mode()``, for every family
 ``transformer`` runs; the serve step passes ``batch["enc_out"]`` to an
 encoder-decoder's decode step.  The train step runs it under grad mode, so
-on the card the attention and the norms go through their autograd
-Functions and their backward kernels (``kernels.ops``).  Training of the
+on the card the attention, the norms and the MoE router go through their
+autograd Functions and their backward kernels (``kernels.ops``): the
+attention families train, dense and MoE (dbrx, kimi-k2).  Training of the
 SSM and xLSTM families, of the encoder-decoder and of the vision stub
 waits for their training slices: until a test holds their gradients
 against ``jax.value_and_grad``, ``make_train_step`` and ``loss_and_grads``
@@ -136,12 +137,15 @@ def make_serve_step(cfg: ModelConfig):
     """One-token decode over the cache: ``serve_step(params, state, batch)
     -> (next_tok (B,) int32, logits (B, V_pad), state)``, greedy over the
     real vocabulary (the padded ids are masked to -inf).  An
-    encoder-decoder reads the encoder's output from ``batch["enc_out"]``."""
+    encoder-decoder reads the encoder's output from ``batch["enc_out"]``;
+    ``batch["write"]`` (B,) bool, where given, is the lanes whose
+    recurrent states take the step (``transformer.decode_step``)."""
     L.set_fp32_matmul()
 
     def serve_step(params, state, batch):
         logits, state = T.decode_step(params, state, batch["tokens"],
-                                      batch["lengths"], cfg, enc_out=batch.get("enc_out"))
+                                      batch["lengths"], cfg, enc_out=batch.get("enc_out"),
+                                      write=batch.get("write"))
         # mask vocab-padding ids (embed table is padded to a 256 multiple)
         if cfg.padded_vocab != cfg.vocab:
             valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab

@@ -285,10 +285,45 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device) -> dic
     return state
 
 
+def _fill_lanes(dst, init, lanes, stacked: bool) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _fill_lanes(dst[k], init[k], lanes, stacked)
+    elif isinstance(dst, tuple):
+        for d, i in zip(dst, init):
+            _fill_lanes(d, i, lanes, stacked)
+    elif stacked:                        # (n_periods, B, ...) <- (1, ...)
+        dst[:, lanes] = init
+    else:
+        dst[lanes] = init
+
+
+def _lane_init(kind: str, cfg: ModelConfig, st):
+    """One lane's initial state of a block kind, on ``st``'s device (a KV
+    cache as long as ``st``'s)."""
+    first = st["k"] if kind == "attn" else st[0]
+    return _state_init(kind, cfg, 1, first.shape[-2], first.device)
+
+
+def reset_lanes(state: dict, cfg: ModelConfig, lanes: list[int]) -> dict:
+    """Write each block kind's initial decode state (``_BLOCKS[kind][4]``:
+    zeros, and the sLSTM's ``NEG_INF`` stabiliser) into the rows of
+    ``lanes`` of every period, in place; the other lanes keep theirs.  A
+    KV cache's rows are zeroed too (its length masks them anyway)."""
+    for s_idx, kind in enumerate(cfg.block_pattern):
+        st = state[f"slot{s_idx}"]
+        _fill_lanes(st, _lane_init(kind, cfg, st), lanes, True)
+    for cache in state.get("prefix", []):
+        _fill_lanes(cache, _lane_init("attn", cfg, cache), lanes, False)
+    return state
+
+
 def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
-                 cfg: ModelConfig, enc_out=None) -> torch.Tensor:
+                 cfg: ModelConfig, enc_out=None, write=None) -> torch.Tensor:
     """One token through one block; ``state`` (a KV cache, or the views
-    of a recurrent state's period row) is written in place."""
+    of a recurrent state's period row) is written in place.  ``write``
+    (B,) bool: the lanes whose recurrent state takes the step (all when
+    None); a KV cache is written in every lane, at its length."""
     h = L.norm_apply(params["norm1"], x, cfg)
     if kind == "attn":
         o, _ = L.attn_decode(params["attn"], h, state, lengths, cfg)
@@ -296,7 +331,10 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
         name, _, _, decode = _BLOCKS[kind][:4]
         o, new = decode(params[name], h, state, cfg)
         for dst, src in zip(state, new):
-            dst.copy_(src)
+            if write is None:
+                dst.copy_(src)
+            else:
+                dst.copy_(torch.where(write.view((-1,) + (1,) * (src.dim() - 1)), src, dst))
     x = _cross(params, x + o, enc_out, cfg)
     if "norm2" not in params:
         return x
@@ -305,14 +343,21 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
 
 
 def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.Tensor,
-                cfg: ModelConfig, enc_out: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, enc_out: torch.Tensor | None = None,
+                write: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens: (B,) int — the freshly sampled token;
     lengths: (B,) current context lengths; ``enc_out`` (B, Se, D): the
     encoder's output (``_encode``) for an encoder-decoder, whose blocks
     skip their cross-attention without it, as the reference's do.  Returns
     (logits (B, V), state); the caches in ``state`` are written in place at
-    ``lengths``, the recurrent states in place in their period's row."""
+    ``lengths``, the recurrent states in place in their period's row.
+
+    ``write`` (B,) bool, on the state's device: where given, a recurrent
+    state keeps its old value in every lane outside it (``torch.where``,
+    no host read), so a lane that is idle, or another lane's prefill
+    step, leaves it as it was.  A KV cache is written in every lane at its
+    own length, as without a mask: a lane's next real step rewrites that
+    position, and its length masks it until then."""
     x = embed_tokens(params, tokens[:, None], cfg)      # (B, 1, D)
     for p, cache in zip(params.get("prefix", []), state.get("prefix", [])):
         x = _slot_decode("attn", p, x, cache, lengths, cfg, enc_out=enc_out)
@@ -320,7 +365,8 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.
         for s_idx, kind in enumerate(cfg.block_pattern):
             slot = f"slot{s_idx}"
             x = _slot_decode(kind, _index(params["body"][slot], p), x,
-                             _index(state[slot], p), lengths, cfg, enc_out=enc_out)
+                             _index(state[slot], p), lengths, cfg, enc_out=enc_out,
+                             write=write)
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = (x @ _head(params, cfg, x.dtype))[:, 0, :]
     return logits, state

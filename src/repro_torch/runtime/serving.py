@@ -65,20 +65,33 @@ class ServingEngine:
     already live there (``models.model.init_params(..., device=...)`` or
     ``bridge.params_from_jax``).
 
-    A model with a recurrent block kind (mamba, mLSTM, sLSTM) is refused:
-    the reference's ``_prefill`` steps every lane through the decode path
-    for each prompt token and never resets the prefilled lane's state, so
-    a recurrent lane would start from the previous request's state and
-    every other lane's state would advance once per prompt token.  An
-    attention lane is unharmed (its cache is masked by length and the
-    same position is rewritten), so the port keeps the reference's loop
-    for attention models and refuses the others until the loop resets a
-    lane's state and masks the other lanes' writes.
+    Every family but the encoder-decoder is served, the recurrent ones
+    (mamba, mLSTM, sLSTM) included.  The port's prefill differs from the
+    reference's loop, which steps every lane through the decode path for
+    each prompt token and never resets the prefilled lane: a recurrent
+    lane would start from the previous request's state, and every other
+    lane's state would advance once per prompt token (an attention lane is
+    unharmed: its cache is masked by length and the same position is
+    rewritten).  Here ``_prefill`` first writes the lane's initial state
+    (``transformer.reset_lanes``) and each prompt token's step passes a
+    ``write`` mask of that lane alone; a decode step passes the decoding
+    lanes.  A recurrent state outside the mask keeps its value; KV caches
+    keep the reference's rule (every lane writes at its own length, and
+    its next real step rewrites that position).  So a request served in a
+    batch gets the tokens it gets served alone, which is what the
+    reference gives at ``batch_size=1`` with a fresh engine per request.
 
-    An encoder-decoder is refused too: the reference's ``_prefill`` and
-    ``step`` call the serve step with only ``tokens`` and ``lengths``, so
-    its decoder would run without the encoder's output.  internvl2 is
-    served as the reference serves it: text only."""
+    With MoE slots that holds while no expert can overflow its capacity.
+    Under ``moe._capacity`` an expert takes at least 4 tokens a step, and
+    a token takes at most one slot of an expert, so at ``batch_size`` <= 4
+    nothing is ever dropped; above 4 another lane's token may take the
+    slot, exactly as in the reference.
+
+    An encoder-decoder is refused: a request carries text only, so there
+    is no audio to encode into the decoder's ``enc_out`` (the reference's
+    ``_prefill`` and ``step`` never pass one, and its decoder runs
+    without its encoder).  internvl2 is served as the reference serves
+    it: text only."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer: HashTokenizer,
                  store, oracle: Oracle,
@@ -86,17 +99,10 @@ class ServingEngine:
                  batch_size: int = 4, max_len: int = 512,
                  write_batch: int = 8, device=None):
         self.device = resolve_device(device)
-        kinds = T.recurrent_kinds(cfg)
-        if kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: ServingEngine does not serve block kinds {kinds}: the "
-                "reference's per-lane prefill neither resets a recurrent lane's state nor "
-                "keeps the other lanes' states from advancing")
         if cfg.is_encdec:
             raise NotImplementedError(
-                f"{cfg.name}: ServingEngine does not serve an encoder-decoder: the "
-                "reference's _prefill and step never pass enc_out to the serve step, so the "
-                "decoder would run without its encoder")
+                f"{cfg.name}: ServingEngine does not serve an encoder-decoder: a request "
+                "carries no audio, so there is no encoder output (enc_out) for its decoder")
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer
@@ -124,6 +130,10 @@ class ServingEngine:
         # storage phase state per lane: (session generator, t0) or None
         self._nav: list = [None] * batch_size
         self._decoding = [False] * batch_size
+        # the decoding lanes as a (B,) bool on the device, rebuilt after a
+        # change of _decoding; row i of the identity is lane i alone
+        self._write: Optional[torch.Tensor] = None
+        self._lane = torch.eye(batch_size, dtype=torch.bool, device=self.device)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -135,7 +145,7 @@ class ServingEngine:
                 self._nav[i] = (self.nav.session(req.query,
                                                  UnitBudget(req.budget_units)),
                                 time.perf_counter())
-                self._decoding[i] = False
+                self._set_decoding(i, False)
                 # correlation id: the most recently admitted session (the
                 # ctx is global; per-lane attribution rides span args)
                 obs.set_context(session=req.rid)
@@ -162,21 +172,29 @@ class ServingEngine:
         """Prefill the lane with the evidence-conditioned prompt."""
         prompt = f"question: {req.query} evidence: {req.answer}"
         ids = self.tok.encode(prompt)[: self.max_len - req.max_new_tokens - 1]
-        # sequential prefill through the decode path (single-lane writes;
-        # every lane writes its cache at its own length, and only this
+        # sequential prefill through the decode path from the lane's
+        # initial state: only this lane's recurrent states take the steps
+        # (every lane writes its cache at its own length, and only this
         # lane's length advances)
+        T.reset_lanes(self.state, self.cfg, [slot])
+        write = self._lane[slot]
         self.lengths[slot] = 0
         for t in ids:
             toks = self.tokens.clone()
             toks[slot] = t
             _, _, self.state = self._serve(
                 self.params, self.state,
-                {"tokens": toks, "lengths": self.lengths})
+                {"tokens": toks, "lengths": self.lengths, "write": write})
             self.lengths[slot] += 1
         self.tokens[slot] = int(ids[-1]) if ids else 1
         self._remaining[slot] = req.max_new_tokens
         self._gen[slot] = []
-        self._decoding[slot] = True
+        self._set_decoding(slot, True)
+
+    def _set_decoding(self, slot: int, on: bool) -> None:
+        if self._decoding[slot] != on:
+            self._decoding[slot] = on
+            self._write = None
 
     # ------------------------------------------------------------------
     # online writes: enqueue now, ride the next step's planner wave
@@ -246,13 +264,14 @@ class ServingEngine:
         self._step_storage()
         if not any(self._decoding):
             return []
+        if self._write is None:
+            self._write = torch.tensor(self._decoding, dtype=torch.bool, device=self.device)
+        write = self._write
         nxt, _, self.state = self._serve(
             self.params, self.state,
-            {"tokens": self.tokens, "lengths": self.lengths})
+            {"tokens": self.tokens, "lengths": self.lengths, "write": write})
         self.tokens = nxt
-        self.lengths += torch.tensor(
-            [1 if self._decoding[i] else 0 for i in range(self.batch_size)],
-            dtype=torch.int32).to(self.device)
+        self.lengths += write.int()
         # the one device read of the step: next tokens and lengths together
         nxt_host, len_host = torch.stack([nxt, self.lengths]).cpu().tolist()
         done: list[Request] = []
@@ -270,7 +289,7 @@ class ServingEngine:
                 req.done = True
                 done.append(req)
                 self.slots[i] = None
-                self._decoding[i] = False
+                self._set_decoding(i, False)
         return done
 
     # ------------------------------------------------------------------

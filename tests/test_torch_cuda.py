@@ -1,7 +1,9 @@
 """On the card only: each of the port's CUDA kernels against its
 plain PyTorch version, at small shapes and at the main path's (the
-backward kernels of the training path too, and the router's train step
-against the CPU's), and the
+backward kernels of the training path too, and the router's and a
+reduced dbrx's train step against the CPU's), reduced jamba and xlstm
+through the ServingEngine against the CPU and batched against alone,
+and the
 durable tier under a DeviceEngine on the card (rehydration after a
 crash, and reader threads on streams of their own against a committing
 writer).  This file imports neither JAX nor the JAX package, so it runs
@@ -1006,31 +1008,211 @@ def test_cuda_rmsnorm_bwd_on_two_streams_at_once(cuda):
 
 @pytest.mark.cuda
 def test_cuda_kernels_without_a_backward_raise_under_grad(cuda):
-    """decode_attention and moe_router have no backward kernel: with an
-    input that requires grad under grad mode they raise, naming it; under
-    no_grad they launch as for serving.  The kernel wrappers of flash and
-    rmsnorm refuse such an input too (ops routes it through the Function)."""
+    """decode_attention has no backward kernel: with an input that
+    requires grad under grad mode it raises, naming it; under no_grad it
+    launches as for serving.  The kernel wrappers of flash, rmsnorm and
+    moe_router refuse such an input too (ops routes it through the
+    Function)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import rmsnorm as rn
     q = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
     kc = torch.randn(2, 2, 32, 64, device=cuda)
     ln = torch.tensor([5, 32], dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="decode_attention has no backward"):
         ops.decode_attention(q, kc, kc, ln)
-    logits = torch.randn(16, 8, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="moe_router has no backward"):
-        ops.moe_router(logits, 2)
     with torch.no_grad():
         assert ops.decode_attention(q, kc, kc, ln).shape == (2, 4, 64)
-        assert ops.moe_router(logits, 2)[0].shape == (16, 2)
     x = torch.randn(4, 1, 8, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="requires grad"):
         fa.flash_attention(x, x, x)
     with pytest.raises(RuntimeError, match="requires grad"):
         rn.rmsnorm(x)
+    logits = torch.randn(16, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad; call kernels.ops"):
+        mr.moe_router(logits, 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        w = torch.rand(16, 2, device=cuda, requires_grad=True)
+        mr.moe_router_bwd(None, w, torch.zeros(16, 2, dtype=torch.int32, device=cuda),
+                          torch.ones(16, 2, device=cuda), n_experts=8)
     # through ops the Functions carry the gradient
     y = ops.attention(x, x, x)
     assert y.grad_fn is not None and ops.rmsnorm(x, None).grad_fn is not None
+    assert ops.moe_router(logits, 2)[0].grad_fn is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renormalize", [True, False])
+def test_cuda_moe_router_under_grad_runs_both_kernels(cuda, renormalize):
+    """Under grad ``ops.moe_router`` on the card is the Function: one
+    moe_router launch forward, one moe_router_bwd launch backward, the
+    weights and the logits' gradient equal to the plain versions' (and to
+    autograd of the plain forward), the ids carrying no gradient, and no
+    plain version run."""
+    g = torch.Generator().manual_seed(4)
+    for T, E, k in ((4096, 16, 4), (37, 384, 8), (5, 16, 2)):
+        x = (torch.randn(T, E, generator=g) * 2).to(cuda).requires_grad_(True)
+        dw = torch.randn(T, k, generator=g).to(cuda)
+        ops.reset_launches()
+        w, idx = ops.moe_router(x, k, renormalize=renormalize)
+        (dz,) = torch.autograd.grad(w, x, dw)
+        assert dict(ops.LAUNCHES) == {**dict.fromkeys(ops.LAUNCHES, 0), "moe_router": 1,
+                                      "moe_router_bwd": 1}
+        assert not idx.requires_grad
+        xp = x.detach().clone().requires_grad_(True)
+        pw, pidx = ref.moe_router_ref(xp, k, renormalize=renormalize)
+        assert torch.equal(idx, pidx)
+        torch.testing.assert_close(w.detach(), pw.detach(), atol=1e-6, rtol=0)
+        (want,) = torch.autograd.grad(pw, xp, dw)
+        plain = ref.moe_router_bwd_ref(x.detach(), w.detach(), idx, dw,
+                                       renormalize=renormalize)
+        torch.testing.assert_close(dz, plain, atol=3e-5, rtol=3e-5)
+        torch.testing.assert_close(dz, want, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renormalize", [True, False])
+def test_cuda_moe_router_bwd_matches_plain_in_a_captured_graph(cuda, renormalize):
+    """moe_router_bwd at odd T, k in {1, 4, 16}, E up to 384, on normal,
+    tie-laden and all-equal logits (the forward's ids, so ties stay as it
+    broke them), against its plain version; three calls captured in a
+    CUDA graph make three kernel nodes and no other node, and the replay
+    gives the same gradient."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import moe_router as mr
+    g = torch.Generator().manual_seed(5)
+    for T, E, k in ((1, 16, 1), (3, 16, 4), (33, 17, 16), (4099, 16, 4), (257, 384, 16),
+                    (7, 384, 1), (4, 4, 4)):
+        x = torch.randn(T, E, generator=g) * 2
+        for logits in (x, torch.round(x * 2) / 2, torch.zeros_like(x)):
+            logits = logits.to(cuda)
+            w, idx = mr.moe_router(logits, k, renormalize=renormalize)
+            dw = torch.randn(T, k, generator=g).to(cuda)
+            lg = None if renormalize else logits
+            n0 = ops.LAUNCHES["moe_router_bwd"]
+            got = mr.moe_router_bwd(lg, w, idx, dw, renormalize=renormalize, n_experts=E)
+            assert ops.LAUNCHES["moe_router_bwd"] == n0 + 1
+            want = ref.moe_router_bwd_ref(logits, w, idx, dw, renormalize=renormalize)
+            assert got.shape == (T, E) and got.dtype == torch.float32
+            torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            outs = [mr.moe_router_bwd(lg, w, idx, dw, renormalize=renormalize, n_experts=E)
+                    for _ in range(3)]
+        assert build.graph_nodes(graph) == (3, 3)
+        graph.instantiate()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, got)
+    with pytest.raises(ValueError):                      # k > 32
+        mr.moe_router_bwd(None, torch.rand(2, 33, device=cuda),
+                          torch.zeros(2, 33, dtype=torch.int32, device=cuda),
+                          torch.rand(2, 33, device=cuda), n_experts=64)
+    with pytest.raises(ValueError):                      # no logits without renormalize
+        mr.moe_router_bwd(None, w, idx, dw, renormalize=False, n_experts=E)
+
+
+def _serve_tokens(eng, requests):
+    """{rid: generated token ids} of ``requests`` run through ``eng``."""
+    out, step = {}, eng.step
+
+    def logged_step():
+        lanes = {id(r): i for i, r in enumerate(eng.slots) if r is not None}
+        done = step()
+        for r in done:
+            out[r.rid] = list(eng._gen[lanes[id(r)]])
+        return done
+    eng.step = logged_step
+    eng.run(requests)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_cuda_recurrent_serving_engine_matches_cpu(cuda, arch):
+    """Reduced jamba and xlstm in f32 through the ServingEngine over a
+    DeviceEngine on the card, B = 4 over 6 requests: each request's tokens
+    equal the CPU run's, and the card's B = 1 runs on a fresh engine
+    each; the decode steps launched the model's kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import DeviceEngine
+    from repro_torch.core.oracle import HeuristicOracle
+    from repro_torch.core.pipeline import ConstructionPipeline, PipelineConfig
+    from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serving import Request, ServingEngine
+    docs, qs = generate_authtrace(AuthTraceConfig(n_docs=48, n_questions=6, seed=5))
+    pipe = ConstructionPipeline(PipelineConfig(), HeuristicOracle())
+    pipe.bootstrap(docs)
+    for i in range(0, len(docs), 16):
+        pipe.ingest(docs[i:i + 16])
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=2, device="cpu")
+    card = M._to(params, cuda)
+    tok = HashTokenizer(vocab_size=cfg.vocab).fit([d["text"] for d in docs])
+    dev_eng = DeviceEngine.from_store(pipe.store, device=cuda)
+
+    def reqs():
+        return [Request(rid=f"q{i}", query=q.text, max_new_tokens=4) for i, q in enumerate(qs)]
+
+    def serve(p, store, batch, device, rs):
+        return _serve_tokens(ServingEngine(cfg, p, tok, store, HeuristicOracle(),
+                                           batch_size=batch, max_len=48, device=device), rs)
+    ops.reset_launches()
+    on_card = serve(card, dev_eng, 4, cuda, reqs())
+    assert ops.LAUNCHES["rmsnorm"] > 0 and ops.LAUNCHES["path_lookup"] > 0
+    assert (ops.LAUNCHES["moe_router"] > 0) == (cfg.moe is not None)
+    on_cpu = serve(params, pipe.store, 4, "cpu", reqs())
+    alone = {}
+    for r in reqs():
+        alone.update(serve(card, dev_eng, 1, cuda, [r]))
+    assert len(on_card) == 6 and all(len(t) == 4 for t in on_card.values())
+    assert on_card == on_cpu
+    assert alone == on_card
+
+
+@pytest.mark.cuda
+def test_cuda_dbrx_train_step_matches_cpu(cuda):
+    """A reduced f32 dbrx (MoE in every layer): the loss and every
+    gradient on the card (flash, rmsnorm and moe_router Functions: one
+    moe_router_bwd per layer) against the CPU's autograd of the plain
+    versions, within 1e-4 relative to each leaf's largest gradient, the
+    router's included; then 3 train steps, parameters within 3 lr."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+    cfg = get_config("dbrx-132b").reduced(n_layers=3, d_model=128, vocab=1000)
+    params = M.init_params(cfg, seed=5, device="cpu")
+    card = M._to(params, cuda)
+    rs = np.random.RandomState(5)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, 77)).astype(np.int32))
+        labels = torch.roll(toks, -1, dims=1)
+        labels[:, -1] = -1
+        batches.append({"tokens": toks, "labels": labels})
+    ops.reset_launches()
+    loss, grads = M.loss_and_grads(card, {k: v.to(cuda) for k, v in batches[0].items()}, cfg)
+    assert ops.LAUNCHES["moe_router"] == ops.LAUNCHES["moe_router_bwd"] == cfg.n_layers
+    assert ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    want_loss, want = M.loss_and_grads(params, batches[0], cfg)
+    torch.testing.assert_close(loss.cpu(), want_loss, atol=3e-5, rtol=3e-5)
+    assert float(grads["body"]["slot0"]["moe"]["router"].abs().max()) > 0
+    for g, w in zip(leaves(grads), leaves(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = M.make_train_step(cfg, opt_cfg, total_steps=10)
+    cp, cs, hp, hs = card, adamw_init(card, opt_cfg), params, adamw_init(params, opt_cfg)
+    for b in batches:
+        cp, cs, caux = step(cp, cs, {k: v.to(cuda) for k, v in b.items()})
+        hp, hs, haux = step(hp, hs, b)
+        torch.testing.assert_close(caux["loss"].cpu(), haux["loss"], atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves(cp), leaves(hp)):
+        torch.testing.assert_close(a.cpu(), b, atol=3e-3, rtol=0)
 
 
 @pytest.mark.cuda

@@ -492,9 +492,10 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     # a backward through the CPU dispatch is autograd of the plain versions
     x = torch.randn(1, 2, 5, 16, requires_grad=True)
     ops.rmsnorm(ops.attention(x, x[:, :1], x[:, :1]), torch.ones(16)).sum().backward()
+    ops.moe_router(torch.randn(6, 16, requires_grad=True), 4)[0].sum().backward()
     assert ops.LAUNCHES == {"path_lookup": 0, "prefix_search": 0, "decode_attention": 0,
                             "flash_attention": 0, "rmsnorm": 0, "moe_router": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_router_bwd": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,12 @@ reduced xlstm-350m (mLSTM and sLSTM slots), parameters bridged from JAX
 ``init_params``, the same numpy tokens in both: ``forward``, ``loss_fn``,
 the prefill, eval and serve facades, the decode state after 8 steps, and
 teacher-forced decode against the prefill (tests/test_models.py's test,
-on the port).  Then what the port refuses for these families (training,
-the ServingEngine) and the reference's serving fault that the refusal
-keeps away from the port's users.
+on the port).  Then what the port refuses for these families (training),
+and the ServingEngine: a request served at B = 4 gets the tokens the
+reference gives it alone at batch_size = 1 (its prefill, which steps
+every lane and never resets one, is right only there), a prefill leaves
+the other lanes as they were, ``reset_lanes`` writes each kind's init,
+and the reference's fault with its own engine.
 
 Tolerances.  jamba in float32 within the 3e-5 of tests/test_kernels.py.
 xlstm's 16 layers amplify rounding: each block, given the same input,
@@ -55,8 +58,10 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models import xlstm as X  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
-from repro_torch.runtime.serving import ServingEngine  # noqa: E402
+from repro_torch.runtime.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.tree import leaves, map_like  # noqa: E402
 
 ARCHS = ["jamba-v0.1-52b", "xlstm-350m"]
 F32 = {"jamba-v0.1-52b": dict(atol=3e-5, rtol=3e-5),
@@ -271,21 +276,172 @@ def _store(path_store, kv, dir_record):
     return store
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_serving_engine_refuses_recurrent_kinds(arch):
-    """The port's ServingEngine refuses these families (the reference's
-    per-lane prefill fault below); the decode facades serve them."""
-    _, cfg = _cfgs(arch)
-    params = M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="prefill"):
-        ServingEngine(cfg, params, HashTokenizer(vocab_size=cfg.vocab).fit(["x"]),
-                      _store(PathStore, MemKV, R.DirRecord), HeuristicOracle(), batch_size=2,
-                      max_len=32, device="cpu")
-    router = get_config("wikikv-router").reduced()
-    ServingEngine(router, M.init_params(router, device="cpu"),
-                  HashTokenizer(vocab_size=router.vocab).fit(["x"]),
-                  _store(PathStore, MemKV, R.DirRecord), HeuristicOracle(), batch_size=2,
-                  max_len=32, device="cpu")
+# ---------------------------------------------------------------------------
+# the ServingEngine: a request served in a batch gets the tokens it gets
+# served alone
+# ---------------------------------------------------------------------------
+SERVE_ARCHS = ["jamba-v0.1-52b", "xlstm-350m", "wikikv-router"]
+N_REQUESTS, NEW_TOKENS, MAX_LEN = 6, 4, 48
+
+
+@pytest.fixture(scope="module")
+def wikis():
+    """The AuthTrace wiki built by each package's pipeline (one store
+    each, read only by the engines below), and the questions."""
+    from repro.core.pipeline import ConstructionPipeline as JPipe
+    from repro.core.pipeline import PipelineConfig as JPipeCfg
+    from repro.data.corpus import AuthTraceConfig as JCorpusCfg
+    from repro.data.corpus import generate_authtrace as jgenerate
+    from repro_torch.core.pipeline import ConstructionPipeline, PipelineConfig
+    from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
+    jdocs, jqs = jgenerate(JCorpusCfg(n_docs=48, n_questions=N_REQUESTS, seed=5))
+    docs, qs = generate_authtrace(AuthTraceConfig(n_docs=48, n_questions=N_REQUESTS, seed=5))
+    out = []
+    for pipe, d in ((JPipe(JPipeCfg(), JOracle()), jdocs),
+                    (ConstructionPipeline(PipelineConfig(), HeuristicOracle()), docs)):
+        pipe.writer.clock = lambda: 0.0
+        pipe.bootstrap(d)
+        for i in range(0, len(d), 16):
+            pipe.ingest(d[i:i + 16])
+        out.append(pipe.store)
+    assert [q.text for q in jqs] == [q.text for q in qs]
+    return out[0], out[1], [d["text"] for d in docs], [q.text for q in qs]
+
+
+def _serve_logged(eng, requests):
+    """Run ``requests`` through ``eng`` (either package's engine); returns
+    {rid: (generated token ids, answer)}."""
+    out, step = {}, eng.step
+
+    def logged_step():
+        lanes = {id(r): i for i, r in enumerate(eng.slots) if r is not None}
+        done = step()
+        for r in done:
+            out[r.rid] = ([int(t) for t in eng._gen[lanes[id(r)]]], r.answer)
+        return done
+    eng.step = logged_step
+    eng.run(requests)
+    return out
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_engine_batch_equals_alone(arch, wikis):
+    """The port's ServingEngine at B = 4 over 6 requests gives each request
+    the tokens the reference's gives it at batch_size = 1 with a fresh
+    engine per request (the one setting where the reference's prefill is
+    right: the lane starts at its init and no other lane exists), and the
+    tokens the port gives it alone at B = 1; f32, tokens exact.  Lanes
+    are reused, so a prefill starts from the previous request's state
+    unless it resets the lane, and every prompt token steps the other
+    lanes unless the write mask holds them."""
+    jstore, store, texts, queries = wikis
+    cfg_j, cfg = (jget_config(arch).reduced(), get_config(arch).reduced())
+    jparams = JM.init_params(cfg_j, seed=2)
+    params = _bridge(jparams)
+    jtok = JTok(vocab_size=cfg.vocab).fit(texts)
+    tok = HashTokenizer(vocab_size=cfg.vocab).fit(texts)
+
+    def requests(make):
+        return [make(rid=f"q{i}", query=q, max_new_tokens=NEW_TOKENS)
+                for i, q in enumerate(queries)]
+
+    def port(batch, reqs):
+        return _serve_logged(ServingEngine(cfg, params, tok, store, HeuristicOracle(),
+                                           batch_size=batch, max_len=MAX_LEN, device="cpu"),
+                             reqs)
+    batched = port(4, requests(Request))
+    alone, ref, jserve = {}, {}, None
+    for r, jr in zip(requests(Request), requests(JRequest)):
+        alone.update(port(1, [r]))
+        eng = JServing(cfg_j, jparams, jtok, jstore, JOracle(), batch_size=1, max_len=MAX_LEN)
+        if jserve is None:
+            jserve = eng._serve
+        eng._serve = jserve                    # one compiled step for every fresh engine
+        ref.update(_serve_logged(eng, [jr]))
+    assert len(batched) == len(alone) == len(ref) == N_REQUESTS
+    assert all(len(toks) == NEW_TOKENS for toks, _ in ref.values())
+    assert batched == ref
+    assert alone == ref
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_prefill_leaves_other_lanes_unmoved(arch):
+    """The port's counterpart of the reference's fault below, through the
+    port's own ServingEngine: lane 1 decodes 3 steps, then ``_prefill``
+    steps lane 0 through its prompt; lane 1's next logits are the ones it
+    had before, to the bit, and lane 0 starts from its initial state."""
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    eng = ServingEngine(cfg, params, HashTokenizer(vocab_size=cfg.vocab).fit(["x"]),
+                        _store(PathStore, MemKV, R.DirRecord), HeuristicOracle(), batch_size=2,
+                        max_len=64, device="cpu")
+    toks = torch.tensor([0, 11], dtype=torch.int32)
+    lane1 = torch.tensor([False, True])
+    for t in range(3):                                 # lane 1 decodes, lane 0 idle
+        nxt, _, eng.state = eng._serve(params, eng.state, {
+            "tokens": toks, "lengths": torch.tensor([0, t], dtype=torch.int32),
+            "write": lane1})
+        toks[1] = nxt[1]
+    eng.tokens, eng.lengths = toks.clone(), torch.tensor([0, 3], dtype=torch.int32)
+
+    def next_logits():                                 # on a copy: the state is written in place
+        state = map_like(torch.clone, eng.state)
+        return eng._serve(params, state, {"tokens": toks, "lengths": torch.tensor(
+            [0, 3], dtype=torch.int32), "write": lane1})[1]
+    before = next_logits()
+    req = Request(rid="r0", query="where is the wiki root", max_new_tokens=4)
+    req.answer = "the root lies at slash"
+    eng._prefill(0, req)
+    assert int(eng.lengths[1]) == 3 and int(eng.tokens[1]) == int(toks[1])
+    after = next_logits()
+    moved = float((after[1] - before[1]).abs().max())
+    print(f"{arch}: lane 1's next logits moved by {moved}")
+    assert moved == 0.0
+    # lane 0 prefilled from its init: the same prompt on a fresh engine at
+    # B = 1 (another batch size rounds the products in another order)
+    alone = ServingEngine(cfg, params, eng.tok, eng.engine, HeuristicOracle(), batch_size=1,
+                          max_len=64, device="cpu")
+    alone._prefill(0, req)
+    step = {"tokens": eng.tokens[:1], "lengths": eng.lengths[:1]}
+    got = eng._serve(params, map_like(torch.clone, eng.state), {
+        "tokens": eng.tokens, "lengths": eng.lengths, "write": torch.tensor([True, False])})[1]
+    want = alone._serve(params, alone.state, step)[1]
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(),
+                               **F32.get(arch, dict(atol=3e-5, rtol=3e-5)))
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m", "kimi-k2-1t-a32b"])
+def test_reset_lanes_writes_each_kinds_init(arch):
+    """``reset_lanes`` writes each block kind's initial state into the
+    chosen lanes of every period (the dense prefix's caches too), the
+    sLSTM's stabiliser plane at NEG_INF, and leaves the other lanes."""
+    cfg = get_config(arch).reduced()
+    B, S = 3, 16
+    state = T.init_decode_state(cfg, B, S, "cpu")
+    fresh = T.init_decode_state(cfg, B, S, "cpu")
+    g = torch.Generator().manual_seed(0)
+    for leaf in leaves(state):
+        leaf.copy_(torch.randn(leaf.shape, generator=g).to(leaf.dtype))
+    dirty = map_like(torch.clone, state)
+    assert T.reset_lanes(state, cfg, [0, 2]) is state
+    pairs = []
+    for s_idx, _ in enumerate(cfg.block_pattern):
+        slot = f"slot{s_idx}"
+        pairs += zip(leaves(state[slot]), leaves(fresh[slot]), leaves(dirty[slot]),
+                     [True] * len(leaves(state[slot])))
+    for c, f, d in zip(state.get("prefix", []), fresh.get("prefix", []),
+                       dirty.get("prefix", [])):
+        pairs += zip(leaves(c), leaves(f), leaves(d), [False] * len(leaves(c)))
+    assert len(pairs) == len(leaves(state))
+    for got, init, before, stacked in pairs:
+        lane = (lambda t, i: t[:, i]) if stacked else (lambda t, i: t[i])
+        for i in (0, 2):
+            assert torch.equal(lane(got, i), lane(init, i))
+        assert torch.equal(lane(got, 1), lane(before, 1))
+    if "slstm" in cfg.block_pattern:
+        m = state[f"slot{cfg.block_pattern.index('slstm')}"][3]
+        assert bool((m[:, [0, 2]] == X.NEG_INF).all()) and X.NEG_INF < -1e29
+        assert not bool((m[:, 1] == X.NEG_INF).any())
 
 
 @pytest.mark.parametrize("arch,moves", [("xlstm-350m", True), ("jamba-v0.1-52b", True),

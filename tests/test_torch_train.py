@@ -1,16 +1,22 @@
 """The port's training path against the JAX package's.
 
-* ``make_train_step`` on reduced wikikv-router and reduced qwen3 (qk-norm)
-  in f32, parameters bridged from JAX ``init_params``: the loss and every
-  gradient leaf against ``jax.value_and_grad(T.loss_fn)``, and the
-  parameters after 3 steps against JAX's ``make_train_step``;
+* ``make_train_step`` on reduced wikikv-router and reduced qwen3 (qk-norm),
+  reduced dbrx-132b and kimi-k2 (MoE; kimi with a dense prefix layer and
+  a shared expert) and dbrx at a capacity that drops assignments, in f32,
+  parameters bridged from JAX ``init_params``: the loss and every
+  gradient leaf (the router's included) against
+  ``jax.value_and_grad(T.loss_fn)``, and the parameters after 3 steps
+  against JAX's ``make_train_step``;
 * a bf16 step (bf16 parameters and activations);
 * the plain backward versions (``ref.attention_bwd_ref``,
-  ``ref.rmsnorm_bwd_ref``) against torch autograd of the plain forwards
-  and against ``jax.vjp`` of ``repro.kernels.ref``;
+  ``ref.rmsnorm_bwd_ref``, ``ref.moe_router_bwd_ref`` at both
+  ``renormalize`` settings and with ties) against torch autograd of the
+  plain forwards and against ``jax.vjp`` of ``repro.kernels.ref``; a
+  dropped assignment's gate gets a gradient of 0 in both packages;
 * the autograd Functions of ``kernels.ops`` with their kernel entry
   points pointed at the plain versions (the CUDA kernels have no CPU
-  mode), through ``torch.autograd.gradcheck`` in f64;
+  mode), through ``torch.autograd.gradcheck`` in f64, and dbrx's loss
+  through them against the CPU path;
 * the crash-restart of ``tests/test_checkpoint_runtime.py``, and
   ``launch.train --device cpu --reduced``.
 
@@ -23,6 +29,7 @@ take either sign in the two packages.  bf16: the packages round matmul
 and norm outputs to bf16 at different places, so a bf16 loss agrees to
 2e-2 relative (tests/test_kernels.py's bf16 tolerance) and a bf16
 gradient is held, in the mean, to 5% of the leaf's mean gradient."""
+import dataclasses
 import math
 
 import jax
@@ -35,6 +42,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.models import moe as JMoE  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
 from repro.optim.adamw import adamw_init as j_adamw_init  # noqa: E402
@@ -44,6 +52,7 @@ from repro_torch.data.pipeline import DataPipeline  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MoE  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
@@ -75,14 +84,22 @@ def _grads_close(got, want, rel):
                                    atol=max(TOL["atol"], rel * float(np.abs(w).max())))
 
 
-@pytest.mark.parametrize("arch,overrides", [
-    ("wikikv-router", {}),
-    ("qwen3-1.7b", dict(d_model=64, n_heads=4, n_kv_heads=2, d_head=16, n_layers=2)),
-])
-def test_train_step_matches_jax(arch, overrides):
-    cfg_j = jget_config(arch).reduced(**overrides)
-    cfg = get_config(arch).reduced(**overrides)
-    assert cfg.qk_norm
+def _with_cf(cfg, cf):
+    return cfg if cf is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+@pytest.mark.parametrize("arch,overrides,cf", [
+    ("wikikv-router", {}, None),
+    ("qwen3-1.7b", dict(d_model=64, n_heads=4, n_kv_heads=2, d_head=16, n_layers=2), None),
+    ("dbrx-132b", {}, None),
+    ("kimi-k2-1t-a32b", {}, None),                  # a dense prefix layer and a shared expert
+    ("dbrx-132b", {}, 0.25),                        # capacity 6 of ~24 a expert: drops
+], ids=["router", "qwen3", "dbrx", "kimi-k2", "dbrx-drops"])
+def test_train_step_matches_jax(arch, overrides, cf):
+    cfg_j = _with_cf(jget_config(arch).reduced(**overrides), cf)
+    cfg = _with_cf(get_config(arch).reduced(**overrides), cf)
+    assert cfg.qk_norm or cfg.moe is not None       # the dense cases run qk-norm
     jparams = JM.init_params(cfg_j, seed=1)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     jb, tb = _batch(cfg, 2, 24, seed=2)
@@ -207,6 +224,50 @@ def test_rmsnorm_bwd_ref_matches_autograd_and_jax_vjp(shape, scaled):
     np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **TOL)
 
 
+ROUTER_CASES = [  # (T, E, k, ties)
+    (9, 4, 2, False), (33, 16, 4, False), (7, 384, 8, False), (12, 16, 4, True),
+    (5, 6, 1, True), (4, 8, 8, True)]
+
+
+def _router_logits(T, E, ties, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((T, E)).astype(np.float32) * 2
+    if ties:                    # a grid of 0.5, and one row all equal
+        x = np.round(x * 2) / 2
+        x[0] = 0.25
+    return x
+
+
+@pytest.mark.parametrize("renormalize", [True, False])
+@pytest.mark.parametrize("case", ROUTER_CASES, ids=str)
+def test_moe_router_bwd_ref_matches_autograd_and_jax_vjp(case, renormalize):
+    """The explicit formula against torch autograd of the plain forward
+    and ``jax.vjp`` of the reference router; with ties the gradient goes
+    to the ids the forward chose (the lowest of equal probabilities), in
+    all three."""
+    T, E, k, ties = case
+    xn = _router_logits(T, E, ties, seed=T + E + k)
+    gn = np.random.RandomState(k).standard_normal((T, k)).astype(np.float32)
+    x = torch.from_numpy(xn).requires_grad_(True)
+    w, idx = ref.moe_router_ref(x, k, renormalize=renormalize)
+    want = torch.autograd.grad(w, x, torch.from_numpy(gn))[0]
+    got = ref.moe_router_bwd_ref(x.detach(), w.detach(), idx, torch.from_numpy(gn),
+                                 renormalize=renormalize)
+    (jw, jidx), vjp = jax.vjp(lambda z: jref.moe_router_ref(z, k, renormalize=renormalize),
+                              jnp.asarray(xn))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    jgot = vjp((jnp.asarray(gn), np.zeros((T, k), jax.dtypes.float0)))[0]
+    assert got.dtype == torch.float32 and got.shape == (T, E)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), **TOL)
+    if renormalize:             # only the chosen logits get a gradient
+        off = torch.ones(T, E, dtype=torch.bool).scatter_(1, idx.long(), False)
+        assert bool((got[off] == 0).all())
+        np.testing.assert_array_equal(
+            ref.moe_router_bwd_ref(None, w.detach(), idx, torch.from_numpy(gn),
+                                   n_experts=E).numpy(), got.numpy())
+
+
 def test_bwd_refs_cast_as_the_plain_versions_do():
     x = torch.randn(4, 64).to(torch.bfloat16)
     s = torch.randn(64)
@@ -228,7 +289,7 @@ def test_bwd_refs_cast_as_the_plain_versions_do():
 def functions_on_plain(monkeypatch):
     """ops as it runs on the card, its kernel entry points replaced by
     the plain versions; the launches are counted per entry point."""
-    calls = {"fwd": 0, "bwd": 0, "rms": 0, "rms_bwd": 0}
+    calls = {"fwd": 0, "bwd": 0, "rms": 0, "rms_bwd": 0, "router": 0, "router_bwd": 0}
 
     def flash(q, k, v, *, causal, sm_scale, with_lse=False):
         calls["fwd"] += 1
@@ -251,6 +312,17 @@ def functions_on_plain(monkeypatch):
     monkeypatch.setattr(ops, "_flash_bwd_kernel", flash_bwd)
     monkeypatch.setattr(ops, "_rmsnorm_kernel", rms)
     monkeypatch.setattr(ops, "_rmsnorm_bwd_kernel", rms_bwd)
+
+    def router(logits, k, *, renormalize):
+        calls["router"] += 1
+        return ref.moe_router_ref(logits, k, renormalize=renormalize)
+
+    def router_bwd(logits, w, idx, dw, *, renormalize, n_experts):
+        calls["router_bwd"] += 1
+        return ref.moe_router_bwd_ref(logits, w, idx, dw, renormalize=renormalize,
+                                      n_experts=n_experts)
+    monkeypatch.setattr(ops, "_router_kernel", router)
+    monkeypatch.setattr(ops, "_router_bwd_kernel", router_bwd)
     return calls
 
 
@@ -288,6 +360,57 @@ def test_rmsnorm_function_gradcheck(functions_on_plain, scaled):
         assert functions_on_plain["rms_bwd"] == n + 1 and s.grad is not None
 
 
+@pytest.mark.parametrize("renormalize", [True, False])
+def test_moe_router_function_gradcheck(functions_on_plain, renormalize):
+    """``ops.moe_router`` under grad on the card's path: the Function, its
+    forward the kernel, its backward ``moe_router_bwd`` (both pointed at
+    the plain versions), the ids non-differentiable."""
+    x = torch.from_numpy(_router_logits(6, 8, False, seed=1).astype(np.float64))
+    x.requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda z: ops.moe_router(z, 3, renormalize=renormalize)[0], (x,))
+    assert functions_on_plain["router"] > 0 and functions_on_plain["router_bwd"] > 0
+    w, idx = ops.moe_router(x, 3, renormalize=renormalize)
+    assert type(w.grad_fn).__name__ == "_MoERouterBackward" and not idx.requires_grad
+    with torch.no_grad():       # inference: the kernel as it is, no Function
+        assert ops.moe_router(x, 3)[0].grad_fn is None
+
+
+def test_dropped_assignment_gate_gets_no_gradient():
+    """The capacity dispatch in both packages at capacity 4 over 16
+    tokens' 32 assignments to 4 experts: the gate of every dropped
+    assignment gets a gradient of exactly 0, every kept one its share,
+    equal across the packages."""
+    rs = np.random.RandomState(3)
+    T, D, E, F, k, cap = 16, 8, 4, 6, 2, 4
+    xn = rs.standard_normal((T, D)).astype(np.float32)
+    en = rs.randint(0, E, size=T * k).astype(np.int32)
+    wn = rs.uniform(0.1, 1.0, size=T * k).astype(np.float32)
+    tn = np.repeat(np.arange(T, dtype=np.int32), k)
+    ws = [rs.standard_normal(s).astype(np.float32) for s in ((E, D, F), (E, D, F), (E, F, D))]
+    rn = rs.standard_normal((T, D)).astype(np.float32)
+
+    def jloss(w):
+        out = JMoE._dispatch_ffn(jnp.asarray(xn), jnp.asarray(en), jnp.asarray(tn), w, E, cap,
+                                 *map(jnp.asarray, ws))
+        return jnp.sum(out * rn)
+    jg = np.asarray(jax.grad(jloss)(jnp.asarray(wn)))
+    w = torch.from_numpy(wn).requires_grad_(True)
+    out = MoE._dispatch_ffn(torch.from_numpy(xn), torch.from_numpy(en), torch.from_numpy(tn), w,
+                            E, cap, *map(torch.from_numpy, ws))
+    (g,) = torch.autograd.grad((out * torch.from_numpy(rn)).sum(), w)
+    # kept: the first `cap` assignments of each expert in (stable) order
+    seen = np.zeros(E, np.int64)
+    kept = np.zeros(T * k, bool)
+    for a in np.argsort(en, kind="stable"):
+        kept[a] = seen[en[a]] < cap
+        seen[en[a]] += 1
+    assert 0 < kept.sum() < T * k
+    assert (g.numpy()[~kept] == 0).all() and (jg[~kept] == 0).all()
+    assert (np.abs(g.numpy()[kept]) > 0).all()
+    np.testing.assert_allclose(g.numpy(), jg, **TOL)
+
+
 def test_train_step_through_the_functions_matches_cpu_autograd(functions_on_plain):
     """The whole loss through the Functions (the card's path, plain
     versions inside) gives the CPU path's gradients: every weight behind
@@ -304,6 +427,24 @@ def test_train_step_through_the_functions_matches_cpu_autograd(functions_on_plai
     np.testing.assert_allclose(float(loss_f), float(loss_c), **TOL)
     for a, b in zip(leaves(grads_f), leaves(grads_c)):
         assert float(a.abs().max()) > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+def test_moe_train_step_through_the_functions_matches_cpu_autograd(functions_on_plain):
+    """dbrx reduced through the Functions (the card's path, plain versions
+    inside): one router forward and one ``moe_router_bwd`` per MoE layer,
+    and the CPU path's gradients, the router's included."""
+    cfg = get_config("dbrx-132b").reduced()
+    params = M.init_params(cfg, seed=3, device="cpu")
+    _, tb = _batch(cfg, 2, 16, seed=6)
+    loss_f, grads_f = M.loss_and_grads(params, tb, cfg)
+    assert functions_on_plain["router"] == functions_on_plain["router_bwd"] == cfg.n_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "_on_cpu", lambda t: True)
+        loss_c, grads_c = M.loss_and_grads(params, tb, cfg)
+    np.testing.assert_allclose(float(loss_f), float(loss_c), **TOL)
+    assert float(grads_f["body"]["slot0"]["moe"]["router"].abs().max()) > 0
+    for a, b in zip(leaves(grads_f), leaves(grads_c)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
