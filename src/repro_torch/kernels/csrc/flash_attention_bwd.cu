@@ -8,7 +8,8 @@
 // the forward's output O and its rows' log-sum-exp (lse, natural log):
 //   P  = exp(s * scale - lse), s = q.k, masked keys exactly 0 (the
 //        forward's mask: key j visible to query i when j < Skv and, when
-//        causal, j <= i + Skv - Sq);
+//        causal, j <= i + Skv - Sq; a non-causal call may have Sq > Skv,
+//        as whisper's cross-attention with more tokens than frames);
 //   delta = rowsum(dO * O);  dS = P * (dO.V - delta);
 //   dV = P^T dO;  dK = scale * dS^T Q;  dQ = scale * dS K,
 // the G = Hq / Hkv query heads of a group summed into their KV head, each
@@ -274,7 +275,7 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int group = Hq / Hkv;
-  const int seq_off = Skv - Sq;
+  const int seq_off = Skv - Sq;   // < 0 only when not causal, and then never read
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const float INF = __int_as_float(0x7f800000);
 
@@ -530,6 +531,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
     key_role = idx < sh.n_kv_blocks;
     if (!key_role) idx -= sh.n_kv_blocks;
   }
+  // seq_off < 0 (more queries than keys) only when not causal: every use is behind causal
   const int group = sh.Hq / sh.Hkv, seq_off = sh.Skv - sh.Sq;
   int b, hk, h = 0, k0 = 0, q0 = 0, qt0 = 0, nq = 1, n_iter;
   if (key_role) {
@@ -849,7 +851,7 @@ int launch_bf16(const BwdArgs& a) {
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout and dq (B, Hq, Sq, D); k, v,
 // dk and dv (B, Hkv, Skv, D); lse (B, Hq, Sq) f32 from the forward;
-// Hq % Hkv == 0, 0 < Sq <= Skv.  float32: every tensor contiguous and
+// Hq % Hkv == 0, 0 < Sq, and Sq <= Skv when causal.  float32: every tensor contiguous and
 // 16-byte aligned.  bfloat16: o, lse and the outputs contiguous; q, k, v
 // and dout of any strides (in elements, `strides`) whose rows are
 // contiguous, each stride and base a multiple of 16 bytes; ws 2 * B * Hq *
@@ -858,7 +860,8 @@ int launch_bf16(const BwdArgs& a) {
 // delta pre-pass and the body), one for float32.
 extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
   if (a->B > 0 && a->Hq > 0 && a->Sq > 0) {
-    if (a->Hkv <= 0 || a->Hq % a->Hkv || a->Sq > a->Skv) return (int)cudaErrorInvalidValue;
+    if (a->Hkv <= 0 || a->Hq % a->Hkv || (a->causal && a->Sq > a->Skv))
+      return (int)cudaErrorInvalidValue;
     int rc = (int)cudaErrorInvalidValue;
     if (a->dtype == 0) {
       switch (a->D) {

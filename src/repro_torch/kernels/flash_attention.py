@@ -28,7 +28,8 @@ bfloat16 body runs on TMA and wgmma like the forward's, after a pre-pass
 that writes delta = rowsum(dO * O): key-tile blocks own dK and dV,
 query-tile blocks own dQ, with no float atomics (``bwd_geometry`` has the
 launch geometry); it reads q, k, v and dO at their own strides.  float32
-runs on the CUDA cores, one launch.
+runs on the CUDA cores, one launch.  Both take what the forward takes:
+Sq > Skv when not causal, where no mask reads the query's offset.
 ``kernels.ops.attention`` joins the two in an autograd Function; called
 directly under grad mode with an input that requires grad, these
 wrappers raise rather than return an output autograd cannot see.
@@ -209,8 +210,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     ``do``, each in its input's dtype, contiguous.  bfloat16: two launches
     (the delta pre-pass and the body; q, k, v and do at their own strides
     where a tensor map can take them); float32: one.  Either way one count
-    in LAUNCHES a call; the shapes the forward takes."""
-    B, Hq, Hkv, Sq, Skv, D = _check(q, k, v)
+    in LAUNCHES a call; the shapes the forward takes, more queries than
+    keys included when not causal (whisper's cross-attention with a
+    decoder longer than its frames)."""
+    B, Hq, Hkv, Sq, Skv, D = _check(q, k, v, long_q=not causal)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
                          f"{tuple(do.shape)} {do.dtype} must be like q {tuple(q.shape)} {q.dtype}")

@@ -5,12 +5,16 @@
 
 Trains on the card (``--device cuda``, the default) through the port's
 backward kernels, or on the CPU with ``--device cpu`` (the plain
-versions; ``--reduced`` for a CPU-sized config).  The attention
-families train, MoE configs included (``--arch dbrx-132b --reduced
---device cpu``; on the card the router's gradient is the
-``moe_router_bwd`` kernel).  The reference's ``--mesh`` comes with the
-distribution slice; an ``--arch`` of the SSM or xLSTM families is refused
-until their training slice.
+versions; ``--reduced`` for a CPU-sized config).  Every text model
+trains on the reference's text pipeline: the attention families, MoE
+configs included (``--arch dbrx-132b --reduced --device cpu``; on the card
+the router's gradient is the ``moe_router_bwd`` kernel), jamba and xlstm
+(``--arch jamba-v0.1-52b --reduced --device cpu``).  An encoder-decoder
+or a vision stub is refused: the text pipeline carries no ``frames`` or
+``prefix_embeds``, and the reference's launcher, which never passes
+them, cannot run them either (``make_train_step`` trains them given
+such batches).  The reference's ``--mesh`` comes with the distribution
+slice.
 """
 from __future__ import annotations
 
@@ -21,7 +25,6 @@ from repro_torch.data.corpus import AuthTraceConfig, generate_authtrace
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_trainable
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
 
@@ -54,7 +57,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the launcher's text pipeline gives tokens and labels only; an "
+            "encoder-decoder needs batch['frames'] and a vision stub batch['prefix_embeds'] "
+            "(train it through models.model.make_train_step with such batches)")
 
     pipeline, _ = build_pipeline(cfg.vocab, args.seq, args.batch)
     loop = TrainLoop(

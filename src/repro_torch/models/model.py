@@ -7,13 +7,13 @@ kernel on the card) under ``torch.inference_mode()``, for every family
 ``transformer`` runs; the serve step passes ``batch["enc_out"]`` to an
 encoder-decoder's decode step.  The train step runs it under grad mode, so
 on the card the attention, the norms and the MoE router go through their
-autograd Functions and their backward kernels (``kernels.ops``): the
-attention families train, dense and MoE (dbrx, kimi-k2).  Training of the
-SSM and xLSTM families, of the encoder-decoder and of the vision stub
-waits for their training slices: until a test holds their gradients
-against ``jax.value_and_grad``, ``make_train_step`` and ``loss_and_grads``
-refuse them.  The sharding helpers and ``mesh`` come
-with the distribution slice.
+autograd Functions and their backward kernels (``kernels.ops``), and the
+selective scan through its own Function (``ssm._SelectiveScan``): every
+family of the zoo trains, as every family of the JAX package does — the
+attention families dense and MoE, jamba (mamba, attention and MoE),
+xlstm, whisper's encoder-decoder (``batch["frames"]``) and internvl2's
+vision stub (``batch["prefix_embeds"]``, its positions' labels masked).
+The sharding helpers and ``mesh`` come with the distribution slice.
 """
 from __future__ import annotations
 
@@ -47,29 +47,18 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config the port does not train yet."""
-    kinds = T.recurrent_kinds(cfg)
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: training block kinds {kinds} comes with the SSM and xLSTM "
-            "training slice of the port")
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder or a vision/audio stub comes with the "
-            "enc-dec and vision training slice of the port (flash_attention_bwd at "
-            "non-causal Sq != Skv, gradient parity on the CPU)")
-
-
 def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig):
     """``(loss, grads)``: the 0-d f32 loss of ``transformer.loss_fn`` and
     its gradient for every leaf of ``params`` (the same tree, each grad in
     its parameter's dtype), as ``jax.value_and_grad(T.loss_fn)`` gives
-    them.  ``params`` are left as they are: the gradients are taken
-    through detached leaves, each per-period stack of ``params["body"]``
-    cut into its periods (views), so a period's gradient is its own
-    tensor and the stack's is assembled once at the end."""
-    check_trainable(cfg)
+    them, for every family: ``batch`` carries ``frames`` for an
+    encoder-decoder and ``prefix_embeds`` for the vision stub, as
+    ``transformer.loss_fn`` reads them, and a mamba layer's selective scan
+    goes through its autograd Function.  ``params`` are left as they are:
+    the gradients are taken through detached leaves, each per-period
+    stack of ``params["body"]`` cut into its periods (views), so a
+    period's gradient is its own tensor and the stack's is assembled once
+    at the end."""
 
     def leaf(p):
         return p.detach().requires_grad_(True)
@@ -95,7 +84,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
     arguments as they were.  No remat: the activations of qwen3-1.7B at
     B = 1, S = 4096 fit one card (the JAX body's ``jax.checkpoint``
     changes no number)."""
-    check_trainable(cfg)
     L.set_fp32_matmul()
     wu = warmup if warmup is not None else max(1, min(200, total_steps // 20))
 

@@ -13,6 +13,16 @@ state into the chunk's buffer in place (one ``addcmul_`` a step), so no
 carried into a chunk is folded into its first step as the reference folds
 ``h0``.
 
+Which path runs when: with grad off (inference, prefill, decode) the loop
+runs as it is (``_scan``).  Under grad, with an input that requires grad,
+the scan goes through ``_SelectiveScan``, an autograd Function in plain
+torch ops: its forward is the same loop with grad off, keeping only its
+inputs and each chunk's entry state (B, Din, N); its backward walks the
+chunks in reverse, recomputes a chunk's states from its entry state and
+runs the adjoint recurrence backwards in time, so training holds one
+chunk's (B, T, Din, N) buffers at a time, where autograd over the loop
+would keep every step's state and decay of every layer.
+
 Decode carries O(1) state per layer: (conv window (B, d_conv−1, Din),
 ssm state (B, Din, N)), both float32.
 """
@@ -59,27 +69,99 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+def _chunk_states(u, dt, B, A, h, sl):
+    """One chunk's decays exp(Δ A) and states (B, T, Din, N) from the
+    state ``h`` carried into it (None: the zero state, nothing folded)."""
+    dA = torch.exp(dt[:, sl, :, None] * A)                 # (B, T, Din, N)
+    # Δ B x, overwritten step by step with the states
+    hs = (dt[:, sl] * u[:, sl])[..., None] * B[:, sl, None, :]
+    for h_t, dA_t in zip(hs.unbind(1), dA.unbind(1)):
+        if h is not None:
+            h_t.addcmul_(dA_t, h)
+        h = h_t
+    return dA, hs
+
+
+def _scan(u, dt, B, C, A, h0, chunk, entries=None):
+    """The chunk loop: (Σ_n h_t C_t (B, S, Din), h_last (B, Din, N)); the
+    state entering each chunk is appended to ``entries`` when given."""
+    S = u.shape[1]
+    h = h0
+    ys = []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(s0 + chunk, S))
+        if entries is not None:
+            entries.append(h)
+        hs = _chunk_states(u, dt, B, A, h, sl)[1]
+        ys.append(torch.einsum("btdn,btn->btd", hs, C[:, sl]))
+        h = hs[:, -1].clone()                              # let the chunk's buffer go
+        del hs
+    return (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), h
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan under grad: ``(u, dt, B, C, A, h0, chunk) -> (Σ_n h C,
+    h_last)``, A = −exp(A_log) (Din, N) taken outside."""
+
+    @staticmethod
+    def forward(ctx, u, dt, B, C, A, h0, chunk):
+        entries = []
+        y, h_last = _scan(u, dt, B, C, A, h0, chunk, entries)
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        ctx.save_for_backward(u, dt, B, C, A, *[e for e in entries if e is not None])
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        u, dt, B, C, A, *entries = ctx.saved_tensors
+        if not ctx.has_h0:
+            entries = [None] + entries
+        S, chunk = u.shape[1], ctx.chunk
+        d_dtu, d_logdA, dB, dC = (torch.empty_like(t) for t in (u, u, B, C))
+        dA = torch.zeros_like(A)
+        carry = dh_last         # dL/dh at a chunk's last step from what follows it
+        for j in reversed(range(len(entries))):
+            sl = slice(j * chunk, min((j + 1) * chunk, S))
+            h_in = entries[j]
+            decay, hs = _chunk_states(u, dt, B, A, h_in, sl)
+            dC[:, sl] = torch.einsum("btdn,btd->btn", hs, dy[:, sl])
+            # dh_t = dy_t C_t + exp(Δ_{t+1} A) dh_{t+1}, backwards in time
+            g = dy[:, sl, :, None] * C[:, sl, None, :]
+            g[:, -1] += carry
+            for t in range(g.shape[1] - 2, -1, -1):
+                g[:, t].addcmul_(decay[:, t + 1], g[:, t + 1])
+            carry = decay[:, 0] * g[:, 0] if h_in is not None else None
+            # dL/d(Δ_t A) = dh_t ⊙ h_{t−1} ⊙ exp(Δ_t A), h_{−1} the entry state
+            decay.mul_(g)
+            decay[:, 1:].mul_(hs[:, :-1])
+            if h_in is not None:
+                decay[:, 0].mul_(h_in)
+            else:
+                decay[:, 0].zero_()
+            dA += torch.einsum("btdn,btd->dn", decay, dt[:, sl])
+            d_logdA[:, sl] = torch.einsum("btdn,dn->btd", decay, A)
+            del decay, hs
+            # d(Δ_t B_t x_t) = dh_t
+            d_dtu[:, sl] = torch.einsum("btdn,btn->btd", g, B[:, sl])
+            dB[:, sl] = torch.einsum("btdn,btd->btn", g, dt[:, sl] * u[:, sl])
+            del g
+        du = d_dtu * dt
+        ddt = d_logdA + d_dtu * u
+        dh0 = carry if ctx.has_h0 else None
+        return du, ddt, dB, dC, dA, dh0, None
+
+
 def _ssm_core(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
               A_log: torch.Tensor, D_skip: torch.Tensor, h0: torch.Tensor | None = None,
               chunk: int = SCAN_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
     """u, dt: (B, S, Din); B, C: (B, S, N); all float32.
     Returns (y (B, S, Din), h_last (B, Din, N))."""
-    S = u.shape[1]
     A = -torch.exp(A_log)                                  # (Din, N)
-    h = h0
-    ys = []
-    for s0 in range(0, S, chunk):
-        sl = slice(s0, min(s0 + chunk, S))
-        dA = torch.exp(dt[:, sl, :, None] * A)             # (B, T, Din, N)
-        # Δ B x, overwritten step by step with the states
-        hs = (dt[:, sl] * u[:, sl])[..., None] * B[:, sl, None, :]
-        for h_t, dA_t in zip(hs.unbind(1), dA.unbind(1)):
-            if h is not None:
-                h_t.addcmul_(dA_t, h)
-            h = h_t
-        ys.append(torch.einsum("btdn,btn->btd", hs, C[:, sl]))
-        h = h.clone()                                      # let the chunk's buffer go
-    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (u, dt, B, C, A, h0)):
+        y, h = _SelectiveScan.apply(u, dt, B, C, A, h0, chunk)
+    else:
+        y, h = _scan(u, dt, B, C, A, h0, chunk)
     return y + u * D_skip, h
 
 

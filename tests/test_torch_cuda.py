@@ -36,6 +36,24 @@ def _key_table(rs, N):
             (keys64 & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
 
+def train_launches(cfg) -> dict:
+    """Launches of each kernel in one train step (``ops.LAUNCHES``'s names),
+    counted from the config: every attention call (an encoder block's, a
+    decoder block's causal self-attention and its cross-attention), every
+    norm (two a block with an FFN, one an xLSTM block, two more for a
+    qk-norm, an enc-dec decoder block's ``norm_x``, the final norm once for
+    each stack) and every MoE layer, forward and backward alike."""
+    from repro_torch.models import transformer as T
+    kinds = list(cfg.block_pattern) * cfg.n_periods
+    n_attn = kinds.count("attn") * (2 if cfg.is_encdec else 1) + cfg.n_enc_layers
+    n_norm = (sum(2 if k in ("attn", "mamba") else 1 for k in kinds) + 1
+              + 2 * cfg.qk_norm * kinds.count("attn")
+              + (cfg.n_layers + 2 * cfg.n_enc_layers + 1 if cfg.is_encdec else 0))
+    n_moe = cfg.n_periods * sum(T._slot_is_moe(cfg, s) for s in range(len(cfg.block_pattern)))
+    return {"flash_attention": n_attn, "flash_attention_bwd": n_attn, "rmsnorm": n_norm,
+            "rmsnorm_bwd": n_norm, "moe_router": n_moe, "moe_router_bwd": n_moe}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -903,6 +921,48 @@ def test_cuda_flash_attention_bwd_bf16_wgmma_body(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_flash_attention_bwd_more_queries_than_keys(cuda, dtype, D):
+    """The backward at non-causal Sq > Skv (whisper's cross-attention with
+    a decoder longer than its frames) at every head_dim x dtype, groups 1,
+    2, 7 and 16, ragged 1037 x 200, Sq = 2 Skv and one key: equal to the
+    plain version, the same bits on a replay, one kernel node a call in
+    f32 and two in bf16 in a captured graph.  Causal Sq > Skv raises."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    for B, Hq, Hkv, Sq, Skv in ((1, 4, 4, 1037, 200), (2, 4, 2, 256, 128), (1, 14, 2, 300, 77),
+                                (1, 16, 1, 130, 64), (2, 2, 2, 65, 1)):
+        q = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        k = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        v = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        do = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        o, lse = fa.flash_attention(q, k, v, causal=False, with_lse=True)
+        _, want_lse = ref.attention_ref(q, k, v, causal=False, return_lse=True)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        n0 = ops.LAUNCHES["flash_attention_bwd"]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+        assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            torch.testing.assert_close(a.float(), w.float(), **_bwd_tol(dtype))
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False) for _ in range(2)]
+        nodes = 2 * (2 if dtype == "bfloat16" else 1)
+        assert build.graph_nodes(g) == (nodes, nodes)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, got))
+    with pytest.raises(ValueError, match="Sq=.* > Skv"):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_rmsnorm_bwd_matches_plain(cuda, dtype):
     """Rows the forward's vector body takes (64 ... 6144, aligned) and its
     scalar body (D = 130, a misaligned base, a non-contiguous dy), with an
@@ -1255,3 +1315,122 @@ def test_cuda_router_train_step_matches_cpu(cuda):
         torch.testing.assert_close(caux["loss"].cpu(), haux["loss"], atol=1e-4, rtol=1e-4)
     for a, b in zip(leaves(cp), leaves(hp)):
         torch.testing.assert_close(a.cpu(), b, atol=3e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=None", "h0"])
+def test_cuda_selective_scan_matches_cpu(cuda, with_h0):
+    """The scan's autograd Function on the card: y, h_last and every
+    input's gradient (u, Δ, B, C, A_log, D and the carried state) against
+    the CPU's, across chunk boundaries (300 steps in chunks of 256, and
+    of 64), in f32 within 1e-4 of each gradient's largest."""
+    from repro_torch.models import ssm as S
+    g = torch.Generator().manual_seed(8)
+    B, T_, Din, N = 2, 300, 64, 16
+    u = torch.randn(B, T_, Din, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, T_, Din, generator=g) - 2.0)
+    Bm, Cm = torch.randn(B, T_, N, generator=g), torch.randn(B, T_, N, generator=g)
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32)).repeat(Din, 1)
+    D_skip = torch.randn(Din, generator=g)
+    h0 = torch.randn(B, Din, N, generator=g) * 0.5 if with_h0 else None
+    dy, dh = torch.randn(B, T_, Din, generator=g), torch.randn(B, Din, N, generator=g)
+    ins = [t for t in (u, dt, Bm, Cm, A_log, D_skip, h0) if t is not None]
+
+    def run(dev, chunk):
+        leaves_ = [t.to(dev).requires_grad_(True) for t in ins]
+        a = leaves_ + [None] * (7 - len(leaves_))
+        y, h = S._ssm_core(*a[:6], h0=a[6], chunk=chunk)
+        assert type(h.grad_fn).__name__ == "_SelectiveScanBackward"
+        grads = torch.autograd.grad((y, h), leaves_, (dy.to(dev), dh.to(dev)))
+        return [t.detach().cpu() for t in (y, h, *grads)]
+    for chunk in (256, 64):
+        for got, want in zip(run(cuda, chunk), run("cpu", chunk)):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def _train_batches(cfg, rs, n, S_, frames=None):
+    out = []
+    for _ in range(n):
+        toks = torch.from_numpy(rs.randint(0, cfg.vocab, size=(2, S_)).astype(np.int32))
+        labels = torch.roll(toks, -1, dims=1)
+        labels[:, -1] = -1
+        b = {"tokens": toks, "labels": labels}
+        if cfg.is_encdec:
+            b["frames"] = torch.from_numpy(rs.randn(2, frames, cfg.d_model).astype(np.float32))
+        if cfg.frontend == "vision_stub":
+            b["prefix_embeds"] = torch.from_numpy(
+                rs.randn(2, cfg.n_prefix_embeds, cfg.d_model).astype(np.float32))
+        out.append(b)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,frames", [("jamba-v0.1-52b", None), ("xlstm-350m", None),
+                                         ("whisper-medium", 40), ("whisper-medium", 160),
+                                         ("internvl2-1b", None)],
+                         ids=["jamba", "xlstm", "whisper-40-frames", "whisper-160-frames",
+                              "internvl2"])
+def test_cuda_every_family_train_step_matches_cpu(cuda, arch, frames):
+    """Reduced jamba, xlstm, whisper (40 frames under 64 tokens: the
+    cross-attention's backward at Sq > Skv; and 160) and internvl2 in
+    f32: the loss and every gradient on the card — one backward kernel a
+    forward call of flash_attention, rmsnorm and moe_router, counted from
+    the config, the scan through its Function — against the CPU's
+    autograd of the plain versions, within 1e-4 of each leaf's largest
+    gradient; then 3 train steps, losses within 1e-4 and parameters within
+    3 lr.  xlstm's layers amplify rounding (tests/test_torch_train.py):
+    it is held to twice the card's own witness, the largest change of its
+    gradients, losses and parameters under two 1e-7 perturbations of the
+    embedding table."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=5, device="cpu")
+    batches = _train_batches(cfg, np.random.RandomState(5), 3, 64, frames)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = M.make_train_step(cfg, opt_cfg, total_steps=10)
+
+    def on(dev, b):
+        return {k: v.to(dev) for k, v in b.items()}
+
+    def run(p, dev):
+        """The first batch's loss and grads, then 3 steps: losses, params."""
+        p = M._to(p, dev)
+        loss, grads = M.loss_and_grads(p, on(dev, batches[0]), cfg)
+        s_, losses = adamw_init(p, opt_cfg), []
+        for b in batches:
+            p, s_, aux = step(p, s_, on(dev, b))
+            losses.append(float(aux["loss"]))
+        return float(loss), [g.cpu() for g in leaves(grads)], losses, [x.cpu() for x in leaves(p)]
+
+    ops.reset_launches()
+    loss_c, grads_c, losses_c, params_c = run(params, cuda)
+    # one loss_and_grads and three steps
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            **{k: 4 * n for k, n in train_launches(cfg).items()}}
+    assert dict(ops.LAUNCHES) == want
+    loss_h, grads_h, losses_h, params_h = run(params, "cpu")
+    rel, loss_tol, param_tol = 1e-4, [1e-4 * abs(x) for x in losses_h], [3e-3] * len(params_h)
+    if arch == "xlstm-350m":
+        g_w, l_w, p_w = 0.0, [0.0] * 3, [0.0] * len(params_h)
+        for i in range(2):
+            noise = torch.from_numpy(np.random.RandomState(100 + i).randn(
+                *params["embed"].shape).astype(np.float32))
+            _, g2, l2, p2 = run(dict(params, embed=params["embed"] * (1 + 1e-7 * noise)), cuda)
+            g_w = max(g_w, max(float((a - b).abs().max() / b.abs().max())
+                               for a, b in zip(g2, grads_c)))
+            l_w = [max(w, abs(a - b)) for w, a, b in zip(l_w, l2, losses_c)]
+            p_w = [max(w, float((a - b).abs().max())) for w, a, b in zip(p_w, p2, params_c)]
+        assert g_w <= 1e-2
+        rel = max(rel, 2 * g_w)
+        loss_tol = [max(a, 2 * b) for a, b in zip(loss_tol, l_w)]
+        param_tol = [max(a, 2 * b) for a, b in zip(param_tol, p_w)]
+    assert abs(loss_c - loss_h) <= 3e-5 * abs(loss_h)
+    for g, w in zip(grads_c, grads_h):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=rel * float(w.abs().max()))
+    for a, b, tol in zip(losses_c, losses_h, loss_tol):
+        assert abs(a - b) <= tol, (losses_c, losses_h, loss_tol)
+    for a, b, tol in zip(params_c, params_h, param_tol):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)

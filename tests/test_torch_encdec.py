@@ -8,8 +8,9 @@ encoder's output, ``hidden_states``, ``forward`` and ``loss_fn`` (the
 vision prefix's labels masked), the prefill, eval and serve facades, 8
 serve steps with the encoder's output and the decode state after them,
 and teacher-forced decode against the prefill.  Then what the port
-refuses for these families (training, the ServingEngine for whisper) and
-two faults of the reference that the refusals and the docstrings name.
+refuses for these families (the train launcher, whose text pipeline has
+no frames or patch embeddings; the ServingEngine for whisper) and two
+faults of the reference that the refusals and the docstrings name.
 
 Tolerances: float32 within the 3e-5 of tests/test_kernels.py (sums in
 another order); bfloat16 within 2e-2, as tests/test_torch_forward.py
@@ -46,7 +47,7 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.runtime.serving import ServingEngine  # noqa: E402
 
 ARCHS = ["whisper-medium", "internvl2-1b"]
@@ -315,20 +316,24 @@ def _store(path_store, kv, dir_record):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_refuses_encdec_and_vision(arch, tmp_path):
-    """No gradient of these families is held against JAX's yet, so the
-    train step, ``loss_and_grads`` and the train launcher refuse them,
-    naming the slice; the forward, eval and serve facades run them."""
+def test_train_launcher_refuses_encdec_and_vision(arch, tmp_path):
+    """The train launcher refuses these families, naming the data: its
+    text pipeline (the reference's) gives tokens and labels only, with no
+    ``frames`` or ``prefix_embeds``.  ``make_train_step`` and
+    ``loss_and_grads`` train them given such batches (held against JAX's
+    in tests/test_torch_train.py), and the other facades run them."""
     _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="enc-dec and vision training slice"):
-        M.make_train_step(cfg, AdamWConfig())
-    params = M.init_params(cfg, device="cpu")
-    _, tb = _batch(cfg, 1, 8, 0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        M.loss_and_grads(params, tb, cfg)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="text pipeline gives tokens and labels only"):
         train_launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",
                            "--checkpoint-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+    params = M.init_params(cfg, device="cpu")
+    _, tb = _batch(cfg, 1, 8, 0)
+    loss, grads = M.loss_and_grads(params, tb, cfg)
+    assert np.isfinite(float(loss)) and len(grads) == len(params)
+    opt_cfg = AdamWConfig()
+    new, opt, aux = M.make_train_step(cfg, opt_cfg)(params, adamw_init(params, opt_cfg), tb)
+    assert int(opt["step"]) == 1 and float(aux["loss"]) == float(loss)
     assert np.isfinite(float(M.make_eval_step(cfg)(params, tb)))
 
 

@@ -4,8 +4,8 @@ reduced xlstm-350m (mLSTM and sLSTM slots), parameters bridged from JAX
 ``init_params``, the same numpy tokens in both: ``forward``, ``loss_fn``,
 the prefill, eval and serve facades, the decode state after 8 steps, and
 teacher-forced decode against the prefill (tests/test_models.py's test,
-on the port).  Then what the port refuses for these families (training),
-and the ServingEngine: a request served at B = 4 gets the tokens the
+on the port).  Then the ServingEngine (their training is held against
+JAX's in tests/test_torch_train.py and tests/test_torch_ssm.py): a request served at B = 4 gets the tokens the
 reference gives it alone at batch_size = 1 (its prefill, which steps
 every lane and never resets one, is right only there), a prefill leaves
 the other lanes as they were, ``reset_lanes`` writes each kind's init,
@@ -55,11 +55,9 @@ from repro_torch.core.oracle import HeuristicOracle  # noqa: E402
 from repro_torch.core.store import MemKV, PathStore  # noqa: E402
 from repro_torch.data.tokenizer import HashTokenizer  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models import xlstm as X  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.runtime.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.tree import leaves, map_like  # noqa: E402
 
@@ -247,27 +245,6 @@ def test_bridge_and_own_init_keep_the_tree(arch):
     kinds = {k for s in params["body"].values() for k in s}
     assert {"ssm", "attn", "moe", "mlp"} <= kinds if arch.startswith("jamba") \
         else kinds == {"norm1", "mlstm", "slstm"}
-
-
-# ---------------------------------------------------------------------------
-# what the port refuses for these families
-# ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_refuses_recurrent_kinds(arch, tmp_path):
-    """No gradient of these families is held against JAX's yet, so the
-    train step, ``loss_and_grads`` and the train launcher refuse them,
-    naming the slice; attention models still train."""
-    _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="SSM and xLSTM training slice"):
-        M.make_train_step(cfg, AdamWConfig())
-    params = M.init_params(cfg, device="cpu")
-    _, tb = _batch(cfg, 1, 8, 0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        M.loss_and_grads(params, tb, cfg)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        train_launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",
-                           "--checkpoint-dir", str(tmp_path)])
-    M.make_train_step(get_config("wikikv-router").reduced(), AdamWConfig())
 
 
 def _store(path_store, kv, dir_record):

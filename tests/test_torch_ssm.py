@@ -6,7 +6,17 @@ initializers bridged leaf for leaf, on ``ModelConfig.reduced()`` shapes.
 Float32 within atol = rtol = 3e-5, the tolerance of tests/test_kernels.py
 (the scans sum in another order: JAX's associative scan and its
 ``lax.scan`` chunks against the port's loops); bfloat16 within 2e-2.  The
-deterministic leaves of the initializers equal JAX's bit for bit."""
+deterministic leaves of the initializers equal JAX's bit for bit.
+
+Gradients (the training slice): ``ssm._SelectiveScan`` through
+``torch.autograd.gradcheck`` in float64 across chunk boundaries, and
+``ssm_apply``, ``mlstm_chunkwise``, ``mlstm_apply`` and ``slstm_apply``
+against ``jax.vjp`` of the reference's functions on the same inputs and
+cotangents, every input and parameter leaf, at the same 3e-5, with an
+absolute floor of 3e-5 times the leaf's largest gradient (a leaf's
+gradient sums B * S terms, in another order in each package); every
+gradient finite (the -1e30 stabilisers give no NaN), and ties of the
+stabilisers' max split as JAX splits them."""
 import dataclasses
 
 import jax
@@ -313,3 +323,168 @@ def test_slstm_decode_matches_reference(dtype):
         yj, jst = JX.slstm_decode(jp, xj[:, t:t + 1], jst, cfg_j)
         yt, tst = X.slstm_decode(tp, xt[:, t:t + 1], tst, cfg)
         _close((yt, tst), (yj, jst), dtype)
+
+
+# ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+GRAD_REL = 3e-5
+
+
+def _grads_close(got, want):
+    """Each leaf within F32, with an absolute floor of GRAD_REL times the
+    leaf's largest gradient; every gradient finite."""
+    for g, w in zip(got, want):
+        g, w = _np(g), _np(w)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=F32["rtol"],
+                                   atol=max(F32["atol"], GRAD_REL * float(np.abs(w).max())))
+
+
+def _vjp_both(j_fn, t_fn, jargs, targs, cotangents):
+    """``jax.vjp`` of ``j_fn`` and torch autograd of ``t_fn`` at the same
+    inputs and output cotangents (numpy, matched to the outputs' leaves)."""
+    out, vjp = jax.vjp(j_fn, *jargs)
+    want = jax.tree.leaves(vjp(jax.tree.unflatten(jax.tree.structure(out),
+                                                  [jnp.asarray(c) for c in cotangents])))
+    leaves_ = [t.detach().clone().requires_grad_(True) for t in jax.tree.leaves(targs)]
+    tree = jax.tree.unflatten(jax.tree.structure(targs), leaves_)
+    outs = jax.tree.leaves(t_fn(*tree))
+    got = torch.autograd.grad(outs, leaves_, [torch.from_numpy(c) for c in cotangents])
+    return got, want
+
+
+def _cotangents(outs, seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*np.shape(o)).astype(np.float32) for o in jax.tree.leaves(outs)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=None", "h0"])
+def test_selective_scan_gradcheck(with_h0):
+    """The scan's autograd Function in float64 across chunk boundaries
+    (S = 24 in chunks of 8): the states, the decays, B, C, Δ, u, A and the
+    carried state, against finite differences; the loss reads y and
+    h_last."""
+    g = torch.Generator().manual_seed(3 + with_h0)
+    B, S_, Din, N = 2, 24, 5, 3
+    u = torch.randn(B, S_, Din, generator=g, dtype=torch.float64)
+    dt = torch.nn.functional.softplus(torch.randn(B, S_, Din, generator=g, dtype=torch.float64) - 2.0)
+    Bm, Cm = (torch.randn(B, S_, N, generator=g, dtype=torch.float64) for _ in range(2))
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float64)).repeat(Din, 1)
+    D_skip = torch.randn(Din, generator=g, dtype=torch.float64)
+    h0 = torch.randn(B, Din, N, generator=g, dtype=torch.float64) * 0.5 if with_h0 else None
+    ins = [t.requires_grad_(True) for t in (u, dt, Bm, Cm, A_log, D_skip, h0) if t is not None]
+
+    def core(*a):
+        a = list(a) + [None] * (7 - len(a))
+        return S._ssm_core(*a[:6], h0=a[6], chunk=8)
+    assert torch.autograd.gradcheck(core, tuple(ins))
+    # under grad the scan is the Function; under no grad the loop runs as
+    # it is, to the same numbers
+    got = core(*ins)
+    assert type(got[1].grad_fn).__name__ == "_SelectiveScanBackward"
+    with torch.no_grad():
+        want = core(*ins)
+    assert want[1].grad_fn is None
+    assert torch.equal(got[0].detach(), want[0]) and torch.equal(got[1].detach(), want[1])
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["no-state", "state"])
+def test_ssm_apply_grads_match_jax_vjp(with_state):
+    """jamba's mamba block at 40 steps (chunks of 256: one), every
+    parameter, the input and, with a carried conv window and ssm state,
+    the states' gradients too, against ``jax.vjp``."""
+    cfg_j, cfg = _cfgs("jamba-v0.1-52b")
+    jp, _ = JS.ssm_init(jax.random.PRNGKey(7), cfg_j)
+    tp = _bridge(jp)
+    xj, xt = _x(cfg, 2, 40, 9, "float32")
+    Din = cfg.ssm_expand * cfg.d_model
+    rs = np.random.RandomState(10)
+    st = [_both(rs.randn(2, cfg.d_conv - 1, Din)), _both(rs.randn(2, Din, cfg.d_state) * 0.3)]
+    if with_state:
+        def j_fn(p, x, c, h):
+            return JS.ssm_apply(p, x, cfg_j, conv_state=c, ssm_state=h, return_state=True)
+
+        def t_fn(p, x, c, h):
+            return S.ssm_apply(p, x, cfg, conv_state=c, ssm_state=h, return_state=True)
+        jargs, targs = (jp, xj, st[0][0], st[1][0]), (tp, xt, st[0][1], st[1][1])
+    else:
+        def j_fn(p, x):
+            return JS.ssm_apply(p, x, cfg_j)
+
+        def t_fn(p, x):
+            return S.ssm_apply(p, x, cfg)
+        jargs, targs = (jp, xj), (tp, xt)
+    cot = _cotangents(j_fn(*jargs), seed=11)
+    got, want = _vjp_both(j_fn, t_fn, jargs, targs, cot)
+    assert len(got) == len(want) == len(jax.tree.leaves(targs))
+    _grads_close(got, want)
+
+
+@pytest.mark.parametrize("S_", [8, 24, 512])
+def test_mlstm_chunkwise_grads_match_jax_vjp(S_):
+    """The mLSTM cell alone from a carried state (q, k, v, both gates and
+    C, n, m), chunks of 8 (one or three) and 256 (two), against
+    ``jax.vjp``; the cotangent reaches the final state too."""
+    chunk = X._pick_chunk(S_) if S_ != 24 else 8
+    ins, st = _mlstm_inputs(1, 2, S_, 16, seed=20 + S_)
+
+    def j_fn(q, k, v, li, lf, C, n, m):
+        return JX.mlstm_chunkwise(q, k, v, li, lf, (C, n, m), chunk=chunk)
+
+    def t_fn(q, k, v, li, lf, C, n, m):
+        return X.mlstm_chunkwise(q, k, v, li, lf, (C, n, m), chunk=chunk)
+    jargs = [a for a, _ in ins] + [a for a, _ in st]
+    targs = [b for _, b in ins] + [b for _, b in st]
+    got, want = _vjp_both(j_fn, t_fn, jargs, targs, _cotangents(j_fn(*jargs), seed=S_))
+    _grads_close(got, want)
+
+
+def test_stabiliser_ties_split_as_jax():
+    """Log gates of exactly 0 (i = f = 1) from the zero state make the
+    stabilisers' max tie everywhere: the intra-chunk log decays are all 0
+    on and below the diagonal, and so is the carried m.  The
+    port's ``amax`` and ``maximum`` split a tie's gradient evenly, as
+    JAX's ``max`` and ``maximum`` do, so the gradients agree."""
+    B, H, S_, Dh = 1, 2, 16, 8
+    rs = np.random.RandomState(5)
+    q, k, v = (_both(rs.randn(B, H, S_, Dh)) for _ in range(3))
+    zero = _both(np.zeros((B, H, S_)))
+    st = [_both(np.zeros((B, H, Dh, Dh))), _both(np.zeros((B, H, Dh))), _both(np.zeros((B, H)))]
+
+    def j_fn(q, k, v, li, lf, C, n, m):
+        return JX.mlstm_chunkwise(q, k, v, li, lf, (C, n, m), chunk=8)
+
+    def t_fn(q, k, v, li, lf, C, n, m):
+        return X.mlstm_chunkwise(q, k, v, li, lf, (C, n, m), chunk=8)
+    jargs = [q[0], k[0], v[0], zero[0], zero[0]] + [a for a, _ in st]
+    targs = [q[1], k[1], v[1], zero[1], zero[1]] + [b for _, b in st]
+    got, want = _vjp_both(j_fn, t_fn, jargs, targs, _cotangents(j_fn(*jargs), seed=6))
+    _grads_close(got, want)
+    # the gate gradients are not all zero in either package: the ties carry them
+    for i in (3, 4):
+        assert float(np.abs(_np(want[i])).max()) > 0 and float(np.abs(_np(got[i])).max()) > 0
+
+
+@pytest.mark.parametrize("S_", [8, 24, 512])
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_block_grads_match_jax_vjp(kind, S_):
+    """xlstm's blocks at S = 8 (one mLSTM chunk), 24 (three of 8) and 512
+    (two of 256; the sLSTM's time blocks of 32), every parameter leaf and
+    the input against ``jax.vjp``, from the initial state (the sLSTM's
+    m = -1e30)."""
+    cfg_j, cfg = _cfgs("xlstm-350m")
+    init, j_apply, t_apply = {"mlstm": (JX.mlstm_init, JX.mlstm_apply, X.mlstm_apply),
+                              "slstm": (JX.slstm_init, JX.slstm_apply, X.slstm_apply)}[kind]
+    jp, _ = init(jax.random.PRNGKey(3), cfg_j)
+    tp = _bridge(jp)
+    xj, xt = _x(cfg, 1, S_, 1, "float32")
+
+    def j_fn(p, x):
+        return j_apply(p, x, cfg_j)
+
+    def t_fn(p, x):
+        return t_apply(p, x, cfg)
+    got, want = _vjp_both(j_fn, t_fn, (jp, xj), (tp, xt), _cotangents(j_fn(jp, xj), seed=S_))
+    assert len(got) == len(jax.tree.leaves(tp)) + 1
+    _grads_close(got, want)
