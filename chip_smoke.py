@@ -6,7 +6,9 @@
 Builds the port's kernels from the sources in this checkout and drives
 its main path on the card, printing one JSON line per phase:
 
-  1. environment: torch/CUDA versions, the card, the kernel build;
+  1. environment: torch/CUDA versions, the card, the kernel build, and
+     the floor of one kernel node under ``device_ms``'s instrument (a
+     one-element op in a captured graph, inputs rotated);
   2. the serving LM's kernels (rmsnorm, decode_attention) against their
      plain PyTorch versions at the serving shapes, timed;
   3. a synthetic wiki of 16 x 256 x 256 = 2^20 files (~1.05M paths) in a
@@ -34,8 +36,9 @@ its main path on the card, printing one JSON line per phase:
   7. the wikikv-router serving loop at full width over the AuthTrace wiki
      on the card, against the same run on the CPU (plain versions);
   8. flash_attention against its plain version at the oracle's, qwen3
-     prefill, chunked-prefill, non-causal ragged and group-6 shapes, timed
-     beside the plain version and SDPA;
+     prefill, chunked-prefill, non-causal ragged and group-6 shapes, and
+     kimi-k2's head_dim 112 (its prefill, 64 / 8 heads, and a ragged f32
+     shape), timed beside the plain version and SDPA;
   9. LM-routed navigation: the same serving run with a wikikv-router
      ModelOracle (two loss evaluations per decision, flash_attention in
      every layer) on the card and on the CPU, decisions and traces equal;
@@ -56,7 +59,12 @@ its main path on the card, printing one JSON line per phase:
      forward and per step, times beside their bounds; f32 parity of its
      first 2 layers with the CPU (router indices, logits), the bf16 run's
      share of changed expert assignments, and teacher-forced decode
-     against the prefill;
+     against the prefill; then kimi-k2-1t-a32b at full width (2 of its 61
+     layers: the dense prefix layer and one MoE layer with all 384
+     experts and the shared expert, ~39.5 GB drawn on the card, head_dim
+     112) through the same prefill, eval and 16 decode steps, launches
+     checked exactly, and the f32 parity of a reduced kimi at head_dim
+     112 with 384 experts;
  12. the SSM and xLSTM families: jamba-v0.1-52b at full width (16 of its
      32 layers: mamba, attention and MoE slots, weights drawn on the card)
      and xlstm-350m at full width and depth (24 mLSTM and sLSTM layers):
@@ -136,8 +144,15 @@ its main path on the card, printing one JSON line per phase:
      internvl2-1b (256 patch embeddings + 3840 tokens, 3 steps); and f32
      gradient parity of a reduced whisper at 64 frames / 128 tokens (the
      cross-attention's backward at more queries than keys) and 256 / 64,
-     and of a reduced internvl2 at 8 + 128;
- 15. one JSON line of every kernel (nine) with its launches, error, times
+     and of a reduced internvl2 at 8 + 128; kimi-k2 at full width cut to
+     its dense prefix layer and one MoE layer of 32 of its 384 experts
+     (~4.3 B, int8 AdamW moments, B=1, S=4096, 3 steps) with a reduced
+     kimi's f32 gradients at head_dim 112 against the CPU;
+ 15. the mesh over torch.distributed on one rank (NCCL): the router's
+     meshed train step on a (1, 1) mesh against the unmeshed step bit for
+     bit over 3 steps, ``pipeline_apply`` with one stage against the
+     stage, ``restore_elastic`` onto the mesh bit for bit;
+ 16. one JSON line of every kernel (nine) with its launches, error, times
      and bound; the card's name and power limit; the final
      ``{"ok": true, ...}``.
 
@@ -428,8 +443,10 @@ def model_kernels(dev) -> dict:
     4096; decode at group 4: 32 / 8 heads, head_dim 128), xlstm-350m's
     norms (d_model 1024), whisper-medium's (d_model 1024: 1792 decoder and
     6000 encoder rows at B=4; decode at group 1, 16 / 16 heads, head_dim
-    64, max_len 448) and internvl2-1b's (d_model 896; decode at group 7,
-    14 / 2 heads, head_dim 64, max_len 512); returns the JSON entries."""
+    64, max_len 448), internvl2-1b's (d_model 896; decode at group 7,
+    14 / 2 heads, head_dim 64, max_len 512) and kimi-k2's (d_model 7168;
+    decode at group 8, 64 / 8 heads, head_dim 112, max_len 4096); returns
+    the JSON entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ops, ref
@@ -454,11 +471,11 @@ def model_kernels(dev) -> dict:
     # the block norms of dbrx-132b, jamba-v0.1-52b and xlstm-350m at S=4096
     # and at a decode step of B=4; whisper-medium's decoder (4 x 448 rows)
     # and encoder (4 x 1500), internvl2-1b's prefill (256 + 3840 rows) and
-    # decode step
+    # decode step, kimi-k2's (d_model 7168) at S=4096 and at B=4
     shapes = []
     for rows, D in ((4096, 2048), (4096 * 16, 128), (4096, 6144), (4, 6144), (4096, 4096),
                     (4, 4096), (4096, 1024), (4, 1024), (1792, 1024), (6000, 1024),
-                    (4096, 896), (4, 896)):
+                    (4096, 896), (4, 896), (4096, 7168), (4, 7168)):
         x = torch.randn((rows, D), generator=g).to(dev, torch.bfloat16)
         s = torch.randn((D,), generator=g).to(dev, torch.bfloat16)
         err = check_float(f"rmsnorm {rows}x{D}", ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s),
@@ -473,7 +490,8 @@ def model_kernels(dev) -> dict:
     timings = []
     # the rows timed beside SDPA, by the model whose decode shape they are
     models = {(48, 8): "dbrx (group 6)", (32, 8): "jamba (group 4)",
-              (14, 2): "internvl2 (group 7)", (16, 16): "whisper (group 1)"}
+              (14, 2): "internvl2 (group 7)", (16, 16): "whisper (group 1)",
+              (64, 8): "kimi-k2 (group 8, D 112)"}
     by_model = {name: [] for name in models.values()}
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, lens, Hq, Hkv, D in (
@@ -486,7 +504,9 @@ def model_kernels(dev) -> dict:
                 (4, 512, [1, 103, 257, 497], 48, 8, 128),
                 (4, 512, [1, 103, 257, 497], 32, 8, 128),
                 (4, 512, [1, 103, 257, 497], 14, 2, 64),
-                (4, 448, [1, 90, 225, 433], 16, 16, 64)):
+                (4, 448, [1, 90, 225, 433], 16, 16, 64),
+                # kimi-k2's: 64 / 8 heads of head_dim 112 over a 4096 cache
+                (4, 4096, [1, 1031, 2061, 4096], 64, 8, 112)):
             q = torch.randn((B, Hq, D), generator=g).to(dev, dtype)
             k = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
             v = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
@@ -545,7 +565,9 @@ def model_kernels(dev) -> dict:
 # self-attention over 1500 frames, (h) the decoder's cross-attention, (i)
 # a decode step's cross-attention (one query over 1500 frames); (j)
 # internvl2-1b's prefill (256 patch embeddings + 3840 tokens, 14 / 2
-# heads); (k) more queries than keys, non-causal, in both types
+# heads); (k) more queries than keys, non-causal, in both types; (l)
+# kimi-k2's prefill (64 / 8 heads of head_dim 112, padded to 128 columns
+# in the bf16 body) and (m) a ragged f32 shape at head_dim 112
 FLASH_SHAPES = [
     ("a S=7", 1, 4, 2, 7, 7, 64, "float32", True),
     ("a S=37", 1, 4, 2, 37, 37, 64, "float32", True),
@@ -561,6 +583,8 @@ FLASH_SHAPES = [
     ("j", 1, 14, 2, 4096, 4096, 64, "bfloat16", True),
     ("k f32", 1, 16, 16, 128, 64, 64, "float32", False),
     ("k", 1, 16, 16, 128, 64, 64, "bfloat16", False),
+    ("l", 1, 64, 8, 4096, 4096, 112, "bfloat16", True),
+    ("m f32", 1, 8, 1, 300, 1037, 112, "float32", True),
 ]
 
 
@@ -1746,18 +1770,21 @@ def host_mem_available() -> int:
     return 0
 
 
-def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_steps=16,
-              parity_seq=128, tf_tokens=16) -> dict:
-    """(b) dbrx-132b at full width (depth cut to ``layers`` of 40 to fit
-    one card), weights drawn on the card from ``seed``: one prefill and
-    one eval at B=1, S=``seq``, then ``dec_steps`` serve steps at
+def moe_phase(dev, arch="dbrx-132b", tag="moe", seed=0, layers=8, seq=4096, dec_batch=4,
+              dec_len=512, dec_steps=16, parity_seq=128, tf_tokens=16, parity_cfg=None) -> dict:
+    """(b) an MoE model at full width (dbrx-132b cut to ``layers`` of 40
+    to fit one card; kimi-k2 to its dense prefix layer and one MoE layer
+    of 384 experts), weights drawn on the card from ``seed``: one prefill
+    and one eval at B=1, S=``seq``, then ``dec_steps`` serve steps at
     B=``dec_batch``, max_len ``dec_len`` — the launches counted — then
-    their times beside their bounds.  (c) the first 2 layers (1 when the
-    host is short of memory) upcast to f32 on the card and on the CPU at
-    S=``parity_seq``: router indices equal but at near ties, logits within
-    1e-3 of the largest; the bf16 run's share of assignments whose expert
-    differs from the f32 run; and teacher-forced decode of ``tf_tokens``
-    tokens against the prefill logits at capacity_factor 64."""
+    their times beside their bounds.  (c) parity, in the ``{tag}_parity``
+    line: the first 2 layers (1 when the host is short of memory), or a
+    model of ``parity_cfg`` drawn on the card where one is given, upcast
+    to f32 on the card and on the CPU at S=``parity_seq``: router indices
+    equal but at near ties, logits within 1e-3 of the largest; the bf16
+    run's share of assignments whose expert differs from the f32 run; and
+    teacher-forced decode of ``tf_tokens`` tokens against the prefill
+    logits at capacity_factor 64."""
     import dataclasses
     import math
 
@@ -1768,9 +1795,11 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     from repro_torch.models import model as M
     from repro_torch.models import moe as MoE
     from repro_torch.models import transformer as T
-    full = get_config("dbrx-132b")
+    full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
     m = cfg.moe
+    n_moe = layers - cfg.n_dense_prefix            # every body layer is an MoE layer
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
@@ -1794,8 +1823,8 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     logits, log_pre = logged_run(lambda: prefill(params, batch))
     loss = float(evals(params, batch))
     check(tuple(logits.shape) == (1, seq, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "non-finite dbrx prefill logits")
-    check(math.isfinite(loss) and loss > 0, f"dbrx eval loss {loss}")
+    check(bool(torch.isfinite(logits).all()), f"non-finite {arch} prefill logits")
+    check(math.isfinite(loss) and loss > 0, f"{arch} eval loss {loss}")
     del logits
     fwd = dict(ops.LAUNCHES)
     for _ in range(dec_steps):
@@ -1805,7 +1834,7 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     counts = dict(ops.LAUNCHES)
     dec = {k: counts[k] - fwd[k] for k in counts}
     n_norm = 2 * layers + 1
-    for name, per_fwd, per_step in (("moe_router", layers, layers),
+    for name, per_fwd, per_step in (("moe_router", n_moe, n_moe),
                                     ("flash_attention", layers, 0),
                                     ("decode_attention", 0, layers),
                                     ("rmsnorm", n_norm, n_norm)):
@@ -1848,23 +1877,27 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     kept = sum(int(torch.bincount(idx.flatten().long(), minlength=E).clamp(max=cap).sum())
                for _, idx in log_pre)
     routed = [len(set(idx.flatten().tolist())) for _, idx in log_dec]
-    check(len(log_pre) == len(log_dec) == layers, "router calls per forward / step != layers")
-    dense = layers * (2 * seq * D * (2 * H * Dh + 2 * KV * Dh) + 2 * seq * D * E
-                      + 4.0 * Dh * H * seq * (seq + 1) / 2) + 2 * seq * D * V
+    check(len(log_pre) == len(log_dec) == n_moe, "router calls per forward / step != MoE layers")
+    # attention of every layer, the dense prefix's MLP, each MoE layer's
+    # router and shared expert (kimi), the head
     expert_flops = 3 * 2 * D * F_               # one (token, expert) assignment
+    dense = (layers * (2 * seq * D * (2 * H * Dh + 2 * KV * Dh) + 4.0 * Dh * H * seq * (seq + 1) / 2)
+             + cfg.n_dense_prefix * 3 * 2 * seq * D * cfg.d_ff
+             + n_moe * (2 * seq * D * E + expert_flops * seq * m.n_shared) + 2 * seq * D * V)
     flops = dense + expert_flops * kept
-    flops_dispatch = dense + expert_flops * layers * E * cap
+    flops_dispatch = dense + expert_flops * n_moe * E * cap
     b_pre, by_pre = bound(w_bytes, flops, BF16_FLOPS)
     b_pre_d, by_pre_d = bound(w_bytes, flops_dispatch, BF16_FLOPS)
     expert_bytes = 3 * D * F_ * torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
     emb_bytes = params["embed"].numel() * params["embed"].element_size()
     kv_bytes = 2 * layers * KV * Dh * 2 * sum(n + dec_steps for n in lens0)
-    rest_bytes = w_bytes - emb_bytes - layers * E * expert_bytes + kv_bytes
+    rest_bytes = w_bytes - emb_bytes - n_moe * E * expert_bytes + kv_bytes
     b_dec, by_dec = bound(rest_bytes + expert_bytes * sum(routed),
-                          expert_flops * layers * dec_batch * m.top_k, BF16_FLOPS)
-    b_dec_d, by_dec_d = bound(rest_bytes + expert_bytes * layers * E,
-                              expert_flops * layers * E * cap_dec, BF16_FLOPS)
-    emit({"phase": "moe", "arch": cfg.name, "layers": layers, "of": full.n_layers,
+                          expert_flops * n_moe * dec_batch * m.top_k, BF16_FLOPS)
+    b_dec_d, by_dec_d = bound(rest_bytes + expert_bytes * n_moe * E,
+                              expert_flops * n_moe * E * cap_dec, BF16_FLOPS)
+    emit({"phase": tag, "arch": cfg.name, "layers": layers, "of": full.n_layers,
+          "moe_layers": n_moe, "experts": E, "top_k": m.top_k, "head_dim": Dh,
           "params_b": n_params / 1e9, "weights_gib": w_bytes / 2**30, "init_s": t_init,
           "seq": seq, "loss": loss, "launches": counts,
           "per_forward": {k: fwd[k] // 2 for k in ("moe_router", "flash_attention", "rmsnorm")},
@@ -1880,14 +1913,27 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
           "decode_experts_routed": routed,
           "decode_gb": (rest_bytes + expert_bytes * sum(routed)) / 1e9,
           "decode_bound_ms": b_dec, "decode_bound_by": by_dec,
-          "decode_dispatch_gb": (rest_bytes + expert_bytes * layers * E) / 1e9,
+          "decode_dispatch_gb": (rest_bytes + expert_bytes * n_moe * E) / 1e9,
           "decode_dispatch_bound_ms": b_dec_d, "decode_dispatch_bound_by": by_dec_d,
           "prefill_breakdown_ms": {"moe_ffn_per_layer": moe_ms, "flash_per_layer": flash_ms,
-                                   "moe_ffn": layers * moe_ms, "flash": layers * flash_ms,
-                                   "rest": prefill_ms - layers * (moe_ms + flash_ms)},
-          "decode_breakdown_ms": {"moe_ffn_per_layer": moe_dec_ms, "moe_ffn": layers * moe_dec_ms,
-                                  "rest": decode_ms - layers * moe_dec_ms}})
+                                   "moe_ffn": n_moe * moe_ms, "flash": layers * flash_ms,
+                                   "rest": prefill_ms - n_moe * moe_ms - layers * flash_ms},
+          "decode_breakdown_ms": {"moe_ffn_per_layer": moe_dec_ms, "moe_ffn": n_moe * moe_dec_ms,
+                                  "rest": decode_ms - n_moe * moe_dec_ms},
+          "nvidia_smi": nvidia_smi()})
 
+    if parity_cfg is not None:
+        # (c) parity on a smaller model of the same family, drawn on the card
+        del params, state, dec_logits, step
+        torch.cuda.empty_cache()
+        small = T.init_params(torch.Generator(device=dev).manual_seed(seed + 1), parity_cfg)
+        p_toks = np.random.RandomState(seed + 1).randint(
+            0, parity_cfg.vocab, size=(1, parity_seq)).astype(np.int32)
+        out = moe_parity(dev, parity_cfg, small, p_toks, parity_seq, tf_tokens)
+        emit({"phase": f"{tag}_parity", "arch": parity_cfg.name, "layers": parity_cfg.n_layers,
+              "d_model": parity_cfg.d_model, "head_dim": parity_cfg.head_dim,
+              "experts": parity_cfg.moe.n_experts, "top_k": parity_cfg.moe.top_k, **out})
+        return counts
     # (c) parity on the first layers, the rest of the card's weights freed
     f32_bytes = 2 * (w_bytes / layers * 2 + 2 * emb_bytes)
     n_par = 2 if host_mem_available() >= 1.5 * f32_bytes else 1
@@ -1896,9 +1942,36 @@ def moe_phase(dev, seed=0, layers=8, seq=4096, dec_batch=4, dec_len=512, dec_ste
     torch.cuda.empty_cache()
     out = moe_parity(dev, dataclasses.replace(cfg, n_layers=n_par), small, toks, parity_seq,
                      tf_tokens)
-    emit({"phase": "moe_parity", "layers": n_par,
+    emit({"phase": f"{tag}_parity", "layers": n_par,
           "layers_note": None if n_par == 2 else "1 layer: the host is short of memory", **out})
     return counts
+
+
+def kimi_small(experts: int, dtype: str):
+    """A reduced kimi-k2 at its own head_dim of 112 (8 query heads over
+    one KV head: its group of 8), its dense prefix layer and one MoE
+    layer of ``experts`` experts (top 8) and the shared expert: the
+    parities' model."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    full = get_config("kimi-k2-1t-a32b")
+    return full.reduced(n_layers=2, d_model=256, n_heads=8, n_kv_heads=1, d_head=112,
+                        vocab=4096, dtype=dtype, param_dtype=dtype,
+                        moe=dataclasses.replace(full.moe, n_experts=experts, d_ff_expert=128))
+
+
+def kimi_phase(dev) -> dict:
+    """kimi-k2-1t-a32b served at full width, cut to 2 of its 61 layers:
+    the dense prefix layer and one MoE layer with all 384 experts (top 8)
+    and the shared expert, bf16, ~19.8 B parameters (~39.5 GB: the experts
+    33.8 GB, the untied embedding and head 4.7 GB, the dense layer
+    ~0.9 GB; a third layer would need ~73 GB of weights).  Prefill and
+    eval at B=1, S=4096, 16 decode steps at B=4 (``moe_phase``, its
+    launches checked exactly); then ``kimi_parity``: a reduced kimi at
+    head_dim 112 with 384 experts, f32 on the card against the CPU."""
+    return moe_phase(dev, arch="kimi-k2-1t-a32b", tag="kimi", layers=2, parity_seq=128,
+                     tf_tokens=16, parity_cfg=kimi_small(384, "bfloat16"))
 
 
 def moe_parity(dev, cfg_p, small: dict, toks, parity_seq: int, tf_tokens: int) -> dict:
@@ -2000,9 +2073,9 @@ def path_launches(cfg) -> dict:
     """(per forward, per decode step) launches of each model kernel,
     counted from the config's layers (two block norms an attention or
     mamba layer, one an xLSTM block, two more for a qk-norm, the final
-    norm once)."""
+    norm once; a dense prefix layer is an attention layer)."""
     from repro_torch.models import transformer as T
-    kinds = list(cfg.block_pattern) * cfg.n_periods
+    kinds = ["attn"] * cfg.n_dense_prefix + list(cfg.block_pattern) * cfg.n_periods
     n_attn = kinds.count("attn")
     n_moe = cfg.n_periods * sum(T._slot_is_moe(cfg, s) for s in range(len(cfg.block_pattern)))
     n_norm = sum(2 if k in ("attn", "mamba") else 1 for k in kinds) + 2 * cfg.qk_norm * n_attn + 1
@@ -3021,11 +3094,14 @@ FLASH_BWD_SHAPES = [
     ("jamba", 1, 32, 8, 4096, 4096, 128, "bfloat16", True),
     ("non-causal Sq > Skv", 1, 16, 16, 1500, 448, 64, "bfloat16", False),
     ("ragged Sq > Skv", 1, 16, 16, 200, 77, 64, "float32", False),
+    ("kimi-k2", 1, 64, 8, 4096, 4096, 112, "bfloat16", True),
+    ("kimi-k2 ragged f32", 1, 8, 1, 300, 1037, 112, "float32", True),
 ]
 # (tag, rows, D, dtype, scaled): the norms of the train steps below at
 # their B*S rows and width — the router's (1024 rows), qwen3's block norms
 # and its qk-norm, jamba's, xlstm's (S=2048), whisper's encoder (4 x 1500)
-# and decoder (4 x 448), internvl2's — and a norm without scale
+# and decoder (4 x 448), internvl2's, kimi-k2's (d_model 7168) — and a
+# norm without scale
 NORM_BWD_SHAPES = [
     ("router", 1024, 256, "float32", True),
     ("qwen3 block", 4096, 2048, "bfloat16", True),
@@ -3035,6 +3111,7 @@ NORM_BWD_SHAPES = [
     ("whisper encoder", 6000, 1024, "bfloat16", True),
     ("whisper decoder", 1792, 1024, "bfloat16", True),
     ("internvl2", 4096, 896, "bfloat16", True),
+    ("kimi-k2", 4096, 7168, "bfloat16", True),
     ("no scale", 1024, 256, "float32", False),
 ]
 # a gradient sums Sq * group (dK, dV) or Skv (dQ) products in f32 in
@@ -3291,15 +3368,20 @@ def qwen3_training(dev, seed=0, steps=5, seq=4096, parity_layers=2, parity_seq=2
                                   ["B=1", f"{steps} steps on one batch"], seed=seed)
     losses = line["losses"]
     check(losses[-1] < losses[0], f"qwen3: the loss did not fall {losses}")
-    # model FLOPs: 6 N a token (forward and backward of every weight, the
-    # tied head included) plus attention, 3 times the forward's 4 * D a
-    # visible pair
+    # model FLOPs: the port's ``model_flops`` (6 N_active a token: forward
+    # and backward of every weight, the tied head included); beside it,
+    # under its own name, that count plus attention's score products, 3
+    # times the forward's 4 * D a visible pair
+    from repro_torch.models import model as M
+    model_flops = M.model_flops(cfg, M.ShapeSpec("train_qwen3", seq, 1, "train"))
     _, attn_fwd = attn_work(1, cfg.n_heads, cfg.n_kv_heads, seq, seq, cfg.head_dim, True, 2)
-    model_flops = 6.0 * line["params"] * seq + 3 * cfg.n_layers * attn_fwd
+    with_attn = model_flops + 3 * cfg.n_layers * attn_fwd
     mfu = model_flops / (line["step_ms"] / 1e3) / BF16_FLOPS
     print(f"qwen3-1.7b train model FLOPs share of the bf16 peak: {mfu:.6f} "
-          f"({model_flops / 1e12:.3f} TFLOP in {line['step_ms']:.2f} ms, {nvidia_smi()})",
-          flush=True)
+          f"({model_flops / 1e12:.3f} TFLOP of models.model.model_flops in "
+          f"{line['step_ms']:.2f} ms; with attention's products "
+          f"{with_attn / 1e12:.3f} TFLOP, share "
+          f"{with_attn / (line['step_ms'] / 1e3) / BF16_FLOPS:.6f}; {nvidia_smi()})", flush=True)
 
     # parity: the first layers of the same draw, upcast to f32, card vs CPU
     params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
@@ -3341,6 +3423,131 @@ def dbrx_training(dev, seed=0, layers=1, steps=3, seq=4096, parity_seq=128) -> d
     grad_parity(dev, "train_dbrx_parity", red, M.init_params(red, seed=seed + 1, device="cpu"),
                 text_batch("cpu", red, 1, parity_seq, seed + 1), experts=red.moe.n_experts,
                 top_k=red.moe.top_k)
+    return counts
+
+
+def kimi_training(dev, seed=0, steps=3, seq=4096, experts=32, parity_seq=128) -> dict:
+    """kimi-k2-1t-a32b at full width, cut to its dense prefix layer and one
+    MoE layer of ``experts`` of its 384 experts (top 8, the shared expert
+    kept): ~4.3 B parameters, bf16, with the int8 AdamW moments the
+    reference gives kimi (``launch/dryrun.py``'s ``_opt_cfg``); one layer
+    with all 384 experts needs ~68 GB for its weights and gradients alone.
+    ``steps`` train steps at B = 1, S = ``seq`` (``model_training``: the
+    launches a step checked against ``train_launches``, finite losses);
+    then ``train_kimi_parity``: a reduced kimi at head_dim 112, f32, the
+    loss and every gradient leaf, card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(full, n_layers=2, moe=dataclasses.replace(full.moe, n_experts=experts))
+    counts, _ = model_training(dev, "train_kimi", cfg, full, text_batch(dev, cfg, 1, seq, seed),
+                               steps, [f"2 of {full.n_layers} layers (the dense prefix and one "
+                                       "MoE layer)", f"{experts} of {full.moe.n_experts} experts",
+                                       "B=1", "int8 AdamW moments",
+                                       f"{steps} steps on one batch"],
+                               opt_dtype="int8", seed=seed)
+    red = kimi_small(experts, "float32")
+    grad_parity(dev, "train_kimi_parity", red, M.init_params(red, seed=seed + 1, device="cpu"),
+                text_batch("cpu", red, 1, parity_seq, seed + 1), experts=red.moe.n_experts,
+                top_k=red.moe.top_k, head_dim=red.head_dim)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the mesh over torch.distributed, one rank on the card (NCCL)
+# ---------------------------------------------------------------------------
+def mesh_single_rank(dev, seed=0, steps=3) -> dict:
+    """A process group of one rank over NCCL (``tcp://localhost`` at a free
+    port; NCCL refuses two ranks on one card) and a (1, 1) ("data",
+    "model") mesh on it: the wikikv-router's meshed train step
+    (``make_train_step(..., mesh=...)``: the gathers, the reduce-scatters
+    and the sharded AdamW of a one-rank mesh) against the unmeshed step,
+    bit for bit, over ``steps`` steps; ``pipeline_apply`` with one stage
+    against the stage, bit for bit; ``restore_elastic`` onto the mesh of
+    the meshed run's checkpoint, bit for bit.  The launches of the meshed
+    steps are counted."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.manager import CheckpointManager, restore_elastic
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import PipelineSchedule, pipeline_apply
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    # NCCL on the card (gloo where the phase is rehearsed on the CPU)
+    on_card = dev.type == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            **({"device_id": torch.device("cuda", dev.index or 0)} if on_card
+                               else {}))
+    try:
+        mesh = make_host_mesh(1, 1)
+        cfg = get_config("wikikv-router")
+        opt_cfg = AdamWConfig(lr=1e-3)
+        batch = text_batch(dev, cfg, 8, 128, seed)
+        plain = M.init_params(cfg, seed=seed, device=dev)
+        p_opt = adamw_init(plain, opt_cfg)
+        step = M.make_train_step(cfg, opt_cfg, total_steps=10)
+        meshed = M.shard_params(plain, cfg, mesh)
+        m_opt = adamw_init(meshed, opt_cfg, full=M.abstract_params(cfg))
+        m_step = M.make_train_step(cfg, opt_cfg, total_steps=10, mesh=mesh)
+        losses, m_losses = [], []
+        for _ in range(steps):
+            plain, p_opt, aux = step(plain, p_opt, batch)
+            losses.append(float(aux["loss"]))
+        ops.reset_launches()
+        for _ in range(steps):
+            meshed, m_opt, aux = m_step(meshed, m_opt, batch)
+            m_losses.append(float(aux["loss"]))
+        counts = dict(ops.LAUNCHES)
+        check(m_losses == losses, f"meshed losses {m_losses} != unmeshed {losses}")
+        check(all(torch.equal(a, b) for a, b in zip(leaves(meshed), leaves(plain))),
+              "the (1, 1) mesh's params differ from the unmeshed step's")
+        check(all(torch.equal(a, b) for a, b in zip(leaves(m_opt), leaves(p_opt))),
+              "the (1, 1) mesh's AdamW state differs from the unmeshed step's")
+        want = {**dict.fromkeys(counts, 0), **{k: steps * v for k, v in train_launches(cfg).items()}}
+        check(counts == want, f"meshed step launches {counts} != {want}")
+
+        # the pipeline with one stage over a "pod" axis of one rank
+        pmesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("pod", "model"))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w = torch.randn((1, 256, 256), generator=g, device=dev) * 0.1
+        xs = torch.randn((6, 32, 256), generator=g, device=dev)
+        got = pipeline_apply(lambda p, x: torch.tanh(x @ p), w, xs,
+                             PipelineSchedule(n_stages=1, n_micro=6), pmesh)
+        check(torch.equal(got, torch.stack([torch.tanh(x @ w[0]) for x in xs])),
+              "pipeline_apply with one stage differs from the stage")
+
+        # restore_elastic of the meshed run's state onto the mesh
+        specs = M.spec_tree(cfg)
+        pspecs = {"params": specs, "opt": M.opt_spec_tree(specs, opt_cfg, cfg)}
+        with tempfile.TemporaryDirectory() as root:
+            mgr = CheckpointManager(root)
+            mgr.save(steps, {"params": meshed, "opt": m_opt})
+            abstract = M.abstract_params(cfg)
+            like = {"params": abstract, "opt": adamw_init(abstract, opt_cfg)}
+            at, tree, _ = restore_elastic(mgr, like, mesh, pspecs)
+        check(at == steps and all(a.device.type == dev.type and torch.equal(a, b) for a, b in zip(
+            leaves(tree), leaves({"params": meshed, "opt": m_opt}))),
+            "restore_elastic onto the (1, 1) mesh is not bit for bit")
+        emit({"phase": "mesh_single_rank", "backend": dist.get_backend(), "world_size": 1,
+              "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "arch": cfg.name,
+              "steps": steps, "losses": m_losses, "bit_for_bit": True,
+              "pipeline": {"stages": 1, "microbatches": 6, "bit_for_bit": True},
+              "restore_elastic": {"leaves": len(leaves(tree)), "bit_for_bit": True},
+              "launches": counts})
+    finally:
+        dist.destroy_process_group()
     return counts
 
 
@@ -3648,8 +3855,8 @@ def train_phase(dev) -> dict:
     dbrx's, xlstm's, jamba's, whisper's and internvl2's steps), each
     counted from zero and read just after, their launch counts summed;
     the f32 parities between them."""
-    runs = [router_training(dev), qwen3_training(dev), dbrx_training(dev), xlstm_training(dev),
-            jamba_training(dev), whisper_training(dev), vlm_training(dev)]
+    runs = [router_training(dev), qwen3_training(dev), dbrx_training(dev), kimi_training(dev),
+            xlstm_training(dev), jamba_training(dev), whisper_training(dev), vlm_training(dev)]
     encdec_training_parity(dev)
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
@@ -3685,6 +3892,12 @@ def main(argv: list[str]) -> int:
                         .splitlines() if "registers" in ln or "spill" in ln][:24]
                     for n in build.SOURCES if (build.BUILD_DIR / f"{n}.log").exists()}})
 
+    # the floor of one kernel node under device_ms's instrument: a
+    # one-element op captured in a graph, its input rotated over copies
+    floor = graph_ms(lambda x: x + 1, (torch.zeros(1, device=dev),))
+    one_kernel_a_call("kernel node floor", floor)
+    emit({"phase": "kernel_node_floor", "op": "x + 1 on one float32 element", **floor})
+
     entries = model_kernels(dev)
     entries.update(attention_kernels(dev))
     entries.update(router_kernels(dev))
@@ -3713,9 +3926,10 @@ def main(argv: list[str]) -> int:
     # each path below sets the counts to 0 just before it and reads them just after
     path_counts = [query_counts, durable_phase(dev, DURABLE_SCALE_LOG2, refresh_ms), serving_phase(dev),
                    serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev),
+                   kimi_phase(dev),
                    recurrent_phase(dev, "jamba-v0.1-52b", 16),
                    recurrent_phase(dev, "xlstm-350m", 24), encdec_phase(dev), vlm_phase(dev),
-                   train_phase(dev)]
+                   train_phase(dev), mesh_single_rank(dev)]
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
@@ -3723,11 +3937,13 @@ def main(argv: list[str]) -> int:
                  "moe_router_bwd"):
         e = entries[name]
         e["launches"] = sum(c[name] for c in path_counts)
+        e["node_floor_ms"] = floor["device_ms"]
         check(e["launches"] > 0, f"{name} was never launched on the main path")
         kernels.append({k: e[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "device_ms",
                                           "device_ms_profiled", "host_ms",
-                                          "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "node_floor_ms",
+                                          "library_ms",
                                           "library_device_ms", "library_host_ms", "shape",
                                           "geometry", "note", "shapes")
                         if k in e})

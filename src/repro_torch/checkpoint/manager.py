@@ -24,8 +24,9 @@ package restores in the other:
   of either package (the reference's own restore cannot:
   ``np.asarray(a, dtype=bfloat16)`` has no cast from ``|V2``).
 
-Elastic restore onto a mesh (``restore_elastic``) comes with the
-distribution slice.
+* Elastic restore: leaves are stored whole, so ``restore_elastic`` puts a
+  checkpoint onto a mesh of any rank count, each rank reading its block
+  of every leaf by the leaf's spec (``models.model.spec_tree``).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..tree import leaves, unflatten
+from ..tree import leaves, map_like, unflatten
 
 
 def _to_host(t) -> np.ndarray:
@@ -180,3 +181,52 @@ class CheckpointManager:
         if pf.exists():
             pipeline = json.loads(pf.read_text())
         return step, tree, pipeline
+
+
+class _Spec:
+    __slots__ = ("spec",)
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def restore_elastic(manager: CheckpointManager, like_tree, mesh, pspecs,
+                    step: int | None = None) -> tuple[int, object, dict | None]:
+    """Elastic restore: ``(step, tree, pipeline)`` with each leaf of the
+    checkpoint cut to this rank's block on ``mesh`` (a ``DeviceMesh`` of
+    any size: leaves are stored whole) by its spec in ``pspecs``, a tree
+    like ``like_tree`` with a tuple of mesh axes at each leaf
+    (``spec_tree``, ``opt_spec_tree``).  ``like_tree`` gives the
+    structure and dtypes (``meta`` tensors will do: ``abstract_params``);
+    the blocks land on the mesh's device.  A rank outside the mesh
+    raises."""
+    from ..distributed.sharding import require_process_group, shard_slices
+    require_process_group()
+    if mesh.get_coordinate() is None:
+        raise RuntimeError("restore_elastic: this rank is not in the mesh")
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    step = step if step is not None else manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {manager.root}")
+    d = manager.root / f"step_{step}"
+    like_leaves = leaves(like_tree)
+    # each spec boxed, so that ``leaves`` keeps the tuple whole, in leaf order
+    spec_leaves = [b.spec for b in leaves(map_like(lambda _, s: _Spec(s), like_tree, pspecs))]
+    out = []
+    with np.load(d / "data.npz") as data:
+        if len(data.files) != len(like_leaves):
+            raise ValueError(f"checkpoint has {len(data.files)} leaves, tree expects "
+                             f"{len(like_leaves)}")
+        for i, (like, spec) in enumerate(zip(like_leaves, spec_leaves)):
+            a = data[f"leaf_{i}"]
+            if tuple(a.shape) != tuple(like.shape):
+                raise ValueError(f"checkpoint leaf {i} has shape {a.shape}, the tree "
+                                 f"expects {tuple(like.shape)}")
+            block = a[shard_slices(a.shape, spec, mesh)]
+            out.append(_from_host(block, torch.empty((), dtype=like.dtype, device=device)))
+    pipeline = None
+    pf = d / "pipeline.json"
+    if pf.exists():
+        pipeline = json.loads(pf.read_text())
+    return step, unflatten(like_tree, out), pipeline

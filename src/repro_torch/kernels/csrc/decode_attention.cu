@@ -27,7 +27,8 @@
 // before it waits on them.  Inside a warp a lane owns one key row for the
 // scores (16-byte loads of its row, q from shared memory as broadcasts);
 // for P.V, R = D/4 lanes share a V row (4 head dims each: 16 bytes in
-// f32, 8 in bf16, which keeps a lane's acc at 4*G floats), so one
+// f32, 8 in bf16, which keeps a lane's acc at 4*G floats; at kimi-k2's
+// D = 112, 28 lanes, R rounds up to 32 and 4 lanes idle), so one
 // warp-wide load covers 32/R rows and a 32-position chunk takes R
 // coalesced loads; the lanes that hold the same head dimensions are summed
 // by __shfl_xor_sync once, after the warp's last chunk.  Positions at or
@@ -111,7 +112,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   using VT = typename Vec<T>::type;
   using PT = typename Piece<T>::type;
   constexpr int VN = Vec<T>::N;  // elements of a 16-byte K load
-  constexpr int R = D / PN;      // lanes that share a V row
+  constexpr int RD = D / PN;     // lanes that hold a V row's dims
+  // lanes that share a V row: the power of two at or above RD, so rows do
+  // not straddle a load (32 at D = 112: lanes 28-31 load nothing)
+  constexpr int R = RD <= 4 ? 4 : RD <= 8 ? 8 : RD <= 16 ? 16 : 32;
+  static_assert(D % PN == 0 && RD <= 32, "a V row within a warp");
   constexpr int PPI = 32 / R;    // V rows one warp-wide load covers
   const int bh = blockIdx.x;   // sequence * Hkv + KV head
   const int blk = blockIdx.y, nblk = gridDim.y;
@@ -181,7 +186,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int i = 0; i < R; ++i) {
       const int j = i * PPI + sub;
       float vv[PN];
-      if (base + j < s1) {
+      if (base + j < s1 && piece < RD) {
         Piece<T>::unpack(__ldg(reinterpret_cast<const PT*>(vb + (size_t)(base + j) * D) + piece),
                          vv);
       } else {
@@ -209,7 +214,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       sm[warp * G + g] = m[g];
       sl[warp * G + g] = l[g];
     }
-    if (lane < R) {
+    if (lane < RD) {
 #pragma unroll
       for (int e = 0; e < PN; ++e) sacc[(warp * G + g) * D + lane * PN + e] = acc[g][e];
     }
@@ -306,6 +311,7 @@ int by_dim(int D, int G, const void* q, const void* k, const void* v, const int*
     case 16: return by_group<T, 16>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
     case 32: return by_group<T, 32>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
     case 64: return by_group<T, 64>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
+    case 112: return by_group<T, 112>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
     case 128: return by_group<T, 128>(G, q, k, v, lengths, out, tickets, part, B, Hkv, S, scale, warps, nblk, stream);
     default: return 1;
   }

@@ -39,10 +39,15 @@
 //       the output, so a ragged tail is zero-filled (never the next
 //       head's rows) and out-of-range output rows are clipped on the
 //       store; rows of D bf16 in the swizzle that fits them (128 B at
-//       D = 64 and 128, two 64-column atoms at 128; 64 B at D = 32; 32 B
-//       at D = 16), which is the layout the wgmma descriptors read.
+//       D = 64, 112 and 128, two 64-column atoms at 112 and 128; 64 B at
+//       D = 32; 32 B at D = 16), which is the layout the wgmma descriptors
+//       read.  kimi-k2's D = 112 is padded to a tile of 128 columns
+//       (hopper.cuh Atoms::DP): the maps keep rows of 112, so TMA
+//       zero-fills columns 112-127 of Q, K and V and the store drops them;
+//       S takes 7 k-steps, P V runs at n128 (14% more products than 112
+//       needs), and the scale stays 1/sqrt(112).
 //       One producer thread issues them: Q once, K and V through a ring of
-//       tiles of 128 keys (2 at D = 128, 3 below) with full (K, V apart)
+//       tiles of 128 keys (2 at D = 112 and 128, 3 below) with full (K, V apart)
 //       and empty mbarriers.  With two consumer warpgroups the producer warpgroup
 //       drops to 24 registers (setmaxnreg) and the consumers rise to 240.
 //     - products by wgmma: each consumer warpgroup owns 64 query rows
@@ -245,9 +250,10 @@ constexpr int HBK = 128;      // keys per tile
 // The tile layout of hopper.cuh's Atoms, and the ring's geometry.
 template <int D>
 struct Geo : hopper::Atoms<D> {
-  static constexpr int STAGES = D == 128 ? 2 : 3;
-  static constexpr int KV_TILE_BYTES = HBK * D * 2;
-  static constexpr int Q_WG_BYTES = WG_ROWS * D * 2;
+  static constexpr int DP = hopper::Atoms<D>::DP;   // 128 at D = 112: padded columns
+  static constexpr int STAGES = DP == 128 ? 2 : 3;
+  static constexpr int KV_TILE_BYTES = HBK * DP * 2;
+  static constexpr int Q_WG_BYTES = WG_ROWS * DP * 2;
 };
 
 template <int D, int NWG>
@@ -374,9 +380,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int pos0 = row_wg + warp * 16 + g + seq_off;  // this thread's rows: pos0, pos0 + 8
     const uint32_t q_wg = q_s + wg * G::Q_WG_BYTES;
     constexpr uint32_t SBO = 8 * G::ATOM_B;          // 8 rows of one atom
-    float o[D / 2];
+    float o[G::DP / 2];   // at D = 112 the last 16 columns stay 0 (V's padding)
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < G::DP / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
     mbar_wait(q_bar, 0);
 
@@ -418,7 +424,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < HBK / 16; ++j)  // V MN-major: LBO steps the D atoms, SBO 8 keys
-        wgmma_rs<D>(o, pa[j], make_desc(v_t + j * 16 * G::ATOM_B, HBK * G::ATOM_B, SBO,
+        wgmma_rs<G::DP>(o, pa[j], make_desc(v_t + j * 16 * G::ATOM_B, HBK * G::ATOM_B, SBO,
                                         G::LAYOUT));
       wgmma_commit();
       wgmma_wait_all();
@@ -441,7 +447,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // Q reads are over
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < G::DP / 8; ++j) {   // padded columns land in the tile, never stored
       const int col = 8 * j + 2 * t;
       const int a = col / G::ATOM_E;
 #pragma unroll
@@ -530,6 +536,8 @@ int by_dim_f32(int D, const void* q, const void* k, const void* v, void* out, fl
     case 16: return launch_f32<16, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     case 32: return launch_f32<32, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     case 64: return launch_f32<64, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 112:
+      return launch_f32<112, 32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     case 128:
       return launch_f32<128, 32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -546,6 +554,9 @@ int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v,
       return launch_bf16<32>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
     case 64:
       return launch_bf16<64>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 112:
+      return launch_bf16<112>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale,
+                              stream);
     case 128:
       return launch_bf16<128>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale,
                               stream);

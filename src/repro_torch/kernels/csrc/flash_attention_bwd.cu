@@ -55,7 +55,8 @@
 //       (D, rows, heads, sequences) that take q, k, v and dO at their own
 //       strides (dO arrives transposed from the attention layer: no copy),
 //       a ragged tail zero-filled, never the next head's rows, in the
-//       swizzle that fits rows of D bf16; the streamed tiles (Q, dO and
+//       swizzle that fits rows of D bf16 (kimi-k2's D = 112 in tiles padded
+//       to 128 columns that TMA zero-fills: hopper.cuh Atoms::DP); the streamed tiles (Q, dO and
 //       their lse2 and delta by a bulk copy; or K, V) through a ring of
 //       three stages with full and empty mbarriers; with two consumer
 //       warpgroups the producer drops to 24 registers and they rise to 240;
@@ -115,7 +116,8 @@ template <int D>
 struct Geo {
   static constexpr int LD = D + 4;             // the pitch of the Q, K, V and dO tiles
   static constexpr int ND = D / 16;            // accumulator columns a thread
-  static constexpr int VW = ND < 4 ? ND : 4;   // of them adjacent (one vector load)
+  // of them adjacent (one vector load): 4, 2 or 1, dividing ND (7 at D = 112)
+  static constexpr int VW = ND % 4 == 0 ? 4 : ND % 2 == 0 ? 2 : 1;
   static constexpr int NG = ND / VW;           // groups of VW columns, 16 * VW apart
   static constexpr int TILE = BT * LD;
   // the key-tile role's shared memory: K, V, Q, dO, P, dS, lse, delta
@@ -141,29 +143,32 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-// dO's tile like load_tile, and delta = rowsum(dO * O) of its rows: the
-// C4 = D / 4 threads of a row are adjacent lanes of one warp, and every
-// thread runs the same number of rounds (BT * C4 is a multiple of 256).
+// dO's tile like load_tile, and delta = rowsum(dO * O) of its rows: a row
+// takes C4P adjacent lanes of one warp, the power of two at or above
+// C4 = D / 4 (32 at D = 112, whose last 4 lanes load nothing), and every
+// thread runs the same number of rounds (BT * C4P is a multiple of 256).
 template <int D>
 __device__ __forceinline__ void load_do_delta(float* dst, float* delta, const float* __restrict__ dout,
                                               const float* __restrict__ o, int n_valid) {
   constexpr int C4 = D / 4;
-  static_assert((BT * C4) % THREADS == 0 && 32 % C4 == 0, "rows of dO within a warp");
-  for (int i = threadIdx.x; i < BT * C4; i += THREADS) {
-    const int r = i / C4, c = (i % C4) * 4;
+  constexpr int C4P = C4 <= 4 ? 4 : C4 <= 8 ? 8 : C4 <= 16 ? 16 : 32;
+  static_assert(C4 <= 32 && (BT * C4P) % THREADS == 0, "rows of dO within a warp");
+  for (int i = threadIdx.x; i < BT * C4P; i += THREADS) {
+    const int r = i / C4P, c = (i % C4P) * 4;
+    const bool col = c < D;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < n_valid) {
+    if (col && r < n_valid) {
       a = load4(dout + (size_t)r * D + c);
       b = load4(o + (size_t)r * D + c);
     }
-    *reinterpret_cast<float4*>(dst + r * Geo<D>::LD + c) = a;
+    if (col) *reinterpret_cast<float4*>(dst + r * Geo<D>::LD + c) = a;
     float dot = a.x * b.x;
     dot = fmaf(a.y, b.y, dot);
     dot = fmaf(a.z, b.z, dot);
     dot = fmaf(a.w, b.w, dot);
 #pragma unroll
-    for (int off = C4 / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
-    if (i % C4 == 0) delta[r] = dot;
+    for (int off = C4P / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
+    if (i % C4P == 0) delta[r] = dot;
   }
 }
 
@@ -394,7 +399,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int D>
 struct Tiles : Atoms<D> {
   static constexpr int STAGES = 3;
-  static constexpr int TILE = ROWS * D * 2;   // bytes of a tile of 64 rows
+  static constexpr int TILE = ROWS * Atoms<D>::DP * 2;   // bytes of a tile of 64 rows
 };
 
 // resident tiles (K and V, or Q and dO: NWG of each), the ring's stages
@@ -421,16 +426,24 @@ struct BwdShape {
 
 // delta = rowsum(dO * O) in f32 and lse2 = lse * log2 e for every query
 // row, written to (B * Hq, Sq_pad) rows padded to whole tiles of 64 (0 and
-// +inf past Sq, so a padded query contributes nothing).  D / 8 lanes a row,
-// 16 bytes each, summed by xor shuffles in a fixed order.
+// +inf past Sq, so a padded query contributes nothing).  LPR lanes a row,
+// the power of two at or above D / 8 (16 at D = 112, whose last 2 load
+// nothing), 16 bytes each, summed by xor shuffles in a fixed order.
+template <int D>
+struct DeltaLanes {
+  static constexpr int LPR = D / 8 <= 2 ? 2 : D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : 16;
+  static constexpr int RPB = 256 / LPR;   // rows a block
+  static_assert(D / 8 <= 16, "a row within half a warp");
+};
+
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse, float* __restrict__ lse2,
                        float* __restrict__ delta, int Hq, int Sq, int Sq_pad, long long do_b,
                        long long do_h, long long do_s, long long rows_total) {
-  constexpr int LPR = D / 8;
-  constexpr int RPB = 256 / LPR;
+  constexpr int LPR = DeltaLanes<D>::LPR;
+  constexpr int RPB = DeltaLanes<D>::RPB;
   const int lr = threadIdx.x % LPR;
   const long long row = (long long)blockIdx.x * RPB + threadIdx.x / LPR;
   const bool valid = row < rows_total;
@@ -438,7 +451,7 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16*
   const int s = (int)(row % Sq_pad);
   const bool live = valid && s < Sq;
   float dot = 0.f;
-  if (live) {
+  if (live && lr < D / 8) {
     const long long b = bh / Hq, h = bh % Hq;
     const uint4 a = *reinterpret_cast<const uint4*>(dout + b * do_b + h * do_h + s * do_s + lr * 8);
     const uint4 c = *reinterpret_cast<const uint4*>(o + (bh * Sq + s) * D + lr * 8);
@@ -459,14 +472,15 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16*
   }
 }
 
-// A warpgroup's accumulators (64 rows x D, rows of the thread as in
-// acc_to_a) times mult, as bf16 into a 64-row tile of the TMA layout.
+// A warpgroup's accumulators (64 rows x DP, rows of the thread as in
+// acc_to_a) times mult, as bf16 into a 64-row tile of the TMA layout (the
+// padded columns of D = 112 too: the store drops them).
 template <int D>
-__device__ __forceinline__ void stage_rows(uint32_t tile, const float (&acc)[D / 2], float mult,
-                                           int warp, int g, int t) {
+__device__ __forceinline__ void stage_rows(uint32_t tile, const float (&acc)[Atoms<D>::DP / 2],
+                                           float mult, int warp, int g, int t) {
   using A = Atoms<D>;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < A::DP / 8; ++j) {
     const int col = 8 * j + 2 * t;
     const int a = col / A::ATOM_E;
 #pragma unroll
@@ -480,7 +494,8 @@ __device__ __forceinline__ void stage_rows(uint32_t tile, const float (&acc)[D /
   }
 }
 
-// s (+)= X Y^T over D: X and Y 64-row tiles, K-major, m64n64k16 steps.
+// s (+)= X Y^T over D: X and Y 64-row tiles, K-major, m64n64k16 steps (7
+// at D = 112: the padded columns are never read).
 template <int D>
 __device__ __forceinline__ void product_ss(float (&s)[32], uint32_t x, uint32_t y) {
   using A = Atoms<D>;
@@ -494,14 +509,14 @@ __device__ __forceinline__ void product_ss(float (&s)[32], uint32_t x, uint32_t 
 }
 
 // acc += A Y over the 64 rows of tile y: A the bf16 fragments of a 64 x 64
-// accumulator, Y read MN-major (LBO steps the D atoms, SBO 8 rows).
+// accumulator, Y read MN-major (LBO steps the D atoms, SBO 8 rows), n = DP.
 template <int D>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                           uint32_t y) {
+__device__ __forceinline__ void product_rs(float (&acc)[Atoms<D>::DP / 2],
+                                           const uint32_t (&a)[4][4], uint32_t y) {
   using A = Atoms<D>;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    wgmma_rs<D>(acc, a[j], make_desc(y + j * 16 * A::ATOM_B, ROWS * A::ATOM_B, 8 * A::ATOM_B,
+    wgmma_rs<A::DP>(acc, a[j], make_desc(y + j * 16 * A::ATOM_B, ROWS * A::ATOM_B, 8 * A::ATOM_B,
                                      A::LAYOUT));
 }
 
@@ -620,9 +635,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
       // dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers
       const int kw0 = k0 + wg * ROWS;          // the warpgroup's first key
       const int key = kw0 + warp * 16 + g;     // this thread's keys: key, key + 8
-      float dk[D / 2], dv[D / 2];
+      float dk[G::DP / 2], dv[G::DP / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+      for (int i = 0; i < G::DP / 2; ++i) dk[i] = dv[i] = 0.f;
       mbar_wait(r_bar, 0);
       for (int i = 0; i < n_iter; ++i) {
         const int st = i % ST;
@@ -693,9 +708,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
         l2[r] = live ? sh.lse2[v0] : __int_as_float(0x7f800000);
         dl[r] = live ? sh.delta[v0] : 0.f;
       }
-      float dq[D / 2];
+      float dq[G::DP / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+      for (int i = 0; i < G::DP / 2; ++i) dq[i] = 0.f;
       mbar_wait(r_bar, 0);
       for (int i = 0; i < n_iter; ++i) {
         const int st = i % ST;
@@ -798,7 +813,7 @@ int launch_wgmma(const BwdArgs& a) {
   float* lse2 = a.ws;
   float* delta = a.ws + rows_total;
 
-  constexpr int RPB = 256 / (D / 8);
+  constexpr int RPB = DeltaLanes<D>::RPB;
   flash_bwd_delta_kernel<D><<<(unsigned)((rows_total + RPB - 1) / RPB), 256, 0, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.o), static_cast<const __nv_bfloat16*>(a.dout), a.lse,
       lse2, delta, (int)Hq, (int)Sq, (int)Sq_pad, a.strides[9], a.strides[10], a.strides[11],
@@ -868,6 +883,7 @@ extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
         case 16: rc = launch_f32<16>(*a); break;
         case 32: rc = launch_f32<32>(*a); break;
         case 64: rc = launch_f32<64>(*a); break;
+        case 112: rc = launch_f32<112>(*a); break;
         case 128: rc = launch_f32<128>(*a); break;
       }
     } else if (a->dtype == 1) {
@@ -875,6 +891,7 @@ extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
         case 16: rc = launch_bf16<16>(*a); break;
         case 32: rc = launch_bf16<32>(*a); break;
         case 64: rc = launch_bf16<64>(*a); break;
+        case 112: rc = launch_bf16<112>(*a); break;
         case 128: rc = launch_bf16<128>(*a); break;
       }
     }

@@ -14,14 +14,20 @@ namespace hopper {
 
 // The shared-memory layout of a tile of rows of D bf16: ATOMS column atoms
 // of ATOM_E elements (ATOM_B bytes a row), each atom rows x ATOM_B bytes,
-// swizzled by TMA in the mode of its row length (128 B at D = 64 and 128,
-// two 64-column atoms at 128; 64 B at D = 32; 32 B at D = 16), which is
-// the layout the wgmma descriptors read.
+// swizzled by TMA in the mode of its row length (128 B at D = 64, 112 and
+// 128, two 64-column atoms at 112 and 128; 64 B at D = 32; 32 B at D = 16),
+// which is the layout the wgmma descriptors read.  A D that is no multiple
+// of the atom (112) pads the tile to DP = ATOMS * ATOM_E columns (128): the
+// tensor maps keep the global rows at D, so TMA fills columns D .. DP - 1
+// of every loaded tile with zeros and drops them from every store.  Zero
+// columns of Q and K add nothing to a product over D, and zero columns of V
+// give output columns that are never stored.
 template <int D>
 struct Atoms {
   static constexpr int ATOM_E = D < 64 ? D : 64;
   static constexpr int ATOM_B = ATOM_E * 2;                 // 32, 64 or 128
-  static constexpr int ATOMS = D / ATOM_E;                  // 2 at D = 128
+  static constexpr int ATOMS = (D + ATOM_E - 1) / ATOM_E;   // 2 at D = 112 and 128
+  static constexpr int DP = ATOMS * ATOM_E;                 // the tile's columns
   static constexpr int LAYOUT = ATOM_B == 128 ? 1 : ATOM_B == 64 ? 2 : 3;  // wgmma: B128/B64/B32
   static constexpr int SW_MASK = ATOM_B / 16 - 1;          // 16-byte chunks xor-ed by row
 };
@@ -259,7 +265,8 @@ inline EncodeTiledFn encode_tiled() {
 // A bf16 tensor map of `rank` dimensions (dims[0] = D, contiguous; strides
 // in bytes of dims 1 .. rank-1, each a multiple of 16) with boxes of one
 // column atom of D by box[1..]; swizzled for rows of ATOM_B bytes.  Reads
-// outside the dims are zero-filled, writes outside them dropped.
+// outside the dims are zero-filled (the padded columns of D = 112 too),
+// writes outside them dropped.
 template <int D>
 int bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
              const cuuint64_t* strides, const cuuint32_t* box) {

@@ -43,7 +43,7 @@ import torch
 from . import build
 from .build import N_SM
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 GROUPS = (1, 2, 4, 6, 7, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WARPS = 16            # warps a block (the kernel's __launch_bounds__(512))

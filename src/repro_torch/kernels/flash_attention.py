@@ -47,7 +47,7 @@ import torch
 from . import build
 from .build import N_SM
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 64            # the smallest query tile; bounds the grid's y extent
 MAX_GRID_Y = 65535

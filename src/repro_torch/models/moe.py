@@ -14,9 +14,13 @@ The batched products are ``torch.bmm`` and the dispatch's index work is
 plain PyTorch, as the JAX package left both to XLA.  ``mode="drop"``
 becomes one spare (expert, slot) row and column that every dropped
 assignment writes to and that is cut off afterwards, so the dispatch
-needs no host sync.  The expert-parallel ``moe_apply`` body
-(``shard_map`` over the TP/EP axis) comes with the distribution slice;
-``moe_apply`` here always takes the local path.
+needs no host sync.
+
+On a mesh whose "model" axis divides the experts, ``moe_apply`` runs the
+reference's expert-parallel body (its ``shard_map`` over the TP/EP axis):
+each "model" rank holds E / tp experts, routes the tokens it shares with
+its group, keeps the assignments to its own experts, and one all-reduce
+over the group sums the partial outputs, so dispatch needs no all-to-all.
 
 Shared experts (kimi-style) are a dense gated MLP added unconditionally.
 """
@@ -30,6 +34,8 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import _dtype, dense_init, mlp_apply, mlp_init
+
+TP = "model"        # the tensor/expert-parallel mesh axis
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -113,7 +119,73 @@ def moe_apply_local(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Te
     return out
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D), all experts local."""
+def ep_size(cfg: ModelConfig, mesh) -> int:
+    """The expert-parallel width: the "model" axis's size when the mesh has
+    one of more than one rank that divides ``n_experts``, else 0 (the
+    local path)."""
+    if mesh is None or cfg.moe is None or TP not in mesh.mesh_dim_names:
+        return 0
+    tp = mesh.size(mesh.mesh_dim_names.index(TP))
+    return tp if tp > 1 and cfg.moe.n_experts % tp == 0 else 0
+
+
+def _moe_shard_body(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, *, cfg: ModelConfig,
+                    mesh) -> torch.Tensor:
+    """One rank's share of an expert-parallel MoE layer.
+
+    x: (T, D), this rank's tokens, the same on every rank of its "model"
+    group; w_*: (E_loc, ...), this rank's slice of the experts (rank r
+    holds experts r * E_loc ..).  Every rank of the group routes the same
+    tokens (``ops.moe_router``: the kernel on the card), keeps the
+    assignments to its own experts at the reference's capacity, runs its
+    batched FFN, and the partial outputs are summed over the group in
+    ``x.dtype`` (the reference psums in bf16 for a bf16 model).  Under
+    grad, x and the router enter through ``CopyToGroup`` (each rank's
+    gradient of them covers its own experts: the group sums them) and
+    the sum leaves through ``SumOverGroup`` (every rank then runs the same
+    layers after it)."""
+    from ..distributed.sharding import CopyToGroup, SumOverGroup, axis_coord
+    m = cfg.moe
+    T, D = x.shape
+    E_loc = w_gate.shape[0]
+    lo = axis_coord(mesh, TP) * E_loc
+    if torch.is_grad_enabled():
+        x = CopyToGroup.apply(x, mesh, TP)
+        router = CopyToGroup.apply(router, mesh, TP)
+    logits = (x @ router).float()
+    weights, idx = ops.moe_router(logits, m.top_k)
+    idx_flat = idx.reshape(-1).to(torch.int64)
+    tok_flat = torch.arange(T, device=x.device).repeat_interleave(m.top_k)
+    mine = (idx_flat >= lo) & (idx_flat < lo + E_loc)
+    local_e = torch.where(mine, idx_flat - lo, E_loc)
+    cap = _capacity(T, m.top_k, m.n_experts, m.capacity_factor)
+    partial = _dispatch_ffn(x, local_e, tok_flat, weights.reshape(-1), E_loc, cap,
+                            w_gate, w_up, w_down)
+    return SumOverGroup.apply(partial.to(x.dtype), mesh, TP)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D).  Expert-parallel (``_moe_shard_body``)
+    when ``mesh`` has a "model" axis of more than one rank that divides
+    ``n_experts``; all experts local otherwise.  On a mesh, x is this
+    rank's tokens: the batch was split over the data axes where it enters
+    the model (``transformer.split_batch``, the reference's ``x_spec``
+    rule: a batch too small to split stays replicated), and the "model"
+    ranks of a data group hold the same rows.  ``params``' expert stacks
+    may be whole (n_experts, ...) or this rank's slice (E / tp, ...)."""
     B, S, D = x.shape
-    return moe_apply_local(params, x.reshape(B * S, D), cfg).reshape(B, S, D)
+    xt = x.reshape(B * S, D)
+    ep = ep_size(cfg, mesh)
+    if not ep:
+        return moe_apply_local(params, xt, cfg).reshape(B, S, D)
+    from ..distributed.sharding import axis_coord
+    E_loc = cfg.moe.n_experts // ep
+    w = [params[k] for k in ("w_gate", "w_up", "w_down")]
+    if w[0].shape[0] != E_loc:                       # whole stacks: this rank's slice
+        lo = axis_coord(mesh, TP) * E_loc
+        w = [t[lo:lo + E_loc] for t in w]
+    out = _moe_shard_body(xt, params["router"], *w, cfg=cfg, mesh=mesh)
+    if cfg.moe.n_shared > 0:
+        out = out + mlp_apply(params["shared"], xt)
+    return out.reshape(B, S, D)

@@ -86,7 +86,18 @@ def _slot_init(gen: torch.Generator, cfg: ModelConfig, kind: str, is_moe: bool,
 def _stacked(make, n: int) -> dict:
     """``make()`` called ``n`` times, the leaves stacked on a leading axis.
     Each tree is written into its row as soon as it is made, so the stack
-    is never held twice (dbrx's 8 layers are 52 GB)."""
+    is never held twice (dbrx's 8 layers are 52 GB); one period's leaves
+    are viewed with a leading axis of 1, not copied (kimi-k2's one MoE
+    layer holds 33.8 GB of experts)."""
+    if n == 1:
+        def view(t):
+            if isinstance(t, dict):
+                return {k: view(v) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(view(v) for v in t)
+            return t.unsqueeze(0)
+        return view(make())
+
     def alloc(t):
         if isinstance(t, dict):
             return {k: alloc(v) for k, v in t.items()}
@@ -162,9 +173,9 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.
 # ---------------------------------------------------------------------------
 # forward (prefill / evaluation)
 # ---------------------------------------------------------------------------
-def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     if "moe" in params:
-        return MoE.moe_apply(params["moe"], h, cfg)
+        return MoE.moe_apply(params["moe"], h, cfg, mesh=mesh)
     return L.mlp_apply(params["mlp"], h)
 
 
@@ -177,7 +188,7 @@ def _cross(params: dict, x: torch.Tensor, enc_out, cfg: ModelConfig) -> torch.Te
 
 
 def _slot_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
-                enc_out=None) -> torch.Tensor:
+                enc_out=None, mesh=None) -> torch.Tensor:
     """Full-sequence apply of one block.  An attention block of an
     encoder-decoder is causal exactly when it is given the encoder's
     output: the encoder's own blocks run non-causal."""
@@ -188,7 +199,7 @@ def _slot_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
     if "norm2" not in params:
         return x
     h2 = L.norm_apply(params["norm2"], x, cfg)
-    return x + _ffn(params, h2, cfg)
+    return x + _ffn(params, h2, cfg, mesh)
 
 
 def _encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -201,22 +212,24 @@ def _encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     return L.norm_apply(params["final_norm"], e, cfg)
 
 
-def hidden_states(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def hidden_states(params: dict, batch: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Forward up to (but not including) the LM head: (B, S_total, D).
 
     ``batch`` holds ``tokens`` (B, S) int; for the vision stub also
     ``prefix_embeds`` (B, Np, D), prepended (S_total = Np + S); for an
-    encoder-decoder ``frames`` (B, Se, D), the encoder's input."""
+    encoder-decoder ``frames`` (B, Se, D), the encoder's input.  On a
+    ``mesh`` the batch is this rank's (``split_batch``) and the MoE layers
+    run expert-parallel (``moe.moe_apply``)."""
     x = embed_tokens(params, batch["tokens"], cfg)
     if cfg.frontend == "vision_stub":
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     enc_out = _encode(params, batch["frames"], cfg) if cfg.is_encdec else None
     for p in params.get("prefix", []):
-        x = _slot_apply("attn", p, x, cfg)
+        x = _slot_apply("attn", p, x, cfg, mesh=mesh)
     for p in range(cfg.n_periods):
         for s_idx, kind in enumerate(cfg.block_pattern):
             x = _slot_apply(kind, _index(params["body"][f"slot{s_idx}"], p), x, cfg,
-                            enc_out=enc_out)
+                            enc_out=enc_out, mesh=mesh)
     return L.norm_apply(params["final_norm"], x, cfg)
 
 
@@ -225,21 +238,30 @@ def _head(params: dict, cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
     return head.to(dtype)
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Logits (B, S, V_pad) for ``batch["tokens"]`` (B, S) int."""
-    x = hidden_states(params, batch, cfg)
+    x = hidden_states(params, batch, cfg, mesh)
     return x @ _head(params, cfg, x.dtype)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
             loss_chunks: int = 8) -> torch.Tensor:
     """Mean next-token cross entropy (0-d f32); labels < 0 are masked, and
-    so is the vision stub's prefix (labels of -1 prepended over it).
+    so is the vision stub's prefix (labels of -1 prepended over it)."""
+    total, count = nll_terms(params, batch, cfg, loss_chunks)
+    return total / count.clamp(min=1.0)
+
+
+def nll_terms(params: dict, batch: dict, cfg: ModelConfig, loss_chunks: int = 8,
+              mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the unmasked tokens' cross entropy, their count), both 0-d
+    f32: ``loss_fn`` divides them; a meshed step sums both over the data
+    ranks first, so its loss is the global batch's masked mean.
 
     The LM head and the CE run in ``loss_chunks`` token chunks (one chunk
     when B * S does not divide), so only one chunk of f32 logits is live
     at a time: qwen3's vocabulary is 151,936."""
-    x = hidden_states(params, batch, cfg)
+    x = hidden_states(params, batch, cfg, mesh)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
         pad = labels.new_full((labels.shape[0], batch["prefix_embeds"].shape[1]), -1)
@@ -258,7 +280,25 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
         mask = (l_c >= 0).float()
         total = total + ((lse - ll) * mask).sum()
         count = count + mask.sum()
-    return total / count.clamp(min=1.0)
+    return total, count
+
+
+def split_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of every batch entry: the batch split over the
+    mesh's data axes (every axis but "model", row-major) when it divides
+    into them, and whole otherwise (the reference's ``shard_act`` and
+    MoE ``x_spec`` rule: a batch too small to split stays replicated)."""
+    from ..distributed.sharding import axis_coord
+    from ..launch.mesh import dp_axes
+    n, idx = 1, 0
+    for a in dp_axes(mesh):
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        n, idx = n * size, idx * size + axis_coord(mesh, a)
+    B = next(iter(batch.values())).shape[0]
+    if n == 1 or B % n or B < n:
+        return batch
+    rows = B // n
+    return {k: v[idx * rows:(idx + 1) * rows] for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +359,7 @@ def reset_lanes(state: dict, cfg: ModelConfig, lanes: list[int]) -> dict:
 
 
 def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
-                 cfg: ModelConfig, enc_out=None, write=None) -> torch.Tensor:
+                 cfg: ModelConfig, enc_out=None, write=None, mesh=None) -> torch.Tensor:
     """One token through one block; ``state`` (a KV cache, or the views
     of a recurrent state's period row) is written in place.  ``write``
     (B,) bool: the lanes whose recurrent state takes the step (all when
@@ -339,12 +379,12 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
     if "norm2" not in params:
         return x
     h2 = L.norm_apply(params["norm2"], x, cfg)
-    return x + _ffn(params, h2, cfg)
+    return x + _ffn(params, h2, cfg, mesh)
 
 
 def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.Tensor,
                 cfg: ModelConfig, enc_out: torch.Tensor | None = None,
-                write: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+                write: torch.Tensor | None = None, mesh=None) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens: (B,) int — the freshly sampled token;
     lengths: (B,) current context lengths; ``enc_out`` (B, Se, D): the
     encoder's output (``_encode``) for an encoder-decoder, whose blocks
@@ -360,13 +400,13 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.
     position, and its length masks it until then."""
     x = embed_tokens(params, tokens[:, None], cfg)      # (B, 1, D)
     for p, cache in zip(params.get("prefix", []), state.get("prefix", [])):
-        x = _slot_decode("attn", p, x, cache, lengths, cfg, enc_out=enc_out)
+        x = _slot_decode("attn", p, x, cache, lengths, cfg, enc_out=enc_out, mesh=mesh)
     for p in range(cfg.n_periods):
         for s_idx, kind in enumerate(cfg.block_pattern):
             slot = f"slot{s_idx}"
             x = _slot_decode(kind, _index(params["body"][slot], p), x,
                              _index(state[slot], p), lengths, cfg, enc_out=enc_out,
-                             write=write)
+                             write=write, mesh=mesh)
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = (x @ _head(params, cfg, x.dtype))[:, 0, :]
     return logits, state

@@ -52,14 +52,16 @@ def _q_init(x: torch.Tensor) -> dict:
             "scale": torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)}
 
 
-def _q_quant(val: torch.Tensor, *, root: bool = False) -> dict:
+def _q_quant(val: torch.Tensor, *, root: bool = False, row_max=None) -> dict:
     """``root=True`` stores the moment in the sqrt domain: the update
     consumes ``sqrt(v)``, so quantizing the root bounds the error on the
-    quantity actually used."""
+    quantity actually used.  ``row_max``, where given, takes each row's
+    absmax to the whole row's (a sharded step's rows are cut)."""
     vf = val.float()
     if root:
         vf = torch.sqrt(vf)
-    scale = vf.abs().amax(dim=-1) / 127.0
+    amax = vf.abs().amax(dim=-1)
+    scale = (amax if row_max is None else row_max(amax)) / 127.0
     q = torch.round(vf / torch.clamp(scale, min=1e-12)[..., None]).to(torch.int8)
     return {"q": q, "scale": scale}
 
@@ -73,14 +75,18 @@ def _leaf_quantized(p: torch.Tensor) -> bool:
     return p.numel() >= _QUANT_MIN and p.dim() >= 2
 
 
-def adamw_init(params, cfg: AdamWConfig) -> dict:
+def adamw_init(params, cfg: AdamWConfig, full=None) -> dict:
+    """Zero moments like ``params``.  ``full``: a tree like ``params`` of
+    the whole leaves (``meta`` tensors will do) when ``params`` are a
+    rank's shards, so that a leaf's int8 moments follow the whole leaf's
+    size, as the reference's (and the checkpoint's) do."""
     if cfg.state_dtype == "int8":
-        def init_leaf(p):
-            if _leaf_quantized(p):
+        def init_leaf(p, whole):
+            if _leaf_quantized(whole):
                 return _q_init(p)
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        m = map_like(init_leaf, params)
-        v = map_like(init_leaf, params)
+        m = map_like(init_leaf, params, params if full is None else full)
+        v = map_like(init_leaf, params, params if full is None else full)
     else:
         dt = getattr(torch, cfg.state_dtype)
         m = map_like(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
@@ -89,11 +95,14 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)}
 
 
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0, row_max=None):
     """Returns (new_params, new_state).  ``lr_scale`` is a float or a 0-d
     float32 tensor (``cosine_schedule``'s).  Update math in f32
     regardless of storage dtype, with the reference's float32 rounding of
-    the step's scalars (the bias corrections and the lr)."""
+    the step's scalars (the bias corrections and the lr).  ``row_max``: a
+    tree like ``params`` of None or, for a shard whose rows are cut,
+    the function that takes a row's absmax to the whole row's (an int8
+    moment's scale; ``models.model.make_train_step`` on a mesh)."""
     with torch.no_grad():
         step = state["step"] + 1
         t = step.to(torch.float32)
@@ -102,7 +111,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
         lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=t.device)
         state_dt = torch.float32 if cfg.state_dtype == "int8" else getattr(torch, cfg.state_dtype)
 
-        def upd(p, g, m_st, v_st):
+        def upd(p, g, m_st, v_st, rmax=None):
             gf = g.float()
             quant = isinstance(m_st, dict)
             if quant:
@@ -118,17 +127,18 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
             pf = p.float()
             pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf)
             if quant:
-                return pf.to(p.dtype), _q_quant(m_new), _q_quant(v_new, root=True)
+                return (pf.to(p.dtype), _q_quant(m_new, row_max=rmax),
+                        _q_quant(v_new, root=True, row_max=rmax))
             return pf.to(p.dtype), m_new.to(state_dt), v_new.to(state_dt)
 
-        def upd_leaf(p, g, m, v):
+        def upd_leaf(p, g, m, v, rmax=None):
             # update huge leaves a block of rows (last-axis vectors) at a
             # time: bounds the f32 dequant/update temporaries to one block
             # (the reference maps over the leading, period axis; one
             # dbrx layer's expert stacks or its untied embedding, 1.06 B
             # and 0.62 B elements, are single leaves with no such axis)
             if p.dim() < 2 or p.numel() < cfg.scan_update_min:
-                return upd(p, g, m, v)
+                return upd(p, g, m, v, rmax)
             last = p.shape[-1]
             step_rows = max(1, cfg.scan_update_min // 16 // last)
             new = (torch.empty(p.shape, dtype=p.dtype, device=p.device),
@@ -137,11 +147,14 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
             dst = [_rows(t, last) for t in new]
             for r in range(0, p.numel() // last, step_rows):
                 part = [_block(t, r, r + step_rows) for t in rows]
-                for d, out in zip(dst, upd(*part)):
+                for d, out in zip(dst, upd(*part, rmax)):
                     _put(d, r, r + step_rows, out)
             return new
 
-        out = map_like(upd_leaf, params, grads, state["m"], state["v"])
+        if row_max is None:
+            out = map_like(upd_leaf, params, grads, state["m"], state["v"])
+        else:
+            out = map_like(upd_leaf, params, grads, state["m"], state["v"], row_max)
         new_p = map_like(lambda _, o: o[0], params, out)
         new_m = map_like(lambda _, o: o[1], params, out)
         new_v = map_like(lambda _, o: o[2], params, out)

@@ -7,6 +7,13 @@ atomic) and the straggler policy.  ``run()`` is crash-restartable: on
 start it restores the latest checkpoint (params, opt state, data
 position) if one exists.  A step is timed up to the read-back of its
 loss, as the reference's ``float(aux["loss"])`` ends its step.
+
+With a ``mesh`` (``launch/mesh.py``) each rank holds its shards of the
+params and the AdamW state and runs the sharded step on the global
+batch, which every rank draws alike from the seeded pipeline; a save
+all-gathers the leaves and rank 0 writes them, and a restore gives each
+rank its blocks (``checkpoint.restore_elastic``), so a run resumes on a
+mesh of another size.
 """
 from __future__ import annotations
 
@@ -15,12 +22,13 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..checkpoint.manager import CheckpointManager
+from ..checkpoint.manager import CheckpointManager, restore_elastic
 from ..data.pipeline import DataPipeline
 from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig, adamw_init
+from ..tree import map_like
 from .straggler import StragglerPolicy
 
 
@@ -44,8 +52,9 @@ class TrainMetrics:
 class TrainLoop:
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
                  loop_cfg: TrainLoopConfig, pipeline: DataPipeline,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.loop_cfg = loop_cfg
@@ -56,9 +65,13 @@ class TrainLoop:
         self.metrics = TrainMetrics()
 
         self.params = M.init_params(cfg, seed=seed, device=self.device)
-        self.opt_state = adamw_init(self.params, opt_cfg)
+        if mesh is None:
+            self.opt_state = adamw_init(self.params, opt_cfg)
+        else:
+            self.params = M.shard_params(self.params, cfg, mesh)
+            self.opt_state = adamw_init(self.params, opt_cfg, full=M.abstract_params(cfg))
         self._step = M.make_train_step(cfg, opt_cfg,
-                                       total_steps=loop_cfg.total_steps)
+                                       total_steps=loop_cfg.total_steps, mesh=mesh)
         self.step_no = 0
 
     # ------------------------------------------------------------------
@@ -66,8 +79,12 @@ class TrainLoop:
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
-        state = {"params": self.params, "opt": self.opt_state}
-        step, tree, pipe = self.ckpt.restore(state)
+        if self.mesh is None:
+            step, tree, pipe = self.ckpt.restore({"params": self.params, "opt": self.opt_state})
+        else:
+            abstract = M.abstract_params(self.cfg)
+            like = {"params": abstract, "opt": adamw_init(abstract, self.opt_cfg)}
+            step, tree, pipe = restore_elastic(self.ckpt, like, self.mesh, self._specs())
         self.params, self.opt_state = tree["params"], tree["opt"]
         if pipe is not None:
             self.pipeline.restore(pipe)
@@ -102,8 +119,19 @@ class TrainLoop:
         self.ckpt.wait()
         return self.metrics
 
+    def _specs(self) -> dict:
+        specs = M.spec_tree(self.cfg)
+        return {"params": specs, "opt": M.opt_spec_tree(specs, self.opt_cfg, self.cfg)}
+
     def save(self) -> None:
-        self.ckpt.save(self.step_no,
-                       {"params": self.params, "opt": self.opt_state},
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            from ..distributed.sharding import gather
+            tree = map_like(lambda t, s: gather(t, s, self.mesh), tree, self._specs())
+            if dist.get_rank() != 0:
+                return
+        self.ckpt.save(self.step_no, tree,
                        pipeline_state=self.pipeline.snapshot(),
                        blocking=not self.loop_cfg.async_checkpoint)

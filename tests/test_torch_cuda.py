@@ -42,9 +42,10 @@ def train_launches(cfg) -> dict:
     decoder block's causal self-attention and its cross-attention), every
     norm (two a block with an FFN, one an xLSTM block, two more for a
     qk-norm, an enc-dec decoder block's ``norm_x``, the final norm once for
-    each stack) and every MoE layer, forward and backward alike."""
+    each stack) and every MoE layer, forward and backward alike; a dense
+    prefix layer (kimi-k2's) is an attention block with an FFN."""
     from repro_torch.models import transformer as T
-    kinds = list(cfg.block_pattern) * cfg.n_periods
+    kinds = ["attn"] * cfg.n_dense_prefix + list(cfg.block_pattern) * cfg.n_periods
     n_attn = kinds.count("attn") * (2 if cfg.is_encdec else 1) + cfg.n_enc_layers
     n_norm = (sum(2 if k in ("attn", "mamba") else 1 for k in kinds) + 1
               + 2 * cfg.qk_norm * kinds.count("attn")
@@ -198,7 +199,7 @@ def test_cuda_decode_attention_split_calls_of_more_pairs_after_fewer(cuda, dtype
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128])
 def test_cuda_decode_attention_group_7_in_a_captured_graph(cuda, dtype, D):
     """internvl2's group of 7 (14 query heads over 2 KV heads) at every
     head_dim, on both launch plans (split at its decode shape, B = 4 over
@@ -539,6 +540,53 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_attention_kernels_at_head_dim_112(cuda, dtype):
+    """kimi-k2's head_dim of 112 (64 query heads over 8 KV heads), which
+    the bf16 bodies run in tiles padded to 128 columns: flash_attention
+    and its backward at a causal ragged shape, a non-causal one and
+    group 8 at 1000 x 1000 (two consumer warpgroups, several ring
+    stages); decode_attention at group 8 on both launch plans.  Each
+    equals its plain version, one launch a call, and the backward gives
+    the same bits on a second call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.decode_attention import decode_plan
+    dt = getattr(torch, dtype)
+    D = 112
+    for B, Hq, Hkv, Sq, Skv, causal in ((1, 16, 2, 1000, 1000, True), (2, 8, 1, 77, 200, True),
+                                        (1, 8, 8, 130, 257, False), (1, 64, 8, 128, 128, True)):
+        q = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        k = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        v = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
+        do = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
+        n0 = ops.LAUNCHES["flash_attention"]
+        o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        assert ops.LAUNCHES["flash_attention"] == n0 + 1
+        want_o, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+        torch.testing.assert_close(o.float(), want_o.float(), **_tol(dtype))
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        n0 = ops.LAUNCHES["flash_attention_bwd"]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            torch.testing.assert_close(a.float(), w.float(), **_bwd_tol(dtype))
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plans = set()
+    for B, S, lens in ((4, 4096, [4096, 1, 2000, 33]), (20, 300, [300, 0, 31, 32, 33] * 4)):
+        plans.add(decode_plan(B, 8, 8, S, D, dt.itemsize)[2])
+        q, k, v, ln = _decode_inputs(cuda, dt, B, 64, 8, S, D, lens)
+        n0 = ops.LAUNCHES["decode_attention"]
+        got = ops.decode_attention(q, k, v, ln)
+        assert ops.LAUNCHES["decode_attention"] == n0 + 1
+        torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, k, v, ln).float(),
+                                   **_tol(dtype))
+    assert plans == {False, True}
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 2, 8, 48, device=cuda)            # head_dim 48
     with pytest.raises(ValueError):
@@ -553,7 +601,7 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128])
 def test_cuda_flash_attention_more_queries_than_keys_and_cross_decode(cuda, dtype, D):
     """Non-causal attention with more queries than keys (whisper's decoder
     longer than its frames), and one query over 1500 keys (a decode
@@ -824,7 +872,7 @@ def _bwd_tol(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128])
 def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, D):
     """Every head_dim x dtype, causal and not, Sq = Skv and Sq < Skv (the
     queries the last Sq positions), ragged tiles, groups 1, 2, 6 and 8;
@@ -921,7 +969,7 @@ def test_cuda_flash_attention_bwd_bf16_wgmma_body(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128])
 def test_cuda_flash_attention_bwd_more_queries_than_keys(cuda, dtype, D):
     """The backward at non-causal Sq > Skv (whisper's cross-attention with
     a decoder longer than its frames) at every head_dim x dtype, groups 1,

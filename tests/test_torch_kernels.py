@@ -104,6 +104,48 @@ def test_noncausal_attention_plain_matches_pallas_with_more_queries(B, Hq, Hkv, 
     assert torch.equal(ops.attention(tq, tk, tv, causal=False), got)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,causal,block", [
+    (1, 8, 1, 128, 128, True, 64), (2, 16, 2, 64, 192, True, 64),
+    (1, 8, 8, 96, 64, False, 32), (1, 4, 2, 32, 32, False, 32)])
+def test_attention_plain_matches_pallas_at_head_dim_112(B, Hq, Hkv, Sq, Skv, causal, block,
+                                                         dtype):
+    """kimi-k2's head_dim of 112 (group 8 as in its 64/8 heads): the plain
+    version against the Pallas kernel in interpret mode and the JAX
+    ``attention_ref``, causal (Sq < Skv: the queries the last Sq
+    positions) and not (Sq > Skv too), and the CPU dispatch."""
+    D = 112
+    rs = np.random.RandomState(Sq * 7 + Skv + Hq)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(rs.randn(B, h, n, D).astype(np.float32), dtype)
+                                    for h, n in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    got = ref.attention_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    kern = j_flash(jq, jk, jv, causal=causal, block_q=block, block_k=block, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(kern), **_tol(dtype))
+    np.testing.assert_allclose(_f32(got), _f32(jref.attention_ref(jq, jk, jv, causal=causal)),
+                               **_tol(dtype))
+    assert torch.equal(ops.attention(tq, tk, tv, causal=causal), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,S,block_k", [(4, 64, 8, 256, 64), (3, 8, 1, 128, 32)])
+def test_decode_attention_plain_matches_pallas_at_head_dim_112(B, Hq, Hkv, S, block_k, dtype):
+    """kimi-k2's decode shape, cut in S: 64 query heads over 8 KV heads of
+    112 dims, lengths from 1 to a full cache, against the Pallas kernel in
+    interpret mode."""
+    D = 112
+    rs = np.random.RandomState(B * 1000 + S + Hq)
+    q = rs.randn(B, Hq, D).astype(np.float32)
+    k = rs.randn(B, Hkv, S, D).astype(np.float32)
+    v = rs.randn(B, Hkv, S, D).astype(np.float32)
+    lens = np.array([1, S, S // 2 + 3, 33][:B], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    want = j_decode(jq, jk, jv, jnp.asarray(lens), block_k=block_k, interpret=True)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
 def test_decode_attention_zero_length_gives_zeros():
     """The TPU kernel's l == 0 guard: a lane with no live position
     returns zeros (the plain version follows the kernel)."""

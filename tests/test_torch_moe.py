@@ -180,6 +180,32 @@ def test_forward_and_loss_match_reference(arch):
                                    np.asarray(JT.hidden_states(jparams, jb, cfg_j)), **TOL)
 
 
+def test_kimi_at_head_dim_112_forward_and_serve_match_reference():
+    """Reduced kimi-k2 with its own head_dim of 112 (4 heads over 2 KV
+    heads, so 448-wide attention over a 64-wide model): the prefill logits
+    against ``T.forward`` and 6 serve steps against the reference's, tokens
+    exact."""
+    cfg_j, cfg = _cfgs("kimi-k2-1t-a32b", d_head=112)
+    assert cfg.head_dim == 112
+    jparams = JM.init_params(cfg_j, seed=5)
+    params = _bridge(jparams)
+    jb, tb = _batch(cfg, 2, 24, 5)
+    with torch.inference_mode():
+        got = T.forward(params, tb, cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(JT.forward(jparams, jb, cfg_j)), **TOL)
+    jserve, serve = jax.jit(JM.make_serve_step(cfg_j)), M.make_serve_step(cfg)
+    jstate, state = JT.init_decode_state(cfg_j, 2, 16), T.init_decode_state(cfg, 2, 16, "cpu")
+    toks, lens = np.array([3, 9], np.int32), np.array([0, 5], np.int32)
+    for _ in range(6):
+        jn, jl, jstate = jserve(jparams, jstate, {"tokens": toks, "lengths": lens})
+        tn, tl, state = serve(params, state, {"tokens": torch.from_numpy(toks),
+                                              "lengths": torch.from_numpy(lens)})
+        np.testing.assert_allclose(tl.numpy()[:, :cfg.vocab], np.asarray(jl)[:, :cfg.vocab],
+                                   **TOL)
+        assert np.array_equal(tn.numpy(), np.asarray(jn))
+        toks, lens = np.asarray(jn).astype(np.int32), lens + 1
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_steps_match_reference(arch):
     cfg_j, cfg = _cfgs(arch)

@@ -146,13 +146,14 @@ def _witness(params, batch, cfg, grads, losses, after):
     ("qwen3-1.7b", dict(d_model=64, n_heads=4, n_kv_heads=2, d_head=16, n_layers=2), None, None),
     ("dbrx-132b", {}, None, None),
     ("kimi-k2-1t-a32b", {}, None, None),            # a dense prefix layer and a shared expert
+    ("kimi-k2-1t-a32b", {"d_head": 112}, None, None),  # kimi's own head_dim
     ("dbrx-132b", {}, 0.25, None),                  # capacity 6 of ~24 a expert: drops
     ("jamba-v0.1-52b", {}, None, None),             # mamba (the scan's Function), attn, MoE
     ("xlstm-350m", {}, None, None),                 # mLSTM chunks of 8 and sLSTM: the witness
     ("whisper-medium", {}, None, 16),               # frames fewer than the 24 tokens
     ("whisper-medium", {}, None, 40),               # and more
     ("internvl2-1b", {}, None, None),               # 8 prefix embeddings, their labels -1
-], ids=["router", "qwen3", "dbrx", "kimi-k2", "dbrx-drops", "jamba", "xlstm", "whisper-16-frames",
+], ids=["router", "qwen3", "dbrx", "kimi-k2", "kimi-k2-d112", "dbrx-drops", "jamba", "xlstm", "whisper-16-frames",
         "whisper-40-frames", "internvl2"])
 def test_train_step_matches_jax(arch, overrides, cf, frames):
     cfg_j = _with_cf(jget_config(arch).reduced(**overrides), cf)
@@ -536,13 +537,15 @@ PLAIN_NAMES = {"flash_attention": "fwd", "flash_attention_bwd": "bwd", "rmsnorm"
 
 
 @pytest.mark.parametrize("arch,frames", [("jamba-v0.1-52b", None), ("xlstm-350m", None),
-                                         ("whisper-medium", 40), ("internvl2-1b", None)],
-                         ids=["jamba", "xlstm", "whisper", "internvl2"])
+                                         ("whisper-medium", 40), ("internvl2-1b", None),
+                                         ("kimi-k2-1t-a32b", None)],
+                         ids=["jamba", "xlstm", "whisper", "internvl2", "kimi-k2"])
 def test_every_family_through_the_functions_matches_cpu_autograd(functions_on_plain, arch,
                                                                  frames):
-    """The SSM, xLSTM, enc-dec and vision families through the Functions
-    (the card's path, plain versions inside): one backward a forward call
-    of each kernel, counted from the config (whisper: the encoder's 2
+    """The SSM, xLSTM, enc-dec and vision families and kimi-k2 (a dense
+    prefix layer before its MoE layer) through the Functions (the card's
+    path, plain versions inside): one backward a forward call of each
+    kernel, counted from the config (whisper: the encoder's 2
     attention calls, the decoder's 2 self and 2 cross at 40 frames over
     24 tokens, the cross-attention's backward at Sq < Skv), and the CPU
     path's loss and gradients."""
