@@ -22,7 +22,7 @@ its main path on the card, printing one JSON line per phase:
      ops, equal to the HostEngine's answers, then a write wave of 64
      admits whose refresh must patch, then the waves again;
   6. the durable tier (``durable``): a child process builds the same
-     wiki at 2^18 files into a 4-shard durable store (WAL fsync at every
+     wiki at 2^17 files into a 4-shard durable store (WAL fsync at every
      commit), mirrors it in a DeviceEngine on the card, commits a patched
      write wave and wave A, flushes wave B uncommitted and exits with no
      close; this process reopens the directory, rehydrates a DeviceEngine
@@ -151,8 +151,22 @@ its main path on the card, printing one JSON line per phase:
  15. the mesh over torch.distributed on one rank (NCCL): the router's
      meshed train step on a (1, 1) mesh against the unmeshed step bit for
      bit over 3 steps, ``pipeline_apply`` with one stage against the
-     stage, ``restore_elastic`` onto the mesh bit for bit;
- 16. one JSON line of every kernel (nine) with its launches, error, times
+     stage, ``restore_elastic`` onto the mesh bit for bit; the meshed
+     prefill (B=4, S=4096) and 16 meshed serve steps (B=4, from an empty
+     cache) of the wikikv-router, qwen3-1.7B (28 layers) and dbrx-132b (1
+     of 40 layers) against the unmeshed steps, logits bit for bit, tokens
+     equal, launches equal, and dbrx's expert-parallel body against the
+     local MoE; the dry run's predicted memory of qwen3-1.7B's one-rank
+     train step (B=1, S=4096; traced in a child process on a fake group)
+     within [0.85, 1.15] of the card's ``max_memory_allocated``;
+ 16. the dry run (``python -m repro_torch.launch.dryrun``, a child process
+     a cell, 8 at once) on fake "cuda" over a fake 256- or 512-rank group:
+     qwen3, dbrx, whisper and internvl2 at train_4k and decode_32k, jamba
+     and xlstm at decode_32k on 16x16, kimi-k2 at train_4k on 2x16x16,
+     every cell ok, one line each; dbrx's train_4k and qwen3's decode_32k
+     also on fake "cpu" (the plain versions), with the same cost,
+     collectives and memory;
+ 17. one JSON line of every kernel (nine) with its launches, error, times
      and bound; the card's name and power limit; the final
      ``{"ok": true, ...}``.
 
@@ -190,11 +204,12 @@ F32_TOL = dict(atol=3e-5, rtol=3e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 SCALE_LOG2 = 20            # 2^20 files in the synthetic wiki
-# the durable phase's wiki: a quarter of the query phase's, so that the
-# whole smoke keeps well inside its time limit (its ingest with an fsync
-# a commit and two from_store freezes took ~380 s at 2^20, and 207 s at
-# 2^19 on an H100 host that ran the smoke in 1,078 s)
-DURABLE_SCALE_LOG2 = 18
+# the durable phase's wiki: an eighth of the query phase's, so that the
+# whole smoke keeps well inside its time limit with the mesh and dry-run
+# phases (its ingest with an fsync a commit and two from_store freezes
+# took ~380 s at 2^20, and 207 s at 2^19 on an H100 host that ran the
+# smoke in 1,078 s)
+DURABLE_SCALE_LOG2 = 17
 N_DIMS, N_TOPICS = 16, 256
 
 
@@ -3546,9 +3561,280 @@ def mesh_single_rank(dev, seed=0, steps=3) -> dict:
               "pipeline": {"stages": 1, "microbatches": 6, "bit_for_bit": True},
               "restore_elastic": {"leaves": len(leaves(tree)), "bit_for_bit": True},
               "launches": counts})
+        del plain, p_opt, meshed, m_opt, tree
+        torch.cuda.empty_cache()
+        # the MoE's combine (index_add_) sums a token's expert outputs with
+        # float atomics, in any order on the card: under PyTorch's
+        # deterministic algorithms it sums them in one order, so the meshed
+        # and unmeshed steps can be held to the same bits
+        was = (torch.are_deterministic_algorithms_enabled(),
+               torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            meshed_counts = meshed_steps(dev, mesh, seed=seed)
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        counts = {k: counts[k] + meshed_counts[k] for k in counts}
+        memory_check(dev, mesh, seed=seed)
     finally:
         dist.destroy_process_group()
     return counts
+
+
+MESHED_ARCHS = (("wikikv-router", None), ("qwen3-1.7b", None), ("dbrx-132b", 1))
+MESHED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "moe_router")
+
+
+def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512) -> dict:
+    """The meshed prefill and serve steps (``make_prefill_step(cfg, mesh)``,
+    ``make_serve_step(cfg, mesh)``) on the one-rank mesh against the
+    unmeshed steps: the wikikv-router and qwen3-1.7B at full width and
+    depth, dbrx-132b at full width cut to 1 of its 40 layers (its prefill
+    of B x S tokens through the capacity dispatch), each at B = ``batch``,
+    S = ``seq`` and ``dec_steps`` greedy decode steps at B = ``batch``
+    from an empty cache (its state cut by ``decode_state_specs``: on one
+    rank the whole).  On one rank every gather is a copy, so the logits
+    must be equal bit for bit and the tokens equal (the caller turns on
+    PyTorch's deterministic algorithms: the MoE's ``index_add_`` combine
+    is otherwise summed in any order); the launches of the meshed steps
+    must equal the unmeshed ones'.  dbrx's expert-parallel
+    body (``moe._moe_shard_body``, which a one-wide "model" axis does not
+    take, as the reference's ``moe_apply`` does not) is held against the
+    local MoE on its layer's input, bit for bit, outside the counts.
+    Returns the meshed steps' launch counts."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import dp_axes, dp_size
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import map_like
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    lines = []
+    for arch, layers in MESHED_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+        torch.cuda.empty_cache()
+        params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+        shards = M.shard_params(params, cfg, mesh)
+        toks = text_batch(dev, cfg, batch, seq, seed)["tokens"]
+        runs = {}
+        for name, m in (("plain", None), ("meshed", mesh)):
+            p = params if m is None else shards
+            prefill, serve = M.make_prefill_step(cfg, m), M.make_serve_step(cfg, m)
+            state = T.init_decode_state(cfg, batch, max_len, dev)
+            if m is not None:
+                specs = M.decode_state_specs(cfg, batch, dp=dp_axes(m), dp_size=dp_size(m),
+                                             tp_size=1)
+                state = map_like(lambda t, s_: shard(t, s_, m), state, specs)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits = prefill(p, {"tokens": toks})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            tok = toks[:, 0].contiguous()
+            lengths = torch.zeros(batch, dtype=torch.int32, device=dev)
+            out_toks, out_logits = [], []
+            t0 = time.perf_counter()
+            for _ in range(dec_steps):
+                tok, lg, state = serve(p, state, {"tokens": tok, "lengths": lengths})
+                out_toks.append(tok)
+                out_logits.append(lg)
+                lengths = lengths + 1
+            torch.cuda.synchronize()
+            runs[name] = {"counts": dict(ops.LAUNCHES), "logits": logits, "prefill_ms": prefill_ms,
+                          "step_ms": (time.perf_counter() - t0) * 1e3 / dec_steps,
+                          "toks": torch.stack(out_toks), "dec_logits": torch.stack(out_logits)}
+            del state
+        a, b = runs["plain"], runs["meshed"]
+        check(torch.equal(a["logits"], b["logits"]),
+              f"{arch}: the meshed prefill's logits differ from the unmeshed ones'")
+        check(torch.equal(a["toks"], b["toks"]) and torch.equal(a["dec_logits"], b["dec_logits"]),
+              f"{arch}: the meshed serve steps differ from the unmeshed ones'")
+        check(all(a["counts"][k] == b["counts"][k] for k in MESHED_KERNELS),
+              f"{arch}: meshed launches {b['counts']} != unmeshed {a['counts']}")
+        for k in MESHED_KERNELS:
+            if cfg.moe is not None or k != "moe_router":
+                check(b["counts"][k] > 0, f"{arch}: the meshed steps launched no {k}")
+        total = {k: total[k] + b["counts"][k] for k in total}
+        line = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+                "dec_steps": dec_steps, "logits_bit_for_bit": True, "tokens_equal": True,
+                "launches": {k: b["counts"][k] for k in MESHED_KERNELS},
+                "prefill_ms": {n: r["prefill_ms"] for n, r in runs.items()},
+                "decode_step_ms": {n: r["step_ms"] for n, r in runs.items()}}
+        if cfg.moe is not None:
+            # the expert-parallel body on the one-rank mesh against the local
+            # MoE, on 1024 embedded tokens
+            with torch.inference_mode():
+                h = T.embed_tokens(params, toks[:1, :1024], cfg).reshape(-1, cfg.d_model)
+                moe = T._index(params["body"]["slot0"], 0)["moe"]
+                local = MoE.moe_apply_local(moe, h, cfg)
+                body = MoE._moe_shard_body(h, moe["router"], moe["w_gate"], moe["w_up"],
+                                           moe["w_down"], cfg=cfg, mesh=mesh)
+            check(torch.equal(local, body), f"{arch}: the expert-parallel body on one rank "
+                  "differs from the local MoE")
+            line["ep_body_bit_for_bit"] = True
+        lines.append(line)
+        del params, shards, runs, a, b
+    emit({"phase": "meshed_steps", "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "runs": lines})
+    return total
+
+
+MEMORY_BAND = (0.85, 1.15)   # the dry run's predicted bytes over the card's peak
+
+
+def memory_check(dev, mesh, seed=0, seq=4096) -> None:
+    """The dry run's per-card memory against the card: qwen3-1.7B's meshed
+    train step at B = 1, S = ``seq`` traced on a one-rank fake mesh (in a
+    child process: the fake group cannot share this process with the NCCL
+    one), then the same step run on the one-rank NCCL mesh.  The predicted
+    ``total_per_device`` over ``torch.cuda.max_memory_allocated()`` (from
+    what was allocated before the arguments) must lie in MEMORY_BAND; the
+    predicted FLOPs are printed beside ``model_flops``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _opt_cfg
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    code = ("import json, sys\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.launch import dryrun\n"
+            "from repro_torch.launch.mesh import make_host_mesh\n"
+            "from repro_torch.models import model as M\n"
+            "dryrun.start_fake_group(1)\n"
+            f"r = dryrun.trace_cell(get_config('qwen3-1.7b'), M.ShapeSpec('train', {seq}, 1, "
+            "'train'), make_host_mesh(1, 1), 'cuda')\n"
+            "print(json.dumps({k: r[k] for k in ('memory', 'cost', 'collectives', 'trace_s')}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    check(proc.returncode == 0, f"the one-rank dry-run trace failed:\n{proc.stderr[-3000:]}")
+    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg = get_config("qwen3-1.7b")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = M.shard_params(T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg),
+                            cfg, mesh)
+    torch.cuda.empty_cache()
+    opt_cfg = _opt_cfg(cfg)
+    opt = adamw_init(params, opt_cfg, full=M.abstract_params(cfg))
+    batch = text_batch(dev, cfg, 1, seq, seed)
+    step = M.make_train_step(cfg, opt_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    _, _, aux = step(params, opt, batch)
+    loss = float(aux["loss"])
+    measured = torch.cuda.max_memory_allocated() - base
+    predicted = pred["memory"]["total_per_device"]
+    ratio = predicted / measured
+    mf = M.model_flops(cfg, M.ShapeSpec("train", seq, 1, "train"))
+    line = {"phase": "dryrun_memory", "arch": cfg.name, "batch": 1, "seq": seq, "mesh": "1x1",
+            "loss": loss, "predicted_total_per_device": predicted,
+            "predicted_argument_bytes": pred["memory"]["argument_size_in_bytes"],
+            "measured_argument_bytes": args, "measured_max_allocated": measured,
+            "predicted_over_measured": ratio, "predicted_flops": pred["cost"]["flops"],
+            "model_flops": mf, "model_flops_over_predicted": mf / pred["cost"]["flops"],
+            "trace_s": pred["trace_s"],
+            "nvidia_smi": nvidia_smi()}
+    emit(line)
+    print(f"dry-run memory of qwen3-1.7b's one-rank train step (B=1, S={seq}): predicted "
+          f"{predicted / 2**30:.3f} GiB, card {measured / 2**30:.3f} GiB (ratio {ratio:.4f}); "
+          f"predicted FLOPs {pred['cost']['flops'] / 1e12:.3f} T against model_flops "
+          f"{mf / 1e12:.3f} T", flush=True)
+    check(math.isfinite(loss), f"qwen3 one-rank meshed train step: loss {loss}")
+    check(MEMORY_BAND[0] <= ratio <= MEMORY_BAND[1],
+          f"predicted memory {predicted} over the card's {measured} = {ratio:.4f}, outside "
+          f"{MEMORY_BAND}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the dry run over a fake process group of 256 / 512 ranks
+# ---------------------------------------------------------------------------
+#: one arch a family at train_4k and decode_32k on 16x16 (jamba's and
+#: xlstm's train_4k trace their per-step scan loops op by op for minutes:
+#: they run in the --all sweep), kimi-k2's train_4k on 2x16x16
+DRYRUN_CELLS = [(a, s, "single") for a in ("qwen3-1.7b", "dbrx-132b", "whisper-medium",
+                                           "internvl2-1b") for s in ("train_4k", "decode_32k")]
+DRYRUN_CELLS += [("jamba-v0.1-52b", "decode_32k", "single"), ("xlstm-350m", "decode_32k", "single"),
+                 ("kimi-k2-1t-a32b", "train_4k", "multi")]
+#: cells traced on fake "cpu" too, whose counts must equal the fake-"cuda" trace's
+DRYRUN_BOTH = [("dbrx-132b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single")]
+DRYRUN_WORKERS = 8
+
+
+def dryrun_phase() -> None:
+    """``python -m repro_torch.launch.dryrun`` over DRYRUN_CELLS on fake
+    "cuda" (the kernels' shape rules), each cell in a process of its own,
+    DRYRUN_WORKERS at a time, and DRYRUN_BOTH on fake "cpu" (the plain
+    versions) too: every cell ``ok``, one line each (status, dominant
+    term, the three times, the per-card GiB, the useful share of the
+    FLOPs), and equal ``cost``, ``collectives`` and ``memory`` on the two
+    devices.  The times are predictions from an H100 SXM's published
+    rates, not measurements."""
+    root = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    jobs = [(c, "cuda") for c in DRYRUN_CELLS] + [(c, "cpu") for c in DRYRUN_BOTH]
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    results, running = {}, []
+    # a job is ((arch, shape, mesh), device); a cell traced on both devices
+    # is two jobs
+    try:
+        while jobs or running:
+            while jobs and len(running) < DRYRUN_WORKERS:
+                (arch, shape, mesh), device = job = jobs.pop(0)
+                out = root / device
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                       "--shape", shape, "--mesh", mesh, "--device", device, "--out-dir", str(out)]
+                running.append((job, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True),
+                                time.perf_counter()))
+            job, proc, t_start = running.pop(0)
+            log = proc.communicate(timeout=900)[0]
+            (arch, shape, mesh), device = job
+            name = f"{arch}__{shape}__{'2x16x16' if mesh == 'multi' else '16x16'}.json"
+            check(proc.returncode == 0, f"dryrun {arch} {shape} {mesh} {device}: exit "
+                  f"{proc.returncode}\n{log[-3000:]}")
+            results[job] = json.loads((root / device / name).read_text())
+            results[job]["wall_s"] = time.perf_counter() - t_start
+    finally:
+        for _, proc, _ in running:
+            proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    cells = []
+    for job, res in results.items():
+        (arch, shape, mesh), device = job
+        check(res["status"] == "ok", f"dryrun {job}: {res.get('error')}")
+        r = res["roofline"]
+        print(f"dryrun [{res['status']}] {arch:16s} {shape:11s} {res['mesh']:8s} {device:4s} "
+              f"dom={r['dominant']:10s} tc={r['t_compute_s']:.4e} tm={r['t_memory_s']:.4e} "
+              f"tx={r['t_collective_s']:.4e} "
+              f"mem={res['memory']['total_per_device'] / 2**30:.2f}GiB "
+              f"useful={r['useful_flops_ratio']:.5f} trace={res['trace_s']:.1f}s", flush=True)
+        cells.append({"arch": arch, "shape": shape, "mesh": res["mesh"], "device": device,
+                      "status": res["status"], "dominant": r["dominant"],
+                      "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+                      "t_collective_s": r["t_collective_s"],
+                      "total_per_device_gib": res["memory"]["total_per_device"] / 2**30,
+                      "useful_flops_ratio": r["useful_flops_ratio"], "trace_s": res["trace_s"],
+                      "wall_s": res["wall_s"]})
+    for cell in DRYRUN_BOTH:
+        a, b = results[(cell, "cuda")], results[(cell, "cpu")]
+        for key in ("cost", "collectives", "memory"):
+            check(a[key] == b[key], f"dryrun {cell}: {key} on fake cuda {a[key]} != fake cpu "
+                  f"{b[key]}")
+    emit({"phase": "dryrun", "predictions_from": "H100 SXM published rates (dryrun.PEAK_FLOPS, "
+          "HBM_BW, NET_BW)", "cells": cells,
+          "cuda_equals_cpu": [list(c) for c in DRYRUN_BOTH],
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
 
 
 # ---------------------------------------------------------------------------
@@ -3930,6 +4216,7 @@ def main(argv: list[str]) -> int:
                    recurrent_phase(dev, "jamba-v0.1-52b", 16),
                    recurrent_phase(dev, "xlstm-350m", 24), encdec_phase(dev), vlm_phase(dev),
                    train_phase(dev), mesh_single_rank(dev)]
+    dryrun_phase()
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",

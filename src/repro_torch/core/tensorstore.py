@@ -554,6 +554,27 @@ def search_prefix(wiki: TensorWiki, prefix: str,
     return sorted(wiki.paths[r] for r in hits)
 
 
+def contains_match_ref(lex_tokens: torch.Tensor, needle: torch.Tensor,
+                       needle_len) -> torch.Tensor:
+    """Keyword containment over paths (NAV's EXTRACT routing): (N, L)
+    tokens x (K,) needle x its length -> (N,) bool, row r set when the
+    needle's first ``needle_len`` bytes occur in the row at an offset
+    where they fit.  Sliding-window equality over all rows and offsets,
+    as the reference's ``contains_match_ref`` computes it; plain PyTorch
+    on the tensors' device (no Pallas kernel stands behind it)."""
+    N, L = lex_tokens.shape
+    K = needle.shape[0]
+    dev = lex_tokens.device
+    n = torch.as_tensor(needle_len, dtype=torch.int32, device=dev)
+    pos = (torch.arange(L, dtype=torch.int32, device=dev)[:, None]
+           + torch.arange(K, dtype=torch.int32, device=dev)[None, :]).clamp(max=L - 1)
+    windows = lex_tokens[:, pos]                                 # (N, L, K)
+    within = torch.arange(K, dtype=torch.int32, device=dev)[None, None, :] < n
+    eq = (windows == needle.to(lex_tokens.dtype)[None, None, :]) | ~within
+    valid_start = torch.arange(L, dtype=torch.int32, device=dev)[None, :] + n <= L
+    return (eq.all(dim=2) & valid_start).any(dim=1)
+
+
 def ls_rows(wiki: TensorWiki, row: int) -> np.ndarray:
     return wiki.children_of(int(row))
 

@@ -58,6 +58,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def nbytes(*tensors) -> int:
+    """The bytes of the given tensors (None counts 0): a work rule's
+    boundary bytes, each operand read once and each result written once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 #: why a kernel with a backward refuses an input that requires grad
 VIA_OPS = "call kernels.ops, whose autograd Function runs the backward kernel"
 

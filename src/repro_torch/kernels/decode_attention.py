@@ -166,3 +166,44 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     build.check("decode_attention", rc)
     build.count_launch("decode_attention")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the abstract path (``kernels.ops`` on a FakeTensor or a meta tensor): the
+# output's shape and dtype and the work of a call, with no launch, no build
+# and no data read
+# ---------------------------------------------------------------------------
+def decode_attention_abstract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                              lengths: torch.Tensor, *, sm_scale: float | None = None
+                              ) -> torch.Tensor:
+    """``decode_attention``'s output (B, Hq, D) in q.dtype."""
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} must be 3-D and the "
+                         f"caches {tuple(k_cache.shape)} 4-D")
+    B, Hq, D = q.shape
+    Hkv = k_cache.shape[1]
+    if (k_cache.shape[0], k_cache.shape[3], tuple(v_cache.shape), tuple(lengths.shape),
+            k_cache.dtype, v_cache.dtype) != (B, D, tuple(k_cache.shape), (B,), q.dtype, q.dtype):
+        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} {k_cache.dtype}, "
+                         f"{tuple(v_cache.shape)} {v_cache.dtype} and lengths "
+                         f"{tuple(lengths.shape)} do not fit q {tuple(q.shape)} {q.dtype}")
+    if q.dtype not in _DTYPES or Hkv == 0 or Hq % Hkv or Hq // Hkv not in GROUPS \
+            or D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: unsupported Hq={Hq} Hkv={Hkv} D={D} "
+                         f"dtype={q.dtype}; need float32 or bfloat16, D in {HEAD_DIMS}, "
+                         f"Hq/Hkv in {GROUPS}")
+    return q.new_empty(q.shape)
+
+
+def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          lengths: torch.Tensor, *, sm_scale: float | None = None
+                          ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call.  FLOPs: 2·M·N·K for each of the two
+    products (scores and P V) over the whole padded cache of every query
+    head, what ``launch/hlo_walk.py`` counts of the jnp reference's two
+    dots (the kernel skips positions past a lane's length; the data decide
+    that, so it is not taken off).  Bytes: q, both caches and the lengths
+    read once, the output written once."""
+    B, Hq, D = q.shape
+    S = k_cache.shape[2]
+    return 2 * 2.0 * B * Hq * S * D, 2 * build.nbytes(q) + build.nbytes(k_cache, v_cache, lengths)

@@ -147,10 +147,11 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return st
 
 
-def _check(q, k, v, long_q: bool = False):
+def _check(q, k, v, long_q: bool = False, on_card: bool = True):
     """Raise for what the kernels do not take; return (B, Hq, Hkv, Sq, Skv, D).
-    Sq > Skv only where ``long_q`` allows it (the non-causal forward)."""
-    if not q.is_cuda:
+    Sq > Skv only where ``long_q`` allows it (the non-causal forward);
+    ``on_card=False`` (the abstract path) leaves the devices unchecked."""
+    if on_card and not q.is_cuda:
         raise ValueError("flash_attention kernel: tensors must be on a CUDA device")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -168,8 +169,7 @@ def _check(q, k, v, long_q: bool = False):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "need one of float32, bfloat16")
-    dev = q.get_device()
-    if k.get_device() != dev or v.get_device() != dev:
+    if on_card and (k.get_device() != q.get_device() or v.get_device() != q.get_device()):
         raise ValueError("flash_attention: all tensors must be on one device")
     if -(-Sq // BLOCK_Q) > MAX_GRID_Y:
         raise ValueError(f"flash_attention: Sq={Sq} exceeds {BLOCK_Q * MAX_GRID_Y}")
@@ -251,3 +251,58 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     build.check("flash_attention_bwd", rc)
     build.count_launch("flash_attention_bwd")
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the abstract path (``kernels.ops`` on a FakeTensor or a meta tensor): the
+# outputs' shapes and dtypes and the work of a call, with no launch, no
+# build and no data read
+# ---------------------------------------------------------------------------
+def flash_attention_abstract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             causal: bool = True, sm_scale: float | None = None,
+                             with_lse: bool = False):
+    """``flash_attention``'s output (B, Hq, Sq, D) in q.dtype, and with
+    ``with_lse`` its (B, Hq, Sq) float32 log-sum-exp."""
+    B, Hq, _, Sq, _, D = _check(q, k, v, long_q=not causal, on_card=False)
+    out = q.new_empty((B, Hq, Sq, D))
+    return (out, q.new_empty((B, Hq, Sq), dtype=torch.float32)) if with_lse else out
+
+
+def flash_attention_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, sm_scale: float | None = None,
+                         with_lse: bool = False) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call.  FLOPs: 2·M·N·K for each of the two
+    products (S = q k^T, O = P v) over the whole (Sq, Skv) rectangle of
+    every query head, what ``launch/hlo_walk.py`` counts of the jnp
+    reference's two dots; a causal call's skipped tiles are not taken off.
+    Bytes: q, k and v read once, the output (and the lse) written once."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    lse = 4 * B * Hq * Sq if with_lse else 0
+    return 2 * 2.0 * B * Hq * Sq * Skv * D, 2 * build.nbytes(q) + build.nbytes(k, v) + lse
+
+
+def flash_attention_bwd_abstract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                                 causal: bool = True, sm_scale: float | None = None):
+    """``flash_attention_bwd``'s (dq, dk, dv): like q, k and v."""
+    B, Hq, _, Sq, _, _ = _check(q, k, v, long_q=not causal, on_card=False)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (B, Hq, Sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def flash_attention_bwd_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, sm_scale: float | None = None
+                             ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call.  FLOPs: 2·M·N·K for each of the five
+    products the kernel computes (S = q k^T again, dP = dO v^T, dv = P^T
+    dO, dq = dS k, dk = dS^T q) over the whole (Sq, Skv) rectangle.
+    Bytes: q, k, v, o, lse and dO read once, dq, dk and dv written once."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    return (5 * 2.0 * B * Hq * Sq * Skv * D,
+            build.nbytes(q, k, v, o, lse, do) + build.nbytes(q, k, v))

@@ -149,3 +149,60 @@ def moe_router_bwd(logits: torch.Tensor | None, weights: torch.Tensor, idx: torc
     build.check("moe_router", rc)
     build.count_launch("moe_router_bwd")
     return dz
+
+
+# ---------------------------------------------------------------------------
+# the abstract path (``kernels.ops`` on a FakeTensor or a meta tensor): the
+# outputs' shapes and dtypes and the work of a call, with no launch, no
+# build and no data read
+# ---------------------------------------------------------------------------
+def _abstract_check(name: str, T: int, E: int, k: int) -> None:
+    if not (1 <= k <= min(E, MAX_K)) or E > MAX_EXPERTS or T < 0:
+        raise ValueError(f"{name}: unsupported E={E}, k={k}")
+
+
+def moe_router_abstract(logits: torch.Tensor, k: int, *, renormalize: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_router``'s (weights (T, k) float32, indices (T, k) int32)."""
+    if logits.dtype != torch.float32 or logits.dim() != 2:
+        raise ValueError(f"moe_router: logits must be 2-D float32, got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    T, E = logits.shape
+    _abstract_check("moe_router", T, E, k)
+    return (logits.new_empty((T, k)), logits.new_empty((T, k), dtype=torch.int32))
+
+
+def moe_router_work(logits: torch.Tensor, k: int, *, renormalize: bool = True
+                    ) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call.  FLOPs are the matrix products'
+    2·M·N·K (what ``launch/hlo_walk.py`` counts of a dot): the router has
+    none.  Bytes: the logits read once, the weights and ids written once."""
+    return 0.0, build.nbytes(logits) + 8 * logits.shape[0] * k
+
+
+def moe_router_bwd_abstract(logits: torch.Tensor | None, weights: torch.Tensor,
+                            idx: torch.Tensor, dweights: torch.Tensor, *,
+                            renormalize: bool = True, n_experts: int | None = None
+                            ) -> torch.Tensor:
+    """``moe_router_bwd``'s logits' gradient (T, E) float32."""
+    E = logits.shape[1] if logits is not None else n_experts
+    if E is None or (logits is None and not renormalize):
+        raise ValueError("moe_router_bwd: the logits are needed without renormalize, "
+                         "and E (n_experts) without the logits")
+    T, k = weights.shape
+    if tuple(idx.shape) != (T, k) or tuple(dweights.shape) != (T, k):
+        raise ValueError(f"moe_router_bwd: weights {tuple(weights.shape)}, idx "
+                         f"{tuple(idx.shape)}, dweights {tuple(dweights.shape)}; need (T, k)")
+    _abstract_check("moe_router_bwd", T, E, k)
+    return weights.new_empty((T, E), dtype=torch.float32)
+
+
+def moe_router_bwd_work(logits: torch.Tensor | None, weights: torch.Tensor, idx: torch.Tensor,
+                        dweights: torch.Tensor, *, renormalize: bool = True,
+                        n_experts: int | None = None) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call: no matrix product; the weights, ids and
+    their gradient read once (the logits too without ``renormalize``), the
+    logits' gradient written once."""
+    E = logits.shape[1] if logits is not None else n_experts
+    read = build.nbytes(weights, idx, dweights) + (0 if renormalize else build.nbytes(logits))
+    return 0.0, read + 4 * weights.shape[0] * E

@@ -13,12 +13,28 @@ whose backward is the backward kernel (``flash_attention_bwd``,
 ``rmsnorm_bwd``, ``moe_router_bwd``); on the CPU autograd differentiates
 the plain versions.  ``decode_attention`` has no backward kernel and
 raises there.  Otherwise (inference) the kernels launch as they are.
+
+A tensor without data off the CPU (a ``FakeTensor``, or a ``meta``
+tensor) goes to the kernel's shape rule (``<kernel>_abstract`` in its
+module): the outputs' shapes and dtypes, with no launch, no build and no
+data read; ``LAUNCHES`` does not move.  While the dry run's counter
+traces a step (``TRACER``, ``launch/dryrun.py``), every entry, on the
+CPU's plain versions as on the shape rules, is recorded as one call of
+its kernel by the kernel's work rule (``<kernel>_work``: FLOPs and
+boundary bytes), and none of the ops inside it is; under grad it goes
+through the same autograd Functions as the card, so the backward kernels
+are recorded alike.  A real CUDA tensor still goes only to the kernel.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from . import decode_attention as _dec
+from . import flash_attention as _fa
+from . import moe_router as _mr
 from . import ref
+from . import rmsnorm as _rn
 from .build import LAUNCHES, reset_launches
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
@@ -32,8 +48,53 @@ from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
 
 
+#: the dry run's counter while it traces a step (``launch/dryrun.py``
+#: sets it), else None
+TRACER = None
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def _abstract(t: torch.Tensor) -> bool:
+    """A tensor without data: a FakeTensor (off the CPU) or a meta tensor."""
+    return isinstance(t, FakeTensor) or t.is_meta
+
+
+def _traced(name: str, fn):
+    """``fn`` (a plain version or a shape rule) as one call of kernel
+    ``name``: under ``TRACER``, recorded by the kernel's work rule alone."""
+    work = _WORK[name]
+
+    def call(*args, **kw):
+        if TRACER is None:
+            return fn(*args, **kw)
+        return TRACER.kernel(name, work(*args, **kw), fn, *args, **kw)
+    return call
+
+
+def _attention_plain(q, k, v, *, causal=True, sm_scale=None, with_lse=False):
+    return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale, return_lse=with_lse)
+
+
+#: each kernel's work rule, and the two routes that launch nothing, by the
+#: kernel wrappers' signatures: the plain versions (the CPU under the dry
+#: run) and the shape rules (a FakeTensor off the CPU, a meta tensor)
+_WORK = {"flash_attention": _fa.flash_attention_work,
+         "flash_attention_bwd": _fa.flash_attention_bwd_work, "rmsnorm": _rn.rmsnorm_work,
+         "rmsnorm_bwd": _rn.rmsnorm_bwd_work, "moe_router": _mr.moe_router_work,
+         "moe_router_bwd": _mr.moe_router_bwd_work,
+         "decode_attention": _dec.decode_attention_work}
+_PLAIN = {k: _traced(k, fn) for k, fn in (
+    ("flash_attention", _attention_plain), ("flash_attention_bwd", ref.attention_bwd_ref),
+    ("rmsnorm", ref.rmsnorm_ref), ("rmsnorm_bwd", ref.rmsnorm_bwd_ref),
+    ("moe_router", ref.moe_router_ref), ("moe_router_bwd", ref.moe_router_bwd_ref),
+    ("decode_attention", ref.decode_attention_ref))}
+_ABSTRACT = {k: _traced(k, getattr(mod, k + "_abstract")) for k, mod in (
+    ("flash_attention", _fa), ("flash_attention_bwd", _fa), ("rmsnorm", _rn),
+    ("rmsnorm_bwd", _rn), ("moe_router", _mr), ("moe_router_bwd", _mr),
+    ("decode_attention", _dec))}
 
 
 def _needs_grad(*tensors) -> bool:
@@ -41,57 +102,61 @@ def _needs_grad(*tensors) -> bool:
 
 
 class _Attention(torch.autograd.Function):
-    """flash_attention with its backward kernel."""
+    """flash_attention with its backward kernel (with a ``route``, the
+    plain versions or the shape rules of both)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale, with_lse=True)
+    def forward(ctx, q, k, v, causal, sm_scale, route=None):
+        fwd = route["flash_attention"] if route else _flash_kernel
+        o, lse = fwd(q, k, v, causal=causal, sm_scale=sm_scale, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.route = causal, sm_scale, route
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd_kernel(q, k, v, o, lse, do, causal=ctx.causal,
-                                       sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        bwd = ctx.route["flash_attention_bwd"] if ctx.route else _flash_bwd_kernel
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 class _RMSNorm(torch.autograd.Function):
     """rmsnorm with its backward kernel; ``scale`` may be None."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
+    def forward(ctx, x, scale, eps, route=None):
         ctx.save_for_backward(x, scale)
-        ctx.eps = eps
-        return _rmsnorm_kernel(x, scale, eps=eps)
+        ctx.eps, ctx.route = eps, route
+        return (route["rmsnorm"] if route else _rmsnorm_kernel)(x, scale, eps=eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = _rmsnorm_bwd_kernel(x, scale, dy, eps=ctx.eps)
-        return dx, dscale, None
+        bwd = ctx.route["rmsnorm_bwd"] if ctx.route else _rmsnorm_bwd_kernel
+        dx, dscale = bwd(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None, None
 
 
 class _MoERouter(torch.autograd.Function):
     """moe_router with its backward kernel; the ids carry no gradient."""
 
     @staticmethod
-    def forward(ctx, logits, k, renormalize):
-        w, idx = _router_kernel(logits, k, renormalize=renormalize)
+    def forward(ctx, logits, k, renormalize, route=None):
+        w, idx = (route["moe_router"] if route else _router_kernel)(logits, k,
+                                                                renormalize=renormalize)
         ctx.mark_non_differentiable(idx)
         # with renormalize the backward reads the weights alone
         ctx.save_for_backward(w, idx, None if renormalize else logits)
-        ctx.renormalize, ctx.n_experts = renormalize, logits.shape[-1]
+        ctx.renormalize, ctx.n_experts, ctx.route = renormalize, logits.shape[-1], route
         return w, idx
 
     @staticmethod
     def backward(ctx, dw, _didx):
         w, idx, logits = ctx.saved_tensors
-        dz = _router_bwd_kernel(logits, w, idx, dw, renormalize=ctx.renormalize,
-                                n_experts=ctx.n_experts)
-        return dz, None, None
+        bwd = ctx.route["moe_router_bwd"] if ctx.route else _router_bwd_kernel
+        dz = bwd(logits, w, idx, dw, renormalize=ctx.renormalize, n_experts=ctx.n_experts)
+        return dz, None, None, None
 
 
 def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
@@ -100,39 +165,67 @@ def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
     package's dispatch would take: the chunked online softmax when
     Skv > 1024 and Skv % 1024 == 0, full attention otherwise."""
     if _on_cpu(q):
-        skv = k.shape[2]
-        if skv > 1024 and skv % 1024 == 0:
-            return ref.chunked_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                             chunk=1024)
-        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        if TRACER is None:
+            skv = k.shape[2]
+            if skv > 1024 and skv % 1024 == 0:
+                return ref.chunked_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                                 chunk=1024)
+            return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        route = _PLAIN
+    elif _abstract(q):
+        route = _ABSTRACT
+    else:
+        if _needs_grad(q, k, v):
+            return _Attention.apply(q, k, v, causal, sm_scale)
+        return _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
     if _needs_grad(q, k, v):
-        return _Attention.apply(q, k, v, causal, sm_scale)
-    return _flash_kernel(q, k, v, causal=causal, sm_scale=sm_scale)
+        return _Attention.apply(q, k, v, causal, sm_scale, route)
+    return route["flash_attention"](q, k, v, causal=causal, sm_scale=sm_scale)
 
 
 def rmsnorm(x, scale=None, eps: float = 1e-6):
     """RMSNorm over the last axis; ``scale=None`` is non-parametric."""
     if _on_cpu(x):
-        return ref.rmsnorm_ref(x, scale, eps=eps)
+        if TRACER is None:
+            return ref.rmsnorm_ref(x, scale, eps=eps)
+        route = _PLAIN
+    elif _abstract(x):
+        route = _ABSTRACT
+    else:
+        if _needs_grad(x, scale):
+            return _RMSNorm.apply(x, scale, eps)
+        return _rmsnorm_kernel(x, scale, eps=eps)
     if _needs_grad(x, scale):
-        return _RMSNorm.apply(x, scale, eps)
-    return _rmsnorm_kernel(x, scale, eps=eps)
+        return _RMSNorm.apply(x, scale, eps, route)
+    return route["rmsnorm"](x, scale, eps=eps)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float | None = None):
     """(B, Hq, D) x (B, Hkv, S, D)^2 x (B,) -> (B, Hq, D)."""
     if _on_cpu(q):
-        return ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+        if TRACER is None:
+            return ref.decode_attention_ref(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+        return _PLAIN["decode_attention"](q, k_cache, v_cache, lengths, sm_scale=sm_scale)
+    if _abstract(q):
+        return _ABSTRACT["decode_attention"](q, k_cache, v_cache, lengths, sm_scale=sm_scale)
     return _decode_kernel(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
 
 
 def moe_router(logits, k: int, *, renormalize: bool = True):
     """(T, E) f32 -> (weights (T, k) f32, indices (T, k) int32)."""
     if _on_cpu(logits):
-        return ref.moe_router_ref(logits, k, renormalize=renormalize)
+        if TRACER is None:
+            return ref.moe_router_ref(logits, k, renormalize=renormalize)
+        route = _PLAIN
+    elif _abstract(logits):
+        route = _ABSTRACT
+    else:
+        if _needs_grad(logits):
+            return _MoERouter.apply(logits, k, renormalize)
+        return _router_kernel(logits, k, renormalize=renormalize)
     if _needs_grad(logits):
-        return _MoERouter.apply(logits, k, renormalize)
-    return _router_kernel(logits, k, renormalize=renormalize)
+        return _MoERouter.apply(logits, k, renormalize, route)
+    return route["moe_router"](logits, k, renormalize=renormalize)
 
 
 def path_lookup(keys, queries, *, pinned=None):

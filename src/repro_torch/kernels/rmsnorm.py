@@ -255,3 +255,50 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
     build.check("rmsnorm", rc)
     build.count_launch("rmsnorm_bwd")
     return dx, ds
+
+
+# ---------------------------------------------------------------------------
+# the abstract path (``kernels.ops`` on a FakeTensor or a meta tensor): the
+# outputs' shapes and dtypes and the work of a call, with no launch, no
+# build and no data read
+# ---------------------------------------------------------------------------
+def _abstract_check(name: str, x: torch.Tensor, scale: torch.Tensor | None) -> None:
+    D = x.shape[-1]
+    if x.dtype not in _DTYPES or (scale is not None and (
+            scale.dtype not in _DTYPES or tuple(scale.shape) != (D,))):
+        raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype}, scale "
+                         f"{None if scale is None else (tuple(scale.shape), scale.dtype)}; "
+                         f"need float32 or bfloat16 and a ({D},) scale")
+
+
+def rmsnorm_abstract(x: torch.Tensor, scale: torch.Tensor | None = None,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm``'s output: x's shape and dtype, on x's device."""
+    _abstract_check("rmsnorm", x, scale)
+    return x.new_empty(x.shape)
+
+
+def rmsnorm_work(x: torch.Tensor, scale: torch.Tensor | None = None,
+                 eps: float = 1e-6) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call.  FLOPs are the matrix products'
+    2·M·N·K (what ``launch/hlo_walk.py`` counts of a dot): a norm has
+    none.  Bytes: x and the scale read once, the output written once."""
+    return 0.0, 2 * build.nbytes(x) + build.nbytes(scale)
+
+
+def rmsnorm_bwd_abstract(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
+                         eps: float = 1e-6):
+    """``rmsnorm_bwd``'s (dx, dscale): like x and like the scale (None
+    without one)."""
+    _abstract_check("rmsnorm_bwd", x, scale)
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype or x.shape[-1] > BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)} {x.dtype}, dy {tuple(dy.shape)} "
+                         f"{dy.dtype}; need one shape and dtype, rows up to {BWD_MAX_D}")
+    return x.new_empty(x.shape), None if scale is None else scale.new_empty(scale.shape)
+
+
+def rmsnorm_bwd_work(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
+                     eps: float = 1e-6) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call: no matrix product; x, the scale and dy
+    read once, dx and dscale written once."""
+    return 0.0, 2 * build.nbytes(x) + build.nbytes(dy) + 2 * build.nbytes(scale)

@@ -20,8 +20,8 @@ The shape and FLOP helpers (``SHAPES``, ``abstract_params``,
 back in a fraction of a second.  The sharding helpers give each leaf the
 reference's ``PartitionSpec`` as a tuple of mesh axis names
 (``spec_tree``, ``opt_spec_tree``, ``decode_state_specs``) and turn it
-into placements on a ``DeviceMesh`` (``param_shardings``);
-``make_train_step(..., mesh=...)`` runs the sharded step over
+into placements on a ``DeviceMesh`` (``param_shardings``); each
+``make_*_step(..., mesh=...)`` runs its sharded step over
 ``torch.distributed`` (``distributed/sharding.py``).
 """
 from __future__ import annotations
@@ -156,6 +156,27 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> dict:
     return map_like(lambda t, s: shard(t, s, mesh), params, spec_tree(cfg))
 
 
+def _gather_params(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """The whole tree a meshed step computes with, all-gathered from this
+    rank's shards (``_gather_axes``: an expert stack over the data axes
+    only on an expert-parallel mesh); raises without a process group."""
+    from ..distributed.sharding import gather, require_process_group
+    require_process_group()
+    with torch.no_grad():
+        return map_like(lambda t, s, a: gather(t, s, mesh, a), params, spec_tree(cfg),
+                        _gather_axes(cfg, mesh))
+
+
+def _local_batch(batch: dict, mesh) -> tuple[dict, tuple]:
+    """(this rank's rows of ``batch``, the mesh axes a loss sums over): a
+    batch split over the data axes sums its terms over them; a batch too
+    small to split (``transformer.split_batch`` returns it as it is) is
+    the same on every rank and sums over none."""
+    from ..launch.mesh import dp_axes
+    local = T.split_batch(batch, mesh)
+    return local, (dp_axes(mesh) if local is not batch else ())
+
+
 def _sharded_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, mesh):
     """The meshed ``loss_and_grads``: each leaf all-gathered from the
     ranks' shards (an expert stack over the data axes only), this rank's
@@ -166,16 +187,10 @@ def _sharded_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, mesh):
     loss is the global batch's masked mean: the count of unmasked labels
     is summed over the data ranks before the division, and so is the
     reported sum of their cross entropy."""
-    from ..distributed.sharding import all_reduce, gather, reduce_scatter, require_process_group
-    from ..launch.mesh import dp_axes
-    require_process_group()
+    from ..distributed.sharding import all_reduce, reduce_scatter
     specs, gaxes = spec_tree(cfg), _gather_axes(cfg, mesh)
-    with torch.no_grad():
-        full = map_like(lambda t, s, a: gather(t, s, mesh, a), params, specs, gaxes)
-    local = T.split_batch(batch, mesh)
-    # a batch split over the data axes sums its terms over them; a batch
-    # too small to split (returned as it is) is the same on every rank
-    sum_axes = dp_axes(mesh) if local is not batch else ()
+    full = _gather_params(params, cfg, mesh)
+    local, sum_axes = _local_batch(batch, mesh)
     work = _work_leaves(full)
     with torch.enable_grad():
         total, count = T.nll_terms(work, local, cfg, mesh=mesh)
@@ -235,44 +250,87 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig):
+def make_eval_step(cfg: ModelConfig, mesh=None):
     """``eval_step(params, batch) -> loss`` (0-d f32): the masked mean
     next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (labels < 0 masked); with ``prefix_embeds`` or
-    ``frames`` for the vision and audio stubs."""
+    ``frames`` for the vision and audio stubs.
+
+    With a ``mesh``, as ``make_train_step``'s: ``params`` are this rank's
+    shards (``shard_params``), all-gathered for the forward, ``batch`` the
+    global batch, of which the rank takes its rows
+    (``transformer.split_batch``), the MoE layers expert-parallel; the
+    sum of the cross entropy and the count of unmasked labels are
+    all-reduced over the data axes before the division, so every rank
+    returns the global batch's loss."""
     L.set_fp32_matmul()
 
     def eval_step(params, batch):
         with torch.inference_mode():
-            return T.loss_fn(params, batch, cfg)
+            if mesh is None:
+                return T.loss_fn(params, batch, cfg)
+            from ..distributed.sharding import all_reduce
+            local, sum_axes = _local_batch(batch, mesh)
+            total, count = T.nll_terms(_gather_params(params, cfg, mesh), local, cfg, mesh=mesh)
+            total, count = (all_reduce(t.clone(), sum_axes, mesh) for t in (total, count))
+            return total / count.clamp(min=1.0)
     return eval_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
     """``prefill_step(params, batch) -> logits`` (B, S_total, V_pad) over
     ``batch["tokens"]`` (after ``prefix_embeds`` for the vision stub; the
-    encoder reads ``frames``)."""
+    encoder reads ``frames``).
+
+    With a ``mesh``, ``params`` are this rank's shards and ``batch`` the
+    global batch, as for ``make_eval_step``, and the step returns this
+    rank's rows of the logits (``transformer.split_batch``; all of them
+    when the batch is too small to split): the reference's output stays
+    sharded too, and a whole ``prefill_32k`` logits tensor (32 x 32768 x
+    V_pad f32) would be ~0.6 TB."""
     L.set_fp32_matmul()
 
     def prefill_step(params, batch):
         with torch.inference_mode():
-            return T.forward(params, batch, cfg)
+            if mesh is None:
+                return T.forward(params, batch, cfg)
+            return T.forward(_gather_params(params, cfg, mesh), T.split_batch(batch, mesh),
+                             cfg, mesh)
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None, cache_layout: str = "auto"):
     """One-token decode over the cache: ``serve_step(params, state, batch)
     -> (next_tok (B,) int32, logits (B, V_pad), state)``, greedy over the
     real vocabulary (the padded ids are masked to -inf).  An
     encoder-decoder reads the encoder's output from ``batch["enc_out"]``;
     ``batch["write"]`` (B,) bool, where given, is the lanes whose
-    recurrent states take the step (``transformer.decode_step``)."""
+    recurrent states take the step (``transformer.decode_step``).
+
+    With a ``mesh``, ``params`` are this rank's shards (all-gathered for
+    the step), ``batch`` the global batch, and ``state`` this rank's
+    block of the decode state, cut by ``decode_state_specs(cfg, B,
+    dp=dp_axes(mesh), dp_size=dp_size(mesh), cache_layout=cache_layout,
+    tp_size=...)``: each layer's state is gathered over the axes that cut
+    it off the batch (KV heads, head_dim or sequence over "model", the
+    sequence over the data axes when B < dp_size) before its attention
+    or recurrence, and the rank keeps its block of what the step writes.
+    The step returns this rank's rows of ``next_tok`` and ``logits`` and
+    its block of the state."""
     L.set_fp32_matmul()
 
     def serve_step(params, state, batch):
-        logits, state = T.decode_step(params, state, batch["tokens"],
-                                      batch["lengths"], cfg, enc_out=batch.get("enc_out"),
-                                      write=batch.get("write"))
+        specs = None
+        if mesh is not None:
+            from ..launch.mesh import dp_axes, dp_size
+            tp = mesh.size(mesh.mesh_dim_names.index(TP)) if TP in mesh.mesh_dim_names else 1
+            specs = decode_state_specs(cfg, batch["tokens"].shape[0], dp=dp_axes(mesh),
+                                       dp_size=dp_size(mesh), cache_layout=cache_layout,
+                                       tp_size=tp)
+            params, batch = _gather_params(params, cfg, mesh), T.split_batch(batch, mesh)
+        logits, state = T.decode_step(params, state, batch["tokens"], batch["lengths"], cfg,
+                                      enc_out=batch.get("enc_out"), write=batch.get("write"),
+                                      mesh=mesh, state_specs=specs)
         # mask vocab-padding ids (embed table is padded to a 256 multiple)
         if cfg.padded_vocab != cfg.vocab:
             valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab

@@ -74,7 +74,11 @@ def _dispatch_ffn(x: torch.Tensor, local_e: torch.Tensor, tok_flat: torch.Tensor
     sorted_e = local_e[order]                       # not-mine last
     sorted_tok = tok_flat[order].to(torch.int64)
     sorted_w = w_flat[order]
-    sizes = torch.bincount(local_e, minlength=n_local + 1)[:n_local]
+    # bincount's length depends on the data; a count of static length
+    # (ids are at most n_local) traces under fake tensors, and on the card
+    # it is one kernel as bincount is
+    sizes = torch.zeros(n_local + 1, dtype=torch.int64, device=x.device).scatter_add_(
+        0, local_e, torch.ones_like(local_e))[:n_local]
     starts = torch.cumsum(sizes, 0) - sizes
     pos_in_e = (torch.arange(A, device=x.device)
                 - starts[sorted_e.clamp(0, n_local - 1)])

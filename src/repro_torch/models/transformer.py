@@ -382,9 +382,48 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
     return x + _ffn(params, h2, cfg, mesh)
 
 
+def _period_spec(spec):
+    """A stacked state's specs without the leading period axis."""
+    if isinstance(spec, dict):
+        return {k: v[1:] for k, v in spec.items()}
+    return tuple(v[1:] for v in spec)
+
+
+def _state_axes(spec: tuple, mesh) -> list:
+    """The mesh axes that cut a period's decode state (its spec ``spec``,
+    batch first) off its batch dimension: KV heads, head_dim or sequence
+    over "model", the sequence over the data axes when the batch is too
+    small to split, a recurrent state's features over "model"."""
+    from ..distributed.sharding import axes_of
+    return [a for e in spec[1:] for a in axes_of(e) if a in mesh.mesh_dim_names]
+
+
+def _decode_block(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
+                  cfg: ModelConfig, spec=None, mesh=None, **kw) -> torch.Tensor:
+    """``_slot_decode``; with ``spec`` (the state's specs, batch first),
+    ``state`` is this rank's block of it: each tensor is gathered over the
+    axes that cut it off the batch (``_state_axes``), the block decodes on
+    the whole, and the rank's block of what it wrote is kept."""
+    if spec is None:
+        return _slot_decode(kind, params, x, state, lengths, cfg, mesh=mesh, **kw)
+    from ..distributed.sharding import gather, shard_slices
+    names = ("k", "v") if kind == "attn" else range(len(state))
+    whole = {} if kind == "attn" else [None] * len(state)
+    for n in names:
+        whole[n] = gather(state[n], spec[n], mesh, axes=_state_axes(spec[n], mesh))
+    x = _slot_decode(kind, params, x, whole if kind == "attn" else tuple(whole), lengths, cfg,
+                     mesh=mesh, **kw)
+    for n in names:
+        axes = _state_axes(spec[n], mesh)
+        if axes:
+            state[n].copy_(whole[n][shard_slices(whole[n].shape, spec[n], mesh, axes=axes)])
+    return x
+
+
 def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.Tensor,
                 cfg: ModelConfig, enc_out: torch.Tensor | None = None,
-                write: torch.Tensor | None = None, mesh=None) -> tuple[torch.Tensor, dict]:
+                write: torch.Tensor | None = None, mesh=None,
+                state_specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens: (B,) int — the freshly sampled token;
     lengths: (B,) current context lengths; ``enc_out`` (B, Se, D): the
     encoder's output (``_encode``) for an encoder-decoder, whose blocks
@@ -397,16 +436,22 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.
     no host read), so a lane that is idle, or another lane's prefill
     step, leaves it as it was.  A KV cache is written in every lane at its
     own length, as without a mask: a lane's next real step rewrites that
-    position, and its length masks it until then."""
+    position, and its length masks it until then.
+
+    On a ``mesh`` with ``state_specs`` (``model.decode_state_specs``),
+    ``state`` holds this rank's block of every leaf and the rows of
+    ``tokens`` are this rank's (``_decode_block``)."""
     x = embed_tokens(params, tokens[:, None], cfg)      # (B, 1, D)
-    for p, cache in zip(params.get("prefix", []), state.get("prefix", [])):
-        x = _slot_decode("attn", p, x, cache, lengths, cfg, enc_out=enc_out, mesh=mesh)
+    specs = state_specs or {}
+    for i, (p, cache) in enumerate(zip(params.get("prefix", []), state.get("prefix", []))):
+        spec = specs["prefix"][i] if specs else None
+        x = _decode_block("attn", p, x, cache, lengths, cfg, spec, mesh, enc_out=enc_out)
     for p in range(cfg.n_periods):
         for s_idx, kind in enumerate(cfg.block_pattern):
             slot = f"slot{s_idx}"
-            x = _slot_decode(kind, _index(params["body"][slot], p), x,
-                             _index(state[slot], p), lengths, cfg, enc_out=enc_out,
-                             write=write, mesh=mesh)
+            spec = _period_spec(specs[slot]) if specs else None
+            x = _decode_block(kind, _index(params["body"][slot], p), x, _index(state[slot], p),
+                              lengths, cfg, spec, mesh, enc_out=enc_out, write=write)
     x = L.norm_apply(params["final_norm"], x, cfg)
     logits = (x @ _head(params, cfg, x.dtype))[:, 0, :]
     return logits, state

@@ -1482,3 +1482,98 @@ def test_cuda_every_family_train_step_matches_cpu(cuda, arch, frames):
         assert abs(a - b) <= tol, (losses_c, losses_h, loss_tol)
     for a, b, tol in zip(params_c, params_h, param_tol):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_meshed_prefill_and_serve_on_one_nccl_rank_equal_the_unmeshed(cuda):
+    """``make_prefill_step(cfg, mesh)`` and ``make_serve_step(cfg, mesh)`` on
+    a one-rank NCCL mesh (every gather a copy) against the unmeshed
+    steps, reduced qwen3 and dbrx in f32: logits bit for bit, tokens
+    equal, the same launches of every kernel."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.launch.mesh import dp_axes, dp_size, make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import map_like
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    # the MoE's index_add_ combine sums with float atomics in any order
+    # unless PyTorch's deterministic algorithms are on
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_host_mesh(1, 1)
+        for arch in ("qwen3-1.7b", "dbrx-132b"):
+            cfg = get_config(arch).reduced()
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=8))
+            params = M.init_params(cfg, seed=2, device=cuda)
+            shards = M.shard_params(params, cfg, mesh)
+            toks = torch.randint(0, cfg.vocab, (3, 40), generator=torch.Generator().manual_seed(2),
+                                 dtype=torch.int32).to(cuda)
+            runs = []
+            for m, p in ((None, params), (mesh, shards)):
+                state = T.init_decode_state(cfg, 3, 64, cuda)
+                if m is not None:
+                    specs = M.decode_state_specs(cfg, 3, dp=dp_axes(m), dp_size=dp_size(m),
+                                                 tp_size=1)
+                    state = map_like(lambda t, s: shard(t, s, m), state, specs)
+                ops.reset_launches()
+                logits = M.make_prefill_step(cfg, m)(p, {"tokens": toks})
+                serve = M.make_serve_step(cfg, m)
+                tok, lengths, out = toks[:, 0].contiguous(), torch.zeros(3, dtype=torch.int32,
+                                                                          device=cuda), []
+                for _ in range(6):
+                    tok, lg, state = serve(p, state, {"tokens": tok, "lengths": lengths})
+                    out.append((tok, lg))
+                    lengths = lengths + 1
+                torch.cuda.synchronize()
+                runs.append((logits, out, dict(ops.LAUNCHES)))
+            (la, oa, ca), (lb, ob, cb) = runs
+            assert torch.equal(la, lb), arch
+            assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(oa, ob))
+            assert ca == cb and ca["flash_attention"] > 0 and ca["decode_attention"] > 0
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_fake_trace_equals_the_plain_trace(cuda):
+    """A reduced cell traced on fake "cuda" tensors (the kernels' shape
+    rules) counts what the same cell traced on fake "cpu" tensors (the
+    plain versions) counts: cost, collectives and memory, on a (2, 2)
+    fake mesh, for dbrx's train step and qwen3's serve step; no kernel
+    is launched."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    D.start_fake_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        for arch, kind in (("dbrx-132b", "train"), ("qwen3-1.7b", "decode")):
+            cfg = get_config(arch).reduced()
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=8))
+            shape = M.ShapeSpec(kind, 64, 4, kind)
+            before = dict(ops.LAUNCHES)
+            card = D.trace_cell(cfg, shape, mesh, "cuda")
+            assert dict(ops.LAUNCHES) == before
+            plain = D.trace_cell(cfg, shape, mesh, "cpu")
+            for key in ("cost", "collectives", "memory", "ops"):
+                assert card[key] == plain[key], (arch, key)
+    finally:
+        dist.destroy_process_group()

@@ -26,6 +26,7 @@ its results to a file that the four tests below read:
 f32 throughout; the sums over ranks run in another order than the
 unmeshed ones, hence the tolerances.
 """
+import json
 import os
 import socket
 import subprocess
@@ -57,6 +58,7 @@ S, MB, F = 4, 6, 8       # pipeline: stages, microbatches, width
 LR = 1e-3
 
 _WORKER = r'''
+import json
 import sys
 from datetime import timedelta
 from pathlib import Path
@@ -161,11 +163,126 @@ for name, shape in (("r41", (4, 1)), ("r11", (1, 1))):
     for i, t in enumerate(leaves(tree)):
         out[f"{name}_leaf{i}"] = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
+# (e) the meshed eval, prefill and serve steps on (2, 2): reduced qwen3, and
+# reduced dbrx and jamba with their MoE layers expert-parallel
+from repro_torch.distributed.sharding import shard
+from repro_torch.launch.mesh import dp_axes, dp_size
+from repro_torch.tree import unflatten
+cases = json.loads((work / "meshed.json").read_text())
+for arch in cases["archs"]:
+    cfg = get_config(arch).reduced(**({"n_layers": cases["n_layers"][arch]}
+                                      if arch in cases["n_layers"] else {}))
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=cases["n_experts"][arch],
+                                       capacity_factor=cases["capacity_factor"]))
+    a = np.load(work / f"meshed_{arch}.npz")
+    whole = unflatten(M.abstract_params(cfg), [torch.from_numpy(a[f"leaf{i}"])
+                                              for i in range(int(a["n_leaves"]))])
+    params = M.shard_params(whole, cfg, mesh)
+    batch = {"tokens": torch.from_numpy(a["tokens"]), "labels": torch.from_numpy(a["labels"])}
+    out[f"{arch}_eval"] = np.float32(M.make_eval_step(cfg, mesh)(params, batch))
+    logits = M.make_prefill_step(cfg, mesh)(params, {"tokens": batch["tokens"]})
+    out[f"{arch}_prefill"] = logits.numpy()
+    out[f"{arch}_prefill_rows"] = T.split_batch({"r": torch.arange(4)}, mesh)["r"].numpy()
+    for layout, B in cases["serve_cases"][arch]:
+        tag = f"{arch}_{layout}_{B}"
+        specs = M.decode_state_specs(cfg, B, dp=dp_axes(mesh), dp_size=dp_size(mesh),
+                                     cache_layout=layout, tp_size=2)
+        state = map_like(lambda t, s: shard(t, s, mesh),
+                         T.init_decode_state(cfg, B, cases["max_len"], "cpu"), specs)
+        serve = M.make_serve_step(cfg, mesh, cache_layout=layout)
+        toks, logs = [], []
+        for i in range(cases["steps"]):
+            nt, lg, state = serve(params, state, {"tokens": torch.from_numpy(a[f"serve{B}_tokens"][i]),
+                                                 "lengths": torch.from_numpy(a[f"serve{B}_lengths"][i])})
+            toks.append(nt.numpy())
+            logs.append(lg.numpy())
+        out[tag + "_toks"], out[tag + "_logits"] = np.stack(toks), np.stack(logs)
+        out[tag + "_rows"] = T.split_batch({"r": torch.arange(B)}, mesh)["r"].numpy()
+
 np.savez(work / f"rank{rank}.npz", **out)
 dist.barrier()
 dist.destroy_process_group()
 print("RANK DONE", rank)
 '''
+
+
+#: the meshed eval, prefill and serve steps: reduced configs, dbrx with 8
+#: experts and both MoE configs at a capacity that drops nothing (the
+#: meshed step's capacity is over a rank's rows, the unmeshed one's over
+#: the whole batch); the serve step under each (cache layout, batch):
+#: KV heads, head_dim and the sequence over "model" at B = 4, and at B = 1
+#: (too small to split over "data") the sequence over "data"
+MESHED = ("qwen3-1.7b", "dbrx-132b", "jamba-v0.1-52b")
+SERVE_CASES = {"qwen3-1.7b": (("auto", 4), ("head_dim", 4), ("seq", 4), ("auto", 1)),
+               "dbrx-132b": (("auto", 4),), "jamba-v0.1-52b": (("auto", 4),)}
+SERVE_STEPS, MAX_LEN = 8, 32
+
+
+N_EXPERTS = {"dbrx-132b": 8, "jamba-v0.1-52b": 4}
+N_LAYERS = {"jamba-v0.1-52b": 8}        # one period: mamba, attention and MoE slots
+CAPACITY = 8.0
+
+
+def meshed_cfg(arch: str, get=get_config):
+    """The reduced config of ``arch`` the meshed-step cases run (``get``:
+    either package's ``get_config``)."""
+    cfg = get(arch).reduced(**({"n_layers": N_LAYERS[arch]} if arch in N_LAYERS else {}))
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=N_EXPERTS[arch],
+                                       capacity_factor=CAPACITY))
+    return cfg
+
+
+def _meshed_inputs(work: Path, rs) -> dict:
+    """Per arch: JAX's params (saved bridged, leaf by leaf, for the
+    ranks), a batch, and JAX's ``loss_fn``, ``forward`` and 8 greedy
+    ``make_serve_step`` steps at B = 4 and 1 (the input tokens and lengths
+    of each step saved); and the unmeshed port's on the same inputs."""
+    from repro.models import model as JM
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models import transformer as T
+    (work / "meshed.json").write_text(json.dumps({
+        "archs": MESHED, "serve_cases": SERVE_CASES, "steps": SERVE_STEPS, "max_len": MAX_LEN,
+        "n_experts": N_EXPERTS, "n_layers": N_LAYERS, "capacity_factor": CAPACITY}))
+    refs = {}
+    for arch in MESHED:
+        cfg_j, cfg = meshed_cfg(arch, jget_config), meshed_cfg(arch)
+        jparams = JM.init_params(cfg_j, seed=1)
+        params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+        tokens = rs.randint(4, cfg.vocab, (4, 16)).astype(np.int32)
+        labels = rs.randint(4, cfg.vocab, (4, 16)).astype(np.int32)
+        labels[rs.rand(4, 16) < 0.25] = -1
+        jb = {"tokens": jax.numpy.asarray(tokens), "labels": jax.numpy.asarray(labels)}
+        tb = {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)}
+        ref = {"jax_eval": float(JT.loss_fn(jparams, jb, cfg_j)),
+               "eval": float(M.make_eval_step(cfg)(params, tb)),
+               "jax_prefill": np.asarray(JT.forward(jparams, {"tokens": jb["tokens"]}, cfg_j)),
+               "prefill": M.make_prefill_step(cfg)(params, {"tokens": tb["tokens"]}).numpy()}
+        save = {f"leaf{i}": t.numpy() for i, t in enumerate(leaves(params))}
+        save.update(n_leaves=len(save), tokens=tokens, labels=labels)
+        jserve, serve = jax.jit(JM.make_serve_step(cfg_j)), M.make_serve_step(cfg)
+        for B in sorted({b for _, b in SERVE_CASES[arch]}):
+            jstate = JT.init_decode_state(cfg_j, B, MAX_LEN)
+            state = T.init_decode_state(cfg, B, MAX_LEN, "cpu")
+            toks = rs.randint(4, cfg.vocab, B).astype(np.int32)
+            lens = np.array([0, 3, 7, 1][:B], np.int32)
+            ins, outs, logits, jouts = [], [], [], []
+            for _ in range(SERVE_STEPS):
+                ins.append((toks, lens))
+                jn, _, jstate = jserve(jparams, jstate, {"tokens": toks, "lengths": lens})
+                tn, tl, state = serve(params, state, {"tokens": torch.from_numpy(toks),
+                                                      "lengths": torch.from_numpy(lens)})
+                jouts.append(np.asarray(jn))
+                outs.append(tn.numpy())
+                logits.append(tl.numpy())
+                toks, lens = np.asarray(jn).astype(np.int32), lens + 1
+            save[f"serve{B}_tokens"] = np.stack([t for t, _ in ins])
+            save[f"serve{B}_lengths"] = np.stack([n for _, n in ins])
+            ref[f"serve{B}"] = (np.stack(jouts), np.stack(outs), np.stack(logits))
+        np.savez(work / f"meshed_{arch}.npz", **save)
+        refs[arch] = ref
+    return refs
 
 
 def _free_port() -> int:
@@ -210,6 +327,7 @@ def gloo(tmp_path_factory):
     qcfg = get_config("qwen3-1.7b").reduced()
     batches = _train_batches(rs, qcfg)
     np.savez(work / "train.npz", lr=np.float64(LR), **batches)
+    meshed = _meshed_inputs(work, rs)
     # the unmeshed step on the whole batch
     params = M.init_params(qcfg, seed=0, device="cpu")
     opt_cfg = AdamWConfig(lr=LR)
@@ -253,7 +371,7 @@ def gloo(tmp_path_factory):
     assert not bad, f"ranks failed {bad}:\n" + "\n".join(log[-3000:] for log in logs)
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(RANKS)]
     return {"ranks": ranks, "moe": (p0, x, c, moe_want), "pipe": (ws, xs),
-            "train": (losses, params), "ckpt": (ccfg, ckpt), "qcfg": qcfg}
+            "train": (losses, params), "ckpt": (ccfg, ckpt), "qcfg": qcfg, "meshed": meshed}
 
 
 def test_expert_parallel_moe_matches_jax_local_and_its_gradients(gloo):
@@ -391,3 +509,42 @@ def test_train_launcher_meshes_over_the_process_group(tmp_path):
                                if line.startswith("final loss")]
     single = run("--mesh", "single", name="single")
     assert single.returncode != 0 and "needs 256 ranks" in single.stderr
+
+
+F32_TOL = dict(atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("arch", MESHED)
+def test_meshed_eval_and_prefill_match_unmeshed_and_jax(gloo, arch):
+    """On (2, 2): every rank's eval loss is the global batch's, equal to the
+    unmeshed port's within 1e-5 (the sharded train step's tolerance) and to
+    JAX's ``loss_fn``; the prefill's rows, gathered over the ranks, equal
+    the unmeshed logits and JAX's ``forward``."""
+    ref = gloo["meshed"][arch]
+    assert ref["eval"] == pytest.approx(ref["jax_eval"], abs=3e-5, rel=3e-5)
+    np.testing.assert_allclose(ref["prefill"], ref["jax_prefill"], **F32_TOL)
+    seen = set()
+    for r in gloo["ranks"]:
+        assert float(r[f"{arch}_eval"]) == pytest.approx(ref["eval"], abs=1e-5)
+        assert float(r[f"{arch}_eval"]) == pytest.approx(ref["jax_eval"], abs=3e-5, rel=3e-5)
+        rows = r[f"{arch}_prefill_rows"]
+        seen.update(rows.tolist())
+        np.testing.assert_allclose(r[f"{arch}_prefill"], ref["prefill"][rows], **F32_TOL)
+        np.testing.assert_allclose(r[f"{arch}_prefill"], ref["jax_prefill"][rows], **F32_TOL)
+    assert seen == set(range(4))
+
+
+@pytest.mark.parametrize("arch,layout,B", [(a, lay, b) for a in MESHED for lay, b in SERVE_CASES[a]])
+def test_meshed_serve_steps_match_unmeshed_and_jax(gloo, arch, layout, B):
+    """8 greedy serve steps on (2, 2) from each rank's block of the decode
+    state (``decode_state_specs`` under ``layout``): each rank's tokens
+    equal the unmeshed port's and JAX's ``make_serve_step``'s at its rows
+    exactly, its logits the unmeshed port's within the f32 tolerance."""
+    jtoks, toks, logits = gloo["meshed"][arch][f"serve{B}"]
+    assert np.array_equal(toks, jtoks)
+    tag = f"{arch}_{layout}_{B}"
+    for r in gloo["ranks"]:
+        rows = r[tag + "_rows"]
+        assert np.array_equal(r[tag + "_toks"], toks[:, rows])
+        assert np.array_equal(r[tag + "_toks"], jtoks[:, rows])
+        np.testing.assert_allclose(r[tag + "_logits"], logits[:, rows], **F32_TOL)

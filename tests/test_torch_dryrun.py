@@ -1,0 +1,345 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on the CPU: its
+counter on hand-computable programs, the kernels' shape and work rules,
+the reference's skip rule, the two routes a cell can be traced by (the
+plain versions on fake "cpu" tensors, the shape rules on tensors without
+data) counting alike, the CLI over the fake 256-rank group, and the copy
+of ``launch/hlo_walk.py`` against the reference's walk.
+
+Process groups are started in subprocesses, or destroyed before the test
+ends: other test files share this worker."""
+import ast
+import json
+import os
+import resource
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.launch import hlo_walk as JHW  # noqa: E402
+from repro_torch.configs import all_arch_ids, get_config  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import moe_router as MR  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as RN  # noqa: E402
+from repro_torch.launch import dryrun as D  # noqa: E402
+from repro_torch.launch import hlo_walk as HW  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = str(ROOT / "src")
+
+
+def _fake():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    return FakeTensorMode()
+
+
+# ---------------------------------------------------------------------------
+# the counter on hand-computable programs
+# ---------------------------------------------------------------------------
+def test_counter_counts_one_matmul_and_its_bytes():
+    with _fake():
+        x, w = torch.empty(64, 128), torch.empty(128, 32)
+        c = D.Counter()
+        with c.tracing():
+            y = x @ w
+    assert c.flops == 2 * 64 * 128 * 32
+    assert c.bytes == 4 * (64 * 128 + 128 * 32 + 64 * 32)
+    assert c.ops["aten.mm"] == 1
+    assert c.peak == 4 * 64 * 32 and y.shape == (64, 32)
+
+
+def test_counter_counts_a_loop_of_layers_each_time_and_inference_mode_alike():
+    """L layers of a Python loop count L times; under inference mode a
+    matmul arrives whole and is counted by what it decomposes into."""
+    L = 5
+    counts = []
+    for inference in (False, True):
+        with _fake():
+            x, w = torch.empty(4, 16, 32), torch.empty(32, 32)
+            c = D.Counter()
+            with c.tracing(), torch.inference_mode(inference):
+                for _ in range(L):
+                    x = torch.tanh(x @ w)
+        counts.append((c.flops, c.bytes, c.ops["aten.mm"], c.ops["aten.tanh"]))
+    assert counts[0] == counts[1]
+    assert counts[0][0] == L * 2 * 64 * 32 * 32
+    assert counts[0][2:] == (L, L)
+
+
+def test_counter_peak_follows_freed_storages():
+    """A temporary freed before the next is made counts once at the peak;
+    the arguments (``hold``) count apart from it; a view makes nothing."""
+    with _fake():
+        x = torch.empty(1000)
+        c = D.Counter()
+        assert c.hold(x) == 4000
+        with c.tracing():
+            a = x * 2
+            del a
+            b = x * 3
+            v = b[:10]
+    assert c.peak == 4000 and c.live == 4000 and v.shape == (10,)
+    assert c.ops["aten.slice"] == 1
+
+
+def test_counter_records_a_gather_over_a_16_rank_fake_group():
+    """An all-gather of a (4, 8) f32 shard over 16 fake ranks: one
+    collective whose result is (64, 8), 2048 bytes."""
+    import torch.distributed as dist
+    D.start_fake_group(16)
+    try:
+        with pytest.raises(RuntimeError, match="exists already"):
+            D.start_fake_group(16)
+        from repro_torch.distributed.sharding import gather
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cpu", (16,), mesh_dim_names=("data",))
+        with _fake():
+            shard = torch.empty(4, 8)
+            c = D.Counter()
+            with c.tracing():
+                full = gather(shard, ("data", None), mesh)
+    finally:
+        dist.destroy_process_group()
+    assert full.shape == (64, 8)
+    assert c.collectives == {"all-gather": {"count": 1, "bytes": 64 * 8 * 4}}
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shape and work rules
+# ---------------------------------------------------------------------------
+def _same(got, want):
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert (tuple(g.shape), g.dtype, g.device) == (tuple(w.shape), w.dtype, w.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_shape_rules_equal_the_plain_versions(dtype):
+    """Each kernel's ``*_abstract`` rule gives its plain version's output
+    shapes, dtypes and device on real CPU tensors, building nothing and
+    launching nothing; each work rule's bytes are its operands' and
+    results' bytes, its FLOPs the products' over the whole rectangle."""
+    from repro_torch.kernels import build
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dt=dtype):
+        return torch.randn(shape, generator=g).to(dt)
+    before = dict(ops.LAUNCHES)
+    B, Hq, Hkv, Sq, Skv, Dh = 2, 4, 2, 8, 12, 16
+    q, k, v = r(B, Hq, Sq, Dh), r(B, Hkv, Skv, Dh), r(B, Hkv, Skv, Dh)
+    o, lse = ref.attention_ref(q, k, v, causal=True, return_lse=True)
+    for with_lse in (False, True):
+        _same(FA.flash_attention_abstract(q, k, v, with_lse=with_lse),
+              ref.attention_ref(q, k, v, return_lse=with_lse))
+    do = r(B, Hq, Sq, Dh)
+    _same(FA.flash_attention_bwd_abstract(q, k, v, o, lse, do),
+          ref.attention_bwd_ref(q, k, v, o, lse, do))
+    x, s = r(3, 5, 64), r(64)
+    for scale in (s, None):
+        _same(RN.rmsnorm_abstract(x, scale), ref.rmsnorm_ref(x, scale))
+        _same(RN.rmsnorm_bwd_abstract(x, scale, x), ref.rmsnorm_bwd_ref(x, scale, x))
+    qd, kc, vc = r(B, Hq, Dh), r(B, Hkv, 32, Dh), r(B, Hkv, 32, Dh)
+    lengths = torch.tensor([3, 32], dtype=torch.int32)
+    _same(DA.decode_attention_abstract(qd, kc, vc, lengths),
+          ref.decode_attention_ref(qd, kc, vc, lengths))
+    logits = r(7, 16, dt=torch.float32)
+    for renorm in (True, False):
+        w, idx = ref.moe_router_ref(logits, 4, renormalize=renorm)
+        _same(MR.moe_router_abstract(logits, 4, renormalize=renorm), (w, idx))
+        _same(MR.moe_router_bwd_abstract(None if renorm else logits, w, idx, w,
+                                         renormalize=renorm, n_experts=16),
+              ref.moe_router_bwd_ref(logits, w, idx, w, renormalize=renorm))
+    assert dict(ops.LAUNCHES) == before and not build._LIBS
+    # the work rules: bytes in and out once, the products' FLOPs
+    e = q.element_size()
+    assert FA.flash_attention_work(q, k, v) == (2 * 2.0 * B * Hq * Sq * Skv * Dh,
+                                                e * (2 * q.numel() + 2 * k.numel()))
+    assert FA.flash_attention_bwd_work(q, k, v, o, lse, do)[0] == 5 * 2.0 * B * Hq * Sq * Skv * Dh
+    assert DA.decode_attention_work(qd, kc, vc, lengths) == (
+        4.0 * B * Hq * 32 * Dh, e * (2 * qd.numel() + 2 * kc.numel()) + 4 * B)
+    assert RN.rmsnorm_work(x, s) == (0.0, e * (2 * x.numel() + 64))
+    assert MR.moe_router_work(logits, 4) == (0.0, 4 * 7 * 16 + 8 * 7 * 4)
+
+
+def test_kernel_entries_take_meta_tensors_to_their_shape_rules():
+    """``kernels.ops`` on meta tensors: the shape rules, no launch; under
+    grad the autograd Functions carry the rules to the backward."""
+    before = dict(ops.LAUNCHES)
+    q = torch.empty(1, 4, 8, 16, device="meta", requires_grad=True)
+    kv = torch.empty(1, 2, 8, 16, device="meta", requires_grad=True)
+    o = ops.attention(q, kv, kv)
+    x = torch.empty(8, 64, device="meta", requires_grad=True)
+    y = ops.rmsnorm(x, torch.empty(64, device="meta"))
+    (o.sum() + y.sum()).backward()
+    assert o.shape == q.shape and y.shape == x.shape
+    assert q.grad.shape == q.shape and kv.grad.shape == kv.shape and x.grad.shape == x.shape
+    w, idx = ops.moe_router(torch.empty(5, 16, device="meta"), 2)
+    assert (w.shape, idx.dtype) == ((5, 2), torch.int32)
+    assert dict(ops.LAUNCHES) == before
+
+
+def test_the_two_routes_count_a_cell_alike(monkeypatch):
+    """A reduced cell traced through the plain versions (fake "cpu") and
+    through the shape rules (the card's route, taken here by sending the
+    fake CPU tensors past ``_on_cpu``) gives the same cost, collectives
+    and memory: train (every forward and backward rule), prefill and
+    decode, on a (2, 2) fake mesh."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    D.start_fake_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        for arch, kind in (("dbrx-132b", "train"), ("qwen3-1.7b", "prefill"),
+                           ("qwen3-1.7b", "decode")):
+            cfg = get_config(arch).reduced()
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=8))
+            shape = M.ShapeSpec(kind, 64, 4, kind)
+            plain = D.trace_cell(cfg, shape, mesh, "cpu")
+            with monkeypatch.context() as m:
+                m.setattr(ops, "_on_cpu", lambda t: False)
+                rules = D.trace_cell(cfg, shape, mesh, "cpu")
+            for key in ("cost", "collectives", "memory"):
+                assert plain[key] == rules[key], (arch, kind, key)
+            kernels = {"rmsnorm", "decode_attention" if kind == "decode" else "flash_attention"}
+            if kind == "train":
+                kernels |= {"flash_attention_bwd", "rmsnorm_bwd", "moe_router", "moe_router_bwd"}
+            assert kernels <= set(plain["ops"]) and plain["ops"] == rules["ops"]
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the reference's rules
+# ---------------------------------------------------------------------------
+def _reference_functions(*names) -> dict:
+    """The reference dry run's functions ``names``, from its source (its
+    module sets XLA_FLAGS for 512 devices when imported, which would reach
+    every JAX test of this process)."""
+    src = (ROOT / "src" / "repro" / "launch" / "dryrun.py").read_text(encoding="utf-8")
+    defs = [n for n in ast.parse(src).body if isinstance(n, ast.FunctionDef) and n.name in names]
+    ns = {"ModelConfig": object, "M": M, "AdamWConfig": AdamWConfig}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), "reference dryrun", "exec"), ns)
+    return ns
+
+
+def test_skip_reason_and_opt_cfg_are_the_references():
+    refs = _reference_functions("skip_reason", "_opt_cfg")
+    for arch in all_arch_ids():
+        cfg = get_config(arch)
+        assert D._opt_cfg(cfg) == refs["_opt_cfg"](cfg), arch
+        for shape in M.SHAPES.values():
+            assert D.skip_reason(cfg, shape) == refs["skip_reason"](cfg, shape), (arch, shape)
+
+
+# ---------------------------------------------------------------------------
+# the CLI over the fake 256-rank group
+# ---------------------------------------------------------------------------
+CLI_CELLS = (("qwen3-1.7b", "decode_32k"), ("dbrx-132b", "train_4k"), ("qwen3-1.7b", "train_4k"))
+REF_ROOFLINE = ("chips", "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                "model_flops_total", "model_flops_per_chip", "useful_flops_ratio")
+
+
+@pytest.fixture(scope="module")
+def cli(tmp_path_factory):
+    """The three cells through ``python -m repro_torch.launch.dryrun
+    --device cpu --mesh single``, in processes of their own started
+    together; each cell's JSON, output and exit code, and the largest
+    resident set of the three."""
+    out = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+         cell[1], "--mesh", "single", "--device", "cpu", "--out-dir", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in CLI_CELLS}
+    runs = {}
+    try:
+        for cell, p in procs.items():
+            log = p.communicate(timeout=240)[0]
+            runs[cell] = (p.returncode, log,
+                          json.loads((out / f"{cell[0]}__{cell[1]}__16x16.json").read_text()))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return runs, resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
+
+
+@pytest.mark.parametrize("cell", CLI_CELLS[:2], ids=lambda c: "-".join(c))
+def test_cli_cell_ends_ok_with_the_reference_keys(cli, cell):
+    runs, max_rss_kb = cli
+    rc, log, res = runs[cell]
+    assert rc == 0, log[-3000:]
+    assert log.strip().splitlines()[-1] == "DRYRUN SUMMARY ok=1 skip=0 error=0"
+    assert res["status"] == "ok" and res["skip_reason"] is None and res["device"] == "cpu"
+    assert set(REF_ROOFLINE) <= set(res["roofline"]) and res["roofline"]["chips"] == 256
+    assert res["cost"]["flops"] > 0 and res["cost"]["bytes accessed"] > 0
+    assert res["collectives"]["total_bytes"] > 0 and "all-gather" in res["collectives"]
+    mem = res["memory"]
+    assert mem["total_per_device"] == mem["argument_size_in_bytes"] + mem["peak_live_size_in_bytes"]
+    assert res["trace_s"] > 0 and res["ops"]
+    # full width and nothing allocated: each process stayed far below the
+    # bytes the rank would hold (5.5 GiB for the decode cell, 449 for the
+    # train cell)
+    assert max_rss_kb * 1024 < min(4 << 30, mem["total_per_device"])
+
+
+def test_dense_compute_repeats_over_the_model_axis(cli):
+    """qwen3-1.7b's train_4k on 16x16: the meshed step gathers every dense
+    leaf and splits the batch over "data" only, so the 16 "model" ranks
+    repeat each other's compute and the useful share of the counted
+    FLOPs is at most 1/16.  Attention's products (full rectangles, 2
+    forward and 5 backward, ~21% of the products at S = 4096) take it
+    lower: ~0.047 is the prediction, and the bound is (0.04, 1/16]."""
+    rc, log, res = cli[0][("qwen3-1.7b", "train_4k")]
+    assert rc == 0, log[-3000:]
+    ratio = res["roofline"]["useful_flops_ratio"]
+    assert 0.04 < ratio <= 1 / 16
+    # each rank holds the whole model during the step: more than the
+    # gathered bf16 parameters and their f32 moments' shard
+    assert res["memory"]["total_per_device"] > 2 * M._active_params(get_config("qwen3-1.7b"))
+
+
+# ---------------------------------------------------------------------------
+# the copy of launch/hlo_walk.py
+# ---------------------------------------------------------------------------
+def test_hlo_walk_copy_walks_a_scan_as_the_reference_does():
+    x = jax.ShapeDtypeStruct((64, 128), jnp.float32)
+    w = jax.ShapeDtypeStruct((128, 128), jnp.float32)
+
+    def f(x, w):
+        def body(c, _):
+            return jnp.tanh(c @ w), None
+        out, _ = jax.lax.scan(body, x, None, length=6)
+        return out.sum()
+
+    text = jax.jit(f).lower(x, w).compile().as_text()
+    got, want = HW.walk(text), JHW.walk(text)
+    assert got.as_dict() == want.as_dict()
+    assert got.flops == 6 * 2 * 64 * 128 * 128 and 6 in got.while_trips
+
+
+def test_cli_on_cuda_needs_a_cuda_build():
+    """The default device is fake "cuda"; a CPU-only PyTorch cannot make
+    one, so the CLI refuses it and names ``--device cpu``."""
+    if torch.backends.cuda.is_built():
+        pytest.skip("PyTorch is built with CUDA here: fake CUDA tensors can be made")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        D.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--mesh", "single"])

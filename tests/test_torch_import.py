@@ -21,14 +21,14 @@ PKG = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 #: modules the port keeps as copies of the reference's: the host tier,
-#: obs, the durable storage tier, the data pipeline, the straggler policy
-#: and the model configurations
+#: obs, the durable storage tier, the data pipeline, the HLO walker, the
+#: straggler policy and the model configurations
 COPIED = (
     [f"core/{m}.py" for m in ("cache", "coldstart", "consistency", "errorbook", "evolution",
                               "executor", "navigate", "oracle", "paths", "pipeline",
                               "records", "schema", "store")]
-    + ["data/corpus.py", "data/pipeline.py", "data/tokenizer.py", "models/config.py",
-       "runtime/straggler.py"]
+    + ["data/corpus.py", "data/pipeline.py", "data/tokenizer.py", "launch/hlo_walk.py",
+       "models/config.py", "runtime/straggler.py"]
     + [f"obs/{m}.py" for m in ("__init__", "metrics", "trace")]
     + [f"storage/{m}.py" for m in ("__init__", "failpoints", "lsm", "manifest", "sstable",
                                    "wal")]

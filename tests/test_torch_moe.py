@@ -345,3 +345,32 @@ def test_bridge_and_own_init_keep_the_moe_tree(arch):
         assert a.shape == b.shape and a.dtype == b.dtype
     same = T.init_params(torch.Generator(device="cpu").manual_seed(4), cfg)
     assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(own), jax.tree.leaves(same)))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_dispatch_sizes_equal_bincount(seed):
+    """``_dispatch_ffn`` counts each expert's assignments with a
+    static-length ``scatter_add_`` (so the MoE traces under fake tensors):
+    the counts equal ``torch.bincount``'s on random ids, ids equal to
+    ``n_local`` (not this rank's) included, and the layer's output is the
+    one the bincount counts give."""
+    rs = np.random.RandomState(seed)
+    n_local, A, D = 4, 64, 8
+    ids = torch.from_numpy(rs.randint(0, n_local + 1, A))
+    ids[:5] = n_local
+    want = torch.bincount(ids, minlength=n_local + 1)[:n_local]
+    got = torch.zeros(n_local + 1, dtype=torch.int64).scatter_add_(
+        0, ids, torch.ones_like(ids))[:n_local]
+    assert torch.equal(got, want)
+    # the dispatch with those ids against the JAX reference's (a capacity
+    # that drops, so the per-expert offsets decide which assignments stay)
+    x = rs.randn(16, D).astype(np.float32)
+    tok = np.repeat(np.arange(16), 4).astype(np.int32)
+    w = rs.rand(A).astype(np.float32)
+    ws = [rs.randn(n_local, D, D).astype(np.float32) / 3 for _ in range(3)]
+    out = MoE._dispatch_ffn(torch.from_numpy(x), ids, torch.from_numpy(tok), torch.from_numpy(w),
+                            n_local, 10, *(torch.from_numpy(t) for t in ws))
+    ref_out = np.asarray(JMoE._dispatch_ffn(jnp.asarray(x), jnp.asarray(ids.numpy()),
+                                            jnp.asarray(tok), jnp.asarray(w), n_local, 10,
+                                            *(jnp.asarray(t) for t in ws)))
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=3e-5, rtol=3e-5)

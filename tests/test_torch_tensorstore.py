@@ -2,6 +2,7 @@
 and the same delta sequence, ``logical_state``, ``batched_get``,
 ``search_prefix`` and ``navigate_rows`` agree in patch, rebuild and auto
 modes (template: tests/test_tensorstore.py)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
@@ -160,3 +161,31 @@ def test_built_wiki_queries_match_reference(built_wiki):
     _check_queries(jw, tw, ["/", "/sources", "/sources/digests"] + dims)
     root = int(TS.batched_get(tw, ["/"], device=CPU)[0])
     assert TS.ls_rows(tw, root).tolist() == JTS.ls_rows(jw, root).tolist()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_contains_match_matches_reference(seed):
+    """``contains_match_ref``: keyword containment over a token matrix, the
+    same bitmap as the reference's on random rows, needles cut from rows
+    (hits, also at the row's end), random needles (mostly misses), the
+    empty needle and one longer than the row's room."""
+    rs = np.random.RandomState(seed)
+    N, L, K = 40, 24, 6
+    toks = rs.randint(0, 4, (N, L)).astype(np.uint8)      # a small alphabet: many hits
+    toks[rs.rand(N, L) < 0.1] = 0
+    cases = [(toks[rs.randint(N), o:o + n], n) for o, n in ((3, 4), (L - 5, 5), (0, 6))]
+    cases += [(rs.randint(0, 4, K).astype(np.uint8), n) for n in (1, 3, 6)]
+    cases += [(np.zeros(0, np.uint8), 0)]
+    for needle, n in cases:
+        padded = np.zeros(K, np.uint8)
+        padded[:len(needle)] = needle
+        want = np.asarray(JTS.contains_match_ref(jnp.asarray(toks), jnp.asarray(padded),
+                                                 jnp.int32(n)))
+        got = TS.contains_match_ref(torch.from_numpy(toks), torch.from_numpy(padded), n)
+        assert got.dtype == torch.bool and np.array_equal(got.numpy(), want), (needle, n)
+    # a needle that fits nowhere: K bytes in a row of K - 1
+    short = toks[:, :K - 1]
+    want = np.asarray(JTS.contains_match_ref(jnp.asarray(short), jnp.asarray(toks[0, :K]),
+                                             jnp.int32(K)))
+    got = TS.contains_match_ref(torch.from_numpy(short), torch.from_numpy(toks[0, :K]), K)
+    assert not want.any() and np.array_equal(got.numpy(), want)
