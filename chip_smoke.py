@@ -22,7 +22,7 @@ its main path on the card, printing one JSON line per phase:
      ops, equal to the HostEngine's answers, then a write wave of 64
      admits whose refresh must patch, then the waves again;
   6. the durable tier (``durable``): a child process builds the same
-     wiki at 2^17 files into a 4-shard durable store (WAL fsync at every
+     wiki at 2^16 files into a 4-shard durable store (WAL fsync at every
      commit), mirrors it in a DeviceEngine on the card, commits a patched
      write wave and wave A, flushes wave B uncommitted and exits with no
      close; this process reopens the directory, rehydrates a DeviceEngine
@@ -65,17 +65,18 @@ its main path on the card, printing one JSON line per phase:
      112) through the same prefill, eval and 16 decode steps, launches
      checked exactly, and the f32 parity of a reduced kimi at head_dim
      112 with 384 experts;
- 12. the SSM and xLSTM families: jamba-v0.1-52b at full width (16 of its
-     32 layers: mamba, attention and MoE slots, weights drawn on the card)
-     and xlstm-350m at full width and depth (24 mLSTM and sLSTM layers):
+ 12. the SSM and xLSTM families: jamba-v0.1-52b at full width (one
+     period, 8 of its 32 layers: mamba, attention and MoE slots, weights
+     drawn on the card) and xlstm-350m at full width (one period, 8 of its
+     24 mLSTM and sLSTM layers):
      make_prefill_step and make_eval_step at B=1, S=4096 and 16
      make_serve_step decode steps at B=4 (ragged lengths), launches per
      forward and per step checked exactly, times beside their bounds, the
      prefill split into the scans (mamba, mLSTM, sLSTM per layer, timed
      alone) and the rest; then f32 parity with the CPU: jamba cut to its
      period's first four slots at S=128 (logits, router indices but at
-     near ties, teacher-forced decode against the prefill), xlstm whole
-     at S=512 (two mLSTM chunks) layer by layer (each layer's prefill
+     near ties, teacher-forced decode against the prefill), xlstm's 8
+     layers at S=512 (two mLSTM chunks) layer by layer (each layer's prefill
      and 16 decode steps on the CPU's input to it, the decode against
      the prefill), end to end through the final norm and head over its
      first layers while the card's own logits moved by a 1e-7
@@ -131,8 +132,8 @@ its main path on the card, printing one JSON line per phase:
      card against CPU; then the other families, each with its launches a
      step checked exactly against ``train_launches``, finite losses, step
      ms with its device split, tokens/s, peak memory, the eager AdamW
-     update alone and its cuts: xlstm-350m at full width and depth (B=1,
-     S=2048, 2 steps; one sLSTM and one mLSTM layer's forward and backward
+     update alone and its cuts: xlstm-350m at full width, 8 of its 24
+     layers (B=1, S=2048, 2 steps; one sLSTM and one mLSTM layer's forward and backward
      timed alone) with a reduced xlstm's f32 gradients against the CPU
      within twice the card's own witness; jamba-v0.1-52b at full width cut
      to one period (8 of 32 layers) and 2 of its 16 experts (~3.9 B
@@ -149,23 +150,30 @@ its main path on the card, printing one JSON line per phase:
      (~4.3 B, int8 AdamW moments, B=1, S=4096, 3 steps) with a reduced
      kimi's f32 gradients at head_dim 112 against the CPU;
  15. the mesh over torch.distributed on one rank (NCCL): the router's
-     meshed train step on a (1, 1) mesh against the unmeshed step bit for
-     bit over 3 steps, ``pipeline_apply`` with one stage against the
-     stage, ``restore_elastic`` onto the mesh bit for bit; the meshed
-     prefill (B=4, S=4096) and 16 meshed serve steps (B=4, from an empty
-     cache) of the wikikv-router, qwen3-1.7B (28 layers) and dbrx-132b (1
-     of 40 layers) against the unmeshed steps, logits bit for bit, tokens
-     equal, launches equal, and dbrx's expert-parallel body against the
-     local MoE; the dry run's predicted memory of qwen3-1.7B's one-rank
-     train step (B=1, S=4096; traced in a child process on a fake group)
-     within [0.85, 1.15] of the card's ``max_memory_allocated``;
+     meshed train step on a (1, 1) mesh (each layer gathered on use, each
+     period checkpointed) against the unmeshed step bit for bit over 3
+     steps, its launches the unmeshed step's and the recompute's,
+     ``pipeline_apply`` with one stage against the stage,
+     ``restore_elastic`` onto the mesh bit for bit; the meshed prefill
+     (B=4, S=4096) and 16 meshed serve steps (B=4, from an empty cache) of
+     the wikikv-router, qwen3-1.7B (28 layers) and dbrx-132b (1 of 40
+     layers) against the unmeshed steps, logits bit for bit, tokens equal,
+     launches equal, their ms printed beside the card's name and power
+     limit, and dbrx's expert-parallel body against the local MoE; the dry
+     run's predicted memory of qwen3-1.7B's one-rank remat'd train step
+     (B=1, S=4096; traced in a child process on a fake group) within
+     [0.85, 1.15] of the card's ``max_memory_allocated``;
  16. the dry run (``python -m repro_torch.launch.dryrun``, a child process
      a cell, 8 at once) on fake "cuda" over a fake 256- or 512-rank group:
-     qwen3, dbrx, whisper and internvl2 at train_4k and decode_32k, jamba
-     and xlstm at decode_32k on 16x16, kimi-k2 at train_4k on 2x16x16,
-     every cell ok, one line each; dbrx's train_4k and qwen3's decode_32k
-     also on fake "cpu" (the plain versions), with the same cost,
-     collectives and memory;
+     qwen3, dbrx, whisper and internvl2 at train_4k and decode_32k,
+     codeqwen1.5-7b at both, jamba, xlstm and olmo-1b at decode_32k on
+     16x16, kimi-k2 at train_4k on 2x16x16, every cell ok, one line each;
+     qwen3's and codeqwen's train_4k under 80 GiB a card (qwen3's useful
+     share of the FLOPs at least 0.25), codeqwen's, olmo's and whisper's
+     decode_32k moving at most a tenth of the collective bytes of the
+     whole-model gather's (DRYRUN_LIMITS); dbrx's train_4k and qwen3's
+     decode_32k also on fake "cpu" (the plain versions), with the same
+     cost, collectives and memory;
  17. one JSON line of every kernel (nine) with its launches, error, times
      and bound; the card's name and power limit; the final
      ``{"ok": true, ...}``.
@@ -204,12 +212,13 @@ F32_TOL = dict(atol=3e-5, rtol=3e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 SCALE_LOG2 = 20            # 2^20 files in the synthetic wiki
-# the durable phase's wiki: an eighth of the query phase's, so that the
+# the durable phase's wiki: a sixteenth of the query phase's, so that the
 # whole smoke keeps well inside its time limit with the mesh and dry-run
 # phases (its ingest with an fsync a commit and two from_store freezes
 # took ~380 s at 2^20, and 207 s at 2^19 on an H100 host that ran the
-# smoke in 1,078 s)
-DURABLE_SCALE_LOG2 = 17
+# smoke in 1,078 s; the phase took 167 s at 2^17 on a host that ran the
+# smoke in ~1,210 s)
+DURABLE_SCALE_LOG2 = 16
 N_DIMS, N_TOPICS = 16, 256
 
 
@@ -2073,13 +2082,14 @@ def moe_parity(dev, cfg_p, small: dict, toks, parity_seq: int, tf_tokens: int) -
 # phase 12: the SSM and xLSTM families — jamba-v0.1-52b and xlstm-350m
 # ---------------------------------------------------------------------------
 # launches of each kernel (per forward, per decode step) on the two paths:
-# jamba cut to 16 layers (2 attention, 8 MoE, 16 x 2 block norms + the
-# final one), xlstm at its 24 (one norm a block: the xLSTM blocks carry
-# their own FFN)
+# jamba cut to one period of 8 layers (1 attention, 4 MoE, 8 x 2 block
+# norms + the final one), xlstm to one period, 8 of its 24 (one norm a
+# block: the xLSTM blocks carry their own FFN); both were cut to keep the
+# smoke inside its time limit on a slower host
 RECURRENT_LAUNCHES = {
-    "jamba-v0.1-52b": {"rmsnorm": (33, 33), "flash_attention": (2, 0),
-                       "decode_attention": (0, 2), "moe_router": (8, 8)},
-    "xlstm-350m": {"rmsnorm": (25, 25), "flash_attention": (0, 0),
+    "jamba-v0.1-52b": {"rmsnorm": (17, 17), "flash_attention": (1, 0),
+                       "decode_attention": (0, 1), "moe_router": (4, 4)},
+    "xlstm-350m": {"rmsnorm": (9, 9), "flash_attention": (0, 0),
                    "decode_attention": (0, 0), "moe_router": (0, 0)},
 }
 
@@ -3473,13 +3483,26 @@ def kimi_training(dev, seed=0, steps=3, seq=4096, experts=32, parity_seq=128) ->
 # ---------------------------------------------------------------------------
 # the mesh over torch.distributed, one rank on the card (NCCL)
 # ---------------------------------------------------------------------------
+def remat_launches(cfg) -> dict:
+    """Launches a meshed train step adds to ``train_launches``: each
+    checkpointed period's forward kernels run again in the backward (every
+    forward kernel but a dense prefix layer's and the final norm's)."""
+    fwd = {k: v[0] for k, v in path_launches(cfg).items()}
+    pre = cfg.n_dense_prefix
+    return {"flash_attention": fwd["flash_attention"] - pre,
+            "rmsnorm": fwd["rmsnorm"] - 1 - pre * (2 + 2 * cfg.qk_norm),
+            "moe_router": fwd["moe_router"]}
+
+
 def mesh_single_rank(dev, seed=0, steps=3) -> dict:
     """A process group of one rank over NCCL (``tcp://localhost`` at a free
     port; NCCL refuses two ranks on one card) and a (1, 1) ("data",
     "model") mesh on it: the wikikv-router's meshed train step
-    (``make_train_step(..., mesh=...)``: the gathers, the reduce-scatters
-    and the sharded AdamW of a one-rank mesh) against the unmeshed step,
-    bit for bit, over ``steps`` steps; ``pipeline_apply`` with one stage
+    (``make_train_step(..., mesh=...)``: each layer's leaves gathered on
+    use, the periods checkpointed, the gradients arriving as shards, and
+    the sharded AdamW of a one-rank mesh) against the unmeshed step, bit
+    for bit, over ``steps`` steps, its launches those of the unmeshed step
+    and of the recompute (``remat_launches``); ``pipeline_apply`` with one stage
     against the stage, bit for bit; ``restore_elastic`` onto the mesh of
     the meshed run's checkpoint, bit for bit.  The launches of the meshed
     steps are counted."""
@@ -3531,6 +3554,8 @@ def mesh_single_rank(dev, seed=0, steps=3) -> dict:
         check(all(torch.equal(a, b) for a, b in zip(leaves(m_opt), leaves(p_opt))),
               "the (1, 1) mesh's AdamW state differs from the unmeshed step's")
         want = {**dict.fromkeys(counts, 0), **{k: steps * v for k, v in train_launches(cfg).items()}}
+        for k, v in remat_launches(cfg).items():
+            want[k] += steps * v
         check(counts == want, f"meshed step launches {counts} != {want}")
 
         # the pipeline with one stage over a "pod" axis of one rank
@@ -3583,6 +3608,9 @@ def mesh_single_rank(dev, seed=0, steps=3) -> dict:
 
 MESHED_ARCHS = (("wikikv-router", None), ("qwen3-1.7b", None), ("dbrx-132b", 1))
 MESHED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "moe_router")
+#: the meshed decode step at B = 4 on one NCCL rank when each step gathered
+#: the whole model (PR 25's tree; NVIDIA H100 80GB HBM3, 700.00 W), ms
+PR25_MESHED_DECODE_MS = {"wikikv-router": 16.94, "qwen3-1.7b": 117.53, "dbrx-132b": 50.43}
 
 
 def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512) -> dict:
@@ -3593,8 +3621,9 @@ def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512
     of B x S tokens through the capacity dispatch), each at B = ``batch``,
     S = ``seq`` and ``dec_steps`` greedy decode steps at B = ``batch``
     from an empty cache (its state cut by ``decode_state_specs``: on one
-    rank the whole).  On one rank every gather is a copy, so the logits
-    must be equal bit for bit and the tokens equal (the caller turns on
+    rank the whole).  On one rank each layer's gather returns its leaves
+    as they are (an axis of one rank moves nothing), so the logits must be
+    equal bit for bit and the tokens equal (the caller turns on
     PyTorch's deterministic algorithms: the MoE's ``index_add_`` combine
     is otherwise summed in any order); the launches of the meshed steps
     must equal the unmeshed ones'.  dbrx's expert-parallel
@@ -3615,6 +3644,7 @@ def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512
     from repro_torch.tree import map_like
     total = dict.fromkeys(ops.LAUNCHES, 0)
     lines = []
+    smi = nvidia_smi()
     for arch, layers in MESHED_ARCHS:
         full = get_config(arch)
         cfg = dataclasses.replace(full, n_layers=layers) if layers else full
@@ -3666,7 +3696,13 @@ def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512
                 "dec_steps": dec_steps, "logits_bit_for_bit": True, "tokens_equal": True,
                 "launches": {k: b["counts"][k] for k in MESHED_KERNELS},
                 "prefill_ms": {n: r["prefill_ms"] for n, r in runs.items()},
-                "decode_step_ms": {n: r["step_ms"] for n, r in runs.items()}}
+                "decode_step_ms": {n: r["step_ms"] for n, r in runs.items()},
+                "pr25_meshed_decode_step_ms": PR25_MESHED_DECODE_MS[arch],
+                "meshed_decode_below_pr25": b["step_ms"] < PR25_MESHED_DECODE_MS[arch]}
+        print(f"meshed_steps {arch} ({cfg.n_layers} layers, B={batch}): decode step unmeshed "
+              f"{a['step_ms']:.2f} ms, meshed {b['step_ms']:.2f} ms (whole-model gather, PR 25: "
+              f"{PR25_MESHED_DECODE_MS[arch]} ms); prefill S={seq} unmeshed "
+              f"{a['prefill_ms']:.2f} ms, meshed {b['prefill_ms']:.2f} ms; {smi}", flush=True)
         if cfg.moe is not None:
             # the expert-parallel body on the one-rank mesh against the local
             # MoE, on 1024 embedded tokens
@@ -3682,7 +3718,7 @@ def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512
         lines.append(line)
         del params, shards, runs, a, b
     emit({"phase": "meshed_steps", "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-          "runs": lines})
+          "runs": lines, "nvidia_smi": smi})
     return total
 
 
@@ -3691,7 +3727,8 @@ MEMORY_BAND = (0.85, 1.15)   # the dry run's predicted bytes over the card's pea
 
 def memory_check(dev, mesh, seed=0, seq=4096) -> None:
     """The dry run's per-card memory against the card: qwen3-1.7B's meshed
-    train step at B = 1, S = ``seq`` traced on a one-rank fake mesh (in a
+    train step (each layer gathered on use, its periods checkpointed) at
+    B = 1, S = ``seq`` traced on a one-rank fake mesh (in a
     child process: the fake group cannot share this process with the NCCL
     one), then the same step run on the one-rank NCCL mesh.  The predicted
     ``total_per_device`` over ``torch.cuda.max_memory_allocated()`` (from
@@ -3736,7 +3773,7 @@ def memory_check(dev, mesh, seed=0, seq=4096) -> None:
     ratio = predicted / measured
     mf = M.model_flops(cfg, M.ShapeSpec("train", seq, 1, "train"))
     line = {"phase": "dryrun_memory", "arch": cfg.name, "batch": 1, "seq": seq, "mesh": "1x1",
-            "loss": loss, "predicted_total_per_device": predicted,
+            "remat": "each period checkpointed", "loss": loss, "predicted_total_per_device": predicted,
             "predicted_argument_bytes": pred["memory"]["argument_size_in_bytes"],
             "measured_argument_bytes": args, "measured_max_allocated": measured,
             "predicted_over_measured": ratio, "predicted_flops": pred["cost"]["flops"],
@@ -3765,7 +3802,19 @@ def memory_check(dev, mesh, seed=0, seq=4096) -> None:
 DRYRUN_CELLS = [(a, s, "single") for a in ("qwen3-1.7b", "dbrx-132b", "whisper-medium",
                                            "internvl2-1b") for s in ("train_4k", "decode_32k")]
 DRYRUN_CELLS += [("jamba-v0.1-52b", "decode_32k", "single"), ("xlstm-350m", "decode_32k", "single"),
-                 ("kimi-k2-1t-a32b", "train_4k", "multi")]
+                 ("kimi-k2-1t-a32b", "train_4k", "multi"),
+                 ("codeqwen1.5-7b", "train_4k", "single"), ("codeqwen1.5-7b", "decode_32k", "single"),
+                 ("olmo-1b", "decode_32k", "single")]
+#: the partitioned steps' predictions on 16x16 (each layer gathered on use,
+#: tensor-parallel attention and MLP, the KV-head-sharded cache): per cell
+#: the largest ``total_per_device`` (GiB), the least ``useful_flops_ratio``
+#: and the most collective bytes a step (a tenth of the whole-model
+#: gather's, PR 25's dry run)
+DRYRUN_LIMITS = {("qwen3-1.7b", "train_4k"): {"gib": 80.0, "useful": 0.25},
+                 ("codeqwen1.5-7b", "train_4k"): {"gib": 80.0},
+                 ("codeqwen1.5-7b", "decode_32k"): {"collective": 154.75e9 / 10},
+                 ("olmo-1b", "decode_32k"): {"collective": 36.85e9 / 10},
+                 ("whisper-medium", "decode_32k"): {"collective": 27.80e9 / 10}}
 #: cells traced on fake "cpu" too, whose counts must equal the fake-"cuda" trace's
 DRYRUN_BOTH = [("dbrx-132b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single")]
 DRYRUN_WORKERS = 8
@@ -3778,8 +3827,9 @@ def dryrun_phase() -> None:
     versions) too: every cell ``ok``, one line each (status, dominant
     term, the three times, the per-card GiB, the useful share of the
     FLOPs), and equal ``cost``, ``collectives`` and ``memory`` on the two
-    devices.  The times are predictions from an H100 SXM's published
-    rates, not measurements."""
+    devices, and each DRYRUN_LIMITS cell within its limits.  The times
+    are predictions from an H100 SXM's published rates, not
+    measurements."""
     root = Path(tempfile.mkdtemp(prefix="dryrun-"))
     jobs = [(c, "cuda") for c in DRYRUN_CELLS] + [(c, "cpu") for c in DRYRUN_BOTH]
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
@@ -3824,8 +3874,24 @@ def dryrun_phase() -> None:
                       "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
                       "t_collective_s": r["t_collective_s"],
                       "total_per_device_gib": res["memory"]["total_per_device"] / 2**30,
-                      "useful_flops_ratio": r["useful_flops_ratio"], "trace_s": res["trace_s"],
-                      "wall_s": res["wall_s"]})
+                      "useful_flops_ratio": r["useful_flops_ratio"],
+                      "collective_bytes": res["collectives"]["total_bytes"],
+                      "trace_s": res["trace_s"], "wall_s": res["wall_s"]})
+        lim = DRYRUN_LIMITS.get((arch, shape)) if mesh == "single" and device == "cuda" else None
+        if lim:
+            gib = res["memory"]["total_per_device"] / 2**30
+            moved = res["collectives"]["total_bytes"]
+            print(f"dryrun limits {arch} {shape} 16x16: total_per_device {gib:.3f} GiB "
+                  f"(< {lim.get('gib')}), useful_flops_ratio {r['useful_flops_ratio']:.5f} "
+                  f"(>= {lim.get('useful')}), collective bytes {moved:.6e} "
+                  f"(<= {lim.get('collective')})", flush=True)
+            check(gib < lim.get("gib", math.inf), f"dryrun {arch} {shape}: {gib} GiB a card")
+            check(r["useful_flops_ratio"] >= lim.get("useful", 0.0),
+                  f"dryrun {arch} {shape}: useful_flops_ratio {r['useful_flops_ratio']}")
+            check(moved <= lim.get("collective", math.inf),
+                  f"dryrun {arch} {shape}: {moved} collective bytes a step")
+    check({(a, s) for a, s, m in DRYRUN_CELLS if m == "single"} >= set(DRYRUN_LIMITS),
+          "a DRYRUN_LIMITS cell is not traced")
     for cell in DRYRUN_BOTH:
         a, b = results[(cell, "cuda")], results[(cell, "cpu")]
         for key in ("cost", "collectives", "memory"):
@@ -4020,9 +4086,10 @@ def text_batch(dev, cfg, B, S, seed, **extra) -> dict:
             **{k: v.to(dev) for k, v in extra.items()}}
 
 
-def xlstm_training(dev, seed=0, steps=2, seq=2048, parity_seq=64) -> dict:
-    """xlstm-350m at full width and depth (24 layers, bf16, f32 AdamW
-    moments), B = 1, S = ``seq``: its train steps (``model_training``),
+def xlstm_training(dev, seed=0, steps=2, seq=2048, layers=8, parity_seq=64) -> dict:
+    """xlstm-350m at full width cut to ``layers`` of its 24 layers (bf16,
+    f32 AdamW moments; cut from 24 to keep the smoke inside its time
+    limit), B = 1, S = ``seq``: its train steps (``model_training``),
     with one sLSTM and one mLSTM layer's forward and backward timed alone.
     S is cut from 4096 to 2048 because a step at 4096 took 14.3–16.6 s on
     an H100 (host-bound: the sLSTM loop's forward under grad and its
@@ -4030,12 +4097,15 @@ def xlstm_training(dev, seed=0, steps=2, seq=2048, parity_seq=64) -> dict:
     then ``train_xlstm_parity``: the reduced xlstm (16 layers) in f32 at
     B = 2, S = ``parity_seq``, card against CPU, within twice the card's
     own witness."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     full = get_config("xlstm-350m")
+    cfg = dataclasses.replace(full, n_layers=layers)
     cuts = [f"B=1, S={seq} (of train_4k's 4096: the host-bound sLSTM loop)",
-            f"{steps} steps on one batch"]
-    counts, _ = model_training(dev, "train_xlstm", full, full,
+            f"{layers} of {full.n_layers} layers", f"{steps} steps on one batch"]
+    counts, _ = model_training(dev, "train_xlstm", cfg, full,
                                text_batch(dev, full, 1, seq, seed), steps, cuts,
                                blocks=("slstm", "mlstm"))
     red = full.reduced()
@@ -4213,8 +4283,8 @@ def main(argv: list[str]) -> int:
     path_counts = [query_counts, durable_phase(dev, DURABLE_SCALE_LOG2, refresh_ms), serving_phase(dev),
                    serving_phase(dev, model_oracle=True), prefill_phase(dev), moe_phase(dev),
                    kimi_phase(dev),
-                   recurrent_phase(dev, "jamba-v0.1-52b", 16),
-                   recurrent_phase(dev, "xlstm-350m", 24), encdec_phase(dev), vlm_phase(dev),
+                   recurrent_phase(dev, "jamba-v0.1-52b", 8),
+                   recurrent_phase(dev, "xlstm-350m", 8), encdec_phase(dev), vlm_phase(dev),
                    train_phase(dev), mesh_single_rank(dev)]
     dryrun_phase()
 

@@ -16,11 +16,22 @@ card) both take: ``all_gather_into_tensor``, ``reduce_scatter_tensor``
 (``all_gather_single`` and ``reduce_scatter_single`` where PyTorch has
 those names) and ``all_reduce`` over the mesh's per-axis groups, each on
 contiguous tensors cut along their first dimension.  A call with no process group
-raises; nothing here falls back to one rank.
+raises; nothing here falls back to one rank.  An axis of one rank moves
+nothing: its gather, reduce-scatter and all-reduce return their input.
+
+A partitioned step (``Partition``) runs each layer on this rank's blocks:
+``GatherOnUse`` all-gathers a leaf over the data axes (and over "model"
+where the layer uses it whole) just before the layer and reduce-scatters
+its gradient back to the shard, and ``SeqGather`` / ``SeqScatter`` move
+the activations between their sequence shards on "model" and the whole
+sequence around a tensor-parallel product, each pair the adjoint of the
+other under autograd.
 """
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass, field, replace
 
 import torch
 import torch.distributed as dist
@@ -91,12 +102,20 @@ def _dim_axes(spec: tuple, mesh, axes) -> list[tuple[int, str]]:
             if a in mesh.mesh_dim_names and (axes is None or a in axes)]
 
 
+@functools.lru_cache(maxsize=4096)
+def _cuts(spec: tuple, mesh, axes: tuple) -> bool:
+    """Whether an axis of ``axes`` cuts a dimension of ``spec``."""
+    return bool(_dim_axes(spec, mesh, axes))
+
+
 def gather(local: torch.Tensor, spec: tuple, mesh, axes=None) -> torch.Tensor:
     """The full leaf from each rank's block: all-gathers over every axis
     that cuts a dimension (with ``axes``, only over those), the innermost
     axis of a dimension first."""
     for dim, axis in reversed(_dim_axes(spec, mesh, axes)):
-        local = _all_gather(local, dim, mesh.get_group(axis), axis_size(mesh, axis))
+        n = axis_size(mesh, axis)
+        if n > 1:
+            local = _all_gather(local, dim, mesh.get_group(axis), n)
     return local
 
 
@@ -123,7 +142,7 @@ def reduce_scatter(grad: torch.Tensor, spec: tuple, mesh, sum_axes, axes=None) -
     cutting axes (whose ranks hold the same gradient)."""
     cut = _dim_axes(spec, mesh, axes)
     for dim, axis in cut:
-        if axis in sum_axes:
+        if axis in sum_axes and axis_size(mesh, axis) > 1:
             grad = _reduce_scatter(grad, dim, mesh.get_group(axis), axis_size(mesh, axis))
     for axis in sum_axes:
         if axis not in [a for _, a in cut]:
@@ -139,7 +158,8 @@ def all_reduce(t: torch.Tensor, axes, mesh, op=None) -> torch.Tensor:
     place on a contiguous tensor, which is returned."""
     t = t.contiguous()
     for a in axes:
-        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=mesh.get_group(a))
+        if axis_size(mesh, a) > 1:
+            dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=mesh.get_group(a))
     return t
 
 
@@ -169,3 +189,144 @@ class SumOverGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class GatherOnUse(torch.autograd.Function):
+    """``gather`` forward (the leaf whole over ``axes``, from this rank's
+    block); ``reduce_scatter`` backward: the gradient summed over
+    ``sum_axes`` (the ranks that computed different parts of it) and cut
+    back to this rank's block, so it arrives as the shard's gradient."""
+
+    @staticmethod
+    def forward(ctx, local, spec, mesh, axes, sum_axes):
+        ctx.spec, ctx.mesh, ctx.axes, ctx.sum_axes = spec, mesh, axes, sum_axes
+        out = gather(local, spec, mesh, axes)
+        return out.view_as(out) if out is local else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.spec, ctx.mesh, ctx.sum_axes, ctx.axes), None, None, None, None
+
+
+class SeqGather(torch.autograd.Function):
+    """All-gather of the sequence shards along ``dim`` over ``axis``
+    forward; reduce-scatter (summed) backward: the entry of a
+    tensor-parallel product whose ranks each hold part of its input's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _all_gather(t, dim, mesh.get_group(axis), axis_size(mesh, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        n = axis_size(ctx.mesh, ctx.axis)
+        return _reduce_scatter(g, ctx.dim, ctx.mesh.get_group(ctx.axis), n), None, None, None
+
+
+class SeqScatter(torch.autograd.Function):
+    """Reduce-scatter (summed) along ``dim`` over ``axis`` forward;
+    all-gather backward: the exit of a row-parallel product, whose ranks
+    each hold a partial sum of the whole sequence."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(t, dim, mesh.get_group(axis), axis_size(mesh, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        n = axis_size(ctx.mesh, ctx.axis)
+        return _all_gather(g, ctx.dim, ctx.mesh.get_group(ctx.axis), n), None, None, None
+
+
+TP = "model"        # the tensor-parallel mesh axis
+
+
+@dataclass(frozen=True)
+class Partition:
+    """How one rank of a meshed step runs a layer: the mesh, its data axes
+    (every axis but "model"), whether the batch is split over them
+    (``split``; a batch too small to split stays whole), and whether the
+    activations between blocks are split over the sequence on "model"
+    (``seq``, the reference's ``shard_act(seq_dim=1)``); ``specs`` are the
+    params' specs (``models.model.spec_tree``).
+
+    A block's compute is one of two kinds.  Tensor-parallel: the rank
+    computes its heads or its MLP columns (``tp_enter`` gathers the
+    sequence, or marks a whole input whose gradient the ranks sum) and
+    ends on a row-parallel product whose partial sums ``tp_exit``
+    reduce-scatters over the sequence, or all-reduces.  Replicated: every
+    "model" rank computes the whole block on the whole sequence
+    (``rep_enter``) and keeps its own shard of the result
+    (``rep_exit``)."""
+
+    mesh: object
+    data: tuple
+    split: bool
+    seq: bool = False
+    specs: dict | None = field(default=None, compare=False)   # the params' spec tree
+    # the mesh's axis sizes, its "model" size (tp) and this rank's
+    # coordinate there (rank), read once: a decode step asks per leaf
+    sizes: dict = field(init=False, compare=False)
+    tp: int = field(init=False, compare=False)
+    rank: int = field(init=False, compare=False)
+
+    def __post_init__(self):
+        names = self.mesh.mesh_dim_names
+        object.__setattr__(self, "sizes", {a: axis_size(self.mesh, a) for a in names})
+        object.__setattr__(self, "tp", self.sizes.get(TP, 1))
+        object.__setattr__(self, "rank", axis_coord(self.mesh, TP) if TP in names else 0)
+        # take's (gather axes, sum axes) by (whole, sum_model): axes of one
+        # rank move nothing and are left out
+        object.__setattr__(self, "_plans", {
+            (whole, model): (tuple(a for a, n in self.sizes.items() if (whole or a != TP) and n > 1),
+                             tuple(a for a in self.sum_axes(model) if self.sizes[a] > 1))
+            for whole in (False, True) for model in (False, True)})
+
+    def with_seq(self, n: int) -> "Partition":
+        """Split a sequence of ``n`` over "model" when it divides."""
+        return replace(self, seq=self.tp > 1 and n % self.tp == 0 and n >= self.tp)
+
+    def sum_axes(self, model: bool) -> tuple:
+        """The axes a gradient is summed over: the data axes when they
+        split the batch, and "model" when ``model``."""
+        return (self.data if self.split else ()) + ((TP,) if model and self.tp > 1 else ())
+
+    def take(self, local: torch.Tensor, spec: tuple, whole: bool, sum_model: bool):
+        """A leaf on use: gathered over the data axes, and over "model"
+        too when ``whole``; its gradient summed over ``sum_axes(sum_model)``
+        and cut back to ``local``'s block."""
+        axes, sums = self._plans[whole, sum_model]
+        if not (sums and local.requires_grad) and not _cuts(spec, self.mesh, axes):
+            return local           # nothing to gather or to sum: the leaf as it is
+        return GatherOnUse.apply(local, spec, self.mesh, axes, sums)
+
+    def local_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's shard of the sequence (dimension ``dim``) when it is
+        split, else ``x``."""
+        if not self.seq:
+            return x
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.rank * n, n)
+
+    def tp_enter(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        if self.seq:
+            return SeqGather.apply(x, self.mesh, TP, dim)
+        if self.tp > 1 and torch.is_grad_enabled():
+            return CopyToGroup.apply(x, self.mesh, TP)
+        return x
+
+    def tp_exit(self, y: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        if self.seq:
+            return SeqScatter.apply(y, self.mesh, TP, dim)
+        if self.tp > 1:
+            return SumOverGroup.apply(y, self.mesh, TP)
+        return y
+
+    def rep_enter(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return SeqGather.apply(x, self.mesh, TP, dim) if self.seq else x
+
+    def rep_exit(self, y: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return self.local_seq(y, dim)

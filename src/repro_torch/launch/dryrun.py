@@ -77,7 +77,7 @@ _COLLECTIVES = {"_allgather_base_": "all-gather", "allgather_": "all-gather",
                 "reduce_scatter_tensor_coalesced_": "reduce-scatter",
                 "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
                 "send": "collective-permute", "recv_": "collective-permute"}
-#: allocations that move no bytes
+#: allocations: they hold memory but move no bytes
 _NO_TRAFFIC = ("empty", "empty_like", "new_empty", "empty_strided", "new_empty_strided")
 
 
@@ -107,7 +107,8 @@ class Counter(TorchDispatchMode):
     * ``collectives``: each c10d collective's kind, count and result
       bytes, as the reference's ``collective_bytes`` reckons them;
     * memory: the bytes of each storage an op makes (an output that is
-      none of its inputs' storage), live until the storage is freed:
+      none of its inputs' storage, an allocation such as ``empty`` too),
+      live until the storage is freed:
       ``peak`` is the most live at once, besides the step's arguments
       (``hold``);
     * ``ops``: how many times each op ran.
@@ -208,7 +209,10 @@ class Counter(TorchDispatchMode):
         rule = self._flop_rules.get(func._overloadpacket)
         if rule is not None:
             self.flops += rule(*args, **kwargs, out_val=out)
-        if name not in _NO_TRAFFIC and (self._track(out, inputs) or _writes(func)):
+        # an allocation holds memory from the moment it is made (a buffer
+        # a collective or a blockwise update writes into) but moves no bytes
+        fresh = self._track(out, inputs)
+        if name not in _NO_TRAFFIC and (fresh or _writes(func)):
             self.bytes += _nbytes(inputs) + _nbytes(_tensors(out))
         return out
 

@@ -14,10 +14,21 @@ off for matmuls and cuDNN, so the card computes what the CPU computes.
 Cross-attention (``cross_attn_apply``, whisper's decoder over the
 encoder's output) goes through ``kernels.ops.attention`` too, non-causal
 and without RoPE.
+
+On a mesh (``part``, a ``distributed.sharding.Partition``) the attention
+and the MLP are tensor-parallel over "model", as the reference's specs
+split them: ``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up`` are this
+rank's column block, ``wo`` and ``w_down`` its row block.  The rank
+attends over its own query heads (``Heads``, ``head_split``) and the KV
+heads they read: its own block of ``wk``/``wv`` when the KV heads divide
+over "model", else those heads' columns of the whole leaves.  The input
+enters through ``part.tp_enter`` and the row-parallel product's partial
+sums leave through one reduction, ``part.tp_exit``.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -107,32 +118,85 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+@dataclass(frozen=True)
+class Heads:
+    """A rank's share of an attention layer: query heads [q0, q0 + nq)
+    and the KV heads [kv0, kv0 + nkv) they read."""
+
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+
+
+def all_heads(cfg: ModelConfig) -> Heads:
+    return Heads(0, cfg.n_heads, 0, cfg.n_kv_heads)
+
+
+def head_split(cfg: ModelConfig, tp: int, rank: int, groups=None) -> Heads | None:
+    """Rank ``rank``'s heads when ``tp`` ranks split the layer's heads:
+    H / tp query heads, and either its block of the KV heads (when they
+    divide over the ranks) or the one KV head its query heads share.
+    None (the layer stays whole on every rank) when H does not divide, when
+    its heads span part of a KV group, or when the local group size is not
+    in ``groups`` (a kernel's)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if tp == 1:
+        return all_heads(cfg)
+    if H % tp:
+        return None
+    nq, G = H // tp, H // KV
+    if KV % tp == 0:
+        heads = Heads(rank * nq, nq, rank * (KV // tp), KV // tp)
+    elif nq < G and G % nq == 0:
+        heads = Heads(rank * nq, nq, rank * nq // G, 1)
+    else:
+        return None
+    return heads if groups is None or heads.nq // heads.nkv in groups else None
+
+
+def _kv_weights(params: dict, heads: Heads, cfg: ModelConfig):
+    """``wk``/``wv`` of the KV heads ``heads`` reads: the leaves as they are
+    when they hold just those heads, else those heads' columns."""
+    wk, wv = params["wk"], params["wv"]
+    Dh = cfg.head_dim
+    if wk.shape[1] == heads.nkv * Dh:
+        return wk, wv
+    cols = slice(heads.kv0 * Dh, (heads.kv0 + heads.nkv) * Dh)
+    return wk[:, cols], wv[:, cols]
+
+
 def _project_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, wk: torch.Tensor, wv: torch.Tensor):
+    """q, k, v of the heads ``params["wq"]``, ``wk`` and ``wv`` hold."""
     B, S, _ = x.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, Dh)
-    k = (x @ params["wk"]).reshape(B, S, KV, Dh)
-    v = (x @ params["wv"]).reshape(B, S, KV, Dh)
+    Dh = cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, S, -1, Dh)
+    k = (x @ wk).reshape(B, S, -1, Dh)
+    v = (x @ wv).reshape(B, S, -1, Dh)
     if cfg.qk_norm:
         q = head_norm_apply(params["q_norm"], q, cfg.norm_eps)
         k = head_norm_apply(params["k_norm"], k, cfg.norm_eps)
     inv = rope_freqs(cfg, x.device)
     q = apply_rope(q.transpose(1, 2), positions[:, None, :], inv)
     k = apply_rope(k.transpose(1, 2), positions[:, None, :], inv)
-    return q, k, v.transpose(1, 2)  # (B, H, S, Dh), (B, KV, S, Dh) x2
+    return q, k, v.transpose(1, 2)  # (B, Hq, S, Dh), (B, Hkv, S, Dh) x2
 
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, part=None, heads: Heads | None = None) -> torch.Tensor:
     """Full-sequence (prefill / loss) attention: x (B, S, D) -> (B, S, D),
-    positions 0 .. S-1; causal, or not for an encoder."""
-    B, S, _ = x.shape
+    positions 0 .. S-1; causal, or not for an encoder.  With ``part``, the
+    rank's ``heads`` (tensor-parallel; x is this rank's input and the
+    result its shard of the sum)."""
+    h = x if part is None else part.tp_enter(x)
+    B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    q, k, v = _project_qkv(params, x, positions, cfg)
-    o = ops.attention(q, k, v, causal=causal)  # (B, H, S, Dh)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return o @ params["wo"]
+    q, k, v = _project_qkv(params, h, positions, cfg,
+                           *_kv_weights(params, heads or all_heads(cfg), cfg))
+    o = ops.attention(q, k, v, causal=causal)  # (B, Hq, S, Dh)
+    out = o.transpose(1, 2).reshape(B, S, -1) @ params["wo"]
+    return out if part is None else part.tp_exit(out)
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -143,22 +207,33 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def attn_decode(params: dict, x: torch.Tensor, cache: dict, lengths: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, part=None, heads: Heads | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One-token decode: x (B, 1, D); cache k/v (B, KV, S, Dh); lengths (B,).
 
     Every lane writes its new key and value at position ``lengths`` and
     attends over ``lengths + 1`` positions, as the reference does.  The
     cache is updated IN PLACE (the JAX reference returns a new cache);
-    the returned dict holds the same tensors."""
-    B = x.shape[0]
-    q, k_new, v_new = _project_qkv(params, x, lengths[:, None], cfg)
+    the returned dict holds the same tensors.
+
+    With ``part`` the rank's query ``heads`` attend (tensor-parallel) and
+    ``wk``/``wv`` hold the KV heads the cache holds: either the rank's own
+    block of them (its KV heads on "model", nothing gathered) or all of
+    them (a gathered cache), of which the rank reads its ``heads``."""
+    heads = heads or all_heads(cfg)
+    h = x if part is None else part.tp_enter(x)
+    B = h.shape[0]
+    q, k_new, v_new = _project_qkv(params, h, lengths[:, None], cfg, params["wk"], params["wv"])
     b_idx = torch.arange(B, device=x.device)
     pos = lengths.to(torch.int64)
     cache["k"][b_idx, :, pos, :] = k_new[:, :, 0, :].to(cache["k"].dtype)
     cache["v"][b_idx, :, pos, :] = v_new[:, :, 0, :].to(cache["v"].dtype)
-    o = ops.decode_attention(q[:, :, 0, :], cache["k"], cache["v"], lengths + 1)
-    o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    return o @ params["wo"], cache
+    kc, vc = cache["k"], cache["v"]
+    if kc.shape[1] != heads.nkv:                     # all KV heads: read the rank's
+        kc, vc = (c[:, heads.kv0:heads.kv0 + heads.nkv].contiguous() for c in (kc, vc))
+    o = ops.decode_attention(q[:, :, 0, :], kc, vc, lengths + 1)
+    out = o.reshape(B, 1, -1) @ params["wo"]
+    return (out if part is None else part.tp_exit(out)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -169,18 +244,23 @@ def cross_attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def cross_attn_apply(params: dict, x: torch.Tensor, enc_out: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, part=None, heads: Heads | None = None) -> torch.Tensor:
     """x: (B, Sq, D) queries; enc_out: (B, Se, D) keys and values.  No
     RoPE and no qk-norm (whisper's positions are folded into the stub's
-    frames); non-causal, so Sq may exceed Se."""
-    B, Sq, _ = x.shape
+    frames); non-causal, so Sq may exceed Se.  With ``part``, the rank's
+    ``heads`` as in ``attn_apply``; ``enc_out`` is whole (the caller
+    entered it once for every layer)."""
+    h = x if part is None else part.tp_enter(x)
+    B, Sq, _ = h.shape
     Se = enc_out.shape[1]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, Sq, H, Dh).transpose(1, 2)
-    k = (enc_out @ params["wk"]).reshape(B, Se, KV, Dh).transpose(1, 2)
-    v = (enc_out @ params["wv"]).reshape(B, Se, KV, Dh).transpose(1, 2)
+    Dh = cfg.head_dim
+    wk, wv = _kv_weights(params, heads or all_heads(cfg), cfg)
+    q = (h @ params["wq"]).reshape(B, Sq, -1, Dh).transpose(1, 2)
+    k = (enc_out @ wk).reshape(B, Se, -1, Dh).transpose(1, 2)
+    v = (enc_out @ wv).reshape(B, Se, -1, Dh).transpose(1, 2)
     o = ops.attention(q, k, v, causal=False)
-    return o.transpose(1, 2).reshape(B, Sq, H * Dh) @ params["wo"]
+    out = o.transpose(1, 2).reshape(B, Sq, -1) @ params["wo"]
+    return out if part is None else part.tp_exit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +274,11 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None) ->
             "w_down": dense_init(gen, Fd, D, cfg)}
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu((x @ params["w_gate"]).float())
-    u = (x @ params["w_up"]).float()
-    return (g * u).to(x.dtype) @ params["w_down"]
+def mlp_apply(params: dict, x: torch.Tensor, part=None) -> torch.Tensor:
+    """The gated MLP; with ``part``, over this rank's columns of
+    ``w_gate``/``w_up`` and rows of ``w_down`` (tensor-parallel)."""
+    h = x if part is None else part.tp_enter(x)
+    g = F.silu((h @ params["w_gate"]).float())
+    u = (h @ params["w_up"]).float()
+    out = (g * u).to(h.dtype) @ params["w_down"]
+    return out if part is None else part.tp_exit(out)

@@ -129,25 +129,6 @@ def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, mesh=None):
     return loss.detach(), grads
 
 
-def _gather_axes(cfg: ModelConfig, mesh) -> dict:
-    """Per leaf, the mesh axes it is all-gathered over for compute: None
-    (every axis that cuts it), except a MoE layer's expert stacks on an
-    expert-parallel mesh, which keep their "model" cut (each rank runs its
-    own experts) and gather over the data axes only."""
-    from ..launch.mesh import dp_axes
-    from .moe import ep_size
-    dp = dp_axes(mesh) if ep_size(cfg, mesh) else None
-
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v, path) for v in tree]
-        expert = len(path) > 1 and path[-2] == "moe" and path[-1] in ("w_gate", "w_up", "w_down")
-        return dp if expert else None
-    return walk(spec_tree(cfg), ())
-
-
 def shard_params(params: dict, cfg: ModelConfig, mesh) -> dict:
     """This rank's block of every leaf of a whole tree (``params`` or
     like it, e.g. its gradients) by ``spec_tree``: what a rank of a meshed
@@ -156,48 +137,36 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> dict:
     return map_like(lambda t, s: shard(t, s, mesh), params, spec_tree(cfg))
 
 
-def _gather_params(params: dict, cfg: ModelConfig, mesh) -> dict:
-    """The whole tree a meshed step computes with, all-gathered from this
-    rank's shards (``_gather_axes``: an expert stack over the data axes
-    only on an expert-parallel mesh); raises without a process group."""
-    from ..distributed.sharding import gather, require_process_group
+def _local_batch(batch: dict, cfg: ModelConfig, mesh):
+    """(this rank's rows of ``batch`` (``transformer.split_batch``; a batch
+    too small to split is the same on every rank), the step's
+    ``transformer.partition``)."""
+    from ..distributed.sharding import require_process_group
     require_process_group()
-    with torch.no_grad():
-        return map_like(lambda t, s, a: gather(t, s, mesh, a), params, spec_tree(cfg),
-                        _gather_axes(cfg, mesh))
-
-
-def _local_batch(batch: dict, mesh) -> tuple[dict, tuple]:
-    """(this rank's rows of ``batch``, the mesh axes a loss sums over): a
-    batch split over the data axes sums its terms over them; a batch too
-    small to split (``transformer.split_batch`` returns it as it is) is
-    the same on every rank and sums over none."""
-    from ..launch.mesh import dp_axes
-    local = T.split_batch(batch, mesh)
-    return local, (dp_axes(mesh) if local is not batch else ())
+    part = T.partition(mesh, next(iter(batch.values())).shape[0], spec_tree(cfg))
+    return T.split_batch(batch, mesh), part
 
 
 def _sharded_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, mesh):
-    """The meshed ``loss_and_grads``: each leaf all-gathered from the
-    ranks' shards (an expert stack over the data axes only), this rank's
-    rows of the batch (``transformer.split_batch``), the MoE layers
-    expert-parallel, and each gradient reduce-scattered back to this
-    rank's shard: summed over the data axes that split the batch, cut
-    alike on the others (whose ranks computed the same gradient).  The
-    loss is the global batch's masked mean: the count of unmasked labels
-    is summed over the data ranks before the division, and so is the
-    reported sum of their cross entropy."""
-    from ..distributed.sharding import all_reduce, reduce_scatter
-    specs, gaxes = spec_tree(cfg), _gather_axes(cfg, mesh)
-    full = _gather_params(params, cfg, mesh)
-    local, sum_axes = _local_batch(batch, mesh)
-    work = _work_leaves(full)
+    """The meshed ``loss_and_grads`` on this rank's shards: this rank's
+    rows of the batch (``transformer.split_batch``), each layer's leaves
+    gathered on use and its periods checkpointed (``transformer``'s
+    partitioned forward), and each gradient arriving as this rank's
+    shard (``sharding.GatherOnUse``'s backward: summed over the ranks that
+    computed parts of it, cut alike on the others).  The loss is the
+    global batch's masked mean: the count of unmasked labels is summed over
+    the ranks that split the tokens before the division
+    (``transformer.nll_sum_axes``), and so is the reported sum of their
+    cross entropy."""
+    from ..distributed.sharding import all_reduce
+    local, part = _local_batch(batch, cfg, mesh)
+    sum_axes = T.nll_sum_axes(part, local, cfg)
+    work = _work_leaves(params)
     with torch.enable_grad():
-        total, count = T.nll_terms(work, local, cfg, mesh=mesh)
+        total, count = T.nll_terms(work, local, cfg, part=part)
         count = all_reduce(count.detach().clone(), sum_axes, mesh).clamp(min=1.0)
-        grads = _grads(full, work, total / count)
-    del work, full
-    grads = map_like(lambda g, s, a: reduce_scatter(g, s, mesh, sum_axes, a), grads, specs, gaxes)
+        grads = _grads(params, work, total / count)
+    del work
     return all_reduce(total.detach().clone(), sum_axes, mesh) / count, grads
 
 
@@ -223,20 +192,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
     {"loss", "lr_scale"})``: the loss and its gradient, the cosine
     schedule's scale at ``opt_state["step"]`` and one AdamW update, with
     the reference's warmup rule.  It returns new trees and leaves its
-    arguments as they were.  No remat: the activations of qwen3-1.7B at
-    B = 1, S = 4096 fit one card (the JAX body's ``jax.checkpoint``
-    changes no number).
+    arguments as they were.  Unmeshed there is no remat: the activations
+    of qwen3-1.7B at B = 1, S = 4096 fit one card (the JAX body's
+    ``jax.checkpoint`` changes no number).
 
     With a ``mesh`` (a ``DeviceMesh`` with "data" and "model" axes, and
     "pod" where it has one) the step is the reference's sharded step over
     ``torch.distributed``: ``params`` and ``opt_state`` are this rank's
     shards (``shard_params``; ``adamw_init(shards, opt_cfg,
     full=abstract_params(cfg))``, so that int8 moments follow the whole
-    leaves), ``batch`` the
-    global batch, which every rank passes whole; AdamW updates the shards
-    (an int8 moment's row scale taken over the whole row).  Its numbers
-    are the unmeshed step's on the whole batch, up to the order of the
-    sums over the data ranks."""
+    leaves), ``batch`` the global batch, which every rank passes whole;
+    each layer's leaves are gathered on use, attention and the MLP run
+    tensor-parallel over "model" with the activations split over the
+    sequence, each period is checkpointed (``_sharded_loss_and_grads``),
+    and AdamW updates the shards (an int8 moment's row scale taken over
+    the whole row).  Its numbers are the unmeshed step's on the whole
+    batch, up to the order of the sums over the ranks."""
     L.set_fp32_matmul()
     wu = warmup if warmup is not None else max(1, min(200, total_steps // 20))
     row_max = _row_max(cfg, mesh) if mesh is not None else None
@@ -256,13 +227,13 @@ def make_eval_step(cfg: ModelConfig, mesh=None):
     ``batch["labels"]`` (labels < 0 masked); with ``prefix_embeds`` or
     ``frames`` for the vision and audio stubs.
 
-    With a ``mesh``, as ``make_train_step``'s: ``params`` are this rank's
-    shards (``shard_params``), all-gathered for the forward, ``batch`` the
-    global batch, of which the rank takes its rows
-    (``transformer.split_batch``), the MoE layers expert-parallel; the
-    sum of the cross entropy and the count of unmasked labels are
-    all-reduced over the data axes before the division, so every rank
-    returns the global batch's loss."""
+    With a ``mesh``, as ``make_train_step``'s forward: ``params`` are this
+    rank's shards (``shard_params``), each layer's gathered on use,
+    ``batch`` the global batch, of which the rank takes its rows
+    (``transformer.split_batch``) and its shard of the sequence; the sum
+    of the cross entropy and the count of unmasked labels are all-reduced
+    over the ranks that split the tokens before the division, so every
+    rank returns the global batch's loss."""
     L.set_fp32_matmul()
 
     def eval_step(params, batch):
@@ -270,8 +241,9 @@ def make_eval_step(cfg: ModelConfig, mesh=None):
             if mesh is None:
                 return T.loss_fn(params, batch, cfg)
             from ..distributed.sharding import all_reduce
-            local, sum_axes = _local_batch(batch, mesh)
-            total, count = T.nll_terms(_gather_params(params, cfg, mesh), local, cfg, mesh=mesh)
+            local, part = _local_batch(batch, cfg, mesh)
+            sum_axes = T.nll_sum_axes(part, local, cfg)
+            total, count = T.nll_terms(params, local, cfg, part=part)
             total, count = (all_reduce(t.clone(), sum_axes, mesh) for t in (total, count))
             return total / count.clamp(min=1.0)
     return eval_step
@@ -294,8 +266,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
         with torch.inference_mode():
             if mesh is None:
                 return T.forward(params, batch, cfg)
-            return T.forward(_gather_params(params, cfg, mesh), T.split_batch(batch, mesh),
-                             cfg, mesh)
+            local, part = _local_batch(batch, cfg, mesh)
+            return T.forward(params, local, cfg, part)
     return prefill_step
 
 
@@ -307,30 +279,33 @@ def make_serve_step(cfg: ModelConfig, mesh=None, cache_layout: str = "auto"):
     ``batch["write"]`` (B,) bool, where given, is the lanes whose
     recurrent states take the step (``transformer.decode_step``).
 
-    With a ``mesh``, ``params`` are this rank's shards (all-gathered for
-    the step), ``batch`` the global batch, and ``state`` this rank's
-    block of the decode state, cut by ``decode_state_specs(cfg, B,
-    dp=dp_axes(mesh), dp_size=dp_size(mesh), cache_layout=cache_layout,
-    tp_size=...)``: each layer's state is gathered over the axes that cut
-    it off the batch (KV heads, head_dim or sequence over "model", the
-    sequence over the data axes when B < dp_size) before its attention
-    or recurrence, and the rank keeps its block of what the step writes.
-    The step returns this rank's rows of ``next_tok`` and ``logits`` and
-    its block of the state."""
+    With a ``mesh``, ``params`` are this rank's shards (each layer's
+    gathered on use, attention and the MLP tensor-parallel over "model"),
+    ``batch`` the global batch, and ``state`` this rank's block of the
+    decode state, cut by ``decode_state_specs(cfg, B, dp=dp_axes(mesh),
+    dp_size=dp_size(mesh), cache_layout=cache_layout, tp_size=...)``.
+    Under the kv_head layout each rank writes and attends over its own KV
+    heads and no cache byte moves; under the others each layer's state is
+    gathered over the axes that cut it off the batch (head_dim or
+    sequence over "model", the sequence over the data axes when B <
+    dp_size) before its attention or recurrence, and the rank keeps its
+    block of what the step writes (``transformer._decode_block``).  The
+    step returns this rank's rows of ``next_tok`` and ``logits`` and its
+    block of the state."""
     L.set_fp32_matmul()
 
     def serve_step(params, state, batch):
-        specs = None
+        specs = part = None
         if mesh is not None:
             from ..launch.mesh import dp_axes, dp_size
             tp = mesh.size(mesh.mesh_dim_names.index(TP)) if TP in mesh.mesh_dim_names else 1
             specs = decode_state_specs(cfg, batch["tokens"].shape[0], dp=dp_axes(mesh),
                                        dp_size=dp_size(mesh), cache_layout=cache_layout,
                                        tp_size=tp)
-            params, batch = _gather_params(params, cfg, mesh), T.split_batch(batch, mesh)
+            batch, part = _local_batch(batch, cfg, mesh)
         logits, state = T.decode_step(params, state, batch["tokens"], batch["lengths"], cfg,
                                       enc_out=batch.get("enc_out"), write=batch.get("write"),
-                                      mesh=mesh, state_specs=specs)
+                                      part=part, state_specs=specs)
         # mask vocab-padding ids (embed table is padded to a 256 multiple)
         if cfg.padded_vocab != cfg.vocab:
             valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab

@@ -19,10 +19,15 @@ needs no host sync.
 On a mesh whose "model" axis divides the experts, ``moe_apply`` runs the
 reference's expert-parallel body (its ``shard_map`` over the TP/EP axis):
 each "model" rank holds E / tp experts, routes the tokens it shares with
-its group, keeps the assignments to its own experts, and one all-reduce
+its group, keeps the assignments to its own experts, and one reduction
 over the group sums the partial outputs, so dispatch needs no all-to-all.
+Under a partitioned step whose activations are split over the sequence
+on "model", the group's tokens are gathered along the sequence before
+the body and the partial outputs reduce-scattered back to the sequence
+shards after it; with the sequence whole, they are all-reduced.
 
-Shared experts (kimi-style) are a dense gated MLP added unconditionally.
+Shared experts (kimi-style) are a dense gated MLP added unconditionally
+(tensor-parallel beside the expert-parallel body).
 """
 from __future__ import annotations
 
@@ -144,18 +149,16 @@ def _moe_shard_body(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     tokens (``ops.moe_router``: the kernel on the card), keeps the
     assignments to its own experts at the reference's capacity, runs its
     batched FFN, and the partial outputs are summed over the group in
-    ``x.dtype`` (the reference psums in bf16 for a bf16 model).  Under
-    grad, x and the router enter through ``CopyToGroup`` (each rank's
-    gradient of them covers its own experts: the group sums them) and
-    the sum leaves through ``SumOverGroup`` (every rank then runs the same
-    layers after it)."""
-    from ..distributed.sharding import CopyToGroup, SumOverGroup, axis_coord
+    ``x.dtype`` (the reference psums in bf16 for a bf16 model): this
+    returns the rank's partial output, which the caller reduces.  Under
+    grad the router enters through ``CopyToGroup`` (each rank's gradient
+    of it covers its own experts: the group sums them)."""
+    from ..distributed.sharding import CopyToGroup, axis_coord
     m = cfg.moe
     T, D = x.shape
     E_loc = w_gate.shape[0]
     lo = axis_coord(mesh, TP) * E_loc
     if torch.is_grad_enabled():
-        x = CopyToGroup.apply(x, mesh, TP)
         router = CopyToGroup.apply(router, mesh, TP)
     logits = (x @ router).float()
     weights, idx = ops.moe_router(logits, m.top_k)
@@ -166,30 +169,50 @@ def _moe_shard_body(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     cap = _capacity(T, m.top_k, m.n_experts, m.capacity_factor)
     partial = _dispatch_ffn(x, local_e, tok_flat, weights.reshape(-1), E_loc, cap,
                             w_gate, w_up, w_down)
-    return SumOverGroup.apply(partial.to(x.dtype), mesh, TP)
+    return partial.to(x.dtype)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+              part=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  Expert-parallel (``_moe_shard_body``)
-    when ``mesh`` has a "model" axis of more than one rank that divides
+    when the mesh has a "model" axis of more than one rank that divides
     ``n_experts``; all experts local otherwise.  On a mesh, x is this
     rank's tokens: the batch was split over the data axes where it enters
     the model (``transformer.split_batch``, the reference's ``x_spec``
-    rule: a batch too small to split stays replicated), and the "model"
-    ranks of a data group hold the same rows.  ``params``' expert stacks
-    may be whole (n_experts, ...) or this rank's slice (E / tp, ...)."""
-    B, S, D = x.shape
-    xt = x.reshape(B * S, D)
-    ep = ep_size(cfg, mesh)
+    rule: a batch too small to split stays replicated).
+
+    ``params``' expert stacks may be whole (n_experts, ...) or this
+    rank's slice (E / tp, ...); a shared expert's leaves are this rank's
+    columns of ``w_gate``/``w_up`` and rows of ``w_down`` (the whole
+    leaves on a one-wide "model" axis).  The body and the shared expert
+    give partial sums, which ``part.tp_exit`` reduces over the group.
+    With ``mesh`` alone the "model" ranks of a data group hold the same
+    rows and the sums are all-reduced.  With ``part`` (a partitioned step,
+    ``distributed.sharding.Partition``) x is the rank's shard of the
+    sequence when ``part.seq``: ``part.tp_enter`` gathers the group's
+    sequence and ``part.tp_exit`` reduce-scatters the sums back to the
+    shard; without expert parallelism every rank runs the whole layer on
+    the whole sequence and keeps its shard."""
+    if part is None and mesh is not None:
+        from ..distributed.sharding import Partition
+        from ..launch.mesh import dp_axes
+        part = Partition(mesh, dp_axes(mesh), split=False)
+    ep = ep_size(cfg, part.mesh if part is not None else None)
     if not ep:
-        return moe_apply_local(params, xt, cfg).reshape(B, S, D)
+        h = x if part is None else part.rep_enter(x)
+        B, S, D = h.shape
+        out = moe_apply_local(params, h.reshape(B * S, D), cfg).reshape(B, S, D)
+        return out if part is None else part.rep_exit(out)
     from ..distributed.sharding import axis_coord
     E_loc = cfg.moe.n_experts // ep
     w = [params[k] for k in ("w_gate", "w_up", "w_down")]
     if w[0].shape[0] != E_loc:                       # whole stacks: this rank's slice
-        lo = axis_coord(mesh, TP) * E_loc
+        lo = axis_coord(part.mesh, TP) * E_loc
         w = [t[lo:lo + E_loc] for t in w]
-    out = _moe_shard_body(xt, params["router"], *w, cfg=cfg, mesh=mesh)
+    h = part.tp_enter(x)
+    B, S, D = h.shape
+    ht = h.reshape(B * S, D)
+    out = _moe_shard_body(ht, params["router"], *w, cfg=cfg, mesh=part.mesh)
     if cfg.moe.n_shared > 0:
-        out = out + mlp_apply(params["shared"], xt)
-    return out.reshape(B, S, D)
+        out = out + mlp_apply(params["shared"], ht)
+    return part.tp_exit(out.reshape(B, S, D))

@@ -18,20 +18,33 @@ Parameters keep the JAX tree: per-slot leaves are stacked over periods on
 axis 0 (``params["body"]["slot{i}"]``) and the dense prefix is the list
 ``params["prefix"]``, so the JAX parameter pytree moves over leaf by leaf
 (``repro_torch.bridge``).  A plain loop over periods takes the place of
-``lax.scan``; there is no remat, because the forward runs for inference
-(callers wrap it in ``torch.inference_mode()``) and the backward of the
-attention families lives in ``models/model.py``.  Decode state is stacked
+``lax.scan``.  Decode state is stacked
 the same way (the prefix's as a list): a KV cache ``{"k", "v"}`` for an
 attention slot, a tuple of recurrent tensors for the others, each written
 in place in its period's row.  A decode step takes the encoder's output
 (``enc_out``) and recomputes the cross-attention's keys and values from
 it, as the reference does; it has no input for the vision prefix, as the
 reference's has none.
+
+On a mesh every function takes ``part`` (``distributed.sharding.Partition``,
+made by ``partition``): ``params`` are this rank's shards and each layer
+gathers its leaves on use (``_take``: over the data axes, and over
+"model" where the layer runs whole there), so no more than one layer's
+leaves, or ``embed``, or the head, are gathered at once.  Between blocks
+the activations are split over the sequence on "model" when it divides
+(the reference's ``shard_act(seq_dim=1)``); attention and the MLP are
+tensor-parallel (``layers``), a MoE layer expert-parallel (``moe``), and
+the blocks that do not split (attention whose heads do not divide, the
+recurrent blocks) run whole on every "model" rank.  Under grad each
+period runs under ``torch.utils.checkpoint`` (the reference's remat with
+its default ``nothing_saveable`` policy), so the backward gathers the
+period's leaves again.  The unmeshed path (``part=None``) is unchanged.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import moe as MoE
@@ -163,85 +176,267 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 part=None) -> torch.Tensor:
     # F.embedding, not indexing: its backward sums each token's rows in a
     # fixed order on both devices, where indexing's accumulates in any
     # order on the CPU, and a resumed run must repeat an uninterrupted one
-    return F.embedding(tokens, params["embed"]).to(getattr(torch, cfg.dtype))
+    table = params["embed"] if part is None else _take_whole(part, params["embed"], "embed")
+    return F.embedding(tokens, table).to(getattr(torch, cfg.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the partitioned step: each layer's leaves gathered on use
+# ---------------------------------------------------------------------------
+def partition(mesh, rows: int, specs: dict):
+    """The ``Partition`` of a meshed step over a global batch of ``rows``:
+    the data axes split the batch when it divides into them
+    (``split_batch``); ``specs`` is the params' ``model.spec_tree``."""
+    from ..distributed.sharding import Partition
+    from ..launch.mesh import dp_axes, dp_size
+    n = dp_size(mesh)
+    return Partition(mesh, dp_axes(mesh), split=n > 1 and rows % n == 0 and rows >= n,
+                     specs=specs)
+
+
+def _heads(cfg: ModelConfig, part, decode: bool = False):
+    """This rank's ``layers.Heads`` of an attention layer, or None when the
+    layer runs whole on every "model" rank (its heads do not split; in
+    decode also when the kernel lacks the local group size)."""
+    from ..kernels.decode_attention import GROUPS
+    return L.head_split(cfg, part.tp, part.rank, GROUPS if decode else None)
+
+
+def _leaf_use(path: tuple, cfg: ModelConfig, part, heads, whole_kv: bool) -> tuple[bool, bool]:
+    """How a layer uses its leaf at ``path`` (names within the layer):
+    (gathered whole over "model", its gradient summed over "model").
+
+    A tensor-parallel block's column and row blocks keep their "model"
+    cut and are each rank's alone; ``wk``/``wv`` read whole (their KV
+    heads do not split, or a gathered decode cache takes every head) and
+    the qk-norm scales serve the rank's heads only, so their gradients
+    are partial over "model".  A MoE layer's experts keep their cut, and
+    its router's gradient is summed inside the body.  Whatever runs whole
+    on every "model" rank (norms, embed and head, recurrent blocks,
+    attention whose heads do not split, a MoE layer without expert
+    parallelism) is summed over "model" exactly when the sequence is
+    split there, as each rank then computes its own positions."""
+    group, name = path[0], path[-1]
+    if group in ("attn", "cross") and heads is not None:
+        if name in ("wq", "wo"):
+            return False, False
+        if name in ("wk", "wv") and not whole_kv:
+            return False, False
+        return True, True
+    if group == "mlp":
+        return False, False
+    if group == "moe" and MoE.ep_size(cfg, part.mesh):
+        if name == "router":
+            return True, False
+        return False, False                     # the expert stacks and the shared expert
+    return True, part.seq
+
+
+def _take_whole(part, local: torch.Tensor, name: str, spec=None) -> torch.Tensor:
+    """A leaf outside the layers (``embed``, ``lm_head``, ``final_norm``)
+    on use: whole on every "model" rank, as ``_leaf_use`` takes what runs
+    whole there."""
+    return part.take(local, part.specs[name] if spec is None else spec, True, part.seq)
+
+
+def _take(part, local: dict, specs: dict, cfg: ModelConfig, heads=None, whole_kv=False,
+          path: tuple = ()) -> dict:
+    """One layer's leaves on use (``Partition.take`` by ``_leaf_use``):
+    ``local`` holds this rank's blocks, ``specs`` their specs."""
+    if isinstance(local, dict):
+        return {k: _take(part, v, specs[k], cfg, heads, whole_kv, path + (k,))
+                for k, v in local.items()}
+    return part.take(local, specs, *_leaf_use(path, cfg, part, heads, whole_kv))
+
+
+def _layer_specs(specs: dict, stacked: bool) -> dict:
+    """A layer's leaf specs: a period stack's without its leading axis."""
+    if isinstance(specs, dict):
+        return {k: _layer_specs(v, stacked) for k, v in specs.items()}
+    return specs[1:] if stacked else specs
+
+
+def _split(part, fn, h: torch.Tensor, heads, *args, **kw) -> torch.Tensor:
+    """A block's branch on ``h``: unmeshed, tensor-parallel over ``heads``
+    (``fn`` enters and exits), or whole on every "model" rank."""
+    if part is None:
+        return fn(h, *args, **kw)
+    if heads is not None:
+        return fn(h, *args, part=part, heads=heads, **kw)
+    return part.rep_exit(fn(part.rep_enter(h), *args, **kw))
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill / evaluation)
 # ---------------------------------------------------------------------------
-def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig, part=None) -> torch.Tensor:
     if "moe" in params:
-        return MoE.moe_apply(params["moe"], h, cfg, mesh=mesh)
-    return L.mlp_apply(params["mlp"], h)
+        return MoE.moe_apply(params["moe"], h, cfg, part=part)
+    return L.mlp_apply(params["mlp"], h, part)
 
 
-def _cross(params: dict, x: torch.Tensor, enc_out, cfg: ModelConfig) -> torch.Tensor:
-    """A decoder block's cross-attention branch, after the mixer."""
+def _cross(params: dict, x: torch.Tensor, enc_out, cfg: ModelConfig, part=None,
+           heads=None) -> torch.Tensor:
+    """A decoder block's cross-attention branch, after the mixer; on a mesh
+    ``enc_out`` is whole (``_enter_encoder``)."""
     if "cross" not in params or enc_out is None:
         return x
     hx = L.norm_apply(params["norm_x"], x, cfg)
-    return x + L.cross_attn_apply(params["cross"], hx, enc_out, cfg)
+    return x + _split(part, lambda h, **kw: L.cross_attn_apply(params["cross"], h, enc_out, cfg,
+                                                               **kw), hx, heads)
 
 
 def _slot_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
-                enc_out=None, mesh=None) -> torch.Tensor:
+                enc_out=None, part=None, heads=None) -> torch.Tensor:
     """Full-sequence apply of one block.  An attention block of an
     encoder-decoder is causal exactly when it is given the encoder's
-    output: the encoder's own blocks run non-causal."""
+    output: the encoder's own blocks run non-causal.  With ``part``,
+    ``params`` are the layer's leaves on use (``_take``), ``x`` this
+    rank's activations and ``heads`` its attention heads (None: whole)."""
     name, _, apply = _BLOCKS[kind][:3]
     h = L.norm_apply(params["norm1"], x, cfg)
     kw = {"causal": not cfg.is_encdec or enc_out is not None} if kind == "attn" else {}
-    x = _cross(params, x + apply(params[name], h, cfg, **kw), enc_out, cfg)
+    y = _split(part, lambda h_, **k: apply(params[name], h_, cfg, **kw, **k), h,
+               heads if kind == "attn" else None)
+    x = _cross(params, x + y, enc_out, cfg, part, heads)
     if "norm2" not in params:
         return x
     h2 = L.norm_apply(params["norm2"], x, cfg)
-    return x + _ffn(params, h2, cfg, mesh)
+    return x + _ffn(params, h2, cfg, part)
 
 
-def _encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _layer(kind: str, local: dict, specs: dict, x: torch.Tensor, cfg: ModelConfig, part,
+           enc_out=None) -> torch.Tensor:
+    """One layer from this rank's blocks ``local``: its leaves gathered on
+    use, then ``_slot_apply``; the gathered leaves are dropped after it."""
+    heads = _heads(cfg, part)
+    params = _take(part, local, specs, cfg, heads, whole_kv=heads is not None and
+                   cfg.n_kv_heads % part.tp != 0)
+    return _slot_apply(kind, params, x, cfg, enc_out=enc_out, part=part, heads=heads)
+
+
+def _run_period(fn, x: torch.Tensor, part) -> torch.Tensor:
+    """``fn(x)``: under grad on a mesh through ``torch.utils.checkpoint``
+    (non-reentrant; the reference's ``jax.checkpoint`` of a period with
+    its default ``nothing_saveable`` policy): only the period's input is
+    kept, and the backward runs the period again, its gathers too."""
+    if part is None or not torch.is_grad_enabled():
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def _body(params: dict, key: str, x: torch.Tensor, cfg: ModelConfig, pattern, n: int,
+          part, enc_out=None) -> torch.Tensor:
+    """The periods of ``params[key]`` (stacked slots) over ``x``."""
+    if part is not None:                 # each slot's specs, the same every period
+        specs = {slot: _layer_specs(s, True) for slot, s in part.specs[key].items()}
+    for p in range(n):
+        if part is None:
+            for s_idx, kind in enumerate(pattern):
+                x = _slot_apply(kind, _index(params[key][f"slot{s_idx}"], p), x, cfg,
+                                enc_out=enc_out)
+            continue
+
+        def period(x, p=p):
+            for s_idx, kind in enumerate(pattern):
+                slot = f"slot{s_idx}"
+                x = _layer(kind, _index(params[key][slot], p), specs[slot], x, cfg, part,
+                           enc_out)
+            return x
+        x = _run_period(period, x, part)
+    return x
+
+
+def _final_norm(params: dict, x: torch.Tensor, cfg: ModelConfig, part) -> torch.Tensor:
+    norm = params["final_norm"] if part is None else {
+        k: _take_whole(part, v, "final_norm", part.specs["final_norm"][k])
+        for k, v in params["final_norm"].items()}
+    return L.norm_apply(norm, x, cfg)
+
+
+def _encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, part=None):
     """The encoder's output (B, Se, D): ``frames`` (B, Se, D) through the
     non-causal ``enc_body``, normed by the shared ``final_norm``.  A decode
-    step takes it as ``enc_out``."""
+    step takes it as ``enc_out``.  With ``part``, (this rank's shard of
+    the output, the encoder's ``Partition``: its sequence split over
+    "model" when Se divides)."""
     e = frames.to(getattr(torch, cfg.dtype))
-    for p in range(cfg.n_enc_layers):
-        e = _slot_apply("attn", _index(params["enc_body"]["slot0"], p), e, cfg)
-    return L.norm_apply(params["final_norm"], e, cfg)
+    if part is not None:
+        part = part.with_seq(e.shape[1])
+        e = part.local_seq(e)
+    e = _body(params, "enc_body", e, cfg, ("attn",), cfg.n_enc_layers, part)
+    e = _final_norm(params, e, cfg, part)
+    return e if part is None else (e, part)
 
 
-def hidden_states(params: dict, batch: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+def _seq_part(part, batch: dict, cfg: ModelConfig):
+    """``part`` for the decoder's sequence (the prefix's positions too)."""
+    n = batch["tokens"].shape[1]
+    if cfg.frontend == "vision_stub":
+        n += batch["prefix_embeds"].shape[1]
+    return part.with_seq(n)
+
+
+def hidden_states(params: dict, batch: dict, cfg: ModelConfig, part=None) -> torch.Tensor:
     """Forward up to (but not including) the LM head: (B, S_total, D).
 
     ``batch`` holds ``tokens`` (B, S) int; for the vision stub also
     ``prefix_embeds`` (B, Np, D), prepended (S_total = Np + S); for an
-    encoder-decoder ``frames`` (B, Se, D), the encoder's input.  On a
-    ``mesh`` the batch is this rank's (``split_batch``) and the MoE layers
-    run expert-parallel (``moe.moe_apply``)."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    encoder-decoder ``frames`` (B, Se, D), the encoder's input.  With
+    ``part`` (``partition``) ``params`` are this rank's shards, the batch
+    is this rank's (``split_batch``) and the result this rank's shard of
+    the sequence when ``_seq_part`` splits it."""
+    if part is not None:
+        part = _seq_part(part, batch, cfg)
+    x = embed_tokens(params, batch["tokens"], cfg, part)
     if cfg.frontend == "vision_stub":
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
-    enc_out = _encode(params, batch["frames"], cfg) if cfg.is_encdec else None
-    for p in params.get("prefix", []):
-        x = _slot_apply("attn", p, x, cfg, mesh=mesh)
-    for p in range(cfg.n_periods):
-        for s_idx, kind in enumerate(cfg.block_pattern):
-            x = _slot_apply(kind, _index(params["body"][f"slot{s_idx}"], p), x, cfg,
-                            enc_out=enc_out, mesh=mesh)
-    return L.norm_apply(params["final_norm"], x, cfg)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = _encode(params, batch["frames"], cfg, part)
+        if part is not None:
+            enc_out = _enter_encoder(*enc_out, cfg)
+    if part is None:
+        for p in params.get("prefix", []):
+            x = _slot_apply("attn", p, x, cfg)
+    else:
+        x = part.local_seq(x)
+        for p, specs in zip(params.get("prefix", []), part.specs.get("prefix", [])):
+            x = _layer("attn", p, specs, x, cfg, part)
+    x = _body(params, "body", x, cfg, cfg.block_pattern, cfg.n_periods, part, enc_out)
+    return _final_norm(params, x, cfg, part)
 
 
-def _head(params: dict, cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return head.to(dtype)
+def _enter_encoder(enc_out: torch.Tensor, enc_part, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's output whole on every rank, for every decoder layer's
+    cross-attention: its gradient, partial over "model" (the ranks' heads,
+    or their query positions), is summed once."""
+    if _heads(cfg, enc_part) is not None:
+        return enc_part.tp_enter(enc_out)
+    return enc_part.rep_enter(enc_out)
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
-    """Logits (B, S, V_pad) for ``batch["tokens"]`` (B, S) int."""
-    x = hidden_states(params, batch, cfg, mesh)
-    return x @ _head(params, cfg, x.dtype)
+def _head(params: dict, cfg: ModelConfig, dtype: torch.dtype, part=None) -> torch.Tensor:
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = params[name] if part is None else _take_whole(part, params[name], name)
+    return (w.T if cfg.tie_embeddings else w).to(dtype)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, part=None) -> torch.Tensor:
+    """Logits (B, S, V_pad) for ``batch["tokens"]`` (B, S) int; with
+    ``part``, this rank's rows, the sequence whole."""
+    x = hidden_states(params, batch, cfg, part)
+    if part is not None:
+        p = _seq_part(part, batch, cfg)
+        if p.seq:
+            from ..distributed.sharding import TP, _all_gather
+            x = _all_gather(x, 1, p.mesh.get_group(TP), p.tp)
+    return x @ _head(params, cfg, x.dtype, part)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
@@ -253,20 +448,25 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
 
 
 def nll_terms(params: dict, batch: dict, cfg: ModelConfig, loss_chunks: int = 8,
-              mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+              part=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of the unmasked tokens' cross entropy, their count), both 0-d
-    f32: ``loss_fn`` divides them; a meshed step sums both over the data
-    ranks first, so its loss is the global batch's masked mean.
+    f32: ``loss_fn`` divides them; a meshed step sums both over the ranks
+    that split the tokens first (``nll_sum_axes``), so its loss is the
+    global batch's masked mean.  With ``part`` they are this rank's
+    tokens': its rows, and its shard of the sequence when split.
 
     The LM head and the CE run in ``loss_chunks`` token chunks (one chunk
     when B * S does not divide), so only one chunk of f32 logits is live
     at a time: qwen3's vocabulary is 151,936."""
-    x = hidden_states(params, batch, cfg, mesh)
+    x = hidden_states(params, batch, cfg, part)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
         pad = labels.new_full((labels.shape[0], batch["prefix_embeds"].shape[1]), -1)
         labels = torch.cat([pad, labels], dim=1)
-    head = _head(params, cfg, x.dtype)
+    if part is not None:
+        part = _seq_part(part, batch, cfg)
+        labels = part.local_seq(labels)
+    head = _head(params, cfg, x.dtype, part)
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     lt = labels.reshape(B * S).to(torch.int64)
@@ -281,6 +481,13 @@ def nll_terms(params: dict, batch: dict, cfg: ModelConfig, loss_chunks: int = 8,
         total = total + ((lse - ll) * mask).sum()
         count = count + mask.sum()
     return total, count
+
+
+def nll_sum_axes(part, batch: dict, cfg: ModelConfig) -> tuple:
+    """The mesh axes ``nll_terms``' terms are summed over: the data axes
+    when they split the batch, "model" when it splits the sequence."""
+    p = _seq_part(part, batch, cfg)
+    return p.sum_axes(model=p.seq)
 
 
 def split_batch(batch: dict, mesh) -> dict:
@@ -359,14 +566,17 @@ def reset_lanes(state: dict, cfg: ModelConfig, lanes: list[int]) -> dict:
 
 
 def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
-                 cfg: ModelConfig, enc_out=None, write=None, mesh=None) -> torch.Tensor:
+                 cfg: ModelConfig, enc_out=None, write=None, part=None,
+                 heads=None) -> torch.Tensor:
     """One token through one block; ``state`` (a KV cache, or the views
     of a recurrent state's period row) is written in place.  ``write``
     (B,) bool: the lanes whose recurrent state takes the step (all when
-    None); a KV cache is written in every lane, at its length."""
+    None); a KV cache is written in every lane, at its length.  With
+    ``part``, the rank's attention ``heads`` (None: the block whole)."""
     h = L.norm_apply(params["norm1"], x, cfg)
     if kind == "attn":
-        o, _ = L.attn_decode(params["attn"], h, state, lengths, cfg)
+        o, _ = L.attn_decode(params["attn"], h, state, lengths, cfg,
+                             **({"part": part, "heads": heads} if heads is not None else {}))
     else:
         name, _, _, decode = _BLOCKS[kind][:4]
         o, new = decode(params[name], h, state, cfg)
@@ -375,11 +585,11 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
                 dst.copy_(src)
             else:
                 dst.copy_(torch.where(write.view((-1,) + (1,) * (src.dim() - 1)), src, dst))
-    x = _cross(params, x + o, enc_out, cfg)
+    x = _cross(params, x + o, enc_out, cfg, part, heads)
     if "norm2" not in params:
         return x
     h2 = L.norm_apply(params["norm2"], x, cfg)
-    return x + _ffn(params, h2, cfg, mesh)
+    return x + _ffn(params, h2, cfg, part)
 
 
 def _period_spec(spec):
@@ -398,31 +608,47 @@ def _state_axes(spec: tuple, mesh) -> list:
     return [a for e in spec[1:] for a in axes_of(e) if a in mesh.mesh_dim_names]
 
 
-def _decode_block(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
-                  cfg: ModelConfig, spec=None, mesh=None, **kw) -> torch.Tensor:
-    """``_slot_decode``; with ``spec`` (the state's specs, batch first),
-    ``state`` is this rank's block of it: each tensor is gathered over the
-    axes that cut it off the batch (``_state_axes``), the block decodes on
-    the whole, and the rank's block of what it wrote is kept."""
-    if spec is None:
-        return _slot_decode(kind, params, x, state, lengths, cfg, mesh=mesh, **kw)
+def _kv_heads_local(spec: dict, part) -> bool:
+    """An attention cache laid out with its KV heads on "model" (the
+    kv_head layout): each rank holds, writes and reads its own heads."""
+    from ..distributed.sharding import TP, axes_of
+    return part.tp > 1 and TP in axes_of(spec["k"][1])
+
+
+def _decode_block(kind: str, local: dict, specs: dict, x: torch.Tensor, state,
+                  lengths: torch.Tensor, cfg: ModelConfig, spec, part, **kw) -> torch.Tensor:
+    """One layer's decode step on a mesh: its leaves gathered on use from
+    this rank's blocks ``local`` (specs ``specs``) and ``state`` this
+    rank's block of the layer's decode state (specs ``spec``, batch first).
+    Under the kv_head layout the rank writes and attends over its own KV
+    heads and nothing of the cache moves (unless its heads do not split:
+    then as the other layouts).  Otherwise each state tensor is
+    gathered over the axes that cut it off the batch (``_state_axes``),
+    the block decodes on the whole (an attention block's KV for every
+    head, its queries the rank's heads), and the rank keeps its block of
+    what it wrote."""
+    heads = _heads(cfg, part, decode=True) if kind == "attn" else None
+    own = heads is not None and _kv_heads_local(spec, part)
+    params = _take(part, local, specs, cfg, heads, whole_kv=not own)
+    if own:
+        return _slot_decode(kind, params, x, state, lengths, cfg, part=part, heads=heads, **kw)
     from ..distributed.sharding import gather, shard_slices
     names = ("k", "v") if kind == "attn" else range(len(state))
     whole = {} if kind == "attn" else [None] * len(state)
     for n in names:
-        whole[n] = gather(state[n], spec[n], mesh, axes=_state_axes(spec[n], mesh))
+        whole[n] = gather(state[n], spec[n], part.mesh, axes=_state_axes(spec[n], part.mesh))
     x = _slot_decode(kind, params, x, whole if kind == "attn" else tuple(whole), lengths, cfg,
-                     mesh=mesh, **kw)
+                     part=part, heads=heads, **kw)
     for n in names:
-        axes = _state_axes(spec[n], mesh)
-        if axes:
-            state[n].copy_(whole[n][shard_slices(whole[n].shape, spec[n], mesh, axes=axes)])
+        axes = _state_axes(spec[n], part.mesh)
+        if axes and whole[n] is not state[n]:
+            state[n].copy_(whole[n][shard_slices(whole[n].shape, spec[n], part.mesh, axes=axes)])
     return x
 
 
 def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.Tensor,
                 cfg: ModelConfig, enc_out: torch.Tensor | None = None,
-                write: torch.Tensor | None = None, mesh=None,
+                write: torch.Tensor | None = None, part=None,
                 state_specs: dict | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens: (B,) int — the freshly sampled token;
     lengths: (B,) current context lengths; ``enc_out`` (B, Se, D): the
@@ -438,20 +664,31 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.
     own length, as without a mask: a lane's next real step rewrites that
     position, and its length masks it until then.
 
-    On a ``mesh`` with ``state_specs`` (``model.decode_state_specs``),
+    With ``part`` (``partition``) and ``state_specs``
+    (``model.decode_state_specs``), ``params`` are this rank's shards,
     ``state`` holds this rank's block of every leaf and the rows of
     ``tokens`` are this rank's (``_decode_block``)."""
-    x = embed_tokens(params, tokens[:, None], cfg)      # (B, 1, D)
-    specs = state_specs or {}
-    for i, (p, cache) in enumerate(zip(params.get("prefix", []), state.get("prefix", []))):
-        spec = specs["prefix"][i] if specs else None
-        x = _decode_block("attn", p, x, cache, lengths, cfg, spec, mesh, enc_out=enc_out)
+    x = embed_tokens(params, tokens[:, None], cfg, part)      # (B, 1, D)
+    if part is None:
+        for p, cache in zip(params.get("prefix", []), state.get("prefix", [])):
+            x = _slot_decode("attn", p, x, cache, lengths, cfg, enc_out=enc_out)
+    else:
+        for p, specs, cache, spec in zip(params.get("prefix", []), part.specs.get("prefix", []),
+                                         state.get("prefix", []), state_specs.get("prefix", [])):
+            x = _decode_block("attn", p, specs, x, cache, lengths, cfg, spec, part,
+                              enc_out=enc_out)
+    slots = {f"slot{s_idx}": kind for s_idx, kind in enumerate(cfg.block_pattern)}
+    if part is not None:                 # each slot's specs, the same every period
+        specs = {slot: (_layer_specs(part.specs["body"][slot], True),
+                        _period_spec(state_specs[slot])) for slot in slots}
     for p in range(cfg.n_periods):
-        for s_idx, kind in enumerate(cfg.block_pattern):
-            slot = f"slot{s_idx}"
-            spec = _period_spec(specs[slot]) if specs else None
-            x = _decode_block(kind, _index(params["body"][slot], p), x, _index(state[slot], p),
-                              lengths, cfg, spec, mesh, enc_out=enc_out, write=write)
-    x = L.norm_apply(params["final_norm"], x, cfg)
-    logits = (x @ _head(params, cfg, x.dtype))[:, 0, :]
+        for slot, kind in slots.items():
+            local, st = _index(params["body"][slot], p), _index(state[slot], p)
+            if part is None:
+                x = _slot_decode(kind, local, x, st, lengths, cfg, enc_out=enc_out, write=write)
+            else:
+                x = _decode_block(kind, local, specs[slot][0], x, st, lengths, cfg,
+                                  specs[slot][1], part, enc_out=enc_out, write=write)
+    x = _final_norm(params, x, cfg, part)
+    logits = (x @ _head(params, cfg, x.dtype, part))[:, 0, :]
     return logits, state

@@ -14,17 +14,34 @@ its results to a file that the four tests below read:
   autograd within 2e-4 of each leaf's largest;
 * ``pipeline_apply`` (4 stages over "pod", 6 microbatches, width 8)
   against the stages applied in sequence, within 1e-5;
-* the sharded train step of reduced qwen3 (B = 4, S = 32, f32, a quarter
+* the sharded train step of reduced qwen3 (B = 4, S = 32, f64, a quarter
   of the labels masked) on a (2, 2) mesh against the unmeshed step on the
   whole batch, 2 steps: the losses within 1e-5, every updated leaf within
-  1e-5 of its largest, and each rank storing numel / shards of each leaf;
+  1e-5 of its largest, and each rank storing numel / shards of each leaf
+  (in f64: AdamW's first step moves a weight by ~lr * g / (|g| + eps), so
+  an f32 gradient near eps, summed in another order by the
+  tensor-parallel products, moves it by a share of lr);
 * ``restore_elastic`` of a checkpoint (f32 params and int8 AdamW moments)
   onto (4, 1) and (1, 1) meshes, each rank's blocks bit for bit the
   slices of the stored leaves (cut here independently of the port's
-  slicer).
+  slicer);
+* the meshed eval, prefill and serve steps of reduced qwen3, dbrx and
+  jamba on (2, 2) against the unmeshed port and JAX;
+* the partitioned steps (each layer's leaves gathered on use, attention
+  and the MLP tensor-parallel over "model", the sequence split there,
+  remat) on (2, 2) and (1, 4) meshes for reduced qwen3 (its KV heads split
+  at tp = 2 and read whole at tp = 4), qwen3 with 6 heads and 15 tokens
+  (attention whole at tp = 4, the sequence never split), dbrx with 8
+  experts, whisper and jamba's period: the loss and the gradients
+  gathered from the shards within 1e-5 of each leaf's largest, eval and
+  prefill within 1e-5 of the largest logit, 16 greedy serve steps' tokens
+  exactly under the kv_head and head_dim layouts (qwen3: seq too), the
+  bytes each gather returns (never more than one layer's leaves, embed or
+  the head), and a kv_head serve step's collective bytes independent of
+  the cache's length.
 
-f32 throughout; the sums over ranks run in another order than the
-unmeshed ones, hence the tolerances.
+f32 but for the sharded train step; the sums over ranks run in another
+order than the unmeshed ones, hence the tolerances.
 """
 import json
 import os
@@ -107,8 +124,8 @@ got = pipeline_apply(lambda w, x: torch.tanh(x @ w), torch.from_numpy(b["ws"]),
                      torch.from_numpy(b["xs"]), sched, pmesh)
 out["pipe"], out["bubble"] = got.numpy(), np.float64(sched.bubble_fraction)
 
-# (c) the sharded train step of reduced qwen3 on (2, 2)
-qcfg = get_config("qwen3-1.7b").reduced()
+# (c) the sharded train step of reduced qwen3 on (2, 2), in float64
+qcfg = get_config("qwen3-1.7b").reduced(dtype="float64", param_dtype="float64")
 c = np.load(work / "train.npz")
 full = M.init_params(qcfg, seed=0, device="cpu")
 params = M.shard_params(full, qcfg, mesh)
@@ -200,6 +217,83 @@ for arch in cases["archs"]:
         out[tag + "_toks"], out[tag + "_logits"] = np.stack(toks), np.stack(logs)
         out[tag + "_rows"] = T.split_batch({"r": torch.arange(B)}, mesh)["r"].numpy()
 
+# (f) the partitioned steps on (2, 2) and (1, 4): each layer's leaves
+# gathered on use, attention and the MLP tensor-parallel, the sequence
+# split over "model", remat under grad; the bytes each gather returns, and
+# the collective bytes of a kv_head serve step at two cache lengths
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.dryrun import Counter
+part = json.loads((work / "partitioned.json").read_text())
+gathered = []
+_gather = SH.gather
+
+
+def counted_gather(t, spec, mesh, axes=None):
+    got = _gather(t, spec, mesh, axes)
+    gathered.append(got.numel() * got.element_size())
+    return got
+
+
+for name, case in part["cases"].items():
+    cfg = get_config(case["arch"]).reduced(**case["overrides"])
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=case["n_experts"],
+                                       capacity_factor=part["capacity_factor"]))
+    a = np.load(work / f"part_{name}.npz")
+    whole = unflatten(M.abstract_params(cfg), [torch.from_numpy(a[f"leaf{i}"])
+                                              for i in range(int(a["n_leaves"]))])
+    batch = {k: torch.from_numpy(a[k]) for k in case["batch"]}
+    fwd = {k: v for k, v in batch.items() if k != "labels"}
+    for shape in part["meshes"]:
+        mesh = make_host_mesh(*shape)
+        tag = f"{name}_{shape[0]}x{shape[1]}"
+        params = M.shard_params(whole, cfg, mesh)
+        gathered.clear()
+        SH.gather = counted_gather
+        try:
+            loss, grads = M.loss_and_grads(params, batch, cfg, mesh)
+            out[tag + "_prefill"] = M.make_prefill_step(cfg, mesh)(params, fwd).numpy()
+        finally:
+            SH.gather = _gather
+        out[tag + "_gathered"] = np.array(gathered, np.int64)
+        out[tag + "_loss"] = np.float32(loss)
+        for i, t in enumerate(leaves(map_like(lambda t, s: gather(t, s, mesh), grads,
+                                              M.spec_tree(cfg)))):
+            out[f"{tag}_grad{i}"] = t.numpy()
+        out[tag + "_eval"] = np.float32(M.make_eval_step(cfg, mesh)(params, batch))
+        out[tag + "_rows"] = T.split_batch({"r": torch.arange(4)}, mesh)["r"].numpy()
+        tp = shape[1]
+        for layout in case["layouts"]:
+            if layout == "kv_head" and cfg.n_kv_heads % tp:
+                continue
+            specs = M.decode_state_specs(cfg, 4, dp=dp_axes(mesh), dp_size=dp_size(mesh),
+                                         cache_layout=layout, tp_size=tp)
+            serve = M.make_serve_step(cfg, mesh, cache_layout=layout)
+            extra = {"enc_out": torch.from_numpy(a["enc_out"])} if cfg.is_encdec else {}
+            state = map_like(lambda t, s: shard(t, s, mesh),
+                             T.init_decode_state(cfg, 4, part["max_len"], "cpu"), specs)
+            toks, logs = [], []
+            for i in range(part["steps"]):
+                nt, lg, state = serve(params, state, {"tokens": torch.from_numpy(a["serve_tokens"][i]),
+                                                      "lengths": torch.from_numpy(a["serve_lengths"][i]),
+                                                      **extra})
+                toks.append(nt.numpy())
+                logs.append(lg.numpy())
+            out[f"{tag}_{layout}_toks"], out[f"{tag}_{layout}_logits"] = np.stack(toks), np.stack(logs)
+            if layout == "seq":
+                continue
+            # one step's collective bytes at two cache lengths
+            moved = []
+            for max_len in (part["max_len"], 2 * part["max_len"]):
+                state = map_like(lambda t, s: shard(t, s, mesh),
+                                 T.init_decode_state(cfg, 4, max_len, "cpu"), specs)
+                counter = Counter()
+                with counter.tracing():
+                    serve(params, state, {"tokens": torch.from_numpy(a["serve_tokens"][0]),
+                                          "lengths": torch.from_numpy(a["serve_lengths"][0]), **extra})
+                moved.append(sum(r["bytes"] for r in counter.collectives.values()))
+            out[f"{tag}_{layout}_moved"] = np.array(moved, np.int64)
+
 np.savez(work / f"rank{rank}.npz", **out)
 dist.barrier()
 dist.destroy_process_group()
@@ -285,6 +379,122 @@ def _meshed_inputs(work: Path, rs) -> dict:
     return refs
 
 
+#: the partitioned steps on (2, 2) and (1, 4) ("data", "model"): reduced
+#: qwen3 (its 4 query heads split over "model", its 2 KV heads split at
+#: tp = 2 and read whole at tp = 4), qwen3 with 6 heads and 15 tokens (its
+#: attention whole on every "model" rank at tp = 4, the sequence never
+#: split), dbrx with 8 experts, whisper (the cross-attention over frames
+#: split over "model") and jamba's period (a mamba slot gathered whole);
+#: the MoE configs at a capacity that drops nothing
+#: (qwen3, dbrx and jamba are the meshed cases' configs, params and batch;
+#: the seq layout gathers the cache as head_dim does, and runs for qwen3)
+PART_CASES = {
+    "qwen3": {"arch": "qwen3-1.7b", "overrides": {}, "seq": 16, "meshed": True,
+              "layouts": ("kv_head", "head_dim", "seq")},
+    "qwen3_whole": {"arch": "qwen3-1.7b", "overrides": {"n_heads": 6, "n_kv_heads": 2},
+                    "seq": 15},
+    "dbrx": {"arch": "dbrx-132b", "overrides": {}, "seq": 16, "n_experts": N_EXPERTS["dbrx-132b"],
+             "meshed": True},
+    "whisper": {"arch": "whisper-medium", "overrides": {}, "seq": 16, "frames": 12},
+    "jamba": {"arch": "jamba-v0.1-52b", "overrides": {"n_layers": N_LAYERS["jamba-v0.1-52b"]},
+              "seq": 16, "n_experts": N_EXPERTS["jamba-v0.1-52b"], "meshed": True},
+}
+PART_MESHES = ((2, 2), (1, 4))
+PART_LAYOUTS = ("kv_head", "head_dim")
+PART_STEPS, PART_MAX_LEN = 16, 32
+
+
+def part_cfg(case: dict, get=get_config):
+    cfg = get(case["arch"]).reduced(**case["overrides"])
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=case["n_experts"],
+                                       capacity_factor=CAPACITY))
+    return cfg
+
+
+def _partitioned_inputs(work: Path, rs, meshed: dict) -> dict:
+    """Per case: JAX's params (bridged, saved leaf by leaf for the ranks),
+    a batch of 4 rows, the unmeshed port's loss and gradients, eval loss,
+    prefill logits and 16 greedy serve steps (their input tokens and
+    lengths saved), and JAX's ``loss_fn`` and ``forward`` on the same
+    inputs (a meshed case's, ``meshed``, where the case is its config)."""
+    from repro.models import model as JM
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import unflatten
+    cases = {}
+    refs = {}
+    for name, case in PART_CASES.items():
+        cfg_j, cfg = part_cfg(case, jget_config), part_cfg(case)
+        if case.get("meshed"):
+            assert cfg == meshed_cfg(case["arch"])
+            a = np.load(work / f"meshed_{case['arch']}.npz")
+            params = unflatten(M.abstract_params(cfg), [torch.from_numpy(a[f"leaf{i}"])
+                                                        for i in range(int(a["n_leaves"]))])
+            batch = {"tokens": a["tokens"], "labels": a["labels"]}
+            jref = meshed[case["arch"]]
+            jax_loss, jax_prefill = jref["jax_eval"], jref["jax_prefill"]
+        else:
+            jparams = JM.init_params(cfg_j, seed=3)
+            params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+            S = case["seq"]
+            batch = {"tokens": rs.randint(4, cfg.vocab, (4, S)).astype(np.int32),
+                     "labels": rs.randint(4, cfg.vocab, (4, S)).astype(np.int32)}
+            batch["labels"][rs.rand(4, S) < 0.25] = -1
+            if cfg.is_encdec:
+                batch["frames"] = rs.standard_normal((4, case["frames"], cfg.d_model)
+                                                     ).astype(np.float32)
+            jb = {k: jax.numpy.asarray(v) for k, v in batch.items()}
+            jax_loss = float(JT.loss_fn(jparams, jb, cfg_j))
+            jax_prefill = np.asarray(JT.forward(jparams, {k: v for k, v in jb.items()
+                                                          if k != "labels"}, cfg_j))
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        fwd = {k: v for k, v in tb.items() if k != "labels"}
+        loss, grads = M.loss_and_grads(params, tb, cfg)
+        ref = {"loss": float(loss), "grads": [g.numpy() for g in leaves(grads)],
+               "eval": float(M.make_eval_step(cfg)(params, tb)),
+               "prefill": M.make_prefill_step(cfg)(params, fwd).numpy(),
+               "jax_loss": jax_loss, "jax_prefill": jax_prefill}
+        save = {f"leaf{i}": t.numpy() for i, t in enumerate(leaves(params))}
+        save.update(n_leaves=len(save), **batch)
+        extra = {}
+        if cfg.is_encdec:
+            with torch.inference_mode():
+                save["enc_out"] = T._encode(params, tb["frames"], cfg).numpy()
+            extra["enc_out"] = torch.from_numpy(save["enc_out"])
+        serve, state = M.make_serve_step(cfg), T.init_decode_state(cfg, 4, PART_MAX_LEN, "cpu")
+        toks = rs.randint(4, cfg.vocab, 4).astype(np.int32)
+        lens = np.array([0, 3, 7, 1], np.int32)
+        ins, outs, logits = [], [], []
+        for _ in range(PART_STEPS):
+            ins.append((toks, lens))
+            tn, tl, state = serve(params, state, {"tokens": torch.from_numpy(toks),
+                                                  "lengths": torch.from_numpy(lens), **extra})
+            outs.append(tn.numpy())
+            logits.append(tl.numpy())
+            toks, lens = tn.numpy().astype(np.int32), lens + 1
+        save["serve_tokens"] = np.stack([t for t, _ in ins])
+        save["serve_lengths"] = np.stack([n for _, n in ins])
+        ref["serve"] = (np.stack(outs), np.stack(logits))
+        # the bytes of one layer's leaves (the largest), of embed and of the head
+        layers = [leaves(T._index(params["body"][slot], p)) for slot in params["body"]
+                  for p in range(cfg.n_periods)]
+        if cfg.is_encdec:
+            layers += [leaves(T._index(params["enc_body"]["slot0"], p))
+                       for p in range(cfg.n_enc_layers)]
+        ref["layer_bytes"] = max(sum(t.numel() * t.element_size() for t in ls) for ls in layers)
+        ref["head_bytes"] = max(params[k].numel() * params[k].element_size()
+                                for k in ("embed", "lm_head") if k in params)
+        ref["model_bytes"] = sum(t.numel() * t.element_size() for t in leaves(params))
+        np.savez(work / f"part_{name}.npz", **save)
+        cases[name] = dict(case, batch=sorted(batch), layouts=case.get("layouts", PART_LAYOUTS))
+        refs[name] = ref
+    (work / "partitioned.json").write_text(json.dumps({
+        "cases": cases, "meshes": PART_MESHES, "steps": PART_STEPS,
+        "max_len": PART_MAX_LEN, "capacity_factor": CAPACITY}))
+    return refs
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -324,10 +534,11 @@ def gloo(tmp_path_factory):
     ws = (rs.standard_normal((S, F, F)) * 0.3).astype(np.float32)
     xs = rs.standard_normal((MB, 5, F)).astype(np.float32)
     np.savez(work / "pipe.npz", ws=ws, xs=xs)
-    qcfg = get_config("qwen3-1.7b").reduced()
+    qcfg = get_config("qwen3-1.7b").reduced(dtype="float64", param_dtype="float64")
     batches = _train_batches(rs, qcfg)
     np.savez(work / "train.npz", lr=np.float64(LR), **batches)
     meshed = _meshed_inputs(work, rs)
+    partitioned = _partitioned_inputs(work, rs, meshed)
     # the unmeshed step on the whole batch
     params = M.init_params(qcfg, seed=0, device="cpu")
     opt_cfg = AdamWConfig(lr=LR)
@@ -371,7 +582,8 @@ def gloo(tmp_path_factory):
     assert not bad, f"ranks failed {bad}:\n" + "\n".join(log[-3000:] for log in logs)
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(RANKS)]
     return {"ranks": ranks, "moe": (p0, x, c, moe_want), "pipe": (ws, xs),
-            "train": (losses, params), "ckpt": (ccfg, ckpt), "qcfg": qcfg, "meshed": meshed}
+            "train": (losses, params), "ckpt": (ccfg, ckpt), "qcfg": qcfg, "meshed": meshed,
+            "partitioned": partitioned}
 
 
 def test_expert_parallel_moe_matches_jax_local_and_its_gradients(gloo):
@@ -548,3 +760,114 @@ def test_meshed_serve_steps_match_unmeshed_and_jax(gloo, arch, layout, B):
         assert np.array_equal(r[tag + "_toks"], toks[:, rows])
         assert np.array_equal(r[tag + "_toks"], jtoks[:, rows])
         np.testing.assert_allclose(r[tag + "_logits"], logits[:, rows], **F32_TOL)
+
+
+PART_IDS = [(name, shape) for name in PART_CASES for shape in PART_MESHES]
+
+
+def _tag(name, shape):
+    return f"{name}_{shape[0]}x{shape[1]}"
+
+
+@pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_partitioned_train_step_matches_unmeshed(gloo, name, shape):
+    """The partitioned ``loss_and_grads`` (each layer's leaves gathered on
+    use, tensor-parallel attention and MLP, the sequence split over
+    "model", remat): every rank's loss equals the unmeshed port's within
+    1e-5, and its gradients, gathered from the ranks' shards, each leaf
+    within 1e-5 of its largest."""
+    ref, tag = gloo["partitioned"][name], _tag(name, shape)
+    for r in gloo["ranks"]:
+        assert float(r[tag + "_loss"]) == pytest.approx(ref["loss"], abs=1e-5)
+        for i, g in enumerate(ref["grads"]):
+            np.testing.assert_allclose(r[f"{tag}_grad{i}"], g, atol=1e-5 * np.abs(g).max(),
+                                       rtol=0, err_msg=f"{tag} grad leaf {i}")
+
+
+@pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_partitioned_eval_and_prefill_match_unmeshed(gloo, name, shape):
+    """The partitioned eval step's loss (the global batch's) within 1e-5 of
+    the unmeshed port's; the prefill's rows, gathered over the ranks,
+    within 1e-5 of the largest logit."""
+    ref, tag = gloo["partitioned"][name], _tag(name, shape)
+    scale = np.abs(ref["prefill"]).max()
+    seen = set()
+    for r in gloo["ranks"]:
+        assert float(r[tag + "_eval"]) == pytest.approx(ref["eval"], abs=1e-5)
+        rows = r[tag + "_rows"]
+        seen.update(rows.tolist())
+        np.testing.assert_allclose(r[tag + "_prefill"], ref["prefill"][rows], atol=1e-5 * scale,
+                                   rtol=0)
+    assert seen == set(range(4))
+
+
+PART_SERVE = [(name, shape, layout) for name, shape in PART_IDS
+              for layout in PART_CASES[name].get("layouts", PART_LAYOUTS)
+              if layout != "kv_head" or part_cfg(PART_CASES[name]).n_kv_heads % shape[1] == 0]
+
+
+@pytest.mark.parametrize("name,shape,layout", PART_SERVE,
+                         ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
+def test_partitioned_serve_steps_match_unmeshed(gloo, name, shape, layout):
+    """16 greedy serve steps of the partitioned serve step under each cache
+    layout: each rank's tokens equal the unmeshed port's at its rows
+    exactly, its logits within 1e-5 of the largest."""
+    toks, logits = gloo["partitioned"][name]["serve"]
+    tag = f"{_tag(name, shape)}_{layout}"
+    for r in gloo["ranks"]:
+        rows = r[_tag(name, shape) + "_rows"]
+        assert np.array_equal(r[tag + "_toks"], toks[:, rows])
+        np.testing.assert_allclose(r[tag + "_logits"], logits[:, rows],
+                                   atol=1e-5 * np.abs(logits).max(), rtol=0)
+
+
+@pytest.mark.parametrize("name", PART_CASES)
+def test_unmeshed_port_matches_jax_on_the_partitioned_configs(gloo, name):
+    ref = gloo["partitioned"][name]
+    assert ref["loss"] == pytest.approx(ref["jax_loss"], abs=3e-5, rel=3e-5)
+    assert ref["eval"] == pytest.approx(ref["jax_loss"], abs=3e-5, rel=3e-5)
+    np.testing.assert_allclose(ref["prefill"], ref["jax_prefill"], **F32_TOL)
+
+
+@pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_no_gather_returns_more_than_one_layer(gloo, name, shape):
+    """The bytes each ``sharding.gather`` call of the partitioned train and
+    prefill steps returns: never more than one layer's leaves, or embed,
+    or the head, and their sum a step's worth of layer-by-layer gathers
+    (no whole-tree gather before the step)."""
+    ref, tag = gloo["partitioned"][name], _tag(name, shape)
+    bound = max(ref["layer_bytes"], ref["head_bytes"])
+    assert bound < ref["model_bytes"] / 2
+    for r in gloo["ranks"]:
+        got = r[tag + "_gathered"]
+        assert len(got) > 0 and got.max() <= bound, (got.max(), bound)
+
+
+def _kv_local(name: str, shape) -> bool:
+    """The kv_head layout keeps each rank's cache local: its KV heads
+    divide over "model" and its decode heads split (a local group size
+    the decode kernel takes)."""
+    from repro_torch.kernels.decode_attention import GROUPS
+    from repro_torch.models.layers import head_split
+    cfg = part_cfg(PART_CASES[name])
+    return cfg.n_kv_heads % shape[1] == 0 and head_split(cfg, shape[1], 0, GROUPS) is not None
+
+
+PART_KV = [(name, shape) for name, shape in PART_IDS if _kv_local(name, shape)]
+
+
+@pytest.mark.parametrize("name,shape", PART_KV, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_kv_head_serve_step_moves_no_cache_bytes(gloo, name, shape):
+    """A serve step's collective bytes (the dry run's ``Counter`` on the
+    gloo ranks) at two cache lengths: the same under the kv_head layout,
+    where each rank writes and reads its own KV heads, and more at the
+    longer cache under head_dim, whose layers gather their cache."""
+    tag = _tag(name, shape)
+    for r in gloo["ranks"]:
+        kv, hd = r[tag + "_kv_head_moved"], r[tag + "_head_dim_moved"]
+        assert kv[0] > 0 and kv[0] == kv[1], kv
+        assert hd[1] > hd[0] > kv[0], (hd, kv)

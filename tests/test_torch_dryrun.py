@@ -92,6 +92,52 @@ def test_counter_peak_follows_freed_storages():
     assert c.ops["aten.slice"] == 1
 
 
+def test_counter_holds_an_allocation_written_in_place():
+    """A buffer made by ``empty`` and filled in place (a collective's
+    output, a blockwise AdamW update's new leaf) is live memory from its
+    allocation; the allocation moves no bytes, the fill its operands and
+    result."""
+    with _fake():
+        x = torch.empty(1000)
+        c = D.Counter()
+        c.hold(x)
+        with c.tracing():
+            buf = torch.empty(1000)
+            buf.copy_(x)
+    assert c.peak == c.live == 4000
+    assert c.bytes == 3 * 4000 and buf.shape == (1000,)   # operands and result
+
+
+def test_counter_counts_the_checkpointed_recompute_and_frees_its_activations():
+    """Two products under ``torch.utils.checkpoint`` (non-reentrant, as a
+    meshed train step's periods run): their forward, the recompute in the
+    backward (the first product alone: the recompute stops once the last
+    tensor the backward reads, the tanh's output, is made again) and the
+    backward's four products, 7 in all against 6 without the checkpoint;
+    between forward and backward only the output is live with the
+    checkpoint, the intermediates too without it."""
+    from torch.utils.checkpoint import checkpoint
+    mm = 2 * 64 * 128 * 128
+    runs = {}
+    for remat in (True, False):
+        with _fake():
+            x = torch.empty(64, 128, requires_grad=True)
+            w = torch.empty(128, 128, requires_grad=True)
+            c = D.Counter()
+            c.hold((x, w))
+
+            def f(x):
+                return torch.tanh(x @ w) @ w
+            with c.tracing():
+                y = checkpoint(f, x, use_reentrant=False, preserve_rng_state=False) if remat \
+                    else f(x)
+                live = c.live
+                y.sum().backward()
+        runs[remat] = (c.flops, live)
+    assert runs[True][0] == 7 * mm and runs[False][0] == 6 * mm
+    assert runs[True][1] == 4 * 64 * 128 < runs[False][1]
+
+
 def test_counter_records_a_gather_over_a_16_rank_fake_group():
     """An all-gather of a (4, 8) f32 shard over 16 fake ranks: one
     collective whose result is (64, 8), 2048 bytes."""
@@ -302,19 +348,65 @@ def test_cli_cell_ends_ok_with_the_reference_keys(cli, cell):
 
 
 def test_dense_compute_repeats_over_the_model_axis(cli):
-    """qwen3-1.7b's train_4k on 16x16: the meshed step gathers every dense
-    leaf and splits the batch over "data" only, so the 16 "model" ranks
-    repeat each other's compute and the useful share of the counted
-    FLOPs is at most 1/16.  Attention's products (full rectangles, 2
-    forward and 5 backward, ~21% of the products at S = 4096) take it
-    lower: ~0.047 is the prediction, and the bound is (0.04, 1/16]."""
+    """qwen3-1.7b's train_4k on 16x16: the partitioned step splits the
+    dense compute over "model" (tensor-parallel attention and MLP, the
+    loss on each rank's sequence shard), so the 16 "model" ranks no longer
+    repeat each other's compute: the useful share of the counted FLOPs is
+    at least 0.25 (the remat's second forward and attention's full
+    rectangles keep it below 3/4; ~0.59 is the prediction), where gathering
+    the whole model held it at 1/16 or less.  Each layer's leaves are
+    gathered on use: a rank holds its shards, one layer whole and the
+    activations of its 16 rows, under an 80 GiB card (~4.7 GiB predicted,
+    where the whole model gathered held 274 GiB)."""
     rc, log, res = cli[0][("qwen3-1.7b", "train_4k")]
     assert rc == 0, log[-3000:]
     ratio = res["roofline"]["useful_flops_ratio"]
-    assert 0.04 < ratio <= 1 / 16
-    # each rank holds the whole model during the step: more than the
-    # gathered bf16 parameters and their f32 moments' shard
-    assert res["memory"]["total_per_device"] > 2 * M._active_params(get_config("qwen3-1.7b"))
+    assert 0.25 <= ratio < 0.75
+    assert res["memory"]["total_per_device"] < 80 * 2**30
+
+
+#: a reduced qwen3 whose widths divide over 16 "model" ranks, 8 layers
+SMALL_16 = dict(n_layers=8, d_model=256, n_heads=16, n_kv_heads=16, d_head=16, d_ff=1024,
+                vocab=1024, dtype="bfloat16", param_dtype="bfloat16")
+
+
+def test_partitioned_cells_hold_one_layer_at_a_time_on_16x16():
+    """A reduced qwen3 (8 layers) traced on a fake 16x16 group: the train
+    step (B = 16, S = 256) and the decode step (B = 16, a cache of 4096,
+    the kv_head layout).  Per rank, ``total_per_device`` stays below two
+    layers' bytes for the train step (its shards, a layer's block gathered
+    on use and dropped after it, the tied embedding whole for the lookup
+    and the head and their gradients; the whole model is 8 layers and the
+    embedding), and below one layer, the embedding and the arguments (its
+    cache) for the decode step; and the
+    collective bytes of a step below a stated multiple of one layer's:
+    6 for the train step (the forward's and the recompute's gathers of a
+    layer's block over "data" and the sequence's gathers and scatters),
+    and 2 for the decode step (each layer's block and the embedding, whole
+    for the lookup and again as the tied head), which moves no cache byte:
+    its collectives are the same at a cache twice as long."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.tree import leaves
+    cfg = get_config("qwen3-1.7b").reduced(**SMALL_16)
+    tree = M.abstract_params(cfg)
+    layer = sum(t[0].numel() * t.element_size() for t in leaves(tree["body"]))
+    embed = tree["embed"].numel() * tree["embed"].element_size()
+    D.start_fake_group(256)
+    try:
+        mesh = make_production_mesh()
+        train = D.trace_cell(cfg, M.ShapeSpec("t", 256, 16, "train"), mesh, "cpu")
+        dec = D.trace_cell(cfg, M.ShapeSpec("d", 4096, 16, "decode"), mesh, "cpu")
+        longer = D.trace_cell(cfg, M.ShapeSpec("d", 8192, 16, "decode"), mesh, "cpu")
+    finally:
+        dist.destroy_process_group()
+    assert train["memory"]["total_per_device"] < 2 * layer
+    assert train["collectives"]["total_bytes"] < 6 * layer
+    assert dec["memory"]["total_per_device"] < layer + embed + \
+        dec["memory"]["argument_size_in_bytes"]
+    assert 0 < dec["collectives"]["total_bytes"] < 2 * layer
+    assert dec["collectives"] == longer["collectives"]
 
 
 # ---------------------------------------------------------------------------
