@@ -149,12 +149,20 @@ its main path on the card, printing one JSON line per phase:
      its dense prefix layer and one MoE layer of 32 of its 384 experts
      (~4.3 B, int8 AdamW moments, B=1, S=4096, 3 steps) with a reduced
      kimi's f32 gradients at head_dim 112 against the CPU;
+     decode_scores and decode_combine, the head_dim layout's decode, with
+     the ranks' slices of head_dim emulated on the card (qwen3-1.7B at 2
+     and 16 ranks, dbrx-132b's group of 6, kimi-k2's slice of 7 columns,
+     internvl2-1b's of 4, the router in f32): each slice against the
+     plain versions, the joined output against decode_attention, timed
+     beside the plain versions and a library call;
  15. the mesh over torch.distributed on one rank (NCCL): the router's
      meshed train step on a (1, 1) mesh (each layer gathered on use, each
      period checkpointed) against the unmeshed step bit for bit over 3
      steps, its launches the unmeshed step's and the recompute's,
      ``pipeline_apply`` with one stage against the stage,
-     ``restore_elastic`` onto the mesh bit for bit; the meshed prefill
+     ``restore_elastic`` onto the mesh bit for bit, its loss and
+     gradients under ``REPRO_REMAT_POLICY=dots`` bit for bit those under
+     "nothing" with fewer products run (both peaks printed); the meshed prefill
      (B=4, S=4096) and 16 meshed serve steps (B=4, from an empty cache) of
      the wikikv-router, qwen3-1.7B (28 layers) and dbrx-132b (1 of 40
      layers) against the unmeshed steps, logits bit for bit, tokens equal,
@@ -162,7 +170,13 @@ its main path on the card, printing one JSON line per phase:
      limit, and dbrx's expert-parallel body against the local MoE; the dry
      run's predicted memory of qwen3-1.7B's one-rank remat'd train step
      (B=1, S=4096; traced in a child process on a fake group) within
-     [0.85, 1.15] of the card's ``max_memory_allocated``;
+     [0.85, 1.15] of the card's ``max_memory_allocated``; then the
+     head_dim layout's meshed decode (qwen3-1.7B at full width, 4 of its
+     28 layers, f32) over two "model" ranks run as threads on the card
+     (PyTorch's threaded process group; NCCL takes one rank a card): 8
+     serve steps through decode_scores, the all-reduce of the partial
+     scores and decode_combine against the unmeshed steps, the caches'
+     blocks against the unmeshed cache, launches exact;
  16. the dry run (``python -m repro_torch.launch.dryrun``, a child process
      a cell, 8 at once) on fake "cuda" over a fake 256- or 512-rank group:
      qwen3, dbrx, whisper and internvl2 at train_4k and decode_32k,
@@ -171,10 +185,13 @@ its main path on the card, printing one JSON line per phase:
      qwen3's and codeqwen's train_4k under 80 GiB a card (qwen3's useful
      share of the FLOPs at least 0.25), codeqwen's, olmo's and whisper's
      decode_32k moving at most a tenth of the collective bytes of the
-     whole-model gather's (DRYRUN_LIMITS); dbrx's train_4k and qwen3's
+     whole-model gather's, and qwen3's (dbrx's) decode_32k at most a
+     fifth (a third) of the bytes its layers' cache gathers moved before
+     the head_dim layout decoded over its slices (DRYRUN_LIMITS); dbrx's
+     train_4k and qwen3's
      decode_32k also on fake "cpu" (the plain versions), with the same
      cost, collectives and memory;
- 17. one JSON line of every kernel (nine) with its launches, error, times
+ 17. one JSON line of every kernel (eleven) with its launches, error, times
      and bound; the card's name and power limit; the final
      ``{"ok": true, ...}``.
 
@@ -577,6 +594,115 @@ def model_kernels(dev) -> dict:
                 by_model[models[(Hq, Hkv)]].append(row)
     entries["decode_attention"]["shapes"] = [r for rows in by_model.values() for r in rows]
     emit({"phase": "model_kernels", "decode_attention": "ok", "times": timings, **by_model})
+    return entries
+
+
+#: the head_dim layout's decode (decode_scores, decode_combine) emulated
+#: on one card: (tag, B, Hq, Hkv, S, D, ranks, dtype).  Each rank's slice
+#: of head_dim is Dl = D / ranks columns: qwen3-1.7B at 2 and 16 "model"
+#: ranks (Dl 64 and 8; the second is the dry run's 16x16 path and the
+#: kernels line's row), dbrx-132b's group of 6, kimi-k2's Dl of 7,
+#: internvl2-1b's Dl of 4 (group 7) and the wikikv-router (f32)
+SPLIT_SHAPES = [("qwen3 tp=16", 4, 16, 8, 4096, 128, 16, "bfloat16"),
+                ("qwen3 tp=2", 4, 16, 8, 4096, 128, 2, "bfloat16"),
+                ("dbrx tp=16", 4, 48, 8, 4096, 128, 16, "bfloat16"),
+                ("kimi-k2 tp=16", 4, 64, 8, 4096, 112, 16, "bfloat16"),
+                ("internvl2 tp=16", 4, 14, 2, 4096, 64, 16, "bfloat16"),
+                ("router tp=2", 4, 4, 2, 512, 64, 2, "float32")]
+
+
+def split_decode_kernels(dev) -> dict:
+    """decode_scores and decode_combine at SPLIT_SHAPES: every rank's
+    slice's scores against the plain version, their sum (the all-reduce,
+    here a sum on one card), every rank's combine against the plain
+    version on that sum, and the slices' joined output against the fused
+    decode_attention kernel and its plain version; the lanes at 1, a
+    quarter, a half and the whole cache.  One rank's calls timed beside
+    the plain versions, one library call each (``torch.matmul`` of the q
+    slice by the K slice; ``torch.softmax`` of the masked scores, then
+    ``torch.matmul`` by the V slice), and the bytes bound of the live rows
+    (K or V slice, the scores written or read); one kernel node a call.
+    Returns the two kernels' JSON entries."""
+    import torch
+    from repro_torch.kernels import decode_split as dsp
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cpu").manual_seed(0)
+    rows = {"decode_scores": [], "decode_combine": []}
+    for tag, B, Hq, Hkv, S, D, ranks, dname in SPLIT_SHAPES:
+        dtype = getattr(torch, dname)
+        q = torch.randn((B, Hq, D), generator=g).to(dev, dtype)
+        k = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
+        v = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
+        lens = [1, S // 4 + 3, S // 2 + 1, S]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        Dl, scale = D // ranks, D ** -0.5
+        cols = [slice(r * Dl, (r + 1) * Dl) for r in range(ranks)]
+        qs = [q[..., c].contiguous() for c in cols]
+        ks = [k[..., c].contiguous() for c in cols]
+        vs = [v[..., c].contiguous() for c in cols]
+        parts, err_s = [], 0.0
+        for qr, kr in zip(qs, ks):
+            parts.append(ops.decode_scores(qr, kr, ln, sm_scale=scale))
+            err_s = max(err_s, check_float(f"decode_scores {tag}", parts[-1],
+                                           ref.decode_scores_ref(qr, kr, ln, sm_scale=scale),
+                                           torch.float32))
+        sc = torch.stack(parts).sum(0)
+        outs, err_c = [], 0.0
+        for vr in vs:
+            outs.append(ops.decode_combine(sc, vr, ln))
+            err_c = max(err_c, check_float(f"decode_combine {tag}", outs[-1],
+                                           ref.decode_combine_ref(sc, vr, ln), dtype))
+        joined = torch.cat(outs, -1)
+        err_f = check_float(f"split decode {tag} vs decode_attention", joined,
+                            ops.decode_attention(q, k, v, ln), dtype)
+        check_float(f"split decode {tag} vs the plain decode_attention", joined,
+                    ref.decode_attention_ref(q, k, v, ln), dtype)
+        # one rank's calls timed: the first slice
+        qr, kr, vr = qs[0], ks[0], vs[0]
+        live, elt, G = sum(lens), q.element_size(), Hq // Hkv
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        b_s, by_s = bound(B * Hq * Dl * elt + Hkv * live * Dl * elt + 4 * B * Hq * S + 4 * B,
+                          2.0 * Hq * live * Dl, peak)
+        b_c, by_c = bound(4 * Hq * live + Hkv * live * Dl * elt + B * Hq * Dl * elt + 4 * B,
+                          2.0 * Hq * live * Dl, peak)
+        qg = (qr.reshape(B, Hkv, G, Dl) * scale).contiguous()
+        kt = kr.transpose(-1, -2)
+        valid = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+        masked = torch.where(valid, sc.reshape(B, Hkv, G, S), float("-inf"))
+
+        def lib_scores(qg, kt):
+            return torch.matmul(qg, kt)
+
+        def lib_combine(masked, vr):
+            return torch.matmul(torch.softmax(masked, dim=-1).to(vr.dtype), vr)
+        timed = {"decode_scores": (dsp.decode_scores, (qr, kr, ln), {"sm_scale": scale},
+                                   lambda: ref.decode_scores_ref(qr, kr, ln, sm_scale=scale),
+                                   lib_scores, (qg, kt), err_s, b_s, by_s),
+                 "decode_combine": (dsp.decode_combine, (sc, vr, ln), {},
+                                    lambda: ref.decode_combine_ref(sc, vr, ln),
+                                    lib_combine, (masked, vr), err_c, b_c, by_c)}
+        for name, (fn, args, kw, plain, lib, lib_args, err, b, by) in timed.items():
+            gm = graph_ms(lambda *a: fn(*a, **kw), args)
+            one_kernel_a_call(f"{name} {tag}", gm)
+            rows[name].append({
+                "shape": f"{tag}: q ({B}, {Hq}, {Dl}), cache ({B}, {Hkv}, {S}, {Dl}) of D={D}, "
+                         f"lengths={lens} {dname}",
+                "max_abs_err": err, "vs_fused_max_abs_err": err_f,
+                "ms": cuda_ms(lambda: fn(*args, **kw)), "device_ms": gm["device_ms"],
+                "host_ms": host_ms(lambda: fn(*args, **kw)), "plain_ms": cuda_ms(plain),
+                "library_ms": cuda_ms(lambda: lib(*lib_args)),
+                "library_device_ms": graph_ms(lib, lib_args)["device_ms"],
+                "bound_ms": b, "bound_by": by,
+                **({"combine_blocks": dsp.combine_plan(B, Hkv, S, torch.cuda.get_device_properties(
+                    0).multi_processor_count)} if name == "decode_combine" else {})})
+    entries = {}
+    for name, rs in rows.items():
+        entries[name] = {"name": name, "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/decode_split.cu",
+                         "replaces": "src/repro/kernels/decode_attention.py:74",
+                         **rs[0], "shapes": rs[1:]}
+    emit({"phase": "split_decode_kernels", **{n: rs for n, rs in rows.items()},
+          "nvidia_smi": nvidia_smi()})
     return entries
 
 
@@ -3580,12 +3706,14 @@ def mesh_single_rank(dev, seed=0, steps=3) -> dict:
         check(at == steps and all(a.device.type == dev.type and torch.equal(a, b) for a, b in zip(
             leaves(tree), leaves({"params": meshed, "opt": m_opt}))),
             "restore_elastic onto the (1, 1) mesh is not bit for bit")
+        remat = remat_policies(dev, cfg, meshed, batch, mesh)
+        counts = {k: counts[k] + remat["dots"]["launches"][k] for k in counts}
         emit({"phase": "mesh_single_rank", "backend": dist.get_backend(), "world_size": 1,
               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "arch": cfg.name,
               "steps": steps, "losses": m_losses, "bit_for_bit": True,
               "pipeline": {"stages": 1, "microbatches": 6, "bit_for_bit": True},
               "restore_elastic": {"leaves": len(leaves(tree)), "bit_for_bit": True},
-              "launches": counts})
+              "remat_policies": remat, "launches": counts})
         del plain, p_opt, meshed, m_opt, tree
         torch.cuda.empty_cache()
         # the MoE's combine (index_add_) sums a token's expert outputs with
@@ -3604,6 +3732,64 @@ def mesh_single_rank(dev, seed=0, steps=3) -> dict:
     finally:
         dist.destroy_process_group()
     return counts
+
+
+def remat_policies(dev, cfg, params, batch, mesh) -> dict:
+    """The meshed train step's loss and gradients (``loss_and_grads`` on
+    the mesh, each period checkpointed) under ``REPRO_REMAT_POLICY``
+    "nothing" (the default: only the period's input saved) and "dots"
+    (the outputs of the products with no batch dimensions saved as well):
+    the loss bit for bit and every gradient equal; per policy the kernel
+    launches (the attention and the norms are recomputed under both), the
+    products run (``aten.mm``/``aten.addmm``: "dots" skips the recompute's)
+    and the card's peak memory.  The variable is restored after."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in T._DOTS
+            return func(*args, **(kwargs or {}))
+
+    was = os.environ.get("REPRO_REMAT_POLICY")
+    runs = {}
+    try:
+        for policy in ("nothing", "dots"):
+            os.environ["REPRO_REMAT_POLICY"] = policy
+            check(T.remat_policy() == policy, f"REPRO_REMAT_POLICY={policy} not read")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with Products() as products:
+                loss, grads = M.loss_and_grads(params, batch, cfg, mesh)
+            torch.cuda.synchronize()
+            runs[policy] = (loss, grads, {"launches": dict(ops.LAUNCHES), "products": products.n,
+                                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    finally:
+        if was is None:
+            os.environ.pop("REPRO_REMAT_POLICY", None)
+        else:
+            os.environ["REPRO_REMAT_POLICY"] = was
+    (l0, g0, a), (l1, g1, b) = runs["nothing"], runs["dots"]
+    check(torch.equal(l0, l1), f"remat 'dots' loss {float(l1)} != 'nothing' {float(l0)}")
+    check(all(torch.equal(x, y) for x, y in zip(leaves(g0), leaves(g1))),
+          "remat 'dots' gradients differ from 'nothing''s")
+    check(b["products"] < a["products"], f"remat 'dots' ran {b['products']} products, "
+          f"'nothing' {a['products']}")
+    check(all(b["launches"][k] <= a["launches"][k] for k in a["launches"]),
+          f"remat 'dots' launches {b['launches']} exceed 'nothing''s {a['launches']}")
+    print(f"remat policies ({cfg.name} meshed train step): loss bit for bit, gradients equal; "
+          f"peak 'nothing' {a['peak_gib']:.4f} GiB, 'dots' {b['peak_gib']:.4f} GiB; products "
+          f"{a['products']} / {b['products']}; {nvidia_smi()}", flush=True)
+    return {"loss": float(l0), "bit_for_bit": True, "nothing": a, "dots": b}
 
 
 MESHED_ARCHS = (("wikikv-router", None), ("qwen3-1.7b", None), ("dbrx-132b", 1))
@@ -3722,6 +3908,152 @@ def meshed_steps(dev, mesh, seed=0, batch=4, seq=4096, dec_steps=16, max_len=512
     return total
 
 
+HEAD_DIM_RANKS = 2            # "model" ranks of the head_dim decode, threads on the one card
+HEAD_DIM_LOGIT_TOL = 1e-4     # of the largest logit: f32 sums over the ranks in another order
+
+
+def head_dim_decode(dev, arch="qwen3-1.7b", layers=4, seed=0, batch=4, dec_steps=8,
+                    max_len=512) -> dict:
+    """The head_dim layout's meshed decode on the card: ``arch`` at full
+    width (``layers`` of its layers, f32 weights drawn on the card), its
+    decode state cut by ``decode_state_specs(..., cache_layout="head_dim")``
+    over a (1, HEAD_DIM_RANKS) ("data", "model") mesh, so each rank holds
+    head_dim / HEAD_DIM_RANKS columns of every head and decodes through
+    decode_scores, the all-reduce of the partial scores and decode_combine
+    (``layers.attn_decode_head_dim``), the embedding and the head
+    vocab-parallel.  One card cannot hold two NCCL ranks, so the ranks are
+    threads of this process over PyTorch's threaded process group (its
+    collectives are torch ops on the card's tensors), all on one
+    stream: the card's default stream, which orders the ranks' kernels and
+    the collectives' copies as they are issued.  ``dec_steps`` serve steps
+    at B = ``batch`` from an
+    empty cache, teacher-forced with the unmeshed steps' tokens: every
+    rank's logits within HEAD_DIM_LOGIT_TOL of the largest of the
+    unmeshed ones, the greedy tokens equal but at near ties, each rank's
+    cache block equal to that block of the unmeshed cache.  The counts
+    are set to 0 just before the meshed steps and read just after: one
+    decode_scores and one decode_combine a layer a step a rank, and no
+    decode_attention.  Returns those counts."""
+    import dataclasses
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import shard
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import dp_axes, dp_size
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, map_like
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32",
+                              param_dtype="float32")
+    torch.cuda.empty_cache()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    toks = text_batch(dev, cfg, batch, dec_steps, seed)["tokens"]
+    serve = M.make_serve_step(cfg)
+    state = T.init_decode_state(cfg, batch, max_len, dev)
+    want, lengths = [], torch.zeros(batch, dtype=torch.int32, device=dev)
+    for i in range(dec_steps):
+        _, lg, state = serve(params, state, {"tokens": toks[:, i].contiguous(),
+                                             "lengths": lengths})
+        want.append(lg)
+        lengths = lengths + 1
+    torch.cuda.synchronize()
+    got, errors, ms = {}, [], {}
+
+    def rank_main(rank, store):
+        try:
+            torch.cuda.set_device(dev.index or 0)
+            dist.init_process_group("threaded", rank=rank, world_size=HEAD_DIM_RANKS, store=store)
+            mesh = DeviceMesh(dev.type, torch.arange(HEAD_DIM_RANKS).view(1, HEAD_DIM_RANKS),
+                              mesh_dim_names=("data", "model"))
+            shards = M.shard_params(params, cfg, mesh)
+            specs = M.decode_state_specs(cfg, batch, dp=dp_axes(mesh), dp_size=dp_size(mesh),
+                                         cache_layout="head_dim", tp_size=HEAD_DIM_RANKS)
+            st = map_like(lambda t, s_: shard(t, s_, mesh),
+                          T.init_decode_state(cfg, batch, max_len, dev), specs)
+            step = M.make_serve_step(cfg, mesh, cache_layout="head_dim")
+            ln, out = torch.zeros(batch, dtype=torch.int32, device=dev), []
+            dist.barrier()
+            t0 = time.perf_counter()
+            for i in range(dec_steps):
+                _, lg, st = step(shards, st, {"tokens": toks[:, i].contiguous(), "lengths": ln})
+                out.append(lg)
+                ln = ln + 1
+            torch.cuda.synchronize()
+            ms[rank] = (time.perf_counter() - t0) * 1e3 / dec_steps
+            blocks = map_like(lambda t, s_: shard(t, s_, mesh), state, specs)
+            got[rank] = (torch.stack(out), leaves(st), leaves(blocks))
+            dist.destroy_process_group()
+        except BaseException as exc:          # every rank's failure ends the others
+            errors.append(f"rank {rank}: {type(exc).__name__}: {exc}")
+            mtpg.ProcessLocalGroup.exception_handle(exc)
+
+    if not hasattr(mtpg.ThreadLocalWorld, "comms"):
+        # a distributed_c10d that keeps a list of communicators in its world
+        # reads it on every group; this thread's own list
+        local = threading.local()
+        mtpg.ThreadLocalWorld.comms = property(
+            lambda self: local.__dict__.setdefault("comms", []))
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mtpg._install_threaded_pg()
+    try:
+        mtpg.ProcessLocalGroup.reset()
+        store = dist.HashStore()
+        threads = [threading.Thread(target=rank_main, args=(r, store))
+                   for r in range(HEAD_DIM_RANKS)]
+        # decode_combine's split workspace made before the ranks share it
+        Dl = cfg.head_dim // HEAD_DIM_RANKS
+        ops.decode_combine(torch.zeros((batch, cfg.n_heads, max_len), device=dev),
+                           torch.zeros((batch, cfg.n_kv_heads, max_len, Dl), device=dev),
+                           torch.ones(batch, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        counts = dict(ops.LAUNCHES)
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    check(not errors and len(got) == HEAD_DIM_RANKS, f"head_dim decode: {errors or 'hung'}")
+    want = torch.stack(want)[..., :cfg.vocab]        # the padded ids are -inf in both
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * HEAD_DIM_LOGIT_TOL * float(want.abs().max())
+    line = {"phase": "head_dim_decode", "arch": arch, "layers": layers, "dtype": "float32",
+            "ranks": HEAD_DIM_RANKS, "batch": batch, "dec_steps": dec_steps, "max_len": max_len,
+            "process_group": "threaded (threads on one card)", "decode_step_ms": ms}
+    for rank, (lg, st, blocks) in got.items():
+        lg = lg[..., :cfg.vocab]
+        err = float((lg - want).abs().max()) / float(want.abs().max())
+        check(err <= HEAD_DIM_LOGIT_TOL, f"head_dim decode rank {rank}: logits {err} of the "
+              f"largest from the unmeshed ones (tolerance {HEAD_DIM_LOGIT_TOL})")
+        same = lg.argmax(-1) == want.argmax(-1)
+        check(bool(same[sure].all()), f"head_dim decode rank {rank}: a greedy token differs "
+              "away from a near tie")
+        cache_err = max(float((a - b).abs().max()) for a, b in zip(st, blocks))
+        check(cache_err <= 1e-5 * max(float(b.abs().max()) for b in blocks),
+              f"head_dim decode rank {rank}: its cache block differs from the unmeshed cache's "
+              f"({cache_err})")
+        line[f"rank{rank}"] = {"logit_err_share": err, "tokens_equal": int(same.sum()),
+                               "tokens": same.numel(), "near_ties": int((~sure).sum()),
+                               "cache_block_max_abs_err": cache_err}
+    n = layers * dec_steps * HEAD_DIM_RANKS
+    check(counts["decode_scores"] == n and counts["decode_combine"] == n
+          and counts["decode_attention"] == 0,
+          f"head_dim decode launches {counts}: not {n} decode_scores and decode_combine")
+    line["launches"] = counts
+    line["nvidia_smi"] = nvidia_smi()
+    emit(line)
+    del params, state
+    torch.cuda.empty_cache()
+    return counts
+
+
 MEMORY_BAND = (0.85, 1.15)   # the dry run's predicted bytes over the card's peak
 
 
@@ -3814,7 +4146,13 @@ DRYRUN_LIMITS = {("qwen3-1.7b", "train_4k"): {"gib": 80.0, "useful": 0.25},
                  ("codeqwen1.5-7b", "train_4k"): {"gib": 80.0},
                  ("codeqwen1.5-7b", "decode_32k"): {"collective": 154.75e9 / 10},
                  ("olmo-1b", "decode_32k"): {"collective": 36.85e9 / 10},
-                 ("whisper-medium", "decode_32k"): {"collective": 27.80e9 / 10}}
+                 ("whisper-medium", "decode_32k"): {"collective": 27.80e9 / 10},
+                 # the head_dim layout's decode, against the 3.17e10 and 6.88e10
+                 # bytes a step of each layer's cache gathered over "model" (nearly
+                 # all of qwen3's): qwen3 a fifth; dbrx a third, since its experts'
+                 # gathers over "data" alone move ~1.6e10 a step
+                 ("qwen3-1.7b", "decode_32k"): {"collective": 3.17e10 / 5},
+                 ("dbrx-132b", "decode_32k"): {"collective": 6.88e10 / 3}}
 #: cells traced on fake "cpu" too, whose counts must equal the fake-"cuda" trace's
 DRYRUN_BOTH = [("dbrx-132b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single")]
 DRYRUN_WORKERS = 8
@@ -4258,6 +4596,7 @@ def main(argv: list[str]) -> int:
     entries.update(attention_kernels(dev))
     entries.update(router_kernels(dev))
     entries.update(backward_kernels(dev))
+    entries.update(split_decode_kernels(dev))
 
     rng = random.Random(0)
     store, dims, n_files, dev_eng, host = query_phase(dev, SCALE_LOG2)
@@ -4285,13 +4624,13 @@ def main(argv: list[str]) -> int:
                    kimi_phase(dev),
                    recurrent_phase(dev, "jamba-v0.1-52b", 8),
                    recurrent_phase(dev, "xlstm-350m", 8), encdec_phase(dev), vlm_phase(dev),
-                   train_phase(dev), mesh_single_rank(dev)]
+                   train_phase(dev), mesh_single_rank(dev), head_dim_decode(dev)]
     dryrun_phase()
 
     kernels = []
     for name in ("path_lookup", "prefix_search", "rmsnorm", "decode_attention",
                  "flash_attention", "moe_router", "flash_attention_bwd", "rmsnorm_bwd",
-                 "moe_router_bwd"):
+                 "moe_router_bwd", "decode_scores", "decode_combine"):
         e = entries[name]
         e["launches"] = sum(c[name] for c in path_counts)
         e["node_floor_ms"] = floor["device_ms"]

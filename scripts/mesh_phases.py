@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """The mesh phases of ``chip_smoke.py`` alone on one card: build the
-kernels, then ``mesh_single_rank`` (the one-rank NCCL mesh: the router's
-meshed train step, ``meshed_steps`` and ``memory_check``) and
+kernels, then ``split_decode_kernels`` (decode_scores and decode_combine
+at the head_dim layout's shapes), ``mesh_single_rank`` (the one-rank NCCL
+mesh: the router's meshed train step under both remat policies,
+``meshed_steps`` and ``memory_check``), ``head_dim_decode`` (the head_dim
+layout's meshed decode over two threaded ranks on the card) and
 ``dryrun_phase`` (the dry-run cells and their 16x16 limits), each phase's
 JSON line as the smoke prints it.
 
@@ -30,8 +33,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    counts = CS.mesh_single_rank(torch.device("cuda"))
+    dev = torch.device("cuda")
+    CS.split_decode_kernels(dev)
+    counts = CS.mesh_single_rank(dev)
     print(f"mesh_single_rank launches {counts}", flush=True)
+    counts = CS.head_dim_decode(dev)
+    print(f"head_dim_decode launches {counts}", flush=True)
     CS.dryrun_phase()
     print("mesh phases ok", flush=True)
     return 0

@@ -25,7 +25,10 @@ where the layer uses it whole) just before the layer and reduce-scatters
 its gradient back to the shard, and ``SeqGather`` / ``SeqScatter`` move
 the activations between their sequence shards on "model" and the whole
 sequence around a tensor-parallel product, each pair the adjoint of the
-other under autograd.
+other under autograd.  ``embed`` and the head stay cut over the vocabulary
+on "model": a lookup reads zeros outside the rank's rows before its
+reduction, and ``VocabParallelNLL`` is the cross entropy over the ranks'
+columns of the logits.
 """
 from __future__ import annotations
 
@@ -239,6 +242,37 @@ class SeqScatter(torch.autograd.Function):
     def backward(ctx, g):
         n = axis_size(ctx.mesh, ctx.axis)
         return _all_gather(g, ctx.dim, ctx.mesh.get_group(ctx.axis), n), None, None, None
+
+
+class VocabParallelNLL(torch.autograd.Function):
+    """The cross entropy of logits whose vocabulary is cut over ``axis``:
+    ``logits`` (T, Vl) f32 are this rank's columns [lo, lo + Vl) and
+    ``labels`` (T,) int64 whole-vocabulary ids (a masked label, < 0, gives
+    the logsumexp alone; the caller masks the term).  Forward: the max over
+    the vocabulary (all-reduce MAX), the sum of exp (all-reduce), the
+    label's logit, which only the rank that holds it contributes
+    (all-reduce); every rank returns the same (T,) terms.  Backward:
+    softmax - one-hot on the rank's columns, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, mesh, axis):
+        import torch.distributed as d
+        Vl = logits.shape[-1]
+        m = all_reduce(logits.amax(dim=-1), (axis,), mesh, op=d.ReduceOp.MAX)
+        lse = m + torch.log(all_reduce(torch.exp(logits - m[:, None]).sum(dim=-1), (axis,), mesh))
+        local = labels - lo
+        mine = (local >= 0) & (local < Vl)
+        local = local.clamp(0, Vl - 1)
+        ll = torch.where(mine, logits.gather(-1, local[:, None])[:, 0], torch.zeros_like(lse))
+        ctx.save_for_backward(logits, lse, local, mine)
+        return lse - all_reduce(ll, (axis,), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, mine = ctx.saved_tensors
+        grad = torch.exp(logits - lse[:, None])
+        grad.scatter_add_(-1, local[:, None], -mine.to(grad.dtype)[:, None])
+        return grad * g[:, None], None, None, None, None
 
 
 TP = "model"        # the tensor-parallel mesh axis

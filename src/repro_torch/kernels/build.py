@@ -27,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("path_lookup", "prefix_search", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "moe_router", "rmsnorm")
+SOURCES = ("path_lookup", "prefix_search", "decode_attention", "decode_split",
+           "flash_attention", "flash_attention_bwd", "moe_router", "rmsnorm")
 #: streaming multiprocessors of an H100 SXM: the launch geometries' default
 #: for callers without a card (the wrappers pass ``sm_count`` of theirs)
 N_SM = 132
@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
                             "decode_attention": 0, "flash_attention": 0, "rmsnorm": 0,
                             "moe_router": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                            "moe_router_bwd": 0}
+                            "moe_router_bwd": 0, "decode_scores": 0, "decode_combine": 0}
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()

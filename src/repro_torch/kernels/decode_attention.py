@@ -54,7 +54,8 @@ MIN_WARPS = 8             # warps a block has at least: they share q's staging a
 #: one buffer: ctypes would convert each separate argument on every call
 _PACK = struct.Struct("<13qd3q").pack
 _FN = None
-#: the split path's workspace on each device: (tickets, partials).  The
+#: the split path's workspace on each device: (tickets, partials), shared
+#: with ``decode_split.decode_combine``'s split path.  The
 #: tickets are int32 counters, zeroed when made or grown, that each launch
 #: leaves at 0; the partials are scratch.  They are two buffers, so a
 #: launch's partials never land on the tickets of a later launch with more

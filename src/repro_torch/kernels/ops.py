@@ -11,8 +11,9 @@ Under grad mode, with an input that requires grad, ``attention``,
 whose forward is the kernel (the attention's with its log-sum-exp) and
 whose backward is the backward kernel (``flash_attention_bwd``,
 ``rmsnorm_bwd``, ``moe_router_bwd``); on the CPU autograd differentiates
-the plain versions.  ``decode_attention`` has no backward kernel and
-raises there.  Otherwise (inference) the kernels launch as they are.
+the plain versions.  ``decode_attention`` and its head_dim split
+(``decode_scores``, ``decode_combine``) have no backward kernel and raise
+there.  Otherwise (inference) the kernels launch as they are.
 
 A tensor without data off the CPU (a ``FakeTensor``, or a ``meta``
 tensor) goes to the kernel's shape rule (``<kernel>_abstract`` in its
@@ -31,12 +32,15 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from . import decode_attention as _dec
+from . import decode_split as _dsp
 from . import flash_attention as _fa
 from . import moe_router as _mr
 from . import ref
 from . import rmsnorm as _rn
 from .build import LAUNCHES, reset_launches
 from .decode_attention import decode_attention as _decode_kernel
+from .decode_split import decode_combine as _combine_kernel
+from .decode_split import decode_scores as _scores_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .flash_attention import flash_attention_bwd as _flash_bwd_kernel
 from .moe_router import moe_router as _router_kernel
@@ -85,16 +89,18 @@ _WORK = {"flash_attention": _fa.flash_attention_work,
          "flash_attention_bwd": _fa.flash_attention_bwd_work, "rmsnorm": _rn.rmsnorm_work,
          "rmsnorm_bwd": _rn.rmsnorm_bwd_work, "moe_router": _mr.moe_router_work,
          "moe_router_bwd": _mr.moe_router_bwd_work,
-         "decode_attention": _dec.decode_attention_work}
+         "decode_attention": _dec.decode_attention_work,
+         "decode_scores": _dsp.decode_scores_work, "decode_combine": _dsp.decode_combine_work}
 _PLAIN = {k: _traced(k, fn) for k, fn in (
     ("flash_attention", _attention_plain), ("flash_attention_bwd", ref.attention_bwd_ref),
     ("rmsnorm", ref.rmsnorm_ref), ("rmsnorm_bwd", ref.rmsnorm_bwd_ref),
     ("moe_router", ref.moe_router_ref), ("moe_router_bwd", ref.moe_router_bwd_ref),
-    ("decode_attention", ref.decode_attention_ref))}
+    ("decode_attention", ref.decode_attention_ref), ("decode_scores", ref.decode_scores_ref),
+    ("decode_combine", ref.decode_combine_ref))}
 _ABSTRACT = {k: _traced(k, getattr(mod, k + "_abstract")) for k, mod in (
     ("flash_attention", _fa), ("flash_attention_bwd", _fa), ("rmsnorm", _rn),
     ("rmsnorm_bwd", _rn), ("moe_router", _mr), ("moe_router_bwd", _mr),
-    ("decode_attention", _dec))}
+    ("decode_attention", _dec), ("decode_scores", _dsp), ("decode_combine", _dsp))}
 
 
 def _needs_grad(*tensors) -> bool:
@@ -211,6 +217,30 @@ def decode_attention(q, k_cache, v_cache, lengths, *, sm_scale: float | None = N
     return _decode_kernel(q, k_cache, v_cache, lengths, sm_scale=sm_scale)
 
 
+def decode_scores(q, k_cache, lengths, *, sm_scale: float):
+    """(B, Hq, Dl) x (B, Hkv, S, Dl) x (B,) -> (B, Hq, S) f32: one head_dim
+    slice's share of the scores (``sm_scale`` the whole head's)."""
+    if _on_cpu(q):
+        if TRACER is None:
+            return ref.decode_scores_ref(q, k_cache, lengths, sm_scale=sm_scale)
+        return _PLAIN["decode_scores"](q, k_cache, lengths, sm_scale=sm_scale)
+    if _abstract(q):
+        return _ABSTRACT["decode_scores"](q, k_cache, lengths, sm_scale=sm_scale)
+    return _scores_kernel(q, k_cache, lengths, sm_scale=sm_scale)
+
+
+def decode_combine(scores, v_cache, lengths):
+    """(B, Hq, S) f32 x (B, Hkv, S, Dl) x (B,) -> (B, Hq, Dl): the masked
+    softmax of the summed scores times one head_dim slice of V."""
+    if _on_cpu(scores):
+        if TRACER is None:
+            return ref.decode_combine_ref(scores, v_cache, lengths)
+        return _PLAIN["decode_combine"](scores, v_cache, lengths)
+    if _abstract(scores):
+        return _ABSTRACT["decode_combine"](scores, v_cache, lengths)
+    return _combine_kernel(scores, v_cache, lengths)
+
+
 def moe_router(logits, k: int, *, renormalize: bool = True):
     """(T, E) f32 -> (weights (T, k) f32, indices (T, k) int32)."""
     if _on_cpu(logits):
@@ -246,5 +276,6 @@ def prefix_search(tokens, prefixes, prefix_lens):
     return _prefix_kernel(tokens, prefixes, prefix_lens)
 
 
-__all__ = ["attention", "rmsnorm", "decode_attention", "moe_router", "path_lookup",
+__all__ = ["attention", "rmsnorm", "decode_attention", "decode_scores", "decode_combine",
+           "moe_router", "path_lookup",
            "prefix_search", "key64", "pad_keys", "pad_pinned", "LAUNCHES", "reset_launches"]

@@ -6,7 +6,10 @@ against the JAX package, and ``chip_smoke.py`` holds each kernel against
 its plain version on the card.  Counterparts of
 ``repro/kernels/ref.py``'s ``attention_ref``, ``chunked_attention_ref``,
 ``rmsnorm_ref``, ``decode_attention_ref``, ``moe_router_ref``,
-``path_lookup_ref``, ``path_lookup_pinned_ref`` and ``prefix_search_ref``.
+``path_lookup_ref``, ``path_lookup_pinned_ref`` and ``prefix_search_ref``;
+``decode_scores_ref`` and ``decode_combine_ref`` split decode attention
+over a slice of head_dim, as the reference's head_dim cache layout does
+(its psum of partial logits).
 The JAX package has no backward kernel (``jax.value_and_grad``
 differentiates its jnp references); the port's backward kernels are held
 against ``attention_bwd_ref``, ``rmsnorm_bwd_ref`` and
@@ -185,6 +188,45 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     out = out / torch.where(l == 0.0, torch.ones_like(l), l)
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_scores_ref(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor, *,
+                      sm_scale: float) -> torch.Tensor:
+    """One head_dim slice's share of decode attention's scores.
+
+    q: (B, Hq, Dl), the query heads' columns of the slice; k_cache: (B,
+    Hkv, S, Dl), the cache's same columns; lengths: (B,).  Returns (B, Hq,
+    S) f32: q . k over the slice times ``sm_scale`` (the whole head's
+    1/sqrt(Dh), so the slices' scores sum to ``decode_attention_ref``'s),
+    and 0 at positions at or past the length."""
+    B, Hq, Dl = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    qg = _acc(q).reshape(B, Hkv, Hq // Hkv, Dl)
+    s = torch.einsum("bkgd,bksd->bkgs", qg, _acc(k_cache)) * sm_scale
+    valid = torch.arange(S, device=q.device)[None, :] < lengths.to(torch.int64)[:, None]
+    return torch.where(valid[:, None, None, :], s, torch.zeros_like(s)).reshape(B, Hq, S)
+
+
+def decode_combine_ref(scores: torch.Tensor, v_cache: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """The rest of decode attention over one head_dim slice of V.
+
+    scores: (B, Hq, S), the whole heads' scores (the slices' sums);
+    v_cache: (B, Hkv, S, Dl); lengths: (B,).  Returns (B, Hq, Dl) in
+    v_cache's dtype: the softmax of the scores over positions below the
+    length times V, as ``decode_attention_ref`` (an all-masked row gives
+    zeros)."""
+    B, Hq, S = scores.shape
+    Hkv, Dl = v_cache.shape[1], v_cache.shape[3]
+    s = _acc(scores).reshape(B, Hkv, Hq // Hkv, S)
+    valid = (torch.arange(S, device=s.device)[None, :]
+             < lengths.to(torch.int64)[:, None])[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p, _acc(v_cache))
+    out = out / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.reshape(B, Hq, Dl).to(v_cache.dtype)
 
 
 def moe_router_ref(logits: torch.Tensor, k: int, *,

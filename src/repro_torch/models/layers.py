@@ -23,7 +23,11 @@ attends over its own query heads (``Heads``, ``head_split``) and the KV
 heads they read: its own block of ``wk``/``wv`` when the KV heads divide
 over "model", else those heads' columns of the whole leaves.  The input
 enters through ``part.tp_enter`` and the row-parallel product's partial
-sums leave through one reduction, ``part.tp_exit``.
+sums leave through one reduction, ``part.tp_exit``.  A decode over a
+cache whose head_dim is cut over "model" (``attn_decode_head_dim``) runs
+its attention on the rank's columns of every head, through
+``kernels.ops.decode_scores`` and ``kernels.ops.decode_combine`` around
+an all-reduce of the partial scores.
 """
 from __future__ import annotations
 
@@ -234,6 +238,51 @@ def attn_decode(params: dict, x: torch.Tensor, cache: dict, lengths: torch.Tenso
     o = ops.decode_attention(q[:, :, 0, :], kc, vc, lengths + 1)
     out = o.reshape(B, 1, -1) @ params["wo"]
     return (out if part is None else part.tp_exit(out)), cache
+
+
+def attn_decode_head_dim(params: dict, x: torch.Tensor, cache: dict, lengths: torch.Tensor,
+                         cfg: ModelConfig, part, heads: Heads | None = None
+                         ) -> tuple[torch.Tensor, dict]:
+    """One-token decode over a cache whose head_dim is cut over "model"
+    (the reference's "head_dim" layout): ``cache`` k/v hold this rank's
+    columns [r*Dl, (r+1)*Dl) of every KV head, (B, KV, S, Dl).
+
+    q, k_new and v_new are projected, qk-normed and rotated on the whole
+    head vector (RoPE pairs column d with d + Dh/2, which lie on different
+    ranks), q of this rank's ``heads`` (then all-gathered over "model") or,
+    with ``heads`` None, of every head; ``wk``/``wv`` are whole.  The rank
+    writes its columns of k_new and v_new at ``lengths`` (no cache byte
+    moves), computes its partial scores (``ops.decode_scores``, scaled by
+    the whole head's 1/sqrt(Dh)), all-reduces them over "model" (the
+    reference's psum of the Dh-partial logits), and applies the softmax
+    to its V columns (``ops.decode_combine``); the outputs' columns are
+    all-gathered over "model" and the rank's heads finish through its
+    ``wo`` rows (``part.tp_exit``), or every head through the whole
+    ``wo``."""
+    from ..distributed.sharding import TP, _all_gather, all_reduce
+    tp, group = part.tp, part.mesh.get_group(TP)
+    h = x if heads is None else part.tp_enter(x)
+    B = h.shape[0]
+    Dh = cfg.head_dim
+    Dl = Dh // tp
+    q, k_new, v_new = _project_qkv(params, h, lengths[:, None], cfg, params["wk"], params["wv"])
+    q = q[:, :, 0, :]
+    if heads is not None:                            # every rank's heads, in rank order
+        q = _all_gather(q, 1, group, tp)
+    cols = slice(part.rank * Dl, (part.rank + 1) * Dl)
+    b_idx = torch.arange(B, device=x.device)
+    pos = lengths.to(torch.int64)
+    cache["k"][b_idx, :, pos, :] = k_new[:, :, 0, cols].to(cache["k"].dtype)
+    cache["v"][b_idx, :, pos, :] = v_new[:, :, 0, cols].to(cache["v"].dtype)
+    live = lengths + 1
+    s = ops.decode_scores(q[..., cols].contiguous(), cache["k"], live,
+                          sm_scale=1.0 / math.sqrt(Dh))
+    s = all_reduce(s, (TP,), part.mesh)
+    o = _all_gather(ops.decode_combine(s, cache["v"], live), 2, group, tp)   # (B, Hq, Dh)
+    if heads is None:
+        return o.reshape(B, 1, -1) @ params["wo"], cache
+    o = o[:, heads.q0:heads.q0 + heads.nq]
+    return part.tp_exit(o.reshape(B, 1, -1) @ params["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -155,12 +155,13 @@ def _sharded_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, mesh):
     shard (``sharding.GatherOnUse``'s backward: summed over the ranks that
     computed parts of it, cut alike on the others).  The loss is the
     global batch's masked mean: the count of unmasked labels is summed over
-    the ranks that split the tokens before the division
-    (``transformer.nll_sum_axes``), and so is the reported sum of their
-    cross entropy."""
+    the ranks that split the batch before the division
+    (``transformer.nll_sum_axes``; never over "model", whose ranks each
+    hold the whole sequence's terms from the vocab-parallel head), and so
+    is the reported sum of their cross entropy."""
     from ..distributed.sharding import all_reduce
     local, part = _local_batch(batch, cfg, mesh)
-    sum_axes = T.nll_sum_axes(part, local, cfg)
+    sum_axes = T.nll_sum_axes(part)
     work = _work_leaves(params)
     with torch.enable_grad():
         total, count = T.nll_terms(work, local, cfg, part=part)
@@ -242,7 +243,7 @@ def make_eval_step(cfg: ModelConfig, mesh=None):
                 return T.loss_fn(params, batch, cfg)
             from ..distributed.sharding import all_reduce
             local, part = _local_batch(batch, cfg, mesh)
-            sum_axes = T.nll_sum_axes(part, local, cfg)
+            sum_axes = T.nll_sum_axes(part)
             total, count = T.nll_terms(params, local, cfg, part=part)
             total, count = (all_reduce(t.clone(), sum_axes, mesh) for t in (total, count))
             return total / count.clamp(min=1.0)
@@ -284,14 +285,20 @@ def make_serve_step(cfg: ModelConfig, mesh=None, cache_layout: str = "auto"):
     ``batch`` the global batch, and ``state`` this rank's block of the
     decode state, cut by ``decode_state_specs(cfg, B, dp=dp_axes(mesh),
     dp_size=dp_size(mesh), cache_layout=cache_layout, tp_size=...)``.
-    Under the kv_head layout each rank writes and attends over its own KV
-    heads and no cache byte moves; under the others each layer's state is
-    gathered over the axes that cut it off the batch (head_dim or
-    sequence over "model", the sequence over the data axes when B <
-    dp_size) before its attention or recurrence, and the rank keeps its
-    block of what the step writes (``transformer._decode_block``).  The
-    step returns this rank's rows of ``next_tok`` and ``logits`` and its
-    block of the state."""
+    Under the kv_head layout (an arch whose KV heads divide over "model")
+    each rank writes and attends over its own KV heads through
+    ``decode_attention``; under the head_dim layout (the others, under
+    "auto") over its head_dim columns of every head, through
+    ``decode_scores``, an all-reduce of the partial scores and
+    ``decode_combine``: in both no cache byte moves over "model".  Under
+    the seq layout, and for a recurrent state, each layer's state is
+    gathered over the axes that cut it off the batch before its attention
+    or recurrence, as is the sequence over the data axes when B <
+    dp_size, and the rank keeps its block of what the step writes
+    (``transformer._decode_block``).  The step returns this rank's rows
+    of ``next_tok`` and of the logits, whole over the vocabulary (the
+    head's columns are the rank's, then gathered), and its block of the
+    state."""
     L.set_fp32_matmul()
 
     def serve_step(params, state, batch):

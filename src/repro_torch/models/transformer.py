@@ -30,15 +30,22 @@ On a mesh every function takes ``part`` (``distributed.sharding.Partition``,
 made by ``partition``): ``params`` are this rank's shards and each layer
 gathers its leaves on use (``_take``: over the data axes, and over
 "model" where the layer runs whole there), so no more than one layer's
-leaves, or ``embed``, or the head, are gathered at once.  Between blocks
+leaves are gathered at once.  ``embed`` and the head stay cut over the
+vocabulary on "model": the lookup is vocab-parallel (``embed_tokens``),
+each rank computes the logits of its vocabulary columns and the cross
+entropy is vocab-parallel (``nll_terms``).  Between blocks
 the activations are split over the sequence on "model" when it divides
 (the reference's ``shard_act(seq_dim=1)``); attention and the MLP are
 tensor-parallel (``layers``), a MoE layer expert-parallel (``moe``), and
 the blocks that do not split (attention whose heads do not divide, the
 recurrent blocks) run whole on every "model" rank.  Under grad each
-period runs under ``torch.utils.checkpoint`` (the reference's remat with
-its default ``nothing_saveable`` policy), so the backward gathers the
-period's leaves again.  The unmeshed path (``part=None``) is unchanged.
+period runs under ``torch.utils.checkpoint`` (the reference's remat, its
+policy read from ``REPRO_REMAT_POLICY``: ``remat_policy``), so the
+backward gathers the period's leaves again.  Decode attends over the
+rank's own KV heads (the kv_head cache layout) or its head_dim columns of
+every head (the head_dim layout).  An axis of one rank moves nothing and
+computes as the unmeshed step; the unmeshed path (``part=None``) is
+unchanged.
 """
 from __future__ import annotations
 
@@ -176,13 +183,41 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 part=None) -> torch.Tensor:
-    # F.embedding, not indexing: its backward sums each token's rows in a
-    # fixed order on both devices, where indexing's accumulates in any
-    # order on the CPU, and a resumed run must repeat an uninterrupted one
-    table = params["embed"] if part is None else _take_whole(part, params["embed"], "embed")
-    return F.embedding(tokens, table).to(getattr(torch, cfg.dtype))
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig, part=None,
+                 prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """The tokens' rows of ``embed`` in ``cfg.dtype``, after ``prefix``
+    (the vision stub's patch embeddings) when given.
+
+    With ``part`` the result is this rank's shard of the sequence when
+    ``part.seq`` splits it, else the whole.  Over "model" the table stays
+    cut (``embed``'s spec cuts its rows, the vocabulary): each rank looks
+    its tokens up in its own rows, a token outside them reads zeros, and
+    the partial rows are reduce-scattered into the sequence split or
+    all-reduced (``SeqScatter``, ``SumOverGroup``), whose backward hands
+    each rank the gradient of every position, so each rank's rows get
+    their whole gradient."""
+    dt = getattr(torch, cfg.dtype)
+    if part is None or part.tp == 1:
+        # F.embedding, not indexing: its backward sums each token's rows in a
+        # fixed order on both devices, where indexing's accumulates in any
+        # order on the CPU, and a resumed run must repeat an uninterrupted one
+        table = params["embed"] if part is None else _take_whole(part, params["embed"], "embed")
+        x = F.embedding(tokens, table).to(dt)
+        if prefix is not None:
+            x = torch.cat([prefix.to(dt), x], dim=1)
+        return x if part is None else part.local_seq(x)
+    from ..distributed.sharding import TP, SeqScatter, SumOverGroup
+    table = part.take(params["embed"], part.specs["embed"], False, False)
+    rows = table.shape[0]
+    ids = tokens.to(torch.int64) - part.rank * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = F.embedding(ids.clamp(0, rows - 1), table).to(dt)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dt, device=x.device))
+    if prefix is not None:                   # rank 0 adds the prefix to the sum
+        x = torch.cat([prefix.to(dt) * float(part.rank == 0), x], dim=1)
+    if part.seq:
+        return SeqScatter.apply(x, part.mesh, TP, 1)
+    return SumOverGroup.apply(x, part.mesh, TP)
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +273,9 @@ def _leaf_use(path: tuple, cfg: ModelConfig, part, heads, whole_kv: bool) -> tup
 
 
 def _take_whole(part, local: torch.Tensor, name: str, spec=None) -> torch.Tensor:
-    """A leaf outside the layers (``embed``, ``lm_head``, ``final_norm``)
-    on use: whole on every "model" rank, as ``_leaf_use`` takes what runs
-    whole there."""
+    """A leaf outside the layers (``final_norm``; ``embed`` and ``lm_head``
+    at one "model" rank) on use: whole on every "model" rank, as
+    ``_leaf_use`` takes what runs whole there."""
     return part.take(local, part.specs[name] if spec is None else spec, True, part.seq)
 
 
@@ -320,14 +355,45 @@ def _layer(kind: str, local: dict, specs: dict, x: torch.Tensor, cfg: ModelConfi
     return _slot_apply(kind, params, x, cfg, enc_out=enc_out, part=part, heads=heads)
 
 
+#: the products whose outputs the "dots" remat policy saves: those with no
+#: batch dimensions (a ``torch.matmul`` of activations by a weight lowers
+#: to one of these), as ``jax.checkpoint_policies.
+#: dots_with_no_batch_dims_saveable`` saves ``dot_general``s without them
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy() -> str:
+    """``REPRO_REMAT_POLICY``, read as the reference's ``_body_scan`` reads
+    it on every call: "dots" saves the outputs of products with no batch
+    dimensions and recomputes the rest of a period (its attention
+    kernels, batched products and gathers); anything else (the default
+    "nothing") saves only the period's input."""
+    import os
+    return "dots" if os.environ.get("REPRO_REMAT_POLICY", "nothing") == "dots" else "nothing"
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _run_period(fn, x: torch.Tensor, part) -> torch.Tensor:
     """``fn(x)``: under grad on a mesh through ``torch.utils.checkpoint``
-    (non-reentrant; the reference's ``jax.checkpoint`` of a period with
-    its default ``nothing_saveable`` policy): only the period's input is
-    kept, and the backward runs the period again, its gathers too."""
+    (non-reentrant; the reference's ``jax.checkpoint`` of a period), by
+    ``remat_policy()``: "nothing" keeps only the period's input and the
+    backward runs the period again, its gathers too; "dots" also keeps
+    the outputs of its products with no batch dimensions, which the
+    recompute then takes instead of running them
+    (``create_selective_checkpoint_contexts``)."""
     if part is None or not torch.is_grad_enabled():
         return fn(x)
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+    kw = {}
+    if remat_policy() == "dots":
+        import functools
+
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def _body(params: dict, key: str, x: torch.Tensor, cfg: ModelConfig, pattern, n: int,
@@ -393,9 +459,8 @@ def hidden_states(params: dict, batch: dict, cfg: ModelConfig, part=None) -> tor
     the sequence when ``_seq_part`` splits it."""
     if part is not None:
         part = _seq_part(part, batch, cfg)
-    x = embed_tokens(params, batch["tokens"], cfg, part)
-    if cfg.frontend == "vision_stub":
-        x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+    x = embed_tokens(params, batch["tokens"], cfg, part,
+                     prefix=batch["prefix_embeds"] if cfg.frontend == "vision_stub" else None)
     enc_out = None
     if cfg.is_encdec:
         enc_out = _encode(params, batch["frames"], cfg, part)
@@ -405,7 +470,6 @@ def hidden_states(params: dict, batch: dict, cfg: ModelConfig, part=None) -> tor
         for p in params.get("prefix", []):
             x = _slot_apply("attn", p, x, cfg)
     else:
-        x = part.local_seq(x)
         for p, specs in zip(params.get("prefix", []), part.specs.get("prefix", [])):
             x = _layer("attn", p, specs, x, cfg, part)
     x = _body(params, "body", x, cfg, cfg.block_pattern, cfg.n_periods, part, enc_out)
@@ -421,22 +485,54 @@ def _enter_encoder(enc_out: torch.Tensor, enc_part, cfg: ModelConfig) -> torch.T
     return enc_part.rep_enter(enc_out)
 
 
-def _head(params: dict, cfg: ModelConfig, dtype: torch.dtype, part=None) -> torch.Tensor:
+def _head(params: dict, cfg: ModelConfig, dtype: torch.dtype, part=None,
+          whole: bool = False) -> torch.Tensor:
+    """The LM head (D, V_pad) in ``dtype``; with ``part`` over "model" this
+    rank's columns (D, V_pad / tp), the vocabulary kept cut as ``embed``'s
+    and ``lm_head``'s specs cut it (``_vocab_parallel``), unless
+    ``whole``."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    w = params[name] if part is None else _take_whole(part, params[name], name)
+    if part is None:
+        w = params[name]
+    elif _vocab_parallel(part) and not whole:
+        w = part.take(params[name], part.specs[name], False, False)
+    else:
+        w = _take_whole(part, params[name], name)
     return (w.T if cfg.tie_embeddings else w).to(dtype)
+
+
+def _vocab_parallel(part) -> bool:
+    """The head and the cross entropy over each "model" rank's columns of
+    the vocabulary; an axis of one rank keeps the unmeshed code."""
+    return part is not None and part.tp > 1
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig, part) -> torch.Tensor:
+    """``x @ head`` over the whole vocabulary, for every row of ``x``.
+    Over "model" the cheaper of two all-gathers: with fewer rows than
+    d_model (a decode step) the logits of the rank's head columns,
+    computed vocabulary-major (Vl, N), gathered into (V, N) and returned
+    as a transposed view (..., V); with more (a prefill), the head whole,
+    as its V x D elements are then fewer than the logits' V x N."""
+    n = x.numel() // x.shape[-1]
+    if not _vocab_parallel(part) or n >= cfg.d_model:
+        return x @ _head(params, cfg, x.dtype, part, whole=True)
+    from ..distributed.sharding import TP, _all_gather
+    local = _head(params, cfg, x.dtype, part).T @ x.reshape(n, -1).T
+    return _all_gather(local, 0, part.mesh.get_group(TP), part.tp).T.unflatten(0, x.shape[:-1])
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, part=None) -> torch.Tensor:
     """Logits (B, S, V_pad) for ``batch["tokens"]`` (B, S) int; with
-    ``part``, this rank's rows, the sequence whole."""
+    ``part``, this rank's rows, the sequence and the vocabulary whole
+    (``_logits``)."""
     x = hidden_states(params, batch, cfg, part)
     if part is not None:
         p = _seq_part(part, batch, cfg)
         if p.seq:
             from ..distributed.sharding import TP, _all_gather
             x = _all_gather(x, 1, p.mesh.get_group(TP), p.tp)
-    return x @ _head(params, cfg, x.dtype, part)
+    return _logits(params, x, cfg, part)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
@@ -451,21 +547,26 @@ def nll_terms(params: dict, batch: dict, cfg: ModelConfig, loss_chunks: int = 8,
               part=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of the unmasked tokens' cross entropy, their count), both 0-d
     f32: ``loss_fn`` divides them; a meshed step sums both over the ranks
-    that split the tokens first (``nll_sum_axes``), so its loss is the
-    global batch's masked mean.  With ``part`` they are this rank's
-    tokens': its rows, and its shard of the sequence when split.
+    that split the batch first (``nll_sum_axes``), so its loss is the
+    global batch's masked mean.  With ``part`` they are this rank's rows'.
 
     The LM head and the CE run in ``loss_chunks`` token chunks (one chunk
     when B * S does not divide), so only one chunk of f32 logits is live
-    at a time: qwen3's vocabulary is 151,936."""
+    at a time: qwen3's vocabulary is 151,936.  Over "model" the sequence
+    is gathered before the head (``Partition.tp_enter``), each rank
+    computes the logits of its vocabulary columns and the cross entropy
+    is vocab-parallel (``sharding.VocabParallelNLL``), so every "model"
+    rank holds the whole sequence's complete terms; the padded columns
+    stay in the logsumexp, as the reference keeps them."""
     x = hidden_states(params, batch, cfg, part)
     labels = batch["labels"]
     if cfg.frontend == "vision_stub":
         pad = labels.new_full((labels.shape[0], batch["prefix_embeds"].shape[1]), -1)
         labels = torch.cat([pad, labels], dim=1)
-    if part is not None:
-        part = _seq_part(part, batch, cfg)
-        labels = part.local_seq(labels)
+    vocab = _vocab_parallel(part)
+    if vocab:
+        from ..distributed.sharding import TP, VocabParallelNLL
+        x = _seq_part(part, batch, cfg).tp_enter(x)
     head = _head(params, cfg, x.dtype, part)
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
@@ -475,19 +576,23 @@ def nll_terms(params: dict, batch: dict, cfg: ModelConfig, loss_chunks: int = 8,
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for x_c, l_c in zip(xt.reshape(n_chunks, -1, D), lt.reshape(n_chunks, -1)):
         logits = (x_c @ head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, l_c.clamp(min=0)[:, None])[:, 0]
         mask = (l_c >= 0).float()
-        total = total + ((lse - ll) * mask).sum()
+        if vocab:
+            nll = VocabParallelNLL.apply(logits, l_c, part.rank * head.shape[1], part.mesh, TP)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            nll = lse - logits.gather(-1, l_c.clamp(min=0)[:, None])[:, 0]
+        total = total + (nll * mask).sum()
         count = count + mask.sum()
     return total, count
 
 
-def nll_sum_axes(part, batch: dict, cfg: ModelConfig) -> tuple:
+def nll_sum_axes(part) -> tuple:
     """The mesh axes ``nll_terms``' terms are summed over: the data axes
-    when they split the batch, "model" when it splits the sequence."""
-    p = _seq_part(part, batch, cfg)
-    return p.sum_axes(model=p.seq)
+    when they split the batch.  Never "model": there every rank holds the
+    whole sequence's terms (the vocab-parallel head), and a sum would
+    count each token tp times."""
+    return part.sum_axes(model=False)
 
 
 def split_batch(batch: dict, mesh) -> dict:
@@ -567,14 +672,18 @@ def reset_lanes(state: dict, cfg: ModelConfig, lanes: list[int]) -> dict:
 
 def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch.Tensor,
                  cfg: ModelConfig, enc_out=None, write=None, part=None,
-                 heads=None) -> torch.Tensor:
+                 heads=None, head_dim: bool = False) -> torch.Tensor:
     """One token through one block; ``state`` (a KV cache, or the views
     of a recurrent state's period row) is written in place.  ``write``
     (B,) bool: the lanes whose recurrent state takes the step (all when
     None); a KV cache is written in every lane, at its length.  With
-    ``part``, the rank's attention ``heads`` (None: the block whole)."""
+    ``part``, the rank's attention ``heads`` (None: the block whole), and
+    with ``head_dim`` a cache holding the rank's head_dim columns
+    (``layers.attn_decode_head_dim``)."""
     h = L.norm_apply(params["norm1"], x, cfg)
-    if kind == "attn":
+    if kind == "attn" and head_dim:
+        o, _ = L.attn_decode_head_dim(params["attn"], h, state, lengths, cfg, part, heads)
+    elif kind == "attn":
         o, _ = L.attn_decode(params["attn"], h, state, lengths, cfg,
                              **({"part": part, "heads": heads} if heads is not None else {}))
     else:
@@ -615,34 +724,50 @@ def _kv_heads_local(spec: dict, part) -> bool:
     return part.tp > 1 and TP in axes_of(spec["k"][1])
 
 
+def _head_dim_local(spec: dict, part) -> bool:
+    """An attention cache laid out with its head_dim on "model" (the
+    head_dim layout): each rank holds, writes and reads its columns of
+    every head (``layers.attn_decode_head_dim``)."""
+    from ..distributed.sharding import TP, axes_of
+    return part.tp > 1 and TP in axes_of(spec["k"][-1])
+
+
 def _decode_block(kind: str, local: dict, specs: dict, x: torch.Tensor, state,
                   lengths: torch.Tensor, cfg: ModelConfig, spec, part, **kw) -> torch.Tensor:
     """One layer's decode step on a mesh: its leaves gathered on use from
     this rank's blocks ``local`` (specs ``specs``) and ``state`` this
     rank's block of the layer's decode state (specs ``spec``, batch first).
     Under the kv_head layout the rank writes and attends over its own KV
-    heads and nothing of the cache moves (unless its heads do not split:
-    then as the other layouts).  Otherwise each state tensor is
-    gathered over the axes that cut it off the batch (``_state_axes``),
+    heads (unless its heads do not split: then as the seq layout), and
+    under the head_dim layout over its head_dim columns of every head:
+    nothing of the cache moves over "model".  Otherwise each state tensor
+    is gathered over the axes that cut it off the batch (``_state_axes``),
     the block decodes on the whole (an attention block's KV for every
     head, its queries the rank's heads), and the rank keeps its block of
-    what it wrote."""
-    heads = _heads(cfg, part, decode=True) if kind == "attn" else None
+    what it wrote; under the head_dim layout that is only the sequence
+    over the data axes (a batch too small to split)."""
+    from ..distributed.sharding import TP
+    split = kind == "attn" and _head_dim_local(spec, part)
+    heads = None
+    if kind == "attn":        # the split kernels take any group; the fused one its GROUPS
+        heads = _heads(cfg, part) if split else _heads(cfg, part, decode=True)
     own = heads is not None and _kv_heads_local(spec, part)
     params = _take(part, local, specs, cfg, heads, whole_kv=not own)
     if own:
         return _slot_decode(kind, params, x, state, lengths, cfg, part=part, heads=heads, **kw)
     from ..distributed.sharding import gather, shard_slices
     names = ("k", "v") if kind == "attn" else range(len(state))
+    axes = {n: [a for a in _state_axes(spec[n], part.mesh) if not (split and a == TP)]
+            for n in names}
     whole = {} if kind == "attn" else [None] * len(state)
     for n in names:
-        whole[n] = gather(state[n], spec[n], part.mesh, axes=_state_axes(spec[n], part.mesh))
+        whole[n] = gather(state[n], spec[n], part.mesh, axes=axes[n])
     x = _slot_decode(kind, params, x, whole if kind == "attn" else tuple(whole), lengths, cfg,
-                     part=part, heads=heads, **kw)
+                     part=part, heads=heads, head_dim=split, **kw)
     for n in names:
-        axes = _state_axes(spec[n], part.mesh)
-        if axes and whole[n] is not state[n]:
-            state[n].copy_(whole[n][shard_slices(whole[n].shape, spec[n], part.mesh, axes=axes)])
+        if axes[n] and whole[n] is not state[n]:
+            state[n].copy_(whole[n][shard_slices(whole[n].shape, spec[n], part.mesh,
+                                                 axes=axes[n])])
     return x
 
 
@@ -690,5 +815,5 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor, lengths: torch.
                 x = _decode_block(kind, local, specs[slot][0], x, st, lengths, cfg,
                                   specs[slot][1], part, enc_out=enc_out, write=write)
     x = _final_norm(params, x, cfg, part)
-    logits = (x @ _head(params, cfg, x.dtype, part))[:, 0, :]
+    logits = _logits(params, x, cfg, part)[:, 0, :]
     return logits, state

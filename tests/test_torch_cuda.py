@@ -177,6 +177,111 @@ def test_cuda_decode_attention_every_group_and_dim(cuda, dtype):
                                ref.decode_attention_ref(q, k, v, ln).float(), **_tol(dtype))
 
 
+#: the head_dim layout's slices at the zoo's decode shapes: (B, Hq, Hkv,
+#: S, D, ranks): qwen3 at 2 and 16 ranks, dbrx's group 6, kimi-k2's Dl of
+#: 7, internvl2's Dl of 4 (group 7) and the router (f32 only)
+SPLIT_SHAPES = [(4, 16, 8, 4096, 128, 2), (4, 16, 8, 4096, 128, 16), (4, 48, 8, 4096, 128, 16),
+                (4, 64, 8, 4096, 112, 16), (4, 14, 2, 4096, 64, 16), (4, 4, 2, 512, 64, 2)]
+
+
+def split_decode(q, k, v, lens, ranks: int):
+    """decode_scores on each rank's head_dim slice, the slices' scores
+    summed (the all-reduce), decode_combine on each slice, the outputs'
+    columns joined: (output, per-slice scores, summed scores)."""
+    D = q.shape[-1]
+    cols = [slice(r * D // ranks, (r + 1) * D // ranks) for r in range(ranks)]
+    parts = [ops.decode_scores(q[..., c].contiguous(), k[..., c].contiguous(), lens,
+                               sm_scale=D ** -0.5) for c in cols]
+    s = torch.stack(parts).sum(0)
+    return (torch.cat([ops.decode_combine(s, v[..., c].contiguous(), lens) for c in cols], -1),
+            parts, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [(dt, sh) for sh in SPLIT_SHAPES for dt in DTYPES
+                                         if sh != SPLIT_SHAPES[-1] or dt == "float32"],
+                         ids=lambda t: "x".join(map(str, t)) if isinstance(t, tuple) else t)
+def test_cuda_decode_split_matches_plain(cuda, dtype, shape):
+    """Each slice's decode_scores and decode_combine against their plain
+    versions on the same inputs (one launch a call), and the joined output
+    against the fused decode_attention kernel and its plain version;
+    lengths 0 (zeros), 1, a full cache and between (the router in f32, as
+    it decodes)."""
+    B, Hq, Hkv, S, D, ranks = shape
+    dt = getattr(torch, dtype)
+    lens = [0, 1, S, S // 2 + 77][:B]
+    q, k, v, ln = _decode_inputs(cuda, dt, B, Hq, Hkv, S, D, lens)
+    n0 = dict(ops.LAUNCHES)
+    got, parts, s = split_decode(q, k, v, ln, ranks)
+    assert ops.LAUNCHES["decode_scores"] == n0["decode_scores"] + ranks
+    assert ops.LAUNCHES["decode_combine"] == n0["decode_combine"] + ranks
+    Dl = D // ranks
+    for r, part in enumerate(parts):
+        c = slice(r * Dl, (r + 1) * Dl)
+        want = ref.decode_scores_ref(q[..., c], k[..., c], ln, sm_scale=D ** -0.5)
+        torch.testing.assert_close(part, want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ops.decode_combine(s, v[..., c].contiguous(), ln).float(),
+                                   ref.decode_combine_ref(s, v[..., c], ln).float(), **_tol(dtype))
+    assert torch.all(got[0] == 0)
+    torch.testing.assert_close(got.float(), ops.decode_attention(q, k, v, ln).float(),
+                               **_tol(dtype))
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, k, v, ln).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_split_one_kernel_node_per_call(cuda):
+    """decode_scores and decode_combine captured in a CUDA graph: one
+    kernel node a call and no other node, decode_combine on both plans
+    (split over blocks at B*Hkv = 8, one block at 264 x 2 over 512
+    positions, after a warm-up call has made the workspace); the replay
+    matches the plain versions."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_split import combine_plan
+    plans = set()
+    for B, Hkv, S, lens in ((4, 2, 4096, [1, 100, 4096, 2000]), (264, 2, 512, [512, 3] * 132)):
+        q, k, v, ln = _decode_inputs(cuda, torch.bfloat16, B, 6 * Hkv, Hkv, S, 8, lens)
+        plans.add(combine_plan(B, Hkv, S, build.sm_count(0)) > 1)
+        s = ops.decode_scores(q, k, ln, sm_scale=0.1)
+        ops.decode_combine(s, v, ln)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            s = ops.decode_scores(q, k, ln, sm_scale=0.1)
+            outs = [ops.decode_combine(s, v, ln) for _ in range(2)]
+        assert build.graph_nodes(g) == (3, 3)
+        g.instantiate()
+        g.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, ref.decode_scores_ref(q, k, ln, sm_scale=0.1),
+                                   atol=1e-4, rtol=1e-4)
+        for got in outs:
+            torch.testing.assert_close(got.float(), ref.decode_combine_ref(s, v, ln).float(),
+                                       **_tol("bfloat16"))
+    assert plans == {False, True}
+
+
+@pytest.mark.cuda
+def test_cuda_decode_split_refuses_what_it_lacks(cuda):
+    """Under grad, a float16 cache, a group of 32, a slice of 129 columns
+    and tensors on the CPU each raise before any launch."""
+    q, k, v, ln = _decode_inputs(cuda, torch.float32, 2, 4, 2, 64, 8, [3, 64])
+    n0 = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.decode_scores(q.clone().requires_grad_(True), k, ln, sm_scale=1.0)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.decode_scores(q.half(), k.half(), ln, sm_scale=1.0)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.decode_scores(torch.randn(2, 64, 8, device=cuda), k, ln, sm_scale=1.0)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.decode_combine(torch.zeros(2, 4, 64, device=cuda),
+                           torch.randn(2, 2, 64, 129, device=cuda), ln)
+    from repro_torch.kernels.decode_split import decode_scores
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_scores(q.cpu(), k.cpu(), ln.cpu(), sm_scale=1.0)
+    assert dict(ops.LAUNCHES) == n0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_decode_attention_split_calls_of_more_pairs_after_fewer(cuda, dtype):

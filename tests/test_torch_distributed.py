@@ -43,6 +43,7 @@ its results to a file that the four tests below read:
 f32 but for the sharded train step; the sums over ranks run in another
 order than the unmeshed ones, hence the tolerances.
 """
+import inspect
 import json
 import os
 import socket
@@ -74,7 +75,19 @@ TIMEOUT_S = 200          # the whole 4-rank run, start to finish
 S, MB, F = 4, 6, 8       # pipeline: stages, microbatches, width
 LR = 1e-3
 
-_WORKER = r'''
+def _caches(state, specs=None):
+    """Every attention cache of a decode state, by a name of its own:
+    (name, cache tensor, its spec in ``specs``, the states' specs, or None)."""
+    for slot in sorted(state):
+        st, sp = state[slot], (specs or {}).get(slot)
+        for j, c in (enumerate(st) if isinstance(st, list) else [("", st)]):
+            if isinstance(c, dict):
+                cs = sp[j] if isinstance(st, list) and sp else sp
+                for n in ("k", "v"):
+                    yield f"{slot}{j}_{n}", c[n], cs[n] if cs else None
+
+
+_WORKER = inspect.getsource(_caches) + r'''
 import json
 import sys
 from datetime import timedelta
@@ -280,10 +293,21 @@ for name, case in part["cases"].items():
                 toks.append(nt.numpy())
                 logs.append(lg.numpy())
             out[f"{tag}_{layout}_toks"], out[f"{tag}_{layout}_logits"] = np.stack(toks), np.stack(logs)
+            if layout == "head_dim":
+                # the rank's block of every attention cache after the steps,
+                # and where it lies in the whole cache
+                whole_state = {key: (t, sp) for key, t, sp in
+                               _caches(T.init_decode_state(cfg, 4, part["max_len"], "meta"), specs)}
+                for key, t, sp in _caches(state, specs):
+                    out[f"{tag}_{layout}_{key}"] = t.numpy()
+                    out[f"{tag}_{layout}_{key}_at"] = np.array(
+                        [(sl.start, sl.stop) for sl in
+                         SH.shard_slices(whole_state[key][0].shape, sp, mesh)], np.int64)
             if layout == "seq":
                 continue
-            # one step's collective bytes at two cache lengths
-            moved = []
+            # one step's collective bytes at two cache lengths, in all and
+            # by kind (all-gather, all-reduce)
+            moved, kinds = [], []
             for max_len in (part["max_len"], 2 * part["max_len"]):
                 state = map_like(lambda t, s: shard(t, s, mesh),
                                  T.init_decode_state(cfg, 4, max_len, "cpu"), specs)
@@ -292,7 +316,36 @@ for name, case in part["cases"].items():
                     serve(params, state, {"tokens": torch.from_numpy(a["serve_tokens"][0]),
                                           "lengths": torch.from_numpy(a["serve_lengths"][0]), **extra})
                 moved.append(sum(r["bytes"] for r in counter.collectives.values()))
+                kinds.append([counter.collectives.get(k, {}).get("bytes", 0)
+                              for k in ("all-gather", "all-reduce")])
             out[f"{tag}_{layout}_moved"] = np.array(moved, np.int64)
+            out[f"{tag}_{layout}_kinds"] = np.array(kinds, np.int64)
+
+# (g) the vocab-parallel head and cross entropy in float64 on (2, 2) and
+# (1, 4), under each remat policy (REPRO_REMAT_POLICY, read per step)
+import os
+v64 = json.loads((work / "vocab64.json").read_text())
+for name, arch in v64["cases"].items():
+    cfg = get_config(arch).reduced(dtype="float64", param_dtype="float64")
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=v64["n_experts"],
+                                       capacity_factor=v64["capacity_factor"]))
+    a = np.load(work / f"v64_{name}.npz")
+    whole = unflatten(M.abstract_params(cfg), [torch.from_numpy(a[f"leaf{i}"])
+                                              for i in range(int(a["n_leaves"]))])
+    batch = {k: torch.from_numpy(a[k]) for k in ("tokens", "labels")}
+    for shape in v64["meshes"]:
+        mesh = make_host_mesh(*shape)
+        params = M.shard_params(whole, cfg, mesh)
+        for policy in v64["policies"]:
+            os.environ["REPRO_REMAT_POLICY"] = policy
+            loss, grads = M.loss_and_grads(params, batch, cfg, mesh)
+            tag = f"v64_{name}_{shape[0]}x{shape[1]}_{policy}"
+            out[tag + "_loss"] = np.float64(loss)
+            for i, t in enumerate(leaves(map_like(lambda t, s: gather(t, s, mesh), grads,
+                                                  M.spec_tree(cfg)))):
+                out[f"{tag}_grad{i}"] = t.numpy()
+        os.environ.pop("REPRO_REMAT_POLICY", None)
 
 np.savez(work / f"rank{rank}.npz", **out)
 dist.barrier()
@@ -476,6 +529,7 @@ def _partitioned_inputs(work: Path, rs, meshed: dict) -> dict:
         save["serve_tokens"] = np.stack([t for t, _ in ins])
         save["serve_lengths"] = np.stack([n for _, n in ins])
         ref["serve"] = (np.stack(outs), np.stack(logits))
+        ref["caches"] = {key: t.numpy() for key, t, _ in _caches(state)}
         # the bytes of one layer's leaves (the largest), of embed and of the head
         layers = [leaves(T._index(params["body"][slot], p)) for slot in params["body"]
                   for p in range(cfg.n_periods)]
@@ -492,6 +546,43 @@ def _partitioned_inputs(work: Path, rs, meshed: dict) -> dict:
     (work / "partitioned.json").write_text(json.dumps({
         "cases": cases, "meshes": PART_MESHES, "steps": PART_STEPS,
         "max_len": PART_MAX_LEN, "capacity_factor": CAPACITY}))
+    return refs
+
+
+#: the vocab-parallel train step in float64: reduced qwen3 and dbrx (8
+#: experts, a capacity that drops nothing) on (2, 2) and (1, 4), under both
+#: remat policies, against the unmeshed step
+V64_CASES = {"qwen3": "qwen3-1.7b", "dbrx": "dbrx-132b"}
+V64_POLICIES = ("nothing", "dots")
+
+
+def v64_cfg(arch: str):
+    cfg = get_config(arch).reduced(dtype="float64", param_dtype="float64")
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=N_EXPERTS[arch],
+                                       capacity_factor=CAPACITY))
+    return cfg
+
+
+def _vocab64_inputs(work: Path, rs) -> dict:
+    """Per case: f64 params (seeded, saved leaf by leaf for the ranks), a
+    batch of 4 rows of 16 tokens with a quarter of the labels masked, and
+    the unmeshed port's loss and gradients."""
+    (work / "vocab64.json").write_text(json.dumps({
+        "cases": V64_CASES, "meshes": PART_MESHES, "policies": V64_POLICIES,
+        "n_experts": N_EXPERTS["dbrx-132b"], "capacity_factor": CAPACITY}))
+    refs = {}
+    for name, arch in V64_CASES.items():
+        cfg = v64_cfg(arch)
+        params = M.init_params(cfg, seed=5, device="cpu")
+        batch = {"tokens": rs.randint(4, cfg.vocab, (4, 16)).astype(np.int32),
+                 "labels": rs.randint(4, cfg.vocab, (4, 16)).astype(np.int32)}
+        batch["labels"][rs.rand(4, 16) < 0.25] = -1
+        loss, grads = M.loss_and_grads(params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                       cfg)
+        save = {f"leaf{i}": t.numpy() for i, t in enumerate(leaves(params))}
+        np.savez(work / f"v64_{name}.npz", n_leaves=len(save), **save, **batch)
+        refs[name] = {"loss": float(loss), "grads": [g.numpy() for g in leaves(grads)]}
     return refs
 
 
@@ -539,6 +630,7 @@ def gloo(tmp_path_factory):
     np.savez(work / "train.npz", lr=np.float64(LR), **batches)
     meshed = _meshed_inputs(work, rs)
     partitioned = _partitioned_inputs(work, rs, meshed)
+    vocab64 = _vocab64_inputs(work, rs)
     # the unmeshed step on the whole batch
     params = M.init_params(qcfg, seed=0, device="cpu")
     opt_cfg = AdamWConfig(lr=LR)
@@ -583,7 +675,7 @@ def gloo(tmp_path_factory):
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(RANKS)]
     return {"ranks": ranks, "moe": (p0, x, c, moe_want), "pipe": (ws, xs),
             "train": (losses, params), "ckpt": (ccfg, ckpt), "qcfg": qcfg, "meshed": meshed,
-            "partitioned": partitioned}
+            "partitioned": partitioned, "vocab64": vocab64}
 
 
 def test_expert_parallel_moe_matches_jax_local_and_its_gradients(gloo):
@@ -865,9 +957,103 @@ def test_kv_head_serve_step_moves_no_cache_bytes(gloo, name, shape):
     """A serve step's collective bytes (the dry run's ``Counter`` on the
     gloo ranks) at two cache lengths: the same under the kv_head layout,
     where each rank writes and reads its own KV heads, and more at the
-    longer cache under head_dim, whose layers gather their cache."""
+    longer cache under head_dim, whose partial scores (B, H, S) are
+    all-reduced."""
     tag = _tag(name, shape)
     for r in gloo["ranks"]:
         kv, hd = r[tag + "_kv_head_moved"], r[tag + "_head_dim_moved"]
         assert kv[0] > 0 and kv[0] == kv[1], kv
         assert hd[1] > hd[0] > kv[0], (hd, kv)
+
+
+def _attn_layers(cfg) -> int:
+    return sum(k == "attn" for k in cfg.block_pattern) * cfg.n_periods + cfg.n_dense_prefix
+
+
+@pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_head_dim_serve_cache_blocks_equal_the_unmeshed_cache(gloo, name, shape):
+    """After 16 serve steps under the head_dim layout each rank's block of
+    every attention cache (its rows over "data", its head_dim columns over
+    "model") equals that block of the unmeshed cache: each rank wrote its
+    own columns at each lane's length."""
+    ref, tag = gloo["partitioned"][name], _tag(name, shape)
+    for r in gloo["ranks"]:
+        for key, whole in ref["caches"].items():
+            at = tuple(slice(a, b) for a, b in r[f"{tag}_head_dim_{key}_at"])
+            got = r[f"{tag}_head_dim_{key}"]
+            assert got.shape == whole[at].shape and got.shape[-1] < whole.shape[-1]
+            np.testing.assert_allclose(got, whole[at], atol=1e-5 * np.abs(whole).max(), rtol=0,
+                                       err_msg=f"{tag} {key}")
+
+
+@pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_head_dim_serve_step_gathers_no_cache(gloo, name, shape):
+    """A head_dim serve step's collective bytes (the dry run's ``Counter``
+    on the gloo ranks) at a cache twice as long: the all-gathers (layer
+    leaves, the queries' heads, the outputs' columns, the logits'
+    vocabulary) move the same bytes, so no cache byte is gathered; the
+    all-reduces grow by exactly the partial scores' growth, one f32 (B,
+    H, S) a layer."""
+    cfg, tag = part_cfg(PART_CASES[name]), _tag(name, shape)
+    for r in gloo["ranks"]:
+        (ag0, ar0), (ag1, ar1) = r[tag + "_head_dim_kinds"]
+        rows = len(r[tag + "_rows"])
+        assert ag0 == ag1 > 0, (ag0, ag1)
+        assert ar1 - ar0 == _attn_layers(cfg) * rows * cfg.n_heads * PART_MAX_LEN * 4, (ar0, ar1)
+
+
+@pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_meshed_logits_are_whole_over_the_vocabulary(gloo, name, shape):
+    """The prefill step and the serve step return the rank's rows over the
+    whole padded vocabulary, equal to the unmeshed logits within 1e-5 of
+    the largest: the serve step's (and the prefill's on (2, 2), 32 rows
+    under d_model 64) gathered from each rank's head columns, the
+    prefill's on (1, 4) (64 rows) through the head gathered whole."""
+    cfg, ref, tag = part_cfg(PART_CASES[name]), gloo["partitioned"][name], _tag(name, shape)
+    _, logits = ref["serve"]
+    for r in gloo["ranks"]:
+        rows = r[tag + "_rows"]
+        assert r[tag + "_prefill"].shape == (len(rows),) + ref["prefill"].shape[1:-1] + \
+            (cfg.padded_vocab,)
+        got = r[tag + "_head_dim_logits"]
+        assert got.shape == (PART_STEPS, len(rows), cfg.padded_vocab)
+        np.testing.assert_allclose(got, logits[:, rows], atol=1e-5 * np.abs(logits).max(), rtol=0)
+
+
+V64_IDS = [(name, shape, policy) for name in V64_CASES for shape in PART_MESHES
+           for policy in V64_POLICIES]
+
+
+@pytest.mark.parametrize("name,shape,policy", V64_IDS,
+                         ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
+def test_vocab_parallel_train_step_matches_unmeshed_in_f64(gloo, name, shape, policy):
+    """The meshed ``loss_and_grads`` in float64 with the head and the cross
+    entropy vocab-parallel over "model" (the embedding's rows and the
+    head's columns never gathered) under each remat policy: every rank's
+    loss equals the unmeshed port's (each "model" rank holds the whole
+    sequence's terms; summing them over "model" would give tp times it),
+    and its gradients, gathered from the shards, each leaf within 1e-6 of
+    its largest (the logits are f32, as unmeshed)."""
+    ref = gloo["vocab64"][name]
+    tag = f"v64_{name}_{shape[0]}x{shape[1]}_{policy}"
+    for r in gloo["ranks"]:
+        assert float(r[tag + "_loss"]) == pytest.approx(ref["loss"], abs=1e-6, rel=0)
+        for i, g in enumerate(ref["grads"]):
+            np.testing.assert_allclose(r[f"{tag}_grad{i}"], g, atol=1e-6 * np.abs(g).max(),
+                                       rtol=0, err_msg=f"{tag} grad leaf {i}")
+
+
+@pytest.mark.parametrize("name,shape", [(n, s) for n in V64_CASES for s in PART_MESHES],
+                         ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
+def test_dots_remat_policy_changes_no_number(gloo, name, shape):
+    """``REPRO_REMAT_POLICY=dots`` (the products' outputs saved, the rest
+    of each period recomputed) gives the meshed train step's loss and
+    gradients bit for bit as the default "nothing" (all recomputed)."""
+    tag = f"v64_{name}_{shape[0]}x{shape[1]}"
+    for r in gloo["ranks"]:
+        assert r[tag + "_dots_loss"] == r[tag + "_nothing_loss"]
+        for i in range(len(gloo["vocab64"][name]["grads"])):
+            assert np.array_equal(r[f"{tag}_dots_grad{i}"], r[f"{tag}_nothing_grad{i}"]), i

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 from repro.launch import hlo_walk as JHW  # noqa: E402
 from repro_torch.configs import all_arch_ids, get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
+from repro_torch.kernels import decode_split as DS  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import moe_router as MR  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -221,6 +222,41 @@ def test_shape_rules_equal_the_plain_versions(dtype):
     assert MR.moe_router_work(logits, 4) == (0.0, 4 * 7 * 16 + 8 * 7 * 4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_decode_rules_equal_the_plain_versions(dtype):
+    """``decode_scores``' and ``decode_combine``'s shape rules give their
+    plain versions' shapes, dtypes and device (f32 scores, the output in
+    the cache's dtype), with no build and no launch, and refuse what the
+    kernels lack (a group of 32, a slice wider than 128 columns, bf16
+    scores); their work rules count the products over the padded cache
+    and each operand and result once."""
+    from repro_torch.kernels import build
+    g = torch.Generator().manual_seed(1)
+    B, Hq, Hkv, S, Dl = 2, 12, 2, 40, 7
+    q, k, v = (torch.randn(shape, generator=g).to(dtype)
+               for shape in ((B, Hq, Dl), (B, Hkv, S, Dl), (B, Hkv, S, Dl)))
+    lengths = torch.tensor([3, 40], dtype=torch.int32)
+    before = dict(ops.LAUNCHES)
+    s = ref.decode_scores_ref(q, k, lengths, sm_scale=0.1)
+    _same(DS.decode_scores_abstract(q, k, lengths, sm_scale=0.1), s)
+    _same(DS.decode_combine_abstract(s, v, lengths), ref.decode_combine_ref(s, v, lengths))
+    assert s.dtype == torch.float32
+    assert dict(ops.LAUNCHES) == before and not build._LIBS
+    e = q.element_size()
+    assert DS.decode_scores_work(q, k, lengths, sm_scale=0.1) == (
+        2.0 * B * Hq * S * Dl, e * (q.numel() + k.numel()) + 4 * B + 4 * B * Hq * S)
+    assert DS.decode_combine_work(s, v, lengths) == (
+        2.0 * B * Hq * S * Dl, 4 * s.numel() + e * v.numel() + 4 * B + e * B * Hq * Dl)
+    with pytest.raises(ValueError, match="unsupported"):
+        DS.decode_scores_abstract(torch.empty(1, 32, 8), torch.empty(1, 1, 4, 8),
+                                  torch.ones(1, dtype=torch.int32), sm_scale=1.0)
+    with pytest.raises(ValueError, match="unsupported"):
+        DS.decode_combine_abstract(torch.empty(1, 2, 4), torch.empty(1, 1, 4, 129),
+                                   torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="float32 scores"):
+        DS.decode_combine_abstract(s.to(torch.bfloat16), v, lengths)
+
+
 def test_kernel_entries_take_meta_tensors_to_their_shape_rules():
     """``kernels.ops`` on meta tensors: the shape rules, no launch; under
     grad the autograd Functions carry the rules to the backward."""
@@ -341,10 +377,13 @@ def test_cli_cell_ends_ok_with_the_reference_keys(cli, cell):
     mem = res["memory"]
     assert mem["total_per_device"] == mem["argument_size_in_bytes"] + mem["peak_live_size_in_bytes"]
     assert res["trace_s"] > 0 and res["ops"]
-    # full width and nothing allocated: each process stayed far below the
-    # bytes the rank would hold (5.5 GiB for the decode cell, 449 for the
-    # train cell)
-    assert max_rss_kb * 1024 < min(4 << 30, mem["total_per_device"])
+    # full width and nothing allocated: each process (the largest resident
+    # set of the three) stayed far below the bytes the largest rank would
+    # hold (449 GiB for the train cell) and under 4 GiB; the decode cell's
+    # rank, its embedding and head cut over the vocabulary, holds 1.8 GiB,
+    # less than a process that has imported torch and traced a train step
+    largest = max(r[2]["memory"]["total_per_device"] for r in runs.values())
+    assert max_rss_kb * 1024 < min(4 << 30, largest)
 
 
 def test_dense_compute_repeats_over_the_model_axis(cli):
@@ -435,3 +474,30 @@ def test_cli_on_cuda_needs_a_cuda_build():
         pytest.skip("PyTorch is built with CUDA here: fake CUDA tensors can be made")
     with pytest.raises(RuntimeError, match="--device cpu"):
         D.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--mesh", "single"])
+
+
+def test_head_dim_decode_moves_a_tenth_of_the_cache_on_16x16():
+    """A reduced qwen3 with 8 KV heads of 64 dims (the head_dim layout at
+    16 "model" ranks, 4 columns a rank) decoding B = 256 over a cache of
+    4096 on a fake 16x16 group: its collective bytes are under a tenth of
+    the cache bytes that gathering each layer's K and V over "model" (the
+    layout's decode before the split kernels) would return, and its
+    all-reduces hold the partial scores, one f32 (B, H, S) a layer, each
+    layer calling decode_scores and decode_combine once."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_config("qwen3-1.7b").reduced(**dict(SMALL_16, n_kv_heads=8, d_head=64))
+    B, S = 256, 4096
+    D.start_fake_group(256)
+    try:
+        dec = D.trace_cell(cfg, M.ShapeSpec("d", S, B, "decode"), make_production_mesh(), "cpu")
+    finally:
+        dist.destroy_process_group()
+    rows = B // 16
+    cache_gather = cfg.n_layers * 2 * rows * cfg.n_kv_heads * S * cfg.head_dim * 2
+    assert dec["collectives"]["total_bytes"] < cache_gather / 10
+    assert dec["collectives"]["all-reduce"]["bytes"] >= cfg.n_layers * rows * cfg.n_heads * S * 4
+    kernels = {k: n for k, n in dec["ops"].items() if k in ("decode_scores", "decode_combine",
+                                                            "decode_attention")}
+    assert kernels == {"decode_scores": cfg.n_layers, "decode_combine": cfg.n_layers}, kernels

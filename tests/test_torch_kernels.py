@@ -156,6 +156,83 @@ def test_decode_attention_zero_length_gives_zeros():
 
 
 # ---------------------------------------------------------------------------
+# decode attention split over head_dim slices (the head_dim cache layout)
+# ---------------------------------------------------------------------------
+def _split_decode(q, k, v, lens, slices: int):
+    """``decode_scores`` of each head_dim slice summed (the all-reduce),
+    then ``decode_combine`` of each slice, the slices' outputs joined."""
+    D = q.shape[-1]
+    Dl = D // slices
+    cols = [slice(i * Dl, (i + 1) * Dl) for i in range(slices)]
+    s = sum(ops.decode_scores(q[..., c].contiguous(), k[..., c].contiguous(), lens,
+                              sm_scale=1.0 / np.sqrt(D)) for c in cols)
+    return torch.cat([ops.decode_combine(s, v[..., c].contiguous(), lens) for c in cols], dim=-1)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (2, 8, 4, 256, 32),     # group 2
+    (3, 2, 2, 64, 16),      # group 1
+    (1, 6, 1, 128, 28),     # group 6; Dl 28, 14, 7
+    (4, 12, 2, 96, 56)])    # group 6; Dl 56, 28, 14
+def test_decode_split_plain_matches_jax_decode_attention(B, Hq, Hkv, S, D, slices):
+    """The plain split, the slices' scores summed as the all-reduce sums
+    them, against JAX's ``decode_attention_ref`` and the port's fused
+    plain version in f32: lengths of 1, a full cache and between."""
+    rs = np.random.RandomState(B * 100 + S + D + slices)
+    q = rs.randn(B, Hq, D).astype(np.float32)
+    k = rs.randn(B, Hkv, S, D).astype(np.float32)
+    v = rs.randn(B, Hkv, S, D).astype(np.float32)
+    lens = np.array([1, S, S // 2 + 5, 9][:B], np.int32)
+    want = jref.decode_attention_ref(*(jnp.asarray(a) for a in (q, k, v, lens)))
+    tq, tk, tv, tl = (torch.from_numpy(a) for a in (q, k, v, lens))
+    got = _split_decode(tq, tk, tv, tl, slices)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol("float32"))
+    np.testing.assert_allclose(got.numpy(), ops.decode_attention(tq, tk, tv, tl).numpy(),
+                               **_tol("float32"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,slices", [
+    (2, 16, 2, 64, 112, 16),    # kimi-k2's heads over 16 ranks: Dl 7, group 8
+    (2, 14, 2, 96, 64, 16),     # internvl2's: Dl 4, group 7
+    (2, 48, 8, 64, 128, 16)])   # dbrx's: Dl 8, group 6
+def test_decode_split_at_the_zoo_slices_matches_pallas(B, Hq, Hkv, S, D, slices, dtype):
+    """The zoo's head_dim layouts at 16 "model" ranks: the plain split
+    against the Pallas decode kernel in interpret mode (bf16: the caches
+    in bf16, one rounding of the output)."""
+    rs = np.random.RandomState(Hq * 10 + D)
+    q = rs.randn(B, Hq, D).astype(np.float32)
+    k = rs.randn(B, Hkv, S, D).astype(np.float32)
+    v = rs.randn(B, Hkv, S, D).astype(np.float32)
+    lens = np.array([S, 3], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    want = j_decode(jq, jk, jv, jnp.asarray(lens), block_k=32, interpret=True)
+    got = _split_decode(tq, tk, tv, torch.from_numpy(lens), slices)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+def test_decode_split_masks_past_the_length():
+    """Scores at or past a lane's length are 0 and the combine never reads
+    them (any value there leaves the output as it was); a length of 0
+    gives zeros, as the fused kernel's l == 0 guard does."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g) for shape in ((2, 4, 8), (2, 2, 16, 8),
+                                                           (2, 2, 16, 8)))
+    lens = torch.tensor([0, 5], dtype=torch.int32)
+    s = ops.decode_scores(q, k, lens, sm_scale=0.25)
+    assert s.dtype == torch.float32 and s.shape == (2, 4, 16)
+    assert torch.all(s[0] == 0) and torch.all(s[1, :, 5:] == 0) and torch.all(s[1, :, :5] != 0)
+    out = ops.decode_combine(s, v, lens)
+    assert torch.all(out[0] == 0)
+    junk = s.clone()
+    junk[1, :, 5:] = 1e4
+    assert torch.equal(ops.decode_combine(junk, v, lens), out)
+
+
+# ---------------------------------------------------------------------------
 # path lookup
 # ---------------------------------------------------------------------------
 def _key_table(rs, N):
@@ -535,9 +612,13 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
     x = torch.randn(1, 2, 5, 16, requires_grad=True)
     ops.rmsnorm(ops.attention(x, x[:, :1], x[:, :1]), torch.ones(16)).sum().backward()
     ops.moe_router(torch.randn(6, 16, requires_grad=True), 4)[0].sum().backward()
+    s = ops.decode_scores(torch.randn(1, 2, 4), torch.randn(1, 1, 8, 4),
+                          torch.tensor([5], dtype=torch.int32), sm_scale=0.25)
+    ops.decode_combine(s, torch.randn(1, 1, 8, 4), torch.tensor([5], dtype=torch.int32))
     assert ops.LAUNCHES == {"path_lookup": 0, "prefix_search": 0, "decode_attention": 0,
                             "flash_attention": 0, "rmsnorm": 0, "moe_router": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_router_bwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_router_bwd": 0,
+                            "decode_scores": 0, "decode_combine": 0}
 
 
 # ---------------------------------------------------------------------------
