@@ -602,13 +602,27 @@ def model_kernels(dev) -> dict:
 #: of head_dim is Dl = D / ranks columns: qwen3-1.7B at 2 and 16 "model"
 #: ranks (Dl 64 and 8; the second is the dry run's 16x16 path and the
 #: kernels line's row), dbrx-132b's group of 6, kimi-k2's Dl of 7,
-#: internvl2-1b's Dl of 4 (group 7) and the wikikv-router (f32)
+#: internvl2-1b's Dl of 4 (group 7), the dry run's decode_32k slice of
+#: qwen3-1.7B on 16x16 (128 sequences over 16 "data" ranks: B = 8 a rank,
+#: S = 32768, Dl 8) and the wikikv-router (f32)
 SPLIT_SHAPES = [("qwen3 tp=16", 4, 16, 8, 4096, 128, 16, "bfloat16"),
                 ("qwen3 tp=2", 4, 16, 8, 4096, 128, 2, "bfloat16"),
                 ("dbrx tp=16", 4, 48, 8, 4096, 128, 16, "bfloat16"),
                 ("kimi-k2 tp=16", 4, 64, 8, 4096, 112, 16, "bfloat16"),
                 ("internvl2 tp=16", 4, 14, 2, 4096, 64, 16, "bfloat16"),
+                ("qwen3 decode_32k tp=16", 8, 16, 8, 32768, 128, 16, "bfloat16"),
                 ("router tp=2", 4, 4, 2, 512, 64, 2, "float32")]
+
+
+def split_bounds(B, Hq, Hkv, S, Dl, elt, live, peak) -> tuple[tuple, tuple]:
+    """The bounds of one rank's decode_scores and decode_combine at a
+    slice of Dl columns over ``live`` positions in all: scores reads q,
+    the live K rows and the lengths and writes every score; combine reads
+    the live scores and V rows and the lengths and writes the output; each
+    does 2·Hq·live·Dl operations."""
+    ops = 2.0 * Hq * live * Dl
+    return (bound(B * Hq * Dl * elt + Hkv * live * Dl * elt + 4 * B * Hq * S + 4 * B, ops, peak),
+            bound(4 * Hq * live + Hkv * live * Dl * elt + B * Hq * Dl * elt + 4 * B, ops, peak))
 
 
 def split_decode_kernels(dev) -> dict:
@@ -617,7 +631,7 @@ def split_decode_kernels(dev) -> dict:
     here a sum on one card), every rank's combine against the plain
     version on that sum, and the slices' joined output against the fused
     decode_attention kernel and its plain version; the lanes at 1, a
-    quarter, a half and the whole cache.  One rank's calls timed beside
+    quarter, a half and the whole cache (twice over at B = 8).  One rank's calls timed beside
     the plain versions, one library call each (``torch.matmul`` of the q
     slice by the K slice; ``torch.softmax`` of the masked scores, then
     ``torch.matmul`` by the V slice), and the bytes bound of the live rows
@@ -633,7 +647,7 @@ def split_decode_kernels(dev) -> dict:
         q = torch.randn((B, Hq, D), generator=g).to(dev, dtype)
         k = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
         v = torch.randn((B, Hkv, S, D), generator=g).to(dev, dtype)
-        lens = [1, S // 4 + 3, S // 2 + 1, S]
+        lens = ([1, S // 4 + 3, S // 2 + 1, S] * 2)[:B]
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         Dl, scale = D // ranks, D ** -0.5
         cols = [slice(r * Dl, (r + 1) * Dl) for r in range(ranks)]
@@ -661,10 +675,7 @@ def split_decode_kernels(dev) -> dict:
         qr, kr, vr = qs[0], ks[0], vs[0]
         live, elt, G = sum(lens), q.element_size(), Hq // Hkv
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-        b_s, by_s = bound(B * Hq * Dl * elt + Hkv * live * Dl * elt + 4 * B * Hq * S + 4 * B,
-                          2.0 * Hq * live * Dl, peak)
-        b_c, by_c = bound(4 * Hq * live + Hkv * live * Dl * elt + B * Hq * Dl * elt + 4 * B,
-                          2.0 * Hq * live * Dl, peak)
+        (b_s, by_s), (b_c, by_c) = split_bounds(B, Hq, Hkv, S, Dl, elt, live, peak)
         qg = (qr.reshape(B, Hkv, G, Dl) * scale).contiguous()
         kt = kr.transpose(-1, -2)
         valid = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
@@ -693,12 +704,14 @@ def split_decode_kernels(dev) -> dict:
                 "library_ms": cuda_ms(lambda: lib(*lib_args)),
                 "library_device_ms": graph_ms(lib, lib_args)["device_ms"],
                 "bound_ms": b, "bound_by": by,
-                **({"combine_blocks": dsp.combine_plan(B, Hkv, S, torch.cuda.get_device_properties(
-                    0).multi_processor_count)} if name == "decode_combine" else {})})
+                **({"combine_blocks": dsp.combine_plan(
+                    B, Hkv, S, dsp.combine_span_min(G, Dl, elt),
+                    torch.cuda.get_device_properties(0).multi_processor_count)}
+                   if name == "decode_combine" else {})})
     entries = {}
     for name, rs in rows.items():
         entries[name] = {"name": name, "route": "cuda",
-                         "source": "src/repro_torch/kernels/csrc/decode_split.cu",
+                         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                          "replaces": "src/repro/kernels/decode_attention.py:74",
                          **rs[0], "shapes": rs[1:]}
     emit({"phase": "split_decode_kernels", **{n: rs for n, rs in rows.items()},

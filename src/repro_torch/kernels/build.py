@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("path_lookup", "prefix_search", "decode_attention", "decode_split",
+SOURCES = ("path_lookup", "prefix_search", "decode_attention", "decode_scores", "decode_combine",
            "flash_attention", "flash_attention_bwd", "moe_router", "rmsnorm")
 #: streaming multiprocessors of an H100 SXM: the launch geometries' default
 #: for callers without a card (the wrappers pass ``sm_count`` of theirs)

@@ -16,16 +16,39 @@ all-reduce (``models.layers.attn_decode_head_dim``):
 * ``decode_combine``: the summed scores (B, Hq, S) and V (B, Hkv, S, Dl)
   -> (B, Hq, Dl) in V's dtype: the masked softmax times the V slice.
 
-Both are ``csrc/decode_split.cu``; together they replace, on this layout,
+They are ``csrc/decode_scores.cu`` and ``csrc/decode_combine.cu`` (their
+shared design and helpers in ``csrc/decode_split.cuh``; two libraries, so
+that the two compile side by side); together they replace, on this layout,
 ``repro/kernels/decode_attention.py::decode_attention``.  Any Dl up to
 128 and any group Hq/Hkv up to 16 (no table of instances), float32 or
-bfloat16.  ``decode_combine`` splits a (sequence, KV head) over several
-blocks where B*Hkv blocks would leave the card short (``combine_plan``),
-the last block of each merging the partials by a ticket, as
-``decode_attention`` does, in the same workspace (``decode_attention.
-_workspace``: allocated once per device, grown, used by one launch at a
-time on the serving thread's stream).  What bounds both on
-the card: bytes (the live K or V rows, and the scores).
+bfloat16.
+
+What bounds both on the card: bytes (the live K or V rows, and the
+scores), and at a slice's narrow rows (16 bytes at Dl 8 in bf16) what
+keeps them off that bound is fixed cost and the instructions and latency
+spent on each byte.  So ``decode_scores`` walks runs of tiles
+(``scores_plan``) reading each lane's length once, K rows in registers
+where they are whole 16-byte pieces (4 positions a thread and float4
+stores where a row is one piece; 4 lanes a row where it is several, so
+that a warp's load is one contiguous run) or as a tile's run through a
+shared ring where they are not (Dl 4, 7), the next tile's loads in
+flight while this one's scores are stored; a tile past the length only
+stores zeros.  ``decode_combine`` is one pass of online softmax: where a
+V row is a power of two of whole pieces and the group is at most 4
+(qwen3's slices) each lane keeps its own running max over the rows it
+takes and a warp merges once, by shuffles; otherwise each warp streams
+chunks of 32 positions, their V run and score runs copied as 16-byte
+pieces into its own shared ring, every head's chunk max reduced in the
+same shuffles.  The launchers choose these paths and size the tiles and
+the shared memory themselves (``decode_scores`` takes its tile back
+from ``decode_scores_tile`` for the plan); Python holds only the plans.
+Where B*Hkv blocks would leave the card short ``decode_combine`` cuts
+each lane's live positions into spans of at least ``combine_span_min``
+over up to ``combine_plan`` blocks at run time (``combine_spans``
+mirrors the cut), the last block of each merging the partials by a
+ticket, as ``decode_attention`` does, in the same workspace
+(``decode_attention._workspace``: allocated once per device, grown, used
+by one launch at a time on the serving thread's stream).
 
 The plain versions are ``ref.decode_scores_ref`` and
 ``ref.decode_combine_ref``.  Decode is inference only: an input that
@@ -46,43 +69,86 @@ from .decode_attention import _workspace
 MAX_DL = 128              # columns of a slice, at most
 MAX_GROUP = 16            # query heads a KV head serves, at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SPAN_MIN = 256            # positions a decode_combine block takes at least, split or not
-BLOCKS_PER_SM = 4         # decode_combine blocks a SM the split plan aims at
-#: the C entries' arguments (csrc/decode_split.cu ScoresArgs, CombineArgs),
-#: each packed in one buffer
-_PACK_SCORES = struct.Struct("<10qd2q").pack
-_PACK_COMBINE = struct.Struct("<14q").pack
+#: the plans' constants; CHUNK and MAX_BLOCKS are csrc/decode_split.cuh's,
+#: and its launcher refuses a plan that breaks them
+SCORES_BLOCKS_PER_SM = 8  # decode_scores blocks an SM the plan aims at
+CHUNK = 32                # positions a combine warp takes at once
+MAX_BLOCKS = 64           # decode_combine blocks of one (sequence, KV head), at most
+SPAN_BYTES = 8 * 1024     # scores and V rows a combine block takes at least
+BLOCKS_PER_SM = 4         # decode_combine blocks an SM the split plan aims at
+MAX_GRID = 2 ** 31 - 1    # blocks of a grid's x dimension
+#: the C entries' arguments (ScoresArgs in csrc/decode_scores.cu, CombineArgs
+#: in csrc/decode_combine.cu), each packed in one buffer; the kernels'
+#: paths, tiles and shared memory are the launchers' own
+_PACK_SCORES = struct.Struct("<10qd3q").pack
+_PACK_COMBINE = struct.Struct("<15q").pack
 _FNS: dict[str, object] = {}
 
 
-def scores_tile(Dl: int) -> int:
-    """Positions (and threads) of a ``decode_scores`` block: its K tile of
-    tile x Dl f32 in shared memory stays under 48 KB."""
-    return 256 if Dl <= 32 else 128 if Dl <= 64 else 64
+@functools.lru_cache(maxsize=256)
+def scores_plan(B: int, Hkv: int, S: int, tile: int, n_sm: int = N_SM) -> tuple[int, int]:
+    """(blocks, tiles a block walks) of ``decode_scores`` for the kernel's
+    tile of ``tile`` positions (``csrc/decode_scores.cu::
+    decode_scores_tile``): the B*Hkv*ceil(S/tile) tiles in order, a
+    contiguous run of them a block, the grid at most SCORES_BLOCKS_PER_SM
+    blocks an SM (a block whose tile is stored has the next one's loads in
+    flight)."""
+    tiles = B * Hkv * -(-S // tile)
+    per = -(-tiles // min(tiles, SCORES_BLOCKS_PER_SM * n_sm))
+    return -(-tiles // per), per
+
+
+def combine_span_min(G: int, Dl: int, elt: int) -> int:
+    """Positions a ``decode_combine`` block takes at least: SPAN_BYTES of
+    scores and V rows, in whole CHUNKs (320 at Dl 8 in bf16 and a group
+    of 2), so that a block streams long enough to pay for its start and
+    its merge, and a long lane takes more blocks than a short one."""
+    return max(CHUNK, SPAN_BYTES // (Dl * elt + 4 * G) // CHUNK * CHUNK)
 
 
 @functools.lru_cache(maxsize=256)
-def combine_plan(B: int, Hkv: int, S: int, n_sm: int = N_SM) -> int:
+def combine_plan(B: int, Hkv: int, S: int, span_min: int, n_sm: int = N_SM) -> int:
     """Blocks a (sequence, KV head) of ``decode_combine`` takes: one when
     B*Hkv blocks give the card's ``n_sm`` SMs BLOCKS_PER_SM each, else up
-    to BLOCKS_PER_SM * n_sm // (B*Hkv) of at least SPAN_MIN positions
-    each (a block streams its span with dependent loads, so the card
-    needs several a SM to cover their latency).  Blocks past a lane's
-    length read nothing, so the cost follows the live lengths."""
-    target = BLOCKS_PER_SM * n_sm
-    if B * Hkv >= target:
-        return 1
-    return max(1, min(target // (B * Hkv), -(-S // SPAN_MIN)))
+    to BLOCKS_PER_SM * n_sm // (B*Hkv), at most MAX_BLOCKS, and no more
+    than a full lane's S positions give ``span_min`` each.  The kernel
+    cuts each lane's live positions over them (``combine_spans``), so
+    the cost follows the live lengths."""
+    return max(1, min(BLOCKS_PER_SM * n_sm // (B * Hkv), -(-S // span_min), MAX_BLOCKS))
+
+
+def combine_spans(length: int, nblk: int, span_min: int) -> list[tuple[int, int]]:
+    """The position spans [lo, hi) that ``decode_combine``'s blocks 0, 1,
+    ... of a (sequence, KV head) take over a lane of ``length`` live
+    positions on a plan of ``nblk`` blocks of at least ``span_min``
+    positions (the C side's ``combine_span``): the live positions cut
+    into runs of whole CHUNKs, one a block; blocks past the last run take
+    nothing."""
+    if length <= 0:
+        return []
+    span = -(-max(-(-length // nblk), span_min) // CHUNK) * CHUNK
+    return [(lo, min(lo + span, length)) for lo in range(0, length, span)]
 
 
 def _launcher(name: str):
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(build.library("decode_split"), f"{name}_launch")
+        fn = getattr(build.library(name), f"{name}_launch")
         fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
+
+
+def _scores_tile(G: int, Dl: int, dtype: int, k_ptr: int) -> int:
+    """The kernel's tile for this group, slice, dtype and K cache."""
+    fn = _FNS.get("decode_scores_tile")
+    if fn is None:
+        fn = build.library("decode_scores").decode_scores_tile
+        fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS["decode_scores_tile"] = fn
+    return fn(G, Dl, dtype, k_ptr)
 
 
 def _check_scores(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor) -> None:
@@ -148,11 +214,13 @@ def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return out
+    G, dtype = Hq // Hkv, _DTYPES[q.dtype]
+    blocks, per = scores_plan(B, Hkv, S, _scores_tile(G, Dl, dtype, k_cache.data_ptr()),
+                              build.sm_count(q.get_device()))
     rc = _launcher("decode_scores")(_PACK_SCORES(
-        q.data_ptr(), k_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv,
-        Hq // Hkv, S, Dl, _DTYPES[q.dtype], float(sm_scale), scores_tile(Dl),
-        build.stream_of(q)))
-    build.check("decode_split", rc)
+        q.data_ptr(), k_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, Hkv, G, S,
+        Dl, dtype, float(sm_scale), blocks, per, build.stream_of(q)))
+    build.check("decode_scores", rc)
     build.count_launch("decode_scores")
     return out
 
@@ -171,14 +239,15 @@ def decode_combine(scores: torch.Tensor, v_cache: torch.Tensor,
     out = torch.empty((B, Hq, Dl), dtype=v_cache.dtype, device=v_cache.device)
     if B == 0 or S == 0:
         return out.zero_()
-    G = Hq // Hkv
-    nblk = combine_plan(B, Hkv, S, build.sm_count(v_cache.get_device()))
+    G, elt = Hq // Hkv, v_cache.element_size()
+    span_min = combine_span_min(G, Dl, elt)
+    nblk = combine_plan(B, Hkv, S, span_min, build.sm_count(v_cache.get_device()))
     tickets, part = _workspace(v_cache, B * Hkv, B * Hkv * nblk * G * (Dl + 2)) \
         if nblk > 1 else (0, 0)
     rc = _launcher("decode_combine")(_PACK_COMBINE(
         scores.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), tickets, part,
-        B, Hkv, G, S, Dl, _DTYPES[v_cache.dtype], nblk, build.stream_of(v_cache)))
-    build.check("decode_split", rc)
+        B, Hkv, G, S, Dl, _DTYPES[v_cache.dtype], nblk, span_min, build.stream_of(v_cache)))
+    build.check("decode_combine", rc)
     build.count_launch("decode_combine")
     return out
 

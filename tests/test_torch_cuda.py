@@ -179,9 +179,11 @@ def test_cuda_decode_attention_every_group_and_dim(cuda, dtype):
 
 #: the head_dim layout's slices at the zoo's decode shapes: (B, Hq, Hkv,
 #: S, D, ranks): qwen3 at 2 and 16 ranks, dbrx's group 6, kimi-k2's Dl of
-#: 7, internvl2's Dl of 4 (group 7) and the router (f32 only)
+#: 7, internvl2's Dl of 4 (group 7), the dry run's decode_32k slice of
+#: qwen3 (B = 8 a "data" rank of 16x16) and the router (f32 only)
 SPLIT_SHAPES = [(4, 16, 8, 4096, 128, 2), (4, 16, 8, 4096, 128, 16), (4, 48, 8, 4096, 128, 16),
-                (4, 64, 8, 4096, 112, 16), (4, 14, 2, 4096, 64, 16), (4, 4, 2, 512, 64, 2)]
+                (4, 64, 8, 4096, 112, 16), (4, 14, 2, 4096, 64, 16), (8, 16, 8, 32768, 128, 16),
+                (4, 4, 2, 512, 64, 2)]
 
 
 def split_decode(q, k, v, lens, ranks: int):
@@ -209,7 +211,7 @@ def test_cuda_decode_split_matches_plain(cuda, dtype, shape):
     it decodes)."""
     B, Hq, Hkv, S, D, ranks = shape
     dt = getattr(torch, dtype)
-    lens = [0, 1, S, S // 2 + 77][:B]
+    lens = ([0, 1, S, S // 2 + 77] * 2)[:B]
     q, k, v, ln = _decode_inputs(cuda, dt, B, Hq, Hkv, S, D, lens)
     n0 = dict(ops.LAUNCHES)
     got, parts, s = split_decode(q, k, v, ln, ranks)
@@ -222,7 +224,7 @@ def test_cuda_decode_split_matches_plain(cuda, dtype, shape):
         torch.testing.assert_close(part, want, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(ops.decode_combine(s, v[..., c].contiguous(), ln).float(),
                                    ref.decode_combine_ref(s, v[..., c], ln).float(), **_tol(dtype))
-    assert torch.all(got[0] == 0)
+    assert all(torch.all(got[b] == 0) for b, n in enumerate(lens) if n == 0)
     torch.testing.assert_close(got.float(), ops.decode_attention(q, k, v, ln).float(),
                                **_tol(dtype))
     torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, k, v, ln).float(),
@@ -233,15 +235,15 @@ def test_cuda_decode_split_matches_plain(cuda, dtype, shape):
 def test_cuda_decode_split_one_kernel_node_per_call(cuda):
     """decode_scores and decode_combine captured in a CUDA graph: one
     kernel node a call and no other node, decode_combine on both plans
-    (split over blocks at B*Hkv = 8, one block at 264 x 2 over 512
+    (split over blocks at B*Hkv = 8, one block at 528 x 2 over 512
     positions, after a warm-up call has made the workspace); the replay
     matches the plain versions."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_split import combine_plan
+    from repro_torch.kernels.decode_split import combine_plan, combine_span_min
     plans = set()
-    for B, Hkv, S, lens in ((4, 2, 4096, [1, 100, 4096, 2000]), (264, 2, 512, [512, 3] * 132)):
+    for B, Hkv, S, lens in ((4, 2, 4096, [1, 100, 4096, 2000]), (528, 2, 512, [512, 3] * 264)):
         q, k, v, ln = _decode_inputs(cuda, torch.bfloat16, B, 6 * Hkv, Hkv, S, 8, lens)
-        plans.add(combine_plan(B, Hkv, S, build.sm_count(0)) > 1)
+        plans.add(combine_plan(B, Hkv, S, combine_span_min(6, 8, 2), build.sm_count(0)) > 1)
         s = ops.decode_scores(q, k, ln, sm_scale=0.1)
         ops.decode_combine(s, v, ln)
         torch.cuda.synchronize()
@@ -259,6 +261,95 @@ def test_cuda_decode_split_one_kernel_node_per_call(cuda):
             torch.testing.assert_close(got.float(), ref.decode_combine_ref(s, v, ln).float(),
                                        **_tol("bfloat16"))
     assert plans == {False, True}
+
+
+#: lengths at the redesigned kernels' edges: empty, 1, around 8 (a 16-byte
+#: run of bf16 rows at Dl 8), a combine chunk (32) and a combine chunk of
+#: whole rows (128), decode_scores' tiles (64, 256, 1024); with each case's
+#: combine span (``combine_span_min``) and the whole cache added
+EDGE_LENGTHS = [0, 1, 7, 8, 9, 31, 33, 63, 65, 127, 129, 255, 257, 1023, 1025]
+
+
+def _combine_on(monkeypatch, nblk, s, v, ln):
+    """decode_combine on a plan of ``nblk`` blocks a (sequence, KV head)."""
+    from repro_torch.kernels import decode_split as dsp
+    monkeypatch.setattr(dsp, "combine_plan", lambda *a, **kw: nblk)
+    try:
+        return ops.decode_combine(s, v, ln)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 6, 7, 9, 12, 16])
+@pytest.mark.parametrize("Dl", [4, 7, 8, 64, 100, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_split_edges(cuda, monkeypatch, dtype, Dl, G):
+    """decode_scores and decode_combine at Dl 4 and 7 (rows through the
+    shared ring), 8, 64 and 128 (whole 16-byte pieces in registers: a row a
+    piece or several, decode_combine's lanes taking whole rows at a group
+    of 1) and 100 (a wide row through the ring), groups 1, 6, 7, 9, 12 and
+    16 (9 and 12: a group that is no bound of its own, below the 16 the
+    instance holds), over
+    EDGE_LENGTHS and one less, one more than a combine span and than two
+    (the last block holding one position): each against its plain
+    version, and two calls equal bit for bit; decode_combine on one block,
+    on its own plan (split) and on MAX_BLOCKS blocks (more blocks than
+    live spans)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_split import (MAX_BLOCKS, combine_plan, combine_span_min,
+                                                  combine_spans)
+    dt = getattr(torch, dtype)
+    span = combine_span_min(G, Dl, dt.itemsize)
+    S = 3 * span + 64
+    lens = EDGE_LENGTHS + [span - 1, span, span + 1, 2 * span + 1, S - 1, S]
+    B, Hkv = len(lens), 2
+    q, k, v, ln = _decode_inputs(cuda, dt, B, G * Hkv, Hkv, S, Dl, lens)
+    s = ops.decode_scores(q, k, ln, sm_scale=Dl ** -0.5)
+    torch.testing.assert_close(s, ref.decode_scores_ref(q, k, ln, sm_scale=Dl ** -0.5),
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(s, ops.decode_scores(q, k, ln, sm_scale=Dl ** -0.5))
+    plan = combine_plan(B, Hkv, S, span, build.sm_count(0))
+    spans = [combine_spans(n, plan, span) for n in lens]
+    assert plan > 1 and any(len(sp) > 1 and sp[-1][1] - sp[-1][0] == 1 for sp in spans)
+    want = ref.decode_combine_ref(s, v, ln).float()
+    for nblk in (1, plan, MAX_BLOCKS):
+        got = _combine_on(monkeypatch, nblk, s, v, ln)
+        torch.testing.assert_close(got.float(), want, **_tol(dtype))
+        assert torch.all(got[0] == 0)
+        assert torch.equal(got, _combine_on(monkeypatch, nblk, s, v, ln))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dl", [7, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_split_unaligned_operands(cuda, monkeypatch, dtype, Dl):
+    """Operands that start off a 16-byte boundary (views at an element's
+    offset) over an odd S = 4001: decode_scores reads K through the ring
+    and writes its scores one by one, decode_combine copies the granules
+    around each run; both match their plain versions on one block and
+    split over 8 and MAX_BLOCKS."""
+    from repro_torch.kernels.decode_split import MAX_BLOCKS
+    dt = getattr(torch, dtype)
+    B, G, Hkv, S = 4, 6, 2, 4001
+    lens = [4001, 1, 3000, 33]
+
+    def shifted(*shape):
+        flat = torch.randn(int(np.prod(shape)) + 1, dtype=dt, device=cuda)
+        t = flat[1:].view(*shape)
+        assert t.data_ptr() % 16 and t.is_contiguous()
+        return t
+    q, k, v = shifted(B, G * Hkv, Dl), shifted(B, Hkv, S, Dl), shifted(B, Hkv, S, Dl)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    s = ops.decode_scores(q, k, ln, sm_scale=0.3)
+    torch.testing.assert_close(s, ref.decode_scores_ref(q, k, ln, sm_scale=0.3),
+                               atol=1e-4, rtol=1e-4)
+    s_off = torch.empty(s.numel() + 1, dtype=torch.float32, device=cuda)[1:].view(s.shape)
+    s_off.copy_(s)
+    want = ref.decode_combine_ref(s, v, ln).float()
+    for nblk in (1, 8, MAX_BLOCKS):
+        torch.testing.assert_close(_combine_on(monkeypatch, nblk, s_off, v, ln).float(), want,
+                                   **_tol(dtype))
 
 
 @pytest.mark.cuda

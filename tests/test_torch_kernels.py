@@ -233,6 +233,66 @@ def test_decode_split_masks_past_the_length():
 
 
 # ---------------------------------------------------------------------------
+# the split's launch geometry: the Python plans the CUDA kernels are given
+# ---------------------------------------------------------------------------
+#: (B, Hkv, S) of the split at the smoke's and the card tests' shapes, a
+#: card-filling B*Hkv, and S around a combine span and a scores tile
+_SPLIT_PLANS = [(4, 8, 4096), (8, 8, 32768), (4, 8, 4096 + 1), (4, 2, 512), (12, 2, 600),
+                (528, 2, 512), (1, 1, 1), (1, 1, 33), (2, 1, 1023), (2, 3, 1025),
+                (64, 16, 100_000)]
+
+
+@pytest.mark.parametrize("B,Hkv,S", _SPLIT_PLANS)
+def test_decode_combine_spans_cover_each_live_position_once(B, Hkv, S):
+    """At the zoo's slices, on the plan's block count and on 1 and
+    MAX_BLOCKS: each live position of a lane lies in exactly one block's
+    span, every span holds a live position (none lies past the length, so
+    the merge waits on no idle block), spans start on a CHUNK and all but
+    the last hold at least the span minimum, and at most nblk blocks take
+    one; the grid stays within the card's limits."""
+    from repro_torch.kernels.decode_split import (BLOCKS_PER_SM, CHUNK, MAX_BLOCKS, MAX_GRID,
+                                                  combine_plan, combine_span_min, combine_spans)
+    for G, Dl, elt in ((2, 8, 2), (6, 8, 2), (8, 7, 2), (7, 4, 2), (2, 64, 2), (2, 32, 4),
+                       (16, 128, 4)):
+        span_min = combine_span_min(G, Dl, elt)
+        assert span_min >= CHUNK and span_min % CHUNK == 0
+        nblk = combine_plan(B, Hkv, S, span_min, 132)
+        assert 1 <= nblk <= MAX_BLOCKS and B * Hkv <= MAX_GRID and nblk <= 65535
+        assert nblk == 1 or B * Hkv * nblk <= BLOCKS_PER_SM * 132
+        for blocks in sorted({1, nblk, MAX_BLOCKS}):
+            for length in {0, 1, 7, 8, 9, 31, 32, 33, span_min + 1, S // 2 + 1, S - 1, S}:
+                if not 0 <= length <= S:
+                    continue
+                spans = combine_spans(length, blocks, span_min)
+                assert len(spans) <= blocks
+                covered = [t for lo, hi in spans for t in range(lo, hi)]
+                assert covered == list(range(length))
+                assert all(lo < hi <= length and lo % CHUNK == 0 for lo, hi in spans)
+                assert all(hi - lo >= min(span_min, length) for lo, hi in spans[:-1])
+
+
+#: every tile decode_scores_tile gives: rows of one 16-byte piece or of at
+#: most 32 bytes through the ring (1024), 64 rows a pass of wider rows of
+#: whole pieces over 1, 2, 4 or 8 passes, wider rows through the ring (64)
+_SCORES_TILES = [64, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("tile", _SCORES_TILES)
+@pytest.mark.parametrize("B,Hkv,S", _SPLIT_PLANS)
+def test_decode_scores_plan_walks_every_tile_once(B, Hkv, S, tile):
+    """Each block walks a contiguous run of tiles: together the blocks
+    take every tile of every (sequence, KV head) exactly once, the last
+    block a non-empty run, the grid at most SCORES_BLOCKS_PER_SM blocks an
+    SM and within the card's limit."""
+    from repro_torch.kernels.decode_split import MAX_GRID, SCORES_BLOCKS_PER_SM, scores_plan
+    tiles = B * Hkv * -(-S // tile)
+    blocks, per = scores_plan(B, Hkv, S, tile, 132)
+    assert 1 <= blocks <= min(SCORES_BLOCKS_PER_SM * 132, MAX_GRID) and per >= 1
+    taken = [i for blk in range(blocks) for i in range(blk * per, min(blk * per + per, tiles))]
+    assert taken == list(range(tiles)) and (blocks - 1) * per < tiles
+
+
+# ---------------------------------------------------------------------------
 # path lookup
 # ---------------------------------------------------------------------------
 def _key_table(rs, N):
