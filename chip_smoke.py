@@ -361,7 +361,8 @@ def device_split(fn, untraced_ms: float) -> dict:
             "idle_share": max(0.0, 1.0 - busy / untraced_ms), "busy_ms_by_kind": split}
 
 
-def graph_ms(fn, inputs, calls: int = 32, replays: int = 5, warmup: int = 3) -> dict:
+def graph_ms(fn, inputs, calls: int = 32, replays: int = 5, warmup: int = 3,
+             rotate: bool = True) -> dict:
     """The card's own time for one call ``fn(*inputs)``, the wrapper's host
     work left out: ``calls`` calls captured in a CUDA graph (after
     ``warmup`` eager calls, so that any cached workspace exists first),
@@ -374,12 +375,13 @@ def graph_ms(fn, inputs, calls: int = 32, replays: int = 5, warmup: int = 3) -> 
     output stays alive until the graph is freed, so no call finds its
     inputs or its output where an earlier call left them in L2.  Where
     ``fn`` cannot be captured, the profiler's device time of eager calls
-    (or None) and the reason, which is also printed."""
+    (or None) and the reason, which is also printed.  ``rotate=False``
+    gives every call the same inputs (warm in L2 after the first)."""
     import torch
     from repro_torch.kernels import build
     nbytes = sum(t.numel() * t.element_size() for t in inputs if isinstance(t, torch.Tensor))
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
-    n_copies = max(1, min(calls, -(-2 * l2 // max(nbytes, 1))))
+    n_copies = max(1, min(calls, -(-2 * l2 // max(nbytes, 1)))) if rotate else 1
     copies = [inputs] + [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in inputs)
                          for _ in range(n_copies - 1)]
     for _ in range(warmup):
@@ -1751,14 +1753,15 @@ def router_library(logits, k, renormalize=True):
     return (w / w.sum(dim=-1, keepdim=True) if renormalize else w), idx
 
 
-def router_kernels(dev) -> dict:
+def router_kernels(dev, floor_ms: float) -> dict:
     """(a) moe_router against its plain version at ROUTER_SHAPES, with
     renormalize on and off, on random-normal and on tie-laden logits (a
     grid of 0.5).  Indices equal in every tie-laden row; on normal input a
     row may differ only where two of its k + 1 largest probabilities lie
     within ROUTER_NEAR_TIE (counted); weights within 1e-6 on the rows that
     agree.  Timed beside its bytes bound, the plain version and the
-    library composite.  (b) moe_router_bwd's rows (``router_bwd_rows``)."""
+    library composite.  (b) moe_router_bwd's rows (``router_bwd_rows``),
+    each beside the kernel node floor ``floor_ms``."""
     import torch
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import ops, ref
@@ -1800,7 +1803,7 @@ def router_kernels(dev) -> dict:
                      "bound_ms": b, "bound_by": by})
     emit({"phase": "moe_router", "shapes": rows, "rows_differing_at_near_ties": near_rows,
           "library": "softmax -> topk -> renorm (three calls)"})
-    bwd_rows = router_bwd_rows(dev, g)
+    bwd_rows = router_bwd_rows(dev, g, floor_ms)
     return {"moe_router": {"name": "moe_router", "route": "cuda",
                            "source": "src/repro_torch/kernels/csrc/moe_router.cu",
                            "replaces": "src/repro/kernels/moe_router.py:55",
@@ -1814,20 +1817,21 @@ def router_kernels(dev) -> dict:
 
 
 # (tag, T, E, k): the training shapes of the MoE families at S = 4096,
-# jamba's train step cut to 2 experts among them
+# jamba's train step cut to 2 experts and kimi-k2's to 32 among them
 ROUTER_BWD_SHAPES = [("dbrx prefill", 4096, 16, 4), ("jamba", 4096, 16, 2),
                      ("kimi-k2", 4096, 384, 8), ("ragged", 4099, 16, 4),
-                     ("jamba train cut", 4096, 2, 2)]
+                     ("jamba train cut", 4096, 2, 2), ("kimi-k2 train cut", 4096, 32, 8)]
 
 
-def router_bwd_rows(dev, g) -> list:
+def router_bwd_rows(dev, g, floor_ms: float) -> list:
     """(b) moe_router_bwd against its plain version (``ref.moe_router_bwd_ref``)
     at ROUTER_BWD_SHAPES, renormalized and not, on normal and tie-laden
     logits (the forward kernel's weights and ids), within the f32 backward
     tolerance; timed beside its bytes bound, the plain version and the
     autograd backward of the softmax -> topk -> renorm composite, one
-    kernel node a call.  The first row (dbrx, renormalized, normal logits)
-    leads the kernels line."""
+    kernel node a call, with its launch geometry (``router_bwd_geometry``)
+    and its time over the node floor ``floor_ms``.  The first row (dbrx,
+    renormalized, normal logits) leads the kernels line."""
     import torch
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import ref
@@ -1863,8 +1867,11 @@ def router_bwd_rows(dev, g) -> list:
             lib_ms = cuda_ms(lib)
             rows.append({"shape": f"({tag}) T={T} E={E} k={k} float32 "
                                   f"{'renormalized' if renorm else 'not renormalized'}",
+                         "geometry": dict(zip(("lanes_a_token", "pieces_a_lane", "warps_a_block",
+                                               "blocks"), mr.router_bwd_geometry(T, E, k))),
                          "max_abs_err": err, "ms": cuda_ms(lambda: kernel(lg, w, idx, dw)),
                          "device_ms": gm["device_ms"],
+                         "over_node_floor": gm["device_ms"] / floor_ms,
                          "device_ms_profiled": profiled_ms(kernel, (lg, w, idx, dw), 10),
                          "host_ms": host_ms(lambda: kernel(lg, w, idx, dw)),
                          "plain_ms": cuda_ms(lambda: ref.moe_router_bwd_ref(
@@ -4607,7 +4614,7 @@ def main(argv: list[str]) -> int:
 
     entries = model_kernels(dev)
     entries.update(attention_kernels(dev))
-    entries.update(router_kernels(dev))
+    entries.update(router_kernels(dev, floor["device_ms"]))
     entries.update(backward_kernels(dev))
     entries.update(split_decode_kernels(dev))
 

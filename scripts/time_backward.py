@@ -3,6 +3,7 @@
 be compared within one run.
 
     python3 scripts/time_backward.py [--train] [CHECKOUT ...]
+    python3 scripts/time_backward.py --router [--sweep] [CHECKOUT ...]
 
 For each CHECKOUT (default: this one), a directory holding that tree's
 ``chip_smoke.py`` and ``src/``, a process of its own builds the tree's
@@ -10,18 +11,39 @@ kernels and runs its smoke's backward phase (``backward_kernels``:
 flash_attention_bwd and rmsnorm_bwd against their plain versions, timed
 beside the library's autograd backward and their bounds); with
 ``--train`` also its qwen3-1.7B training (``qwen3_training``: 5 steps at
-full width, the step's split by kernel kind).  Each phase prints its JSON
-lines, tagged with the checkout.  Give the trees in turns (parent,
-change, change, parent) to compare them on one card.  Needs a card.
+full width, the step's split by kernel kind).
+
+With ``--router`` the process builds the tree's ``moe_router`` library
+alone (printing ``-Xptxas -v``'s registers and spills) and times the
+tree's ``moe_router_bwd`` at this script's own checkout's
+``ROUTER_BWD_SHAPES``, renormalized and not, with this checkout's
+``graph_ms`` (a replayed CUDA graph, inputs rotated through twice the
+L2; ``device_ms_warm``: the same inputs every call, warm in L2), its
+bytes bound and the node floor of the same process (one
+one-element op in a graph) beside each row, the profiler's time of the
+kernel and of the autograd backward of softmax -> topk -> renorm (the
+library yardstick), a plain ``torch.zeros_like`` of the (T, E) output
+under the same graph timer, and the launch geometry where the tree has
+``router_bwd_geometry``; ``--sweep`` also times every warps-a-block
+count from 1 to 32 there.  Each result is held against the plain version
+first.  The rows, timer and bounds are this script's checkout's, so that
+every tree is held to one yardstick.
+
+Each phase prints its JSON lines, tagged with the checkout.  Give the
+trees in turns (parent, change, change, parent) to compare them on one
+card.  Needs a card.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+FLAGS = ("--train", "--router", "--sweep")
+SWEEP_WARPS = (1, 2, 4, 8, 16, 32)
 
 
 def run_one(root: Path, train: bool) -> int:
@@ -45,14 +67,101 @@ def run_one(root: Path, train: bool) -> int:
     return 0
 
 
+def run_router(root: Path, sweep: bool) -> int:
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_backward: no CUDA device is available", file=sys.stderr)
+        return 1
+    # the rows, timer and bounds of this script's own checkout
+    spec = importlib.util.spec_from_file_location("router_rows", ROOT / "chip_smoke.py")
+    mine = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mine)
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import moe_router as mr
+    tag = str(root)
+    seconds = build.build_all(["moe_router"])
+    log = build.BUILD_DIR / "moe_router.log"
+    dev = torch.device("cuda")
+    one = torch.zeros(1, device=dev)
+    floor = mine.graph_ms(lambda x: x + 1, (one,))["device_ms"]
+    print(json.dumps({"checkout": tag, "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": mine.nvidia_smi(), "nvcc_s": seconds,
+                      "node_floor_ms": floor,
+                      "node_floor_profiled_ms": mine.profiled_ms(lambda x: x + 1, (one,), 10),
+                      "ptxas": [ln.strip() for ln in (log.read_text().splitlines()
+                                                      if log.exists() else [])
+                                if "registers" in ln or "spill" in ln or "Compiling" in ln]}),
+          flush=True)
+    geometry = getattr(mr, "router_bwd_geometry", None)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for name, T, E, k in mine.ROUTER_BWD_SHAPES:
+        x = torch.randn((T, E), generator=g).to(dev) * 2
+        dw = torch.randn((T, k), generator=g).to(dev)
+        for renorm in (True, False):
+            w, idx = mr.moe_router(x, k, renormalize=renorm)
+            lg = None if renorm else x
+
+            def kernel(a, b, c, d, renorm=renorm, E=E):
+                return mr.moe_router_bwd(a, b, c, d, renormalize=renorm, n_experts=E)
+            got = kernel(lg, w, idx, dw)
+            want = ref.moe_router_bwd_ref(x, w, idx, dw, renormalize=renorm)
+            mine.check_grad(f"moe_router_bwd ({name})", got, want, torch.float32)
+            mine.check(torch.equal(kernel(lg, w, idx, dw), got),
+                       f"moe_router_bwd ({name}) is not bit for bit repeatable")
+            nbytes = T * k * 12 + T * E * 4 + (0 if renorm else T * E * 4)
+            b, by = mine.bound(nbytes, T * k * 4.0 + (0 if renorm else T * E * 8.0),
+                               mine.F32_FLOPS)
+            lib = mine.library_grad(lambda z, k=k, r=renorm: mine.router_library(z, k, r)[0],
+                                    (x,), dw)
+            row = {"checkout": tag, "row": name, "T": T, "E": E, "k": k, "renormalize": renorm,
+                   "bound_ms": b, "bound_by": by, "node_floor_ms": floor,
+                   "device_ms_profiled": mine.profiled_ms(kernel, (lg, w, idx, dw), 10),
+                   "library_device_ms": mine.profiled_ms(lib, (), 10),
+                   # a plain fill of the (T, E) output: what any kernel
+                   # that writes it pays, read from the same graph timer
+                   "fill_device_ms": mine.graph_ms(torch.zeros_like, (x,))["device_ms"]}
+            plans = [None]
+            if geometry is not None:
+                L, P, W, _ = geometry(T, E, k)
+                row["geometry"] = {"lanes_a_token": L, "pieces_a_lane": P, "warps_a_block": W}
+                if sweep:
+                    plans += [w_ for w_ in SWEEP_WARPS
+                              if w_ != W and w_ <= mr.bwd_max_warps(L)]
+            for warps in plans:
+                if warps is not None:     # the same lanes, another block size
+                    def forced(T_, E_, k_, W=warps):
+                        L_, P_, _, _ = geometry(T_, E_, k_)
+                        warps_all = -(-T_ // (32 // L_))
+                        return L_, P_, W, -(-warps_all // W)
+                    mr.router_bwd_geometry = forced
+                try:
+                    gm = mine.graph_ms(kernel, (lg, w, idx, dw), replays=20)
+                finally:
+                    if geometry is not None:
+                        mr.router_bwd_geometry = geometry
+                mine.one_kernel_a_call(f"moe_router_bwd ({name})", gm)
+                ms = gm["device_ms"]
+                warm = None
+                if warps is None:           # the same inputs every call
+                    warm = mine.graph_ms(kernel, (lg, w, idx, dw), replays=20,
+                                         rotate=False)["device_ms"]
+                print(json.dumps({**row, "warps_a_block": warps, "plan": warps is None,
+                                  "device_ms": ms, "device_ms_warm": warm,
+                                  "share_of_bound": b / ms, "over_node_floor": ms / floor}),
+                      flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
-    train = "--train" in argv
-    roots = [a for a in argv if a != "--train"]
+    train, router, sweep = (f in argv for f in FLAGS)
+    roots = [a for a in argv if a not in FLAGS]
     if len(roots) == 1 and roots[0].startswith("--one="):
-        return run_one(Path(roots[0][len("--one="):]).resolve(), train)
+        root = Path(roots[0][len("--one="):]).resolve()
+        return run_router(root, sweep) if router else run_one(root, train)
     rc = 0
     for root in roots or [str(ROOT)]:
-        cmd = [sys.executable, __file__, f"--one={root}"] + (["--train"] if train else [])
+        cmd = [sys.executable, __file__, f"--one={root}"] + [f for f in FLAGS if f in argv]
         rc |= subprocess.run(cmd).returncode
     return rc
 

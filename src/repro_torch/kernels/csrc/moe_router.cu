@@ -38,16 +38,44 @@
 // g (T, k) and writes the logits' gradient (T, E): with renormalize the
 // weights are the softmax of the chosen logits alone, so dz_j =
 // w_j (g_j - S), S = sum_K w_i g_i, on the chosen ids K and 0 elsewhere;
-// without it p = softmax(logits) is recomputed (max and sum in the
-// forward's order, so p is the forward's to the bit) and dz_j =
+// without it p = softmax(logits) is recomputed and dz_j =
 // p_j ([j in K] g_j - S), S = sum_K p_i g_i, for every j.  Bound: bytes
-// (T*k*12 read, T*E*4 written; the logits read too without renormalize).
-// Design: one token a warp; lanes r < k hold the row's r-th id, weight and
-// gradient, S is a butterfly sum; the warp writes the whole E-wide row
-// coalesced (zeros, or -p_j S), then __syncwarp orders the k lanes'
-// scattered writes of the chosen entries after it.
+// (T*k*12 read, T*E*4 written; the logits read too without renormalize),
+// under the node floor at every training shape but kimi-k2's 384 experts
+// (6.3 MB written), so a call costs its launch and its chain of dependent
+// steps.  Design: a token takes L lanes, the least power of two with
+// 4 L >= E (at most 32), so 32 / L tokens share a warp (8 at dbrx's 16
+// experts, 32 at jamba's cut to 2); a lane holds P pieces of 4
+// consecutive columns (P = 1 below 32 lanes; ceil(E / 128), a compiled
+// count, at 32).  Lane s of a token reads the chosen triples s, s + L, ...
+// (one each where k <= L), S is each lane's share summed in turn and then
+// a butterfly over the token's lanes (one fixed order: the call is bit for
+// bit repeatable), and the row is staged in shared memory, each lane's
+// pieces in its own 16-byte slots: the lanes write their pieces there (0,
+// or -p S), the chosen triples' lanes drop their values in by address,
+// and each lane reads its pieces back and stores each once to the row,
+// one 16-byte store a piece, 16 L contiguous bytes a token a warp
+// instruction: no zero pass in memory and no second store to a line.  A
+// chosen value placed in registers instead (every lane holding all k
+// triples, predicated moves into its piece) costs k x 4 P instructions a
+// lane: at kimi-k2's shapes (k = 8) no faster than one token a warp with
+// scattered stores, and slower at 384 experts.  Rows whose byte length
+// is not a multiple of 16 (odd E, E = 2 mod 4) keep the layout and store
+// 8 or 4 bytes at a time, the widest their rows allow.  Without renormalize the
+// lane reads its pieces of the logits row once (16-byte loads where rows
+// allow) together with the triples, each logit's expf runs once, the max
+// and the sum go by shuffles within the token's lanes, and the sum adds in
+// the forward kernel's order (so p is its p to the bit; a wide row's from
+// the stage, lane f adding columns f, f + 32, ... as the forward's
+// sub-lane f does).  Every shuffle and __syncwarp takes the whole warp: a
+// token past T runs on the last token's inputs and stores nothing.  The
+// geometry comes from kernels/moe_router.py router_bwd_geometry, and the C
+// entry refuses any other.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
 
 // The C entry's one argument: outside the anonymous namespace, so the
 // entry keeps its external linkage.
@@ -65,9 +93,9 @@ struct RouterArgs {  // packed by kernels/moe_router.py (struct "<11q")
   cudaStream_t stream;
 };
 
-struct RouterBwdArgs {  // packed by kernels/moe_router.py (struct "<11q")
+struct RouterBwdArgs {  // packed by kernels/moe_router.py (struct "<14q")
   const float* logits;  // read without renormalize only
-  const float* w;
+  const float* w;       // read with renormalize only
   const int* idx;
   const float* dw;
   float* dlogits;
@@ -75,7 +103,10 @@ struct RouterBwdArgs {  // packed by kernels/moe_router.py (struct "<11q")
   long long E;
   long long k;
   long long renormalize;
-  long long blocks;
+  long long lanes;   // router_bwd_geometry: lanes a token,
+  long long pieces;  // pieces of 4 columns a lane,
+  long long warps;   // warps a block,
+  long long blocks;  // and blocks
   cudaStream_t stream;
 };
 
@@ -167,44 +198,310 @@ void launch(const RouterArgs* a) {
       a->logits, a->w, a->idx, (int)a->T, (int)a->E, (int)a->k, (int)a->renormalize);
 }
 
-// One token a warp (t is uniform over the warp, so a warp past T leaves
-// whole and every shuffle has all 32 lanes).
-__global__ void __launch_bounds__(WARPS * 32)
+// the most warps a block: 32 narrow (at most ~35 registers a thread), 8
+// wide, whose P pieces take up to ~80 registers and 128 P bytes of stage a
+// thread (two warps a block is the geometry's, the sweep's best)
+__host__ __device__ constexpr int bwd_max_warps(int L) { return L < 32 ? 32 : 8; }
+
+// columns col .. col + 3 of a row of E floats into x, `width` floats a
+// load (4, 2 or 1, each load aligned to its size); columns past E read pad
+__device__ __forceinline__ void load4(const float* __restrict__ row, int col, int E, int width,
+                                      float pad, float (&x)[4]) {
+  if (width == 4) {  // E % 4 == 0: the piece is whole or wholly past E
+    if (col < E) {
+      const float4 a = *reinterpret_cast<const float4*>(row + col);
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    } else {
+      x[0] = x[1] = x[2] = x[3] = pad;
+    }
+  } else if (width == 2) {
+#pragma unroll
+    for (int h = 0; h < 4; h += 2) {
+      if (col + h < E) {
+        const float2 a = *reinterpret_cast<const float2*>(row + col + h);
+        x[h] = a.x; x[h + 1] = a.y;
+      } else {
+        x[h] = x[h + 1] = pad;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[c] = col + c < E ? row[col + c] : pad;
+  }
+}
+
+// x into columns col .. col + 3 of a row of E floats, as load4 reads them;
+// nothing past E is written
+__device__ __forceinline__ void store4(float* __restrict__ row, int col, int E, int width,
+                                       const float (&x)[4]) {
+  if (width == 4) {
+    if (col < E) *reinterpret_cast<float4*>(row + col) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if (width == 2) {
+#pragma unroll
+    for (int h = 0; h < 4; h += 2)
+      if (col + h < E) *reinterpret_cast<float2*>(row + col + h) = make_float2(x[h], x[h + 1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (col + c < E) row[col + c] = x[c];
+  }
+}
+
+// A narrow row (E <= 64): L lanes a token (32 / L tokens a warp), one
+// piece of 4 consecutive columns a lane (sub-lane s holds columns 4 s ..
+// 4 s + 3), so one store instruction of a warp covers 16 L contiguous
+// bytes of each of its tokens' rows.  Lane s holds the chosen triples s,
+// s + L, ... (J of them at most); S is each lane's share, then a
+// butterfly over the token's lanes.  The row is staged in shared memory
+// (the token's lanes' pieces are its 4 L consecutive floats), where each
+// chosen triple's lane drops its value by address.  Every shuffle stays
+// within a token's lanes.
+template <int L, int J, bool RENORM>
+__global__ void __launch_bounds__(bwd_max_warps(1) * 32)
 moe_router_bwd_kernel(const float* __restrict__ logits, const float* __restrict__ w,
                       const int* __restrict__ idx, const float* __restrict__ dw,
-                      float* __restrict__ dz, int T, int E, int k, int renormalize) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (t >= T) return;
-  const float* x = renormalize ? nullptr : logits + (size_t)t * E;
-  float* out = dz + (size_t)t * E;
-  const bool chosen = lane < k;
-  const int id = chosen ? idx[(size_t)t * k + lane] : 0;
-  const float g = chosen ? dw[(size_t)t * k + lane] : 0.f;
-  float m = 0.f, s = 1.f, wk;
-  if (renormalize) {
-    wk = chosen ? w[(size_t)t * k + lane] : 0.f;
-  } else {
-    m = -INFINITY;
-    for (int e = lane; e < E; e += 32) m = fmaxf(m, x[e]);
+                      float* __restrict__ dz, int T, int E, int k, int ewidth) {
+  extern __shared__ float4 stage[];  // one piece a thread
+  constexpr int TPW = 32 / L;
+  const int tid = threadIdx.x, lane = tid & 31, sl = lane & (L - 1);
+  const int warp0 = (blockIdx.x * (blockDim.x >> 5) + (tid >> 5)) * TPW;
+  if (warp0 >= T) return;  // the whole warp
+  // A token past T (in the last warp) runs on the last token's inputs
+  // and stores nothing, so that every shuffle and __syncwarp takes the
+  // whole warp (a mask of the token's lanes alone would split the warp
+  // into 32 / L groups at each of them).
+  const int t_run = warp0 + lane / L, t = t_run < T ? t_run : T - 1;
+  float* const row = reinterpret_cast<float*>(stage + (tid - sl));  // the token's row
+  // every load first, so that the logits and the triples come in one
+  // round trip to memory
+  float v[4];
+  if (!RENORM) load4(logits + (size_t)t * E, 4 * sl, E, ewidth, -INFINITY, v);
+  const size_t base = (size_t)t * k;
+  int id[J];
+  float g[J], wj[J];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
-    s = 0.f;
-    for (int e = lane; e < E; e += 32) s += expf(x[e] - m);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-    wk = chosen ? expf(x[id] - m) / s : 0.f;
+  for (int i = 0; i < J; ++i) {
+    const int j = sl + L * i;
+    id[i] = j < k ? idx[base + j] : -1;
+    g[i] = j < k ? dw[base + j] : 0.f;
+    wj[i] = RENORM && j < k ? w[base + j] : 0.f;
   }
-  float S = wk * g;
+  float S = 0.f, d[J];
+  if (RENORM) {
+    stage[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
+    // S = sum_K w_i g_i: each lane's triples in turn, then a butterfly
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) S += __shfl_xor_sync(FULL, S, o);
-  if (renormalize) {
-    for (int e = lane; e < E; e += 32) out[e] = 0.f;
+    for (int i = 0; i < J; ++i) S = fmaf(wj[i], g[i], S);
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) S += __shfl_xor_sync(FULL, S, o);
+#pragma unroll
+    for (int i = 0; i < J; ++i) d[i] = wj[i] * (g[i] - S);
   } else {
-    for (int e = lane; e < E; e += 32) out[e] = -(expf(x[e] - m) / s) * S;
+    float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = 4 * sl + c < E ? expf(v[c] - m) : 0.f;
+    // The softmax's sum in the forward kernel's order, so that p is its p
+    // to the bit: there sub-lane f of SUB (16 at E <= 16, else 32) adds
+    // columns f, f + SUB, ... in turn from 0, then a butterfly over
+    // offsets SUB/2 .. 1.  Here column f + SUB u is lane f/4 + 8 u's
+    // (L = 16) or lane f/4's (L <= 8, one column a sub-lane); offsets of 4
+    // columns and more are lane offsets, 2 and 1 columns within the
+    // piece.  A partner past the lanes holds columns past E, zeros there.
+    float acc[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c] = v[c];
+      if (L == 16) acc[c] += __shfl_xor_sync(FULL, acc[c], 8);
+    }
+#pragma unroll
+    for (int o = (L <= 4 ? 16 : 32) / 8; o > 0; o >>= 1)
+      if (o < L) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] += __shfl_xor_sync(FULL, acc[c], o);
+      }
+    const float s = (acc[0] + acc[2]) + (acc[1] + acc[3]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = v[c] / s;
+    stage[tid] = make_float4(v[0], v[1], v[2], v[3]);
+    __syncwarp();
+    // S = sum_K p_i g_i, p_i read from the stage: as with renormalize
+    float pk[J];
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      pk[i] = id[i] >= 0 ? row[id[i]] : 0.f;
+      S = fmaf(pk[i], g[i], S);
+    }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) S += __shfl_xor_sync(FULL, S, o);
+#pragma unroll
+    for (int i = 0; i < J; ++i) d[i] = pk[i] * (g[i] - S);
+    __syncwarp();  // every read of p is done
+    stage[tid] = make_float4(-v[0] * S, -v[1] * S, -v[2] * S, -v[3] * S);
   }
   __syncwarp();
-  if (chosen) out[id] = wk * (g - S);
+#pragma unroll
+  for (int i = 0; i < J; ++i)
+    if (id[i] >= 0) row[id[i]] = d[i];
+  __syncwarp();
+  const float4 x = stage[tid];
+  const float y[4] = {x.x, x.y, x.z, x.w};
+  if (t_run < T) store4(dz + (size_t)t * E, 4 * sl, E, ewidth, y);
+}
+
+// A wide row (E > 64): one token a warp, lane s holding P pieces (columns
+// 4 (s + 32 q) .. + 3), staged as `stage` [P][threads].  Lane j < k holds
+// the j-th chosen triple, and S is a butterfly over the warp; the rest is
+// the narrow row's.
+template <int P, bool RENORM>
+__global__ void __launch_bounds__(bwd_max_warps(32) * 32)
+moe_router_bwd_wide_kernel(const float* __restrict__ logits, const float* __restrict__ w,
+                           const int* __restrict__ idx, const float* __restrict__ dw,
+                           float* __restrict__ dz, int T, int E, int k, int ewidth) {
+  extern __shared__ float4 stage[];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const long long t = (long long)blockIdx.x * (nt >> 5) + (tid >> 5);
+  if (t >= T) return;  // the whole warp: one token a warp
+  float* const cols = reinterpret_cast<float*>(stage);
+  // column e of this warp's row in the stage
+  auto at = [&](int e) -> float& {
+    return cols[(((e >> 7) * nt + (tid & ~31) + ((e >> 2) & 31)) << 2) + (e & 3)];
+  };
+  float v[P][4];
+  if (!RENORM) {  // the logits first: one round trip with the chosen triple
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      load4(logits + (size_t)t * E, 4 * (lane + 32 * q), E, ewidth, -INFINITY, v[q]);
+  }
+  const size_t base = (size_t)t * k;
+  const bool chosen = lane < k;
+  const int id = chosen ? idx[base + lane] : 0;
+  const float g = chosen ? dw[base + lane] : 0.f;
+  float d = 0.f;  // lane j < k: column id_j's value
+  if (RENORM) {
+    const float wj = chosen ? w[base + lane] : 0.f;
+    float S = wj * g;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) S += __shfl_xor_sync(FULL, S, o);
+    d = wj * (g - S);
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[q][c] = 0.f;
+  } else {
+    float m = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) m = fmaxf(m, v[q][c]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[q][c] = 4 * (lane + 32 * q) + c < E ? expf(v[q][c] - m) : 0.f;
+      stage[q * nt + tid] = make_float4(v[q][0], v[q][1], v[q][2], v[q][3]);
+    }
+    __syncwarp();
+    // The forward kernel's sum: its sub-lane f (one a lane here, 32 of
+    // them) adds columns f, f + 32, ... in turn from 0, then a butterfly.
+    float s = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4 * P; ++u) s += at(lane + 32 * u);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+    const float pk = chosen ? at(id) / s : 0.f;
+    float S = pk * g;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) S += __shfl_xor_sync(FULL, S, o);
+    d = pk * (g - S);
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[q][c] = -(v[q][c] / s) * S;
+    __syncwarp();  // every read of the stage above is done
+  }
+#pragma unroll
+  for (int q = 0; q < P; ++q) stage[q * nt + tid] = make_float4(v[q][0], v[q][1], v[q][2], v[q][3]);
+  __syncwarp();
+  if (chosen) at(id) = d;
+  __syncwarp();
+  float* out = dz + (size_t)t * E;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const float4 x = stage[q * nt + tid];
+    const float y[4] = {x.x, x.y, x.z, x.w};
+    store4(out, 4 * (lane + 32 * q), E, ewidth, y);
+  }
+}
+
+template <int L, int J, bool R>
+void launch_bwd(const RouterBwdArgs* a, int ewidth) {
+  const unsigned threads = (unsigned)a->warps * 32;
+  moe_router_bwd_kernel<L, J, R><<<(unsigned)a->blocks, threads, threads * sizeof(float4),
+                                   a->stream>>>(
+      a->logits, a->w, a->idx, a->dw, a->dlogits, (int)a->T, (int)a->E, (int)a->k, ewidth);
+}
+
+template <int P, bool R>
+void launch_bwd_wide(const RouterBwdArgs* a, int ewidth) {
+  const unsigned threads = (unsigned)a->warps * 32;
+  moe_router_bwd_wide_kernel<P, R><<<(unsigned)a->blocks, threads,
+                                     threads * P * sizeof(float4), a->stream>>>(
+      a->logits, a->w, a->idx, a->dw, a->dlogits, (int)a->T, (int)a->E, (int)a->k, ewidth);
+}
+
+// J, the triples a lane, is ceil(k / L) rounded up to 1, 2 or 4:
+// k <= E <= 4 L (at L = 16, k <= 32 = 2 L)
+template <int L, bool R>
+void bwd_by_k(const RouterBwdArgs* a, int ewidth) {
+  if (a->k <= L) {
+    launch_bwd<L, 1, R>(a, ewidth);
+  } else if (L == 16 || a->k <= 2 * L) {
+    launch_bwd<L, 2, R>(a, ewidth);
+  } else if constexpr (L < 16) {
+    launch_bwd<L, 4, R>(a, ewidth);
+  }
+}
+
+template <int L>
+void bwd_narrow(const RouterBwdArgs* a, int ewidth) {
+  if (a->renormalize) {
+    bwd_by_k<L, true>(a, ewidth);
+  } else {
+    bwd_by_k<L, false>(a, ewidth);
+  }
+}
+
+template <int P>
+void bwd_wide(const RouterBwdArgs* a, int ewidth) {
+  if (a->renormalize) {
+    launch_bwd_wide<P, true>(a, ewidth);
+  } else {
+    launch_bwd_wide<P, false>(a, ewidth);
+  }
+}
+
+// the lanes a token: the least power of two L with 4 L >= E, at most 32
+int bwd_lanes(long long E) {
+  int L = 1;
+  while (L < 32 && 4 * L < E) L *= 2;
+  return L;
+}
+
+constexpr int BWD_PIECES[] = {1, 2, 3, 4, 6, 8};  // pieces a lane at 32 lanes, compiled
+
+// the widest access, in floats, that every row of n floats at each given
+// base allows: 4 (16 bytes), 2 or 1
+int row_width(long long n, std::initializer_list<const void*> bases) {
+  for (int width : {4, 2}) {
+    bool ok = n % width == 0;
+    for (const void* p : bases) ok = ok && (uintptr_t)p % (width * sizeof(float)) == 0;
+    if (ok) return width;
+  }
+  return 1;
 }
 
 }  // namespace
@@ -240,15 +537,51 @@ extern "C" int moe_router_launch(const RouterArgs* a) {
 }
 
 // w, dw (T, k) float32, idx (T, k) int32, dlogits (T, E) float32 out, all
-// contiguous; logits (T, E) float32 without renormalize (else unread).
-// 1 <= k <= min(E, 32), blocks = ceil(T / WARPS).
+// contiguous; logits (T, E) float32 without renormalize (else unread; the
+// weights are unread without it).  1 <= k <= min(E, 32), E <= 1024,
+// T < 2^30; the geometry (lanes, pieces, warps, blocks) is
+// router_bwd_geometry's: lanes the least power of two with 4 lanes >= E
+// (at most 32), pieces the least compiled count that holds E over them,
+// 1 <= warps <= bwd_max_warps, and blocks exactly enough for T.  Anything
+// else is refused.
 extern "C" int moe_router_bwd_launch(const RouterBwdArgs* a) {
-  if (a->k < 1 || a->k > 32 || a->k > a->E || (!a->renormalize && a->logits == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (a->T > 0)
-    moe_router_bwd_kernel<<<(int)a->blocks, WARPS * 32, 0, a->stream>>>(
-        a->logits, a->w, a->idx, a->dw, a->dlogits, (int)a->T, (int)a->E, (int)a->k,
-        (int)a->renormalize);
+  const long long L = a->lanes, P = a->pieces;
+  bool ok = a->k >= 1 && a->k <= 32 && a->k <= a->E && a->E <= 1024 && a->T >= 0 &&
+            a->T < (1LL << 30) &&
+            (a->renormalize || a->logits != nullptr) && L == bwd_lanes(a->E) && a->warps >= 1 &&
+            a->warps <= bwd_max_warps((int)L);
+  if (ok && L < 32) {
+    ok = P == 1;
+  } else if (ok) {
+    long long least = 0;
+    for (int p : BWD_PIECES)
+      if (least == 0 && 4 * 32 * p >= a->E) least = p;
+    ok = P == least;
+  }
+  if (ok) {  // L and warps are valid here
+    const long long tokens_a_block = a->warps * (32 / L);
+    ok = a->blocks == (a->T + tokens_a_block - 1) / tokens_a_block;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (a->T == 0) return (int)cudaGetLastError();
+  const int ewidth = a->renormalize ? row_width(a->E, {a->dlogits})
+                                    : row_width(a->E, {a->dlogits, a->logits});
+  switch (L) {
+    case 1: bwd_narrow<1>(a, ewidth); break;
+    case 2: bwd_narrow<2>(a, ewidth); break;
+    case 4: bwd_narrow<4>(a, ewidth); break;
+    case 8: bwd_narrow<8>(a, ewidth); break;
+    case 16: bwd_narrow<16>(a, ewidth); break;
+    default:
+      switch (P) {
+        case 1: bwd_wide<1>(a, ewidth); break;
+        case 2: bwd_wide<2>(a, ewidth); break;
+        case 3: bwd_wide<3>(a, ewidth); break;
+        case 4: bwd_wide<4>(a, ewidth); break;
+        case 6: bwd_wide<6>(a, ewidth); break;
+        default: bwd_wide<8>(a, ewidth); break;
+      }
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,10 +21,17 @@ every model path casts the router logits to f32 first.
 
 ``moe_router_bwd`` is the backward kernel (``csrc/moe_router.cu``
 ``moe_router_bwd_launch``; the JAX package differentiates its jnp
-reference, so it replaces no Pallas kernel): one token a warp, the k
-chosen (id, weight, gradient) triples on the first k lanes, their dot
-product by shuffles, and the E-wide row of the logits' gradient written
-coalesced.  Both wrappers refuse an input that requires grad
+reference, so it replaces no Pallas kernel).  Several tokens a warp: a
+token's L lanes (``router_bwd_geometry``: the least power of two with
+4 L >= E, so 8 tokens a warp at 16 experts; a token a warp above 64)
+share its k chosen triples and sum their dot product S in one fixed
+order; each lane's pieces of 4 consecutive columns of the gradient row
+are staged in shared memory, where the chosen triples' lanes drop their
+values by address, then read back and written once, a 16-byte store
+where the row allows it.
+Bound: bytes (T*k*12 read, T*E*4 written), under the node floor but at
+384 experts, so the call costs its launch and one round trip to memory.
+Both wrappers refuse an input that requires grad
 (``build.refuse_grad``): ``kernels.ops.moe_router`` runs them inside an
 autograd Function.
 """
@@ -40,12 +47,14 @@ from . import build
 
 MAX_EXPERTS = 1024
 MAX_K = 32
-WARPS = 8                                 # warps a block (csrc/moe_router.cu)
+WARPS = 8                                 # warps a block of the forward (csrc/moe_router.cu)
 V_INSTANCES = (1, 2, 4, 8, 12, 16, 24, 32)  # probabilities a lane, compiled
-#: a C entry's arguments (csrc/moe_router.cu RouterArgs, RouterBwdArgs:
-#: eleven 64-bit fields each), packed in one buffer: ctypes would convert
-#: each separate argument on every call
+BWD_PIECES = (1, 2, 3, 4, 6, 8)           # the backward's pieces a lane at 32 lanes, compiled
+#: a C entry's arguments (csrc/moe_router.cu RouterArgs: eleven 64-bit
+#: fields; RouterBwdArgs: fourteen), packed in one buffer: ctypes would
+#: convert each separate argument on every call
 _PACK = struct.Struct("<11q").pack
+_PACK_BWD = struct.Struct("<14q").pack
 _FNS: dict = {}
 
 
@@ -62,6 +71,34 @@ def router_geometry(T: int, E: int) -> tuple[int, int, int]:
     need = -(-E // (32 // tpw))
     v = next(v for v in V_INSTANCES if v >= need)
     return tpw, v, -(-T // (WARPS * tpw))
+
+
+def bwd_max_warps(lanes: int) -> int:
+    """The most warps a block of the backward (csrc/moe_router.cu
+    ``bwd_max_warps``): 32, but 8 at 32 lanes a token, whose pieces take
+    more registers and shared memory a thread."""
+    return 32 if lanes < 32 else 8
+
+
+@functools.lru_cache(maxsize=256)
+def router_bwd_geometry(T: int, E: int, k: int) -> tuple[int, int, int, int]:
+    """(lanes a token L, pieces a lane P, warps a block, blocks) of one
+    ``moe_router_bwd`` launch over ``T`` tokens of ``E`` experts, ``k``
+    chosen (k changes nothing: every lane count takes any k <= E).
+
+    L is the least power of two with 4 L >= E, at most 32, so that 32 / L
+    tokens share a warp; P pieces of 4 consecutive columns a lane hold
+    the row (the least compiled count at 32 lanes, 1 below).  Warps a
+    block: 4, or 2 at 32 lanes (a token a warp), fewer where T needs
+    fewer: the best of a sweep of 1 to 32 on the card at the training
+    shapes (PERF.md §6)."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < E:
+        lanes *= 2
+    pieces = 1 if lanes < 32 else next(p for p in BWD_PIECES if 4 * 32 * p >= E)
+    warps_all = -(-T // (32 // lanes))
+    warps = max(1, min(2 if lanes == 32 else 4, warps_all))
+    return lanes, pieces, warps, -(-warps_all // warps)
 
 
 def _entry(name: str):
@@ -143,9 +180,9 @@ def moe_router_bwd(logits: torch.Tensor | None, weights: torch.Tensor, idx: torc
     if not renormalize:
         logits = logits.contiguous()
         lp = logits.data_ptr()
-    rc = _entry("moe_router_bwd_launch")(_PACK(
+    rc = _entry("moe_router_bwd_launch")(_PACK_BWD(
         lp, weights.data_ptr(), idx.data_ptr(), dweights.data_ptr(), dz.data_ptr(), T, E, k,
-        renormalize, -(-T // WARPS), build.stream_of(weights)))
+        renormalize, *router_bwd_geometry(T, E, k), build.stream_of(weights)))
     build.check("moe_router", rc)
     build.count_launch("moe_router_bwd")
     return dz

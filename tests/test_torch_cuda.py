@@ -1374,48 +1374,110 @@ def test_cuda_moe_router_under_grad_runs_both_kernels(cuda, renormalize):
         torch.testing.assert_close(dz, want, atol=3e-5, rtol=3e-5)
 
 
+ROUTER_BWD_E = [1, 2, 3, 4, 5, 16, 17, 32, 33, 384, 700, 1024]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("renormalize", [True, False])
 def test_cuda_moe_router_bwd_matches_plain_in_a_captured_graph(cuda, renormalize):
-    """moe_router_bwd at odd T, k in {1, 4, 16}, E up to 384, on normal,
-    tie-laden and all-equal logits (the forward's ids, so ties stay as it
-    broke them), against its plain version; three calls captured in a
-    CUDA graph make three kernel nodes and no other node, and the replay
-    gives the same gradient."""
+    """moe_router_bwd at E in ROUTER_BWD_E (rows of 16-byte multiples and
+    not: odd E and E = 2 mod 4 take 4- and 8-byte stores), k at 1 and
+    min(E, 32), T in {0, 1, 4099}, on normal, tie-laden and all-equal
+    logits (the forward's ids, so ties stay as it broke them) and with a
+    non-contiguous ``dweights`` view, against its plain version; without
+    renormalize a gradient of 1 on the first chosen slot gives
+    dz = p (1 - p) there from the forward's own weight, to the bit (p is
+    recomputed in the forward's order).  Three calls captured in a CUDA
+    graph make three kernel nodes and no other node, and the replay gives
+    the same gradient bit for bit."""
     from repro_torch.kernels import build
     from repro_torch.kernels import moe_router as mr
     g = torch.Generator().manual_seed(5)
-    for T, E, k in ((1, 16, 1), (3, 16, 4), (33, 17, 16), (4099, 16, 4), (257, 384, 16),
-                    (7, 384, 1), (4, 4, 4)):
-        x = torch.randn(T, E, generator=g) * 2
-        for logits in (x, torch.round(x * 2) / 2, torch.zeros_like(x)):
-            logits = logits.to(cuda)
-            w, idx = mr.moe_router(logits, k, renormalize=renormalize)
-            dw = torch.randn(T, k, generator=g).to(cuda)
-            lg = None if renormalize else logits
-            n0 = ops.LAUNCHES["moe_router_bwd"]
-            got = mr.moe_router_bwd(lg, w, idx, dw, renormalize=renormalize, n_experts=E)
-            assert ops.LAUNCHES["moe_router_bwd"] == n0 + 1
-            want = ref.moe_router_bwd_ref(logits, w, idx, dw, renormalize=renormalize)
-            assert got.shape == (T, E) and got.dtype == torch.float32
-            torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            outs = [mr.moe_router_bwd(lg, w, idx, dw, renormalize=renormalize, n_experts=E)
-                    for _ in range(3)]
-        assert build.graph_nodes(graph) == (3, 3)
-        graph.instantiate()
-        graph.replay()
-        torch.cuda.synchronize()
-        for out in outs:
-            assert torch.equal(out, got)
+    for E in ROUTER_BWD_E:
+        for k in sorted({1, min(E, 32)}):
+            for T in (0, 1, 4099):
+                x = torch.randn(T, E, generator=g) * 2
+                for kind, logits in (("normal", x), ("ties", torch.round(x * 2) / 2),
+                                     ("equal", torch.zeros_like(x))):
+                    logits = logits.to(cuda)
+                    w, idx = mr.moe_router(logits, k, renormalize=renormalize)
+                    dw = torch.randn(T, k, generator=g).to(cuda)
+                    if kind == "ties":            # a strided view of every other column
+                        dw = torch.randn(T, 2 * k, generator=g).to(cuda)[:, ::2]
+                        assert dw.is_contiguous() == (T * k <= 1)
+                    lg = None if renormalize else logits
+                    n0 = ops.LAUNCHES["moe_router_bwd"]
+                    got = mr.moe_router_bwd(lg, w, idx, dw, renormalize=renormalize, n_experts=E)
+                    assert ops.LAUNCHES["moe_router_bwd"] == n0 + (T > 0)
+                    want = ref.moe_router_bwd_ref(logits, w, idx, dw, renormalize=renormalize)
+                    assert got.shape == (T, E) and got.dtype == torch.float32
+                    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+                    if not renormalize and T:
+                        one = torch.zeros(T, k, device=cuda)
+                        one[:, 0] = 1
+                        p0 = mr.moe_router_bwd(lg, w, idx, one, renormalize=False,
+                                               n_experts=E).gather(1, idx[:, :1].long())
+                        assert torch.equal(p0, w[:, :1] * (1 - w[:, :1])), (E, k, T, kind)
+                if T == 0:
+                    continue
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph):
+                    outs = [mr.moe_router_bwd(lg, w, idx, dw, renormalize=renormalize,
+                                              n_experts=E) for _ in range(3)]
+                assert build.graph_nodes(graph) == (3, 3)
+                graph.instantiate()
+                graph.replay()
+                torch.cuda.synchronize()
+                for out in outs:
+                    assert torch.equal(out, got)
     with pytest.raises(ValueError):                      # k > 32
         mr.moe_router_bwd(None, torch.rand(2, 33, device=cuda),
                           torch.zeros(2, 33, dtype=torch.int32, device=cuda),
                           torch.rand(2, 33, device=cuda), n_experts=64)
     with pytest.raises(ValueError):                      # no logits without renormalize
         mr.moe_router_bwd(None, w, idx, dw, renormalize=False, n_experts=E)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_bwd_entry_refuses_a_geometry_it_has_no_instance_for(cuda):
+    """The C entry, reached through ctypes with a hand-packed argument
+    buffer, launches router_bwd_geometry's geometry and refuses with
+    cudaErrorInvalidValue (1) lanes, pieces, warps or blocks other than
+    that geometry's, more warps than the instance's most, and a missing
+    logits pointer without renormalize; a refused call writes nothing."""
+    from repro_torch.kernels import moe_router as mr
+    T, E, k = 40, 16, 4
+    x = torch.randn(T, E, device=cuda)
+    w, idx = mr.moe_router(x, k)
+    dw = torch.randn(T, k, device=cuda)
+    dz = torch.full((T, E), 7.0, device=cuda)
+    entry = mr._entry("moe_router_bwd_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(geometry, renormalize=1, logits=0):
+        return entry(mr._PACK_BWD(logits, w.data_ptr(), idx.data_ptr(), dw.data_ptr(),
+                                  dz.data_ptr(), T, E, k, renormalize, *geometry, stream))
+    L, P, W, blocks = mr.router_bwd_geometry(T, E, k)
+    for bad in ((8, P, W, blocks), (2, P, W, blocks), (L, 2, W, blocks), (L, P, 0, blocks),
+                (L, P, 33, blocks), (L, P, W, blocks + 1), (L, P, W, blocks - 1),
+                (L, P, 64, 1)):
+        assert call(bad) == 1, bad
+    assert call((L, P, W, blocks), renormalize=0) == 1        # no logits pointer
+    torch.cuda.synchronize()
+    assert bool((dz == 7.0).all())
+    assert call((L, P, W, blocks)) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dz, ref.moe_router_bwd_ref(x, w, idx, dw), atol=3e-5, rtol=3e-5)
+    # a wide row of 8 pieces has an instance of at most 8 warps a block
+    T, E, k = 64, 1024, 8
+    x = torch.randn(T, E, device=cuda)
+    w, idx = mr.moe_router(x, k)
+    dw = torch.randn(T, k, device=cuda)
+    dz = torch.empty(T, E, device=cuda)
+    assert call((32, 8, 16, 4)) == 1 and call((32, 8, 8, 8)) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dz, ref.moe_router_bwd_ref(x, w, idx, dw), atol=3e-5, rtol=3e-5)
 
 
 def _serve_tokens(eng, requests):

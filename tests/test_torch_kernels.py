@@ -654,6 +654,143 @@ def test_router_lane_layout_holds_each_expert_once(E):
     assert (held == 1).all()
 
 
+ROUTER_BWD_E = [1, 2, 3, 4, 5, 16, 17, 32, 33, 384, 700, 1024]
+#: the training paths' calls: dbrx, jamba, jamba's cut to 2 experts,
+#: kimi-k2's cut to 32 and kimi-k2 at 384, the ragged row
+ROUTER_BWD_WANT = {(4096, 16, 4): (4, 1, 4, 128), (4096, 16, 2): (4, 1, 4, 128),
+                   (4096, 2, 2): (1, 1, 4, 32), (4096, 32, 8): (8, 1, 4, 256),
+                   (4096, 384, 8): (32, 3, 2, 2048), (4099, 16, 4): (4, 1, 4, 129)}
+
+
+def _bwd_width(n: int) -> int:
+    """The widest access csrc/moe_router.cu takes over rows of n floats
+    (on aligned bases, as the wrapper's allocations are)."""
+    return 4 if n % 4 == 0 else 2 if n % 2 == 0 else 1
+
+
+@pytest.mark.parametrize("T", [0, 1, 4096, 4099])
+@pytest.mark.parametrize("E,k", sorted({(E, k) for E in ROUTER_BWD_E for k in (1, min(E, 32))}))
+def test_router_bwd_geometry(T, E, k):
+    """Lanes a token: the least power of two with 4 lanes >= E, at most 32;
+    pieces: the least compiled count that holds E; warps a block 4 (2 at a
+    token a warp) or as many as T needs, within the instance's most;
+    blocks exactly enough for T (the C entry refuses any other)."""
+    from repro_torch.kernels.moe_router import BWD_PIECES, bwd_max_warps, router_bwd_geometry
+    L, P, W, blocks = got = router_bwd_geometry(T, E, k)
+    if (T, E, k) in ROUTER_BWD_WANT:
+        assert got == ROUTER_BWD_WANT[(T, E, k)]
+    assert L in (1, 2, 4, 8, 16, 32) and (L == 32 or 4 * L >= E) and (L == 1 or 2 * L < E)
+    assert P == (1 if L < 32 else min(p for p in BWD_PIECES if 128 * p >= E))
+    assert 4 * L * P >= E and k <= 4 * L * P
+    assert 1 <= W <= bwd_max_warps(L) <= 32
+    warps_all = -(-T // (32 // L))
+    assert W == max(1, min(2 if L == 32 else 4, warps_all))
+    tokens = W * (32 // L)                  # tokens a block
+    assert blocks == -(-T // tokens)
+
+
+def _fwd_sum(p: np.ndarray) -> np.float32:
+    """The softmax's sum as csrc/moe_router.cu's forward kernel takes it:
+    sub-lane f of SUB (16 at E <= 16, else 32) adds columns f, f + SUB, ...
+    in turn from 0 over V slots, then a butterfly over offsets SUB/2 .. 1."""
+    from repro_torch.kernels.moe_router import V_INSTANCES
+    E = p.shape[0]
+    sub = 16 if E <= 16 else 32
+    V = min(v for v in V_INSTANCES if sub * v >= E)
+    col = np.concatenate([p, np.zeros(sub * V - E, np.float32)]).reshape(V, sub)
+    acc = np.zeros(sub, np.float32)
+    for v in range(V):
+        acc = (acc + col[v]).astype(np.float32)
+    o = sub // 2
+    while o:
+        acc = (acc + acc[np.arange(sub) ^ o]).astype(np.float32)
+        o //= 2
+    assert (acc == acc[0]).all()
+    return acc[0]
+
+
+def _bwd_sum(p: np.ndarray) -> np.float32:
+    """The same sum as the backward kernel takes it over its layout (lane
+    l's piece q holds columns 4 (l + L q) .. + 3), written the way the
+    kernel's shuffles take it: a narrow row (L < 32) in registers; a wide
+    one from its stage in shared memory, lane f adding columns f + 32 u
+    in turn, then the same butterfly as the forward's."""
+    from repro_torch.kernels.moe_router import router_bwd_geometry
+    E = p.shape[0]
+    L, P, _, _ = router_bwd_geometry(1, E, 1)
+    x = np.concatenate([p, np.zeros(4 * L * P - E, np.float32)]).reshape(P, L, 4)
+    lanes = np.arange(L)
+    if L == 32:
+        stage = x.reshape(-1)               # column e at (e >> 7, (e >> 2) & 31, e & 3)
+        acc = np.zeros(32, np.float32)
+        for u in range(4 * P):
+            acc = (acc + stage[lanes + 32 * u]).astype(np.float32)
+        o = 16
+        while o:
+            acc = (acc + acc[lanes ^ o]).astype(np.float32)
+            o //= 2
+        assert (acc == acc[0]).all()
+        return acc[0]
+    acc = x[0].copy()
+    if L == 16:
+        acc = (acc + acc[lanes ^ 8]).astype(np.float32)
+    o = (16 if L <= 4 else 32) // 8
+    while o:
+        if o < L:
+            acc = (acc + acc[lanes ^ o]).astype(np.float32)
+        o //= 2
+    s = ((acc[:, 0] + acc[:, 2]).astype(np.float32) + (acc[:, 1] + acc[:, 3]).astype(np.float32))
+    s = s.astype(np.float32)
+    assert (s == s[0]).all()                # every lane of the token holds the same sum
+    return s[0]
+
+
+@pytest.mark.parametrize("E", ROUTER_BWD_E)
+def test_router_bwd_softmax_sum_in_the_forwards_order(E):
+    """Without renormalize the backward recomputes p; its sum over its own
+    lane layout adds in the forward kernel's order, so p is the forward's
+    to the bit: the two orders agree bit for bit on values of many
+    magnitudes (where another order rounds differently)."""
+    rs = np.random.RandomState(E)
+    for _ in range(20):
+        p = np.exp(rs.standard_normal(E) * 6).astype(np.float32)
+        assert _bwd_sum(p) == _fwd_sum(p)
+
+
+@pytest.mark.parametrize("E", ROUTER_BWD_E)
+def test_router_bwd_layout_writes_each_column_once(E):
+    """Over the launch's grid (router_bwd_geometry at a ragged T), every
+    column of every token is written by exactly one lane of that token, in
+    stores of the width its rows allow, none reaching past its row or past
+    the flat (T, E) tail; each chosen id has exactly one owning lane there
+    and a slot within its pieces."""
+    from repro_torch.kernels.moe_router import router_bwd_geometry
+    for T in (1, 37):
+        L, P, W, blocks = router_bwd_geometry(T, E, min(E, 32))
+        width = _bwd_width(E)
+        written = np.zeros(T * E, np.int64)
+        owners = np.zeros((T, E), np.int64)
+        for thread in range(blocks * W * 32):
+            warp, lane = divmod(thread, 32)
+            t, sl = warp * (32 // L) + lane // L, lane % L
+            if t >= T:
+                continue
+            for q in range(P):
+                col = 4 * (sl + L * q)
+                for h in range(0, 4, width):
+                    if col + h < E:
+                        assert col + h + width <= E          # within the row
+                        lo = t * E + col + h
+                        assert lo % width == 0 and lo + width <= T * E
+                        written[lo:lo + width] += 1
+            for ident in range(E):                            # the kernel's owner and slot
+                if ((ident >> 2) & (L - 1)) == sl:
+                    assert ((ident >> 2) // L) * 4 + (ident & 3) < 4 * P
+                    assert 4 * (sl + L * ((ident >> 2) // L)) + (ident & 3) == ident
+                    owners[t, ident] += 1
+        assert (written == 1).all() and (owners == 1).all()
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------

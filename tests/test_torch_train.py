@@ -308,7 +308,9 @@ def test_rmsnorm_bwd_ref_matches_autograd_and_jax_vjp(shape, scaled):
 
 ROUTER_CASES = [  # (T, E, k, ties)
     (9, 4, 2, False), (33, 16, 4, False), (7, 384, 8, False), (12, 16, 4, True),
-    (5, 6, 1, True), (4, 8, 8, True)]
+    (5, 6, 1, True), (4, 8, 8, True),
+    (11, 32, 8, False),         # kimi-k2's train step, cut to 32 experts
+    (10, 17, 3, True)]          # a row of 17 experts: not a multiple of 16 bytes
 
 
 def _router_logits(T, E, ties, seed):
