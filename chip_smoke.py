@@ -3932,6 +3932,57 @@ HEAD_DIM_RANKS = 2            # "model" ranks of the head_dim decode, threads on
 HEAD_DIM_LOGIT_TOL = 1e-4     # of the largest logit: f32 sums over the ranks in another order
 
 
+def threaded_ranks(dev, tag: str, rank_main, ranks: int = HEAD_DIM_RANKS, timeout: float = 600):
+    """``rank_main(rank, mesh)`` for each of ``ranks`` "model" ranks over a
+    (1, ranks) ("data", "model") mesh, the ranks threads of this process
+    over PyTorch's threaded process group (its collectives are torch ops
+    on the card's tensors), all on one stream: the card's default stream,
+    which orders the ranks' kernels and the collectives' copies as they
+    are issued.  One card cannot hold two NCCL ranks.  Returns {rank:
+    what ``rank_main`` returned}; fails if a rank raised or hung."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+    got, errors = {}, []
+
+    def run(rank, store):
+        try:
+            torch.cuda.set_device(dev.index or 0)
+            dist.init_process_group("threaded", rank=rank, world_size=ranks, store=store)
+            mesh = DeviceMesh(dev.type, torch.arange(ranks).view(1, ranks),
+                              mesh_dim_names=("data", "model"))
+            got[rank] = rank_main(rank, mesh)
+            dist.destroy_process_group()
+        except BaseException as exc:          # every rank's failure ends the others
+            errors.append(f"rank {rank}: {type(exc).__name__}: {exc}")
+            mtpg.ProcessLocalGroup.exception_handle(exc)
+
+    if not hasattr(mtpg.ThreadLocalWorld, "comms"):
+        # a distributed_c10d that keeps a list of communicators in its world
+        # reads it on every group; this thread's own list
+        local = threading.local()
+        mtpg.ThreadLocalWorld.comms = property(
+            lambda self: local.__dict__.setdefault("comms", []))
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mtpg._install_threaded_pg()
+    try:
+        mtpg.ProcessLocalGroup.reset()
+        store = dist.HashStore()
+        threads = [threading.Thread(target=run, args=(r, store)) for r in range(ranks)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=timeout)
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    check(not errors and len(got) == ranks, f"{tag}: {errors or 'hung'}")
+    return got
+
+
 def head_dim_decode(dev, arch="qwen3-1.7b", layers=4, seed=0, batch=4, dec_steps=8,
                     max_len=512) -> dict:
     """The head_dim layout's meshed decode on the card: ``arch`` at full
@@ -3941,11 +3992,8 @@ def head_dim_decode(dev, arch="qwen3-1.7b", layers=4, seed=0, batch=4, dec_steps
     head_dim / HEAD_DIM_RANKS columns of every head and decodes through
     decode_scores, the all-reduce of the partial scores and decode_combine
     (``layers.attn_decode_head_dim``), the embedding and the head
-    vocab-parallel.  One card cannot hold two NCCL ranks, so the ranks are
-    threads of this process over PyTorch's threaded process group (its
-    collectives are torch ops on the card's tensors), all on one
-    stream: the card's default stream, which orders the ranks' kernels and
-    the collectives' copies as they are issued.  ``dec_steps`` serve steps
+    vocab-parallel.  The ranks are threads of this process
+    (``threaded_ranks``).  ``dec_steps`` serve steps
     at B = ``batch`` from an
     empty cache, teacher-forced with the unmeshed steps' tokens: every
     rank's logits within HEAD_DIM_LOGIT_TOL of the largest of the
@@ -3955,12 +4003,9 @@ def head_dim_decode(dev, arch="qwen3-1.7b", layers=4, seed=0, batch=4, dec_steps
     decode_scores and one decode_combine a layer a step a rank, and no
     decode_attention.  Returns those counts."""
     import dataclasses
-    import threading
 
     import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
-    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import shard
     from repro_torch.kernels import ops
@@ -3982,65 +4027,36 @@ def head_dim_decode(dev, arch="qwen3-1.7b", layers=4, seed=0, batch=4, dec_steps
         want.append(lg)
         lengths = lengths + 1
     torch.cuda.synchronize()
-    got, errors, ms = {}, [], {}
+    ms = {}
 
-    def rank_main(rank, store):
-        try:
-            torch.cuda.set_device(dev.index or 0)
-            dist.init_process_group("threaded", rank=rank, world_size=HEAD_DIM_RANKS, store=store)
-            mesh = DeviceMesh(dev.type, torch.arange(HEAD_DIM_RANKS).view(1, HEAD_DIM_RANKS),
-                              mesh_dim_names=("data", "model"))
-            shards = M.shard_params(params, cfg, mesh)
-            specs = M.decode_state_specs(cfg, batch, dp=dp_axes(mesh), dp_size=dp_size(mesh),
-                                         cache_layout="head_dim", tp_size=HEAD_DIM_RANKS)
-            st = map_like(lambda t, s_: shard(t, s_, mesh),
-                          T.init_decode_state(cfg, batch, max_len, dev), specs)
-            step = M.make_serve_step(cfg, mesh, cache_layout="head_dim")
-            ln, out = torch.zeros(batch, dtype=torch.int32, device=dev), []
-            dist.barrier()
-            t0 = time.perf_counter()
-            for i in range(dec_steps):
-                _, lg, st = step(shards, st, {"tokens": toks[:, i].contiguous(), "lengths": ln})
-                out.append(lg)
-                ln = ln + 1
-            torch.cuda.synchronize()
-            ms[rank] = (time.perf_counter() - t0) * 1e3 / dec_steps
-            blocks = map_like(lambda t, s_: shard(t, s_, mesh), state, specs)
-            got[rank] = (torch.stack(out), leaves(st), leaves(blocks))
-            dist.destroy_process_group()
-        except BaseException as exc:          # every rank's failure ends the others
-            errors.append(f"rank {rank}: {type(exc).__name__}: {exc}")
-            mtpg.ProcessLocalGroup.exception_handle(exc)
-
-    if not hasattr(mtpg.ThreadLocalWorld, "comms"):
-        # a distributed_c10d that keeps a list of communicators in its world
-        # reads it on every group; this thread's own list
-        local = threading.local()
-        mtpg.ThreadLocalWorld.comms = property(
-            lambda self: local.__dict__.setdefault("comms", []))
-    torch._C._distributed_c10d._set_thread_isolation_mode(True)
-    mtpg._install_threaded_pg()
-    try:
-        mtpg.ProcessLocalGroup.reset()
-        store = dist.HashStore()
-        threads = [threading.Thread(target=rank_main, args=(r, store))
-                   for r in range(HEAD_DIM_RANKS)]
-        # decode_combine's split workspace made before the ranks share it
-        Dl = cfg.head_dim // HEAD_DIM_RANKS
-        ops.decode_combine(torch.zeros((batch, cfg.n_heads, max_len), device=dev),
-                           torch.zeros((batch, cfg.n_kv_heads, max_len, Dl), device=dev),
-                           torch.ones(batch, dtype=torch.int32, device=dev))
+    def rank_main(rank, mesh):
+        shards = M.shard_params(params, cfg, mesh)
+        specs = M.decode_state_specs(cfg, batch, dp=dp_axes(mesh), dp_size=dp_size(mesh),
+                                     cache_layout="head_dim", tp_size=HEAD_DIM_RANKS)
+        st = map_like(lambda t, s_: shard(t, s_, mesh),
+                      T.init_decode_state(cfg, batch, max_len, dev), specs)
+        step = M.make_serve_step(cfg, mesh, cache_layout="head_dim")
+        ln, out = torch.zeros(batch, dtype=torch.int32, device=dev), []
+        dist.barrier()
+        t0 = time.perf_counter()
+        for i in range(dec_steps):
+            _, lg, st = step(shards, st, {"tokens": toks[:, i].contiguous(), "lengths": ln})
+            out.append(lg)
+            ln = ln + 1
         torch.cuda.synchronize()
-        ops.reset_launches()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        counts = dict(ops.LAUNCHES)
-    finally:
-        mtpg._uninstall_threaded_pg()
-        torch._C._distributed_c10d._set_thread_isolation_mode(False)
-    check(not errors and len(got) == HEAD_DIM_RANKS, f"head_dim decode: {errors or 'hung'}")
+        ms[rank] = (time.perf_counter() - t0) * 1e3 / dec_steps
+        blocks = map_like(lambda t, s_: shard(t, s_, mesh), state, specs)
+        return torch.stack(out), leaves(st), leaves(blocks)
+
+    # decode_combine's split workspace made before the ranks share it
+    Dl = cfg.head_dim // HEAD_DIM_RANKS
+    ops.decode_combine(torch.zeros((batch, cfg.n_heads, max_len), device=dev),
+                       torch.zeros((batch, cfg.n_kv_heads, max_len, Dl), device=dev),
+                       torch.ones(batch, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = threaded_ranks(dev, "head_dim decode", rank_main)
+    counts = dict(ops.LAUNCHES)
     want = torch.stack(want)[..., :cfg.vocab]        # the padded ids are -inf in both
     top2 = want.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * HEAD_DIM_LOGIT_TOL * float(want.abs().max())
@@ -4072,6 +4088,235 @@ def head_dim_decode(dev, arch="qwen3-1.7b", layers=4, seed=0, batch=4, dec_steps
     del params, state
     torch.cuda.empty_cache()
     return counts
+
+
+#: the recurrent families of the tensor-parallel phase: (arch, layers, experts
+#: kept or None) — jamba's one period with 2 of its 16 experts, as
+#: ``jamba_training`` cuts it, and xlstm's one period
+RECURRENT_TP = (("jamba-v0.1-52b", 8, 2), ("xlstm-350m", 8, None))
+STATE_TOL = 1e-5              # of a state block's largest value
+WITNESS_FACTOR = 2            # a bound of twice the unmeshed step's own rounding witness
+
+
+def recurrent_tp(dev, seed=0, batch=4, seq=512, dec_steps=8, max_len=64) -> dict:
+    """The recurrent blocks tensor-parallel over "model" on the card: each
+    of RECURRENT_TP at full width (f32 weights drawn on the card), over
+    HEAD_DIM_RANKS "model" ranks as threads of this process
+    (``threaded_ranks``), after a check that the threaded group's
+    all-to-all (the channel take's exchange) moves uneven blocks.  Per
+    arch the meshed prefill step at B = ``batch``, S = ``seq``, then
+    ``dec_steps`` meshed serve steps from an empty state, teacher-forced
+    with the unmeshed steps' tokens.  Every rank's logits are held within
+    HEAD_DIM_LOGIT_TOL of the largest unmeshed logit and each rank's block
+    of every recurrent state within STATE_TOL of that block's largest,
+    or within WITNESS_FACTOR times the unmeshed steps' own witness where
+    that is larger: how far the unmeshed steps move when the embedding is
+    perturbed by 1e-7 (xlstm's layers amplify a rounding difference; the
+    ranks sum in another order).  The greedy tokens are equal but at near
+    ties, the mLSTM states equal on both ranks bit for bit, and no
+    ``sharding.gather`` call takes a recurrent state.  The counts are set
+    to 0 just before the meshed steps and read just after; they must be
+    the ranks' ``path_launches``, exactly.  Then, outside the counts, the
+    first recurrent layer of each kind (mamba with its MLP and with its
+    MoE, the mLSTM, the sLSTM) alone on one random input of B x S, meshed
+    (``transformer._layer`` on the rank's shards and sequence shard)
+    against unmeshed, within HEAD_DIM_LOGIT_TOL of the largest output:
+    a layer's own rounding, which xlstm's depth amplifies end to end.
+    Returns the counts, summed."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import dp_axes, dp_size
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import map_like
+    total = {}
+    smi = nvidia_smi()
+    state_ptrs, hits = set(), []
+    real_gather = SH.gather
+
+    def watched_gather(t, spec, mesh, axes=None):
+        if t.untyped_storage().data_ptr() in state_ptrs:
+            hits.append(tuple(t.shape))
+        return real_gather(t, spec, mesh, axes)
+
+    def uneven_exchange(rank, mesh):
+        # rank r sends r + 1 rows to each rank; each receives s + 1 from rank s
+        n = HEAD_DIM_RANKS
+        out = torch.empty(n * (n + 1) // 2, device=dev)
+        dist.all_to_all_single(out, torch.full((n * (rank + 1),), float(rank), device=dev),
+                               output_split_sizes=[s + 1 for s in range(n)],
+                               input_split_sizes=[rank + 1] * n, group=mesh.get_group("model"))
+        want = torch.cat([torch.full((s + 1,), float(s), device=dev) for s in range(n)])
+        return bool(torch.equal(out, want))
+
+    check(all(threaded_ranks(dev, "threaded all-to-all", uneven_exchange).values()),
+          "the threaded group's all_to_all_single moved the wrong rows")
+
+    def share(a, b) -> float:
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    for arch, layers, experts in RECURRENT_TP:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers, dtype="float32", param_dtype="float32")
+        if experts:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=experts))
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = T.init_params(gen, cfg)
+        toks = text_batch(dev, cfg, batch, seq, seed)["tokens"]
+        prefill, serve = M.make_prefill_step(cfg), M.make_serve_step(cfg)
+        kinds = {f"slot{i}": k for i, k in enumerate(cfg.block_pattern) if k in T.RECURRENT_KINDS}
+
+        def unmeshed(p, inputs=None):
+            """(prefill logits, serve logits, final state, the serve steps' input
+            tokens, ms): the unmeshed steps, fed ``inputs`` or their own greedy
+            tokens."""
+            st = T.init_decode_state(cfg, batch, max_len, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre = prefill(p, {"tokens": toks})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ins, out = [toks[:, 0].contiguous()], []
+            ln = torch.zeros(batch, dtype=torch.int32, device=dev)
+            for i in range(dec_steps):
+                nt, lg, st = serve(p, st, {"tokens": (inputs or ins)[i], "lengths": ln})
+                out.append(lg)
+                ins.append(nt)
+                ln = ln + 1
+            torch.cuda.synchronize()
+            ms = {"prefill": (t1 - t0) * 1e3,
+                  "serve_step": (time.perf_counter() - t1) * 1e3 / dec_steps}
+            return pre, torch.stack(out)[..., :cfg.vocab], st, inputs or ins, ms
+
+        want_pre, want, state, inputs, plain_ms = unmeshed(params)
+        # the witness: the same steps with the embedding moved by 1e-7
+        moved = dict(params, embed=params["embed"] * (1 + 1e-7 * torch.randn(
+            params["embed"].shape, generator=gen, device=dev)))
+        w_pre, w_lg, w_st = unmeshed(moved, inputs)[:3]
+        del moved
+        witness = {"prefill": share(w_pre, want_pre), "serve": share(w_lg, want),
+                   "state": {f"{slot}[{i}]": share(a, b) for slot in kinds
+                             for i, (a, b) in enumerate(zip(w_st[slot], state[slot]))}}
+        del w_pre, w_lg, w_st
+        ms = {}
+
+        def rank_main(rank, mesh):
+            shards = M.shard_params(params, cfg, mesh)
+            specs = M.decode_state_specs(cfg, batch, dp=dp_axes(mesh), dp_size=dp_size(mesh),
+                                         cache_layout="auto", tp_size=HEAD_DIM_RANKS)
+            st = map_like(lambda t, s_: SH.shard(t, s_, mesh),
+                          T.init_decode_state(cfg, batch, max_len, dev), specs)
+            state_ptrs.update(t.untyped_storage().data_ptr() for slot in kinds for t in st[slot])
+            step = M.make_serve_step(cfg, mesh)
+            ln, out = torch.zeros(batch, dtype=torch.int32, device=dev), []
+            dist.barrier()
+            t0 = time.perf_counter()
+            pre = M.make_prefill_step(cfg, mesh)(shards, {"tokens": toks})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(dec_steps):
+                _, lg, st = step(shards, st, {"tokens": inputs[i], "lengths": ln})
+                out.append(lg)
+                ln = ln + 1
+            torch.cuda.synchronize()
+            ms[rank] = {"prefill": (t1 - t0) * 1e3,
+                        "serve_step": (time.perf_counter() - t1) * 1e3 / dec_steps}
+            blocks = {slot: [SH.shard(t, s_, mesh) for t, s_ in zip(state[slot], specs[slot])]
+                      for slot in kinds}
+            return pre, torch.stack(out), {slot: list(st[slot]) for slot in kinds}, blocks
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        SH.gather = watched_gather
+        try:
+            got = threaded_ranks(dev, f"recurrent_tp {arch}", rank_main)
+        finally:
+            SH.gather = real_gather
+        counts = dict(ops.LAUNCHES)
+        state_ptrs.clear()
+        tol = {k: max(HEAD_DIM_LOGIT_TOL, WITNESS_FACTOR * witness[k])
+               for k in ("prefill", "serve")}
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * tol["serve"] * float(want.abs().max())
+        line = {"phase": "recurrent_tp", "arch": arch, "layers": layers,
+                "of_layers": full.n_layers, "experts": experts, "dtype": "float32",
+                "ranks": HEAD_DIM_RANKS, "batch": batch, "seq": seq, "dec_steps": dec_steps,
+                "process_group": "threaded (threads on one card)", "unmeshed_ms": plain_ms,
+                "meshed_ms": ms, "witness": witness, "logit_tol": tol}
+        check(not hits, f"recurrent_tp {arch}: sharding.gather took a recurrent state {hits}")
+        for rank, (pre, lg, st, blocks) in got.items():
+            lg = lg[..., :cfg.vocab]
+            err = {"prefill": share(pre, want_pre), "serve": share(lg, want)}
+            for k, e in err.items():
+                check(e <= tol[k], f"recurrent_tp {arch} rank {rank}: {k} logits {e} of the "
+                      f"largest from the unmeshed ones (tolerance {tol[k]})")
+            same = lg.argmax(-1) == want.argmax(-1)
+            check(bool(same[sure].all()), f"recurrent_tp {arch} rank {rank}: a greedy token "
+                  "differs away from a near tie")
+            state_err = {}
+            for slot, kind in kinds.items():
+                for i, (a, b) in enumerate(zip(st[slot], blocks[slot])):
+                    key = f"{slot}[{i}]"
+                    state_err[key] = e = share(a, b)
+                    bound = max(STATE_TOL, WITNESS_FACTOR * witness["state"][key])
+                    check(e <= bound, f"recurrent_tp {arch} rank {rank}: {kind} state {key} "
+                          f"{e} of its largest from the unmeshed block's (tolerance {bound})")
+                    if kind == "mlstm":
+                        check(torch.equal(a, got[0][2][slot][i]), f"recurrent_tp {arch}: "
+                              f"rank {rank}'s mLSTM state {key} differs from rank 0's")
+            line[f"rank{rank}"] = {"logit_err_share": err, "tokens_equal": int(same.sum()),
+                                   "tokens": same.numel(), "near_ties": int((~sure).sum()),
+                                   "state_block_err_share_max": max(state_err.values()),
+                                   "state_block_err_share": state_err}
+        pl = path_launches(cfg)
+        need = {k: HEAD_DIM_RANKS * (pl[k][0] + dec_steps * pl[k][1]) for k in MESHED_KERNELS}
+        check(all(counts[k] == n for k, n in need.items())
+              and counts["decode_scores"] == counts["decode_combine"] == 0,
+              f"recurrent_tp {arch} launches {counts}, not {need}")
+        line["launches"] = {k: counts[k] for k in MESHED_KERNELS}
+        # each kind's first layer alone, meshed against unmeshed, on one input
+        del got
+        xin = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+        firsts = {}
+        for slot, kind in kinds.items():
+            firsts.setdefault((kind, "moe" in params["body"][slot]), slot)
+        with torch.inference_mode():
+            want_layer = {slot: T._slot_apply(kinds[slot], T._index(params["body"][slot], 0), xin,
+                                              cfg) for slot in firsts.values()}
+
+        def layer_main(rank, mesh):
+            part = T.partition(mesh, batch, M.spec_tree(cfg)).with_seq(seq)
+            out = {}
+            for slot in firsts.values():
+                specs = T._layer_specs(part.specs["body"][slot], True)
+                local = map_like(lambda t, s_: SH.shard(t, s_, mesh),
+                                 T._index(params["body"][slot], 0), specs)
+                with torch.inference_mode():
+                    out[slot] = T._layer(kinds[slot], local, specs, part.local_seq(xin), cfg, part)
+            return out, part.rank * (seq // part.tp) if part.seq else 0
+
+        layer_err = {}
+        for rank, (out, lo) in threaded_ranks(dev, f"recurrent_tp {arch} layers",
+                                              layer_main).items():
+            for slot, y in out.items():
+                want_y = want_layer[slot][:, lo:lo + y.shape[1]]
+                layer_err[f"rank{rank} {slot} {kinds[slot]}"] = e = share(y, want_y)
+                check(e <= HEAD_DIM_LOGIT_TOL, f"recurrent_tp {arch} rank {rank}: layer {slot} "
+                      f"({kinds[slot]}) {e} of the largest output from the unmeshed layer's")
+        line["layer_err_share"] = layer_err
+        line["nvidia_smi"] = smi
+        emit(line)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        del params, state, want_pre, want, want_layer
+        torch.cuda.empty_cache()
+    return total
 
 
 MEMORY_BAND = (0.85, 1.15)   # the dry run's predicted bytes over the card's peak
@@ -4172,7 +4417,15 @@ DRYRUN_LIMITS = {("qwen3-1.7b", "train_4k"): {"gib": 80.0, "useful": 0.25},
                  # all of qwen3's): qwen3 a fifth; dbrx a third, since its experts'
                  # gathers over "data" alone move ~1.6e10 a step
                  ("qwen3-1.7b", "decode_32k"): {"collective": 3.17e10 / 5},
-                 ("dbrx-132b", "decode_32k"): {"collective": 6.88e10 / 3}}
+                 ("dbrx-132b", "decode_32k"): {"collective": 6.88e10 / 3},
+                 # the recurrent blocks tensor-parallel over "model", against the
+                 # 1.637e10 and 9.05e8 bytes a step and the 1466083328 and 854783264
+                 # bytes a card of the dry run that gathered each mamba, mLSTM and
+                 # sLSTM layer's leaves whole: jamba's experts' gathers over "data"
+                 # keep ~5.6e9 of its bytes
+                 ("jamba-v0.1-52b", "decode_32k"): {"collective": 8.0e9,
+                                                    "gib": 1466083328 / 2**30},
+                 ("xlstm-350m", "decode_32k"): {"collective": 2.3e8, "gib": 854783264 / 2**30}}
 #: cells traced on fake "cpu" too, whose counts must equal the fake-"cuda" trace's
 DRYRUN_BOTH = [("dbrx-132b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single")]
 DRYRUN_WORKERS = 8
@@ -4644,7 +4897,8 @@ def main(argv: list[str]) -> int:
                    kimi_phase(dev),
                    recurrent_phase(dev, "jamba-v0.1-52b", 8),
                    recurrent_phase(dev, "xlstm-350m", 8), encdec_phase(dev), vlm_phase(dev),
-                   train_phase(dev), mesh_single_rank(dev), head_dim_decode(dev)]
+                   train_phase(dev), mesh_single_rank(dev), head_dim_decode(dev),
+                   recurrent_tp(dev)]
     dryrun_phase()
 
     kernels = []

@@ -4,11 +4,15 @@ kernels, then ``split_decode_kernels`` (decode_scores and decode_combine
 at the head_dim layout's shapes), ``mesh_single_rank`` (the one-rank NCCL
 mesh: the router's meshed train step under both remat policies,
 ``meshed_steps`` and ``memory_check``), ``head_dim_decode`` (the head_dim
-layout's meshed decode over two threaded ranks on the card) and
-``dryrun_phase`` (the dry-run cells and their 16x16 limits), each phase's
-JSON line as the smoke prints it.
+layout's meshed decode over two threaded ranks on the card),
+``recurrent_tp`` (jamba's and xlstm's recurrent blocks tensor-parallel
+over the same two threaded ranks) and ``dryrun_phase`` (the dry-run cells
+and their 16x16 limits), each phase's JSON line as the smoke prints it.
 
-    python3 scripts/mesh_phases.py          # from the root of a checkout, on the card
+    python3 scripts/mesh_phases.py [PHASE ...]   # from the root of a checkout, on the card
+
+PHASE is any of split_decode_kernels, mesh_single_rank, head_dim_decode,
+recurrent_tp and dryrun_phase; all of them, in that order, without one.
 """
 import sys
 import time
@@ -22,7 +26,16 @@ import torch  # noqa: E402
 import chip_smoke as CS  # noqa: E402
 
 
-def main() -> int:
+PHASES = ("split_decode_kernels", "mesh_single_rank", "head_dim_decode", "recurrent_tp",
+          "dryrun_phase")
+
+
+def main(argv: list[str]) -> int:
+    unknown = set(argv) - set(PHASES)
+    if unknown:
+        print(f"mesh_phases: unknown phases {sorted(unknown)}; choose from {PHASES}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("mesh_phases: no CUDA device is available", file=sys.stderr)
         return 1
@@ -34,15 +47,13 @@ def main() -> int:
     build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
-    CS.split_decode_kernels(dev)
-    counts = CS.mesh_single_rank(dev)
-    print(f"mesh_single_rank launches {counts}", flush=True)
-    counts = CS.head_dim_decode(dev)
-    print(f"head_dim_decode launches {counts}", flush=True)
-    CS.dryrun_phase()
+    for name in [p for p in PHASES if p in argv or not argv]:
+        got = getattr(CS, name)() if name == "dryrun_phase" else getattr(CS, name)(dev)
+        if name != "split_decode_kernels" and got is not None:
+            print(f"{name} launches {got}", flush=True)
     print("mesh phases ok", flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -11,11 +11,13 @@ lays a tuple of axes out).  A mesh axis that no dimension names
 replicates the leaf.  Dimensions must divide evenly: a spec that would
 need padding raises.
 
-The collectives are the ones gloo (CPU tensors, the tests) and NCCL (the
-card) both take: ``all_gather_into_tensor``, ``reduce_scatter_tensor``
-(``all_gather_single`` and ``reduce_scatter_single`` where PyTorch has
-those names) and ``all_reduce`` over the mesh's per-axis groups, each on
-contiguous tensors cut along their first dimension.  A call with no process group
+The collectives are the ones gloo (CPU tensors, the tests), NCCL (the
+card) and the threaded group both take: ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` (``all_gather_single`` and
+``reduce_scatter_single`` where PyTorch has those names), ``all_reduce``
+and ``all_to_all_single`` over the mesh's per-axis groups, each on
+contiguous tensors cut along their first dimension; no point-to-point
+send or receive.  A call with no process group
 raises; nothing here falls back to one rank.  An axis of one rank moves
 nothing: its gather, reduce-scatter and all-reduce return their input.
 
@@ -25,7 +27,18 @@ where the layer uses it whole) just before the layer and reduce-scatters
 its gradient back to the shard, and ``SeqGather`` / ``SeqScatter`` move
 the activations between their sequence shards on "model" and the whole
 sequence around a tensor-parallel product, each pair the adjoint of the
-other under autograd.  ``embed`` and the head stay cut over the vocabulary
+other under autograd.  The recurrent blocks (``models/ssm.py``,
+``models/xlstm.py``) add two: ``ChannelTake`` brings a column-cut leaf of
+k equal parts (mamba's ``w_in``, the mLSTM's ``w_up``, the sLSTM's
+``w_x`` and ``w_ff_up``) from the stored "model" block of its
+concatenated columns to the rank's channel block of every part, by one
+all-to-all (its gradient by the reverse one); ``Partition.feature_gather``
+all-gathers a rank's feature block over "model" on the last dimension,
+its gradient reduce-scattered back (``SeqGather`` on that dimension).
+So each rank holds 1/tp of every recurrent leaf the specs cut over
+"model", in a train step, a prefill and a decode step alike, and only
+the leaves the specs leave uncut (``w_bc``, ``w_if``, the biases) and
+the sLSTM's small ``w_h`` whole.  ``embed`` and the head stay cut over the vocabulary
 on "model": a lookup reads zeros outside the rank's rows before its
 reduction, and ``VocabParallelNLL`` is the cross entropy over the ranks'
 columns of the logits.
@@ -212,10 +225,11 @@ class GatherOnUse(torch.autograd.Function):
 
 
 class SeqGather(torch.autograd.Function):
-    """All-gather of the sequence shards along ``dim`` over ``axis``
-    forward; reduce-scatter (summed) backward: the entry of a
-    tensor-parallel product whose ranks each hold part of its input's
-    gradient."""
+    """All-gather of the shards along ``dim`` over ``axis`` forward;
+    reduce-scatter (summed) backward: the entry of a tensor-parallel
+    product whose ranks each hold part of its input's gradient (the
+    sequence's shards, or a recurrent block's feature blocks on the last
+    dimension)."""
 
     @staticmethod
     def forward(ctx, t, mesh, axis, dim):
@@ -242,6 +256,59 @@ class SeqScatter(torch.autograd.Function):
     def backward(ctx, g):
         n = axis_size(ctx.mesh, ctx.axis)
         return _all_gather(g, ctx.dim, ctx.mesh.get_group(ctx.axis), n), None, None, None
+
+
+def channel_plan(k: int, tp: int, rank: int) -> tuple[list, list, list]:
+    """The exchange of ``ChannelTake`` on rank ``rank`` of ``tp``: a leaf of
+    ``k`` equal parts, each of C columns, cut into ``k * tp`` blocks of C /
+    tp columns; rank s stores blocks [s k, (s + 1) k) (its "model" block
+    of the concatenated columns) and needs block j tp + r of every part j.
+    Returns (the rank's stored blocks in sending order: by destination,
+    then by position; blocks sent to each rank; blocks received from
+    each), the sizes in blocks."""
+    mine = range(rank * k, (rank + 1) * k)
+    order = [b - rank * k for b in sorted(mine, key=lambda b: (b % tp, b))]
+    send = [sum(b % tp == r for b in mine) for r in range(tp)]
+    recv = [sum(b % tp == rank for b in range(s * k, (s + 1) * k)) for s in range(tp)]
+    return order, send, recv
+
+
+def _all_to_all(blocks: torch.Tensor, send: list, recv: list, group) -> torch.Tensor:
+    """``blocks`` (n, ...) sent ``send[r]`` leading rows to rank r in turn;
+    the rows received, ``recv[s]`` from rank s in turn."""
+    out = blocks.new_empty((sum(recv),) + tuple(blocks.shape[1:]))
+    dist.all_to_all_single(out, blocks.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    return out
+
+
+class ChannelTake(torch.autograd.Function):
+    """A leaf whose columns are ``k`` equal parts (mamba's ``w_in`` [u|z],
+    the mLSTM's ``w_up`` [x|z], the sLSTM's ``w_x`` [z|i|f|o] and
+    ``w_ff_up`` [a|b]), stored as its (rows, k C / tp) block of the
+    concatenated columns, taken as this rank's channel block of every
+    part, (rows, k C / tp): one all-to-all over ``axis`` forward
+    (``channel_plan``; at tp = 2 and k = 2 rank 0 stores u and sends z's
+    first half), the reverse exchange backward, so the gradient arrives
+    as the stored block's."""
+
+    @staticmethod
+    def forward(ctx, local, k, mesh, axis):
+        tp = axis_size(mesh, axis)
+        order, send, recv = channel_plan(k, tp, axis_coord(mesh, axis))
+        ctx.k, ctx.group, ctx.plan = k, mesh.get_group(axis), (order, send, recv)
+        blocks = local.unflatten(-1, (k, local.shape[-1] // k)).movedim(-2, 0)[order]
+        return _all_to_all(blocks, send, recv, ctx.group).movedim(0, -2).flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, send, recv = ctx.plan
+        k = ctx.k
+        got = _all_to_all(g.unflatten(-1, (k, g.shape[-1] // k)).movedim(-2, 0), recv, send,
+                          ctx.group)
+        back = torch.empty_like(got)
+        back[order] = got
+        return back.movedim(0, -2).flatten(-2), None, None, None
 
 
 class VocabParallelNLL(torch.autograd.Function):
@@ -336,6 +403,28 @@ class Partition:
         if not (sums and local.requires_grad) and not _cuts(spec, self.mesh, axes):
             return local           # nothing to gather or to sum: the leaf as it is
         return GatherOnUse.apply(local, spec, self.mesh, axes, sums)
+
+    def take_channels(self, local: torch.Tensor, spec: tuple, k: int) -> torch.Tensor:
+        """A column-cut leaf of ``k`` equal parts on use: this rank's channel
+        block of every part (``ChannelTake`` over "model", from the stored
+        block), then gathered over the data axes as ``take`` gathers a
+        leaf that keeps its "model" cut."""
+        if self.tp > 1:
+            local = ChannelTake.apply(local, k, self.mesh, TP)
+        return self.take(local, spec, False, False)
+
+    def feature_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' feature blocks of ``t`` (its last dimension) whole
+        over "model"; under grad the gradient is reduce-scattered back to
+        the rank's block (``SeqGather``)."""
+        if self.tp == 1:
+            return t
+        return SeqGather.apply(t, self.mesh, TP, t.dim() - 1)
+
+    def own_features(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last dimension of ``t`` (a view)."""
+        n = t.shape[-1] // self.tp
+        return t.narrow(-1, self.rank * n, n)
 
     def local_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's shard of the sequence (dimension ``dim``) when it is

@@ -291,11 +291,13 @@ def make_serve_step(cfg: ModelConfig, mesh=None, cache_layout: str = "auto"):
     "auto") over its head_dim columns of every head, through
     ``decode_scores``, an all-reduce of the partial scores and
     ``decode_combine``: in both no cache byte moves over "model".  Under
-    the seq layout, and for a recurrent state, each layer's state is
-    gathered over the axes that cut it off the batch before its attention
-    or recurrence, as is the sequence over the data axes when B <
-    dp_size, and the rank keeps its block of what the step writes
-    (``transformer._decode_block``).  The step returns this rank's rows
+    the seq layout each layer's cache is gathered over the axes that cut
+    it off the batch before its attention, as is the sequence over the
+    data axes when B < dp_size, and the rank keeps its block of what the
+    step writes (``transformer._decode_block``).  A recurrent block is
+    tensor-parallel and steps the rank's block of its state in place
+    (mamba's and the sLSTM's features cut over "model", the mLSTM's
+    whole): no recurrent state moves.  The step returns this rank's rows
     of ``next_tok`` and of the logits, whole over the vocabulary (the
     head's columns are the rank's, then gathered), and its block of the
     state."""

@@ -25,6 +25,22 @@ would keep every step's state and decay of every layer.
 
 Decode carries O(1) state per layer: (conv window (B, d_conv−1, Din),
 ssm state (B, Din, N)), both float32.
+
+On a mesh (``part``) the block is channel-parallel over "model", as the
+reference's specs cut it: each rank holds Din / tp channels of ``w_in``'s
+u and z (``Partition.take_channels``: one all-to-all of the stored block
+of the concatenated columns), of ``conv_w``, ``conv_b``, ``w_dt``'s
+columns, ``dt_bias``, ``A_log`` and ``D_skip``, and ``w_out``'s rows;
+``w_bc`` is whole.  The rank runs the conv and the scan over its channels
+alone (the scan is channel-wise), and the block's collectives are the
+entry (``tp_enter``: the sequence gathered where it is split), one
+all-gather of ``u_conv``'s channels for ``w_bc`` and ``w_dt``, which
+contract over all of Din, and the exit of ``w_out``'s partial sums
+(``tp_exit``).  Under grad each is its adjoint's partner: the channel
+gather's gradient is reduce-scattered, ``w_in``'s exchanged back to the
+stored block, and ``w_bc``'s summed over "model".  Decode reads and
+writes the rank's own conv (B, d_conv − 1, Din / tp) and h (B, Din / tp,
+N) in place; no state moves.
 """
 from __future__ import annotations
 
@@ -173,12 +189,22 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
               conv_state: torch.Tensor | None = None,
               ssm_state: torch.Tensor | None = None,
-              return_state: bool = False):
-    """Full-sequence apply.  x: (B, S, D)."""
+              return_state: bool = False, part=None):
+    """Full-sequence apply.  x: (B, S, D).
+
+    With ``part`` the block is channel-parallel over "model": ``params``
+    hold this rank's leaves on use (``w_in`` its channel block of u and
+    of z, ``conv_w``, ``conv_b``, ``w_dt``, ``dt_bias``, ``A_log`` and
+    ``D_skip`` its Din / tp channels, ``w_out`` its rows, ``w_bc``
+    whole), ``x`` enters through ``part.tp_enter``, the states are the
+    rank's channels and the output's partial sums leave through
+    ``part.tp_exit``."""
+    if part is not None:
+        x = part.tp_enter(x)
     Bsz, S, D = x.shape
-    Din = cfg.ssm_expand * D
     xz = x @ params["w_in"]
-    u, z = xz.chunk(2, dim=-1)                             # (B, S, Din) each
+    u, z = xz.chunk(2, dim=-1)                  # (B, S, Din) each, or the rank's Din / tp
+    Din = u.shape[-1]
     # causal depthwise conv (width d_conv)
     pad = cfg.d_conv - 1
     if conv_state is not None:
@@ -189,13 +215,17 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     u_conv = torch.einsum("bskd,kd->bsd", windows, params["conv_w"]) + params["conv_b"]
     del windows
     u_conv = F.silu(u_conv.float()).to(x.dtype)
-    # data-dependent SSM parameters
-    Bm, Cm = (u_conv @ params["w_bc"]).float().chunk(2, dim=-1)     # (B, S, N)
-    dt = _softplus((u_conv @ params["w_dt"]).float() + params["dt_bias"].float())
+    # data-dependent SSM parameters: w_bc and w_dt contract over all of Din
+    u_all = u_conv if part is None else part.feature_gather(u_conv)
+    Bm, Cm = (u_all @ params["w_bc"]).float().chunk(2, dim=-1)      # (B, S, N)
+    dt = _softplus((u_all @ params["w_dt"]).float() + params["dt_bias"].float())
+    del u_all
     y, h_last = _ssm_core(u_conv.float(), dt, Bm, Cm, params["A_log"], params["D_skip"],
                           h0=ssm_state)
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ params["w_out"]
+    if part is not None:
+        out = part.tp_exit(out)
     if return_state:
         new_conv = (u_pad[:, -pad:, :] if pad > 0
                     else torch.zeros((Bsz, 0, Din), dtype=x.dtype, device=x.device))
@@ -209,8 +239,9 @@ def ssm_state_init(cfg: ModelConfig, batch: int, device) -> tuple[torch.Tensor, 
             torch.zeros((batch, Din, cfg.d_state), dtype=torch.float32, device=device))
 
 
-def ssm_decode(params: dict, x: torch.Tensor, state, cfg: ModelConfig):
+def ssm_decode(params: dict, x: torch.Tensor, state, cfg: ModelConfig, part=None):
     """One-token decode: x (B, 1, D); state = (conv (B, d_conv-1, Din),
-    h (B, Din, N)).  Returns (out, new state); O(1) work per step."""
+    h (B, Din, N)), with ``part`` the rank's Din / tp channels of both.
+    Returns (out, new state); O(1) work per step."""
     return ssm_apply(params, x, cfg, conv_state=state[0], ssm_state=state[1],
-                     return_state=True)
+                     return_state=True, part=part)

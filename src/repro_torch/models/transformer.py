@@ -36,14 +36,17 @@ each rank computes the logits of its vocabulary columns and the cross
 entropy is vocab-parallel (``nll_terms``).  Between blocks
 the activations are split over the sequence on "model" when it divides
 (the reference's ``shard_act(seq_dim=1)``); attention and the MLP are
-tensor-parallel (``layers``), a MoE layer expert-parallel (``moe``), and
-the blocks that do not split (attention whose heads do not divide, the
-recurrent blocks) run whole on every "model" rank.  Under grad each
+tensor-parallel (``layers``), a MoE layer expert-parallel (``moe``), the
+recurrent blocks tensor-parallel as the reference's specs cut them
+(mamba channel-parallel, ``ssm``; the mLSTM and sLSTM projections and the
+sLSTM's state cut, ``xlstm``), and attention whose heads do not divide
+runs whole on every "model" rank.  Under grad each
 period runs under ``torch.utils.checkpoint`` (the reference's remat, its
 policy read from ``REPRO_REMAT_POLICY``: ``remat_policy``), so the
 backward gathers the period's leaves again.  Decode attends over the
 rank's own KV heads (the kv_head cache layout) or its head_dim columns of
-every head (the head_dim layout).  An axis of one rank moves nothing and
+every head (the head_dim layout), and a recurrent block steps the rank's
+block of its state in place.  An axis of one rank moves nothing and
 computes as the unmeshed step; the unmeshed path (``part=None``) is
 unchanged.
 """
@@ -242,6 +245,17 @@ def _heads(cfg: ModelConfig, part, decode: bool = False):
     return L.head_split(cfg, part.tp, part.rank, GROUPS if decode else None)
 
 
+#: a recurrent block's leaves read whole on every "model" rank: the ones
+#: the reference's specs leave uncut (``w_bc``, ``w_if``, ``if_bias``,
+#: ``bias``) and the sLSTM's small ``w_h``, of which each rank reads its
+#: heads' rows
+_RECURRENT_WHOLE = {"ssm": ("w_bc",), "mlstm": ("w_if", "if_bias"), "slstm": ("w_h", "bias")}
+#: the column-cut leaves made of equal parts, by their number of parts:
+#: each rank takes its channel block of every part (``Partition.take_channels``)
+_CHANNEL_PARTS = {("ssm", "w_in"): 2, ("mlstm", "w_up"): 2, ("slstm", "w_x"): 4,
+                  ("slstm", "w_ff_up"): 2}
+
+
 def _leaf_use(path: tuple, cfg: ModelConfig, part, heads, whole_kv: bool) -> tuple[bool, bool]:
     """How a layer uses its leaf at ``path`` (names within the layer):
     (gathered whole over "model", its gradient summed over "model").
@@ -250,13 +264,18 @@ def _leaf_use(path: tuple, cfg: ModelConfig, part, heads, whole_kv: bool) -> tup
     cut and are each rank's alone; ``wk``/``wv`` read whole (their KV
     heads do not split, or a gathered decode cache takes every head) and
     the qk-norm scales serve the rank's heads only, so their gradients
-    are partial over "model".  A MoE layer's experts keep their cut, and
+    are partial over "model".  The recurrent blocks are tensor-parallel
+    too: their cut leaves are each rank's alone, and the leaves they read
+    whole (``_RECURRENT_WHOLE``) serve the rank's channels only, so their
+    gradients are summed.  A MoE layer's experts keep their cut, and
     its router's gradient is summed inside the body.  Whatever runs whole
-    on every "model" rank (norms, embed and head, recurrent blocks,
-    attention whose heads do not split, a MoE layer without expert
-    parallelism) is summed over "model" exactly when the sequence is
-    split there, as each rank then computes its own positions."""
+    on every "model" rank (norms, embed and head, attention whose heads
+    do not split, a MoE layer without expert parallelism) is summed over
+    "model" exactly when the sequence is split there, as each rank then
+    computes its own positions."""
     group, name = path[0], path[-1]
+    if group in _RECURRENT_WHOLE:
+        return (True, True) if name in _RECURRENT_WHOLE[group] else (False, False)
     if group in ("attn", "cross") and heads is not None:
         if name in ("wq", "wo"):
             return False, False
@@ -281,11 +300,15 @@ def _take_whole(part, local: torch.Tensor, name: str, spec=None) -> torch.Tensor
 
 def _take(part, local: dict, specs: dict, cfg: ModelConfig, heads=None, whole_kv=False,
           path: tuple = ()) -> dict:
-    """One layer's leaves on use (``Partition.take`` by ``_leaf_use``):
+    """One layer's leaves on use (``Partition.take`` by ``_leaf_use``, or
+    ``Partition.take_channels`` for a leaf of ``_CHANNEL_PARTS``):
     ``local`` holds this rank's blocks, ``specs`` their specs."""
     if isinstance(local, dict):
         return {k: _take(part, v, specs[k], cfg, heads, whole_kv, path + (k,))
                 for k, v in local.items()}
+    k = _CHANNEL_PARTS.get((path[0], path[-1]))
+    if k:
+        return part.take_channels(local, specs, k)
     return part.take(local, specs, *_leaf_use(path, cfg, part, heads, whole_kv))
 
 
@@ -336,8 +359,11 @@ def _slot_apply(kind: str, params: dict, x: torch.Tensor, cfg: ModelConfig,
     name, _, apply = _BLOCKS[kind][:3]
     h = L.norm_apply(params["norm1"], x, cfg)
     kw = {"causal": not cfg.is_encdec or enc_out is not None} if kind == "attn" else {}
-    y = _split(part, lambda h_, **k: apply(params[name], h_, cfg, **kw, **k), h,
-               heads if kind == "attn" else None)
+    if part is not None and kind in RECURRENT_KINDS:     # tensor-parallel: enters and exits
+        y = apply(params[name], h, cfg, part=part)
+    else:
+        y = _split(part, lambda h_, **k: apply(params[name], h_, cfg, **kw, **k), h,
+                   heads if kind == "attn" else None)
     x = _cross(params, x + y, enc_out, cfg, part, heads)
     if "norm2" not in params:
         return x
@@ -677,9 +703,10 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
     of a recurrent state's period row) is written in place.  ``write``
     (B,) bool: the lanes whose recurrent state takes the step (all when
     None); a KV cache is written in every lane, at its length.  With
-    ``part``, the rank's attention ``heads`` (None: the block whole), and
+    ``part``, the rank's attention ``heads`` (None: the block whole),
     with ``head_dim`` a cache holding the rank's head_dim columns
-    (``layers.attn_decode_head_dim``)."""
+    (``layers.attn_decode_head_dim``), and a recurrent block
+    tensor-parallel on the rank's block of its state."""
     h = L.norm_apply(params["norm1"], x, cfg)
     if kind == "attn" and head_dim:
         o, _ = L.attn_decode_head_dim(params["attn"], h, state, lengths, cfg, part, heads)
@@ -688,7 +715,7 @@ def _slot_decode(kind: str, params: dict, x: torch.Tensor, state, lengths: torch
                              **({"part": part, "heads": heads} if heads is not None else {}))
     else:
         name, _, _, decode = _BLOCKS[kind][:4]
-        o, new = decode(params[name], h, state, cfg)
+        o, new = decode(params[name], h, state, cfg, part=part)
         for dst, src in zip(state, new):
             if write is None:
                 dst.copy_(src)
@@ -709,10 +736,10 @@ def _period_spec(spec):
 
 
 def _state_axes(spec: tuple, mesh) -> list:
-    """The mesh axes that cut a period's decode state (its spec ``spec``,
-    batch first) off its batch dimension: KV heads, head_dim or sequence
-    over "model", the sequence over the data axes when the batch is too
-    small to split, a recurrent state's features over "model"."""
+    """The mesh axes that cut a period's attention cache (its spec
+    ``spec``, batch first) off its batch dimension: KV heads, head_dim or
+    sequence over "model", the sequence over the data axes when the batch
+    is too small to split."""
     from ..distributed.sharding import axes_of
     return [a for e in spec[1:] for a in axes_of(e) if a in mesh.mesh_dim_names]
 
@@ -737,16 +764,23 @@ def _decode_block(kind: str, local: dict, specs: dict, x: torch.Tensor, state,
     """One layer's decode step on a mesh: its leaves gathered on use from
     this rank's blocks ``local`` (specs ``specs``) and ``state`` this
     rank's block of the layer's decode state (specs ``spec``, batch first).
-    Under the kv_head layout the rank writes and attends over its own KV
-    heads (unless its heads do not split: then as the seq layout), and
-    under the head_dim layout over its head_dim columns of every head:
-    nothing of the cache moves over "model".  Otherwise each state tensor
-    is gathered over the axes that cut it off the batch (``_state_axes``),
-    the block decodes on the whole (an attention block's KV for every
-    head, its queries the rank's heads), and the rank keeps its block of
-    what it wrote; under the head_dim layout that is only the sequence
-    over the data axes (a batch too small to split)."""
+    A recurrent block steps the rank's block in place, tensor-parallel:
+    ``decode_state_specs`` cuts its features over "model" (the mLSTM's
+    not at all) and, over the data axes, only its batch, as the batch
+    rows are cut (or not, when the batch is too small to split): nothing
+    of it is gathered.  Under the kv_head layout the rank writes and
+    attends over its own KV heads (unless its heads do not split: then
+    as the seq layout), and under the head_dim layout over its head_dim
+    columns of every head: nothing of the cache moves over "model".
+    Otherwise each cache tensor is gathered over the axes that cut it
+    off the batch (``_state_axes``), the block decodes on the whole (its
+    KV for every head, its queries the rank's heads), and the rank keeps
+    its block of what it wrote; under the head_dim layout that is only
+    the sequence over the data axes (a batch too small to split)."""
     from ..distributed.sharding import TP
+    if kind in RECURRENT_KINDS:
+        return _slot_decode(kind, _take(part, local, specs, cfg), x, state, lengths, cfg,
+                            part=part, **kw)
     split = kind == "attn" and _head_dim_local(spec, part)
     heads = None
     if kind == "attn":        # the split kernels take any group; the fused one its GROUPS
@@ -756,14 +790,12 @@ def _decode_block(kind: str, local: dict, specs: dict, x: torch.Tensor, state,
     if own:
         return _slot_decode(kind, params, x, state, lengths, cfg, part=part, heads=heads, **kw)
     from ..distributed.sharding import gather, shard_slices
-    names = ("k", "v") if kind == "attn" else range(len(state))
+    names = ("k", "v")
     axes = {n: [a for a in _state_axes(spec[n], part.mesh) if not (split and a == TP)]
             for n in names}
-    whole = {} if kind == "attn" else [None] * len(state)
-    for n in names:
-        whole[n] = gather(state[n], spec[n], part.mesh, axes=axes[n])
-    x = _slot_decode(kind, params, x, whole if kind == "attn" else tuple(whole), lengths, cfg,
-                     part=part, heads=heads, head_dim=split, **kw)
+    whole = {n: gather(state[n], spec[n], part.mesh, axes=axes[n]) for n in names}
+    x = _slot_decode(kind, params, x, whole, lengths, cfg, part=part, heads=heads,
+                     head_dim=split, **kw)
     for n in names:
         if axes[n] and whole[n] is not state[n]:
             state[n].copy_(whole[n][shard_slices(whole[n].shape, spec[n], part.mesh,

@@ -17,6 +17,32 @@ The recurrences run in plain PyTorch ops on both devices, as the JAX
 package runs them outside Pallas.  Each block carries its own up and down
 projections (the configs' ``d_ff = 0``): the mLSTM a 2× pre-up-projection,
 the sLSTM a gated FFN of factor 4/3 after the cell.
+
+On a mesh (``part``) both blocks are tensor-parallel over "model", as the
+reference's specs cut them; each enters through ``part.tp_enter`` (the
+sequence gathered where it is split) and leaves through ``part.tp_exit``
+(the row-parallel product's partial sums reduced).
+* mLSTM: each rank holds its channel block of ``w_up``'s x and z
+  (``Partition.take_channels``: one all-to-all of the stored block), its
+  columns of ``w_q``, ``w_k`` and ``w_v``, its rows of ``w_down`` and its
+  ``skip_scale``; ``w_if`` and ``if_bias`` are whole.  Its collectives: x
+  gathered over the channels (q, k, v and the gates contract over all of
+  Dp), one gather of its q, k and v columns, so every rank runs the cell
+  on every head and holds the same state (C, n, m), bit for bit, as the
+  reference keeps it whole on every "model" rank; then the rank's
+  channels of h, the skip and z, and ``w_down``'s partial sums.
+* sLSTM: each rank holds D / tp features of the state (h, c, n, m), its
+  features of ``w_x``'s z, i, f and o (the channel take) and of
+  ``w_ff_up``'s a and b, ``w_ff_down``'s rows; ``w_h`` and ``bias`` are
+  whole.  Where the heads divide over the ranks the rank runs the
+  block-diagonal recurrence of its own heads on its own h, with no
+  collective inside the time loop; otherwise h is gathered once a time
+  step (xlstm-350m's 4 heads at tp = 16).  The FFN reads the cell's
+  output gathered over the features.
+Under grad each gather's gradient is reduce-scattered back to the rank's
+block, the channel take's exchanged back to the stored block, and the
+whole leaves' gradients are summed over "model".  Decode steps the
+rank's own state in place: no state moves.
 """
 from __future__ import annotations
 
@@ -141,17 +167,32 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, device):
 
 
 def mlstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                state=None, return_state: bool = False):
+                state=None, return_state: bool = False, part=None):
+    """x: (B, S, D).  With ``part`` over "model": ``params`` hold this
+    rank's leaves on use (``w_up`` its channel block of x and of z,
+    ``w_q``/``w_k``/``w_v`` their columns, ``w_down`` its rows,
+    ``skip_scale`` its channels; ``w_if`` and ``if_bias`` whole); q, k, v
+    are gathered whole, so the cell runs on every head and the state
+    ``(C, n, m)`` is the same on every rank, as the reference keeps it;
+    the rank finishes its channels of h and its rows of ``w_down``."""
+    if part is not None:
+        x = part.tp_enter(x)
     B, S, D = x.shape
     H = cfg.xlstm_heads
-    xin, z = (x @ params["w_up"]).chunk(2, dim=-1)           # (B, S, Dp)
-    Dp = xin.shape[-1]
+    xin, z = (x @ params["w_up"]).chunk(2, dim=-1)           # (B, S, Dp), or the rank's Dp / tp
+    xall = xin if part is None else part.feature_gather(xin)  # q, k, v contract over all of Dp
+    Dp = xall.shape[-1]
     Dh = Dp // H
 
-    def heads(w):
-        return (xin @ w).reshape(B, S, H, Dh).transpose(1, 2).float()
-    q, k, v = heads(params["w_q"]), heads(params["w_k"]), heads(params["w_v"])
-    gates = (xin @ params["w_if"]).float() + params["if_bias"]
+    def heads(p):
+        return p.reshape(B, S, H, Dh).transpose(1, 2).float()
+    if part is None:
+        q, k, v = (heads(xin @ params[w]) for w in ("w_q", "w_k", "w_v"))
+    else:                                     # each rank's columns of q, k, v: one gather
+        q, k, v = (heads(p) for p in part.feature_gather(
+            torch.stack([xall @ params[w] for w in ("w_q", "w_k", "w_v")])))
+    gates = (xall @ params["w_if"]).float() + params["if_bias"]
+    del xall
     log_i = gates[..., :H].transpose(1, 2)                    # (B, H, S), log-space
     log_f = F.logsigmoid(gates[..., H:]).transpose(1, 2)
     if S == 1 and state is not None:
@@ -160,15 +201,19 @@ def mlstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         st = state if state is not None else mlstm_state_init_raw(B, H, Dh, x.device)
         h, h_last = mlstm_chunkwise(q, k, v, log_i, log_f, st, chunk=_pick_chunk(S))
     h = h.transpose(1, 2).reshape(B, S, Dp).to(x.dtype)
+    if part is not None:
+        h = part.own_features(h)
     h = h + params["skip_scale"] * xin                        # learnable skip
     out = (h * F.silu(z.float()).to(x.dtype)) @ params["w_down"]
+    if part is not None:
+        out = part.tp_exit(out)
     if return_state:
         return out, h_last
     return out
 
 
-def mlstm_decode(params, x, state, cfg):
-    return mlstm_apply(params, x, cfg, state=state, return_state=True)
+def mlstm_decode(params, x, state, cfg, part=None):
+    return mlstm_apply(params, x, cfg, state=state, return_state=True, part=part)
 
 
 # ---------------------------------------------------------------------------
@@ -197,19 +242,51 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+def _split_head_weight(w_h: torch.Tensor, f0: int, fl: int) -> tuple[slice, torch.Tensor]:
+    """The recurrent product of features [f0, f0 + fl) when they cut a
+    head: (the rows of h it reads, those of the heads the features lie in;
+    the weight (rows, 4 fl), columns gate-major over the features), the
+    block-diagonal ``w_h`` (H, Dh, 4 Dh) read as a dense matrix there."""
+    Dh = w_h.shape[1]
+    lo, hi = f0 // Dh, (f0 + fl - 1) // Dh + 1
+    w = w_h.unflatten(-1, (4, Dh))
+    cols = [F.pad(w[hh, :, :, max(f0 - hh * Dh, 0):min(f0 + fl - hh * Dh, Dh)],
+                  (0, 0, 0, 0, (hh - lo) * Dh, (hi - 1 - hh) * Dh))
+            for hh in range(lo, hi)]
+    return slice(lo * Dh, hi * Dh), torch.cat(cols, dim=-1).flatten(1)
+
+
 def _slstm_scan(xin: torch.Tensor, w_h: torch.Tensor, bias: torch.Tensor, state,
-                dtype: torch.dtype):
+                dtype: torch.dtype, part=None):
     """The cell over time.  xin: (B, S, 4D) float32, the input
     projection; the recurrent product runs in ``dtype``.  Returns
-    (h over time (B, S, D) float32, final (h, c, n, m))."""
+    (h over time (B, S, D) float32, final (h, c, n, m)).
+
+    With ``part`` over "model" the state and ``xin`` are the rank's D / tp
+    features of each gate, ``w_h`` and ``bias`` whole: when the heads
+    divide over the ranks the rank runs the block-diagonal recurrence of
+    its own heads on its own h; otherwise h is gathered once a time step
+    and the rank computes its features' columns (``_split_head_weight``)."""
     B, S, D4 = xin.shape
     H, Dh = w_h.shape[0], w_h.shape[1]
+    rows = None
+    if part is not None:
+        fl = H * Dh // part.tp
+        bias = bias.unflatten(0, (4, H * Dh))[:, part.rank * fl:(part.rank + 1) * fl].flatten()
+        if H % part.tp == 0:
+            H //= part.tp
+            w_h = w_h[part.rank * H:(part.rank + 1) * H]
+        else:
+            rows, w_h = _split_head_weight(w_h, part.rank * fl, fl)
     h, c, n, m = state
     hs = []
     for x_t in xin.unbind(1):
-        # block-diagonal recurrence: per head (B, Dh) @ (Dh, 4Dh)
-        rec = torch.bmm(h.to(dtype).reshape(B, H, Dh).transpose(0, 1), w_h)  # (H, B, 4Dh)
-        rec = rec.reshape(H, B, 4, Dh).permute(1, 2, 0, 3).reshape(B, D4)
+        if rows is not None:
+            rec = part.feature_gather(h)[:, rows].to(dtype) @ w_h
+        else:
+            # block-diagonal recurrence: per head (B, Dh) @ (Dh, 4Dh)
+            rec = torch.bmm(h.to(dtype).reshape(B, H, Dh).transpose(0, 1), w_h)  # (H, B, 4Dh)
+            rec = rec.reshape(H, B, 4, Dh).permute(1, 2, 0, 3).reshape(B, D4)
         pre = x_t + rec.float() + bias
         z, i, f, o = pre.chunk(4, dim=-1)
         z = torch.tanh(z)
@@ -227,18 +304,30 @@ def _slstm_scan(xin: torch.Tensor, w_h: torch.Tensor, bias: torch.Tensor, state,
 
 
 def slstm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                state=None, return_state: bool = False):
+                state=None, return_state: bool = False, part=None):
     """x: (B, S, D).  A serial loop over time: the normaliser and
-    stabiliser recurrence is data-dependent."""
+    stabiliser recurrence is data-dependent.  With ``part`` over "model":
+    ``params`` hold this rank's leaves on use (``w_x`` its features of z,
+    i, f and o, ``w_ff_up`` its channels of a and b, ``w_ff_down`` its
+    rows; ``w_h`` and ``bias`` whole), the state is the rank's D / tp
+    features, and the FFN reads the cell's output gathered whole."""
+    if part is not None:
+        x = part.tp_enter(x)
     B, S, D = x.shape
-    xin = (x @ params["w_x"]).float()                          # (B, S, 4D)
+    xin = (x @ params["w_x"]).float()                          # (B, S, 4D), or 4D / tp
     if state is None:
         state = slstm_state_init(cfg, B, x.device)
-    hs, new_state = _slstm_scan(xin, params["w_h"], params["bias"], state, x.dtype)
+        if part is not None:
+            state = tuple(part.own_features(t) for t in state)
+    hs, new_state = _slstm_scan(xin, params["w_h"], params["bias"], state, x.dtype, part)
     y = hs.to(x.dtype)
+    if part is not None:
+        y = part.feature_gather(y)
     # gated FFN
     a, b = (y @ params["w_ff_up"]).chunk(2, dim=-1)
     y = (F.gelu(a.float(), approximate="tanh") * b.float()).to(x.dtype) @ params["w_ff_down"]
+    if part is not None:
+        y = part.tp_exit(y)
     if return_state:
         return y, new_state
     return y
@@ -252,5 +341,5 @@ def slstm_state_init(cfg: ModelConfig, batch: int, device):
     return (z(), z(), z(), torch.full((batch, D), NEG_INF, dtype=torch.float32, device=device))
 
 
-def slstm_decode(params, x, state, cfg):
-    return slstm_apply(params, x, cfg, state=state, return_state=True)
+def slstm_decode(params, x, state, cfg, part=None):
+    return slstm_apply(params, x, cfg, state=state, return_state=True, part=part)

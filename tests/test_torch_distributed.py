@@ -67,7 +67,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MoE  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
-from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import leaves, map_like  # noqa: E402
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 RANKS = 4
@@ -87,7 +87,17 @@ def _caches(state, specs=None):
                     yield f"{slot}{j}_{n}", c[n], cs[n] if cs else None
 
 
-_WORKER = inspect.getsource(_caches) + r'''
+def _recurrent(state, specs=None):
+    """Every recurrent state tensor of a decode state, by a name of its
+    own: (name, tensor, its spec in ``specs`` or None)."""
+    for slot in sorted(state):
+        st, sp = state[slot], (specs or {}).get(slot)
+        if isinstance(st, tuple):
+            for i, t in enumerate(st):
+                yield f"{slot}_{i}", t, sp[i] if sp else None
+
+
+_WORKER = inspect.getsource(_caches) + inspect.getsource(_recurrent) + r'''
 import json
 import sys
 from datetime import timedelta
@@ -239,16 +249,40 @@ from repro_torch.launch.dryrun import Counter
 part = json.loads((work / "partitioned.json").read_text())
 gathered = []
 _gather = SH.gather
+# the gathers of each recurrent layer call (train, its recompute, prefill,
+# serve): (kind, whether it carries a MoE FFN, the bytes they return); the
+# gathers of a serve step whose input is a recurrent state
+layer_bytes, in_layer, state_ptrs, state_gathers = [], [], set(), []
 
 
 def counted_gather(t, spec, mesh, axes=None):
     got = _gather(t, spec, mesh, axes)
     gathered.append(got.numel() * got.element_size())
+    if in_layer:
+        in_layer[-1] += got.numel() * got.element_size()
+    if t.untyped_storage().data_ptr() in state_ptrs:
+        state_gathers.append(1)
     return got
 
 
+def counted_layer(run):
+    def layer(kind, local, *a, **k):
+        in_layer.append(0)
+        try:
+            return run(kind, local, *a, **k)
+        finally:
+            got = in_layer.pop()
+            if kind in T.RECURRENT_KINDS:
+                layer_bytes.append((kind, "moe" in local, got))
+    return layer
+
+
+T._layer, T._decode_block = counted_layer(T._layer), counted_layer(T._decode_block)
+SH.gather = counted_gather
 for name, case in part["cases"].items():
     cfg = get_config(case["arch"]).reduced(**case["overrides"])
+    if case.get("float64"):
+        cfg = replace(cfg, dtype="float64", param_dtype="float64")
     if cfg.moe is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, n_experts=case["n_experts"],
                                        capacity_factor=part["capacity_factor"]))
@@ -262,12 +296,9 @@ for name, case in part["cases"].items():
         tag = f"{name}_{shape[0]}x{shape[1]}"
         params = M.shard_params(whole, cfg, mesh)
         gathered.clear()
-        SH.gather = counted_gather
-        try:
-            loss, grads = M.loss_and_grads(params, batch, cfg, mesh)
-            out[tag + "_prefill"] = M.make_prefill_step(cfg, mesh)(params, fwd).numpy()
-        finally:
-            SH.gather = _gather
+        layer_bytes.clear()
+        loss, grads = M.loss_and_grads(params, batch, cfg, mesh)
+        out[tag + "_prefill"] = M.make_prefill_step(cfg, mesh)(params, fwd).numpy()
         out[tag + "_gathered"] = np.array(gathered, np.int64)
         out[tag + "_loss"] = np.float32(loss)
         for i, t in enumerate(leaves(map_like(lambda t, s: gather(t, s, mesh), grads,
@@ -285,6 +316,8 @@ for name, case in part["cases"].items():
             extra = {"enc_out": torch.from_numpy(a["enc_out"])} if cfg.is_encdec else {}
             state = map_like(lambda t, s: shard(t, s, mesh),
                              T.init_decode_state(cfg, 4, part["max_len"], "cpu"), specs)
+            state_ptrs.update(t.untyped_storage().data_ptr() for _, t, _ in _recurrent(state))
+            state_gathers.clear()
             toks, logs = [], []
             for i in range(part["steps"]):
                 nt, lg, state = serve(params, state, {"tokens": torch.from_numpy(a["serve_tokens"][i]),
@@ -293,7 +326,18 @@ for name, case in part["cases"].items():
                 toks.append(nt.numpy())
                 logs.append(lg.numpy())
             out[f"{tag}_{layout}_toks"], out[f"{tag}_{layout}_logits"] = np.stack(toks), np.stack(logs)
+            out[f"{tag}_{layout}_state_gathers"] = np.int64(len(state_gathers))
+            state_ptrs.clear()
             if layout == "head_dim":
+                # the rank's block of every recurrent state after the steps,
+                # and where it lies in the whole state
+                whole_rec = {key: t for key, t, _ in
+                             _recurrent(T.init_decode_state(cfg, 4, part["max_len"], "meta"))}
+                for key, t, sp in _recurrent(state, specs):
+                    out[f"{tag}_state_{key}"] = t.numpy()
+                    out[f"{tag}_state_{key}_at"] = np.array(
+                        [(sl.start, sl.stop) for sl in
+                         SH.shard_slices(whole_rec[key].shape, sp, mesh)], np.int64)
                 # the rank's block of every attention cache after the steps,
                 # and where it lies in the whole cache
                 whole_state = {key: (t, sp) for key, t, sp in
@@ -320,6 +364,9 @@ for name, case in part["cases"].items():
                               for k in ("all-gather", "all-reduce")])
             out[f"{tag}_{layout}_moved"] = np.array(moved, np.int64)
             out[f"{tag}_{layout}_kinds"] = np.array(kinds, np.int64)
+        out[tag + "_layer_bytes"] = np.array([(T.RECURRENT_KINDS.index(k), moe, b)
+                                              for k, moe, b in layer_bytes], np.int64).reshape(-1, 3)
+SH.gather = _gather
 
 # (g) the vocab-parallel head and cross entropy in float64 on (2, 2) and
 # (1, 4), under each remat policy (REPRO_REMAT_POLICY, read per step)
@@ -437,8 +484,16 @@ def _meshed_inputs(work: Path, rs) -> dict:
 #: tp = 2 and read whole at tp = 4), qwen3 with 6 heads and 15 tokens (its
 #: attention whole on every "model" rank at tp = 4, the sequence never
 #: split), dbrx with 8 experts, whisper (the cross-attention over frames
-#: split over "model") and jamba's period (a mamba slot gathered whole);
-#: the MoE configs at a capacity that drops nothing
+#: split over "model"), jamba's period (its mamba slots channel-parallel)
+#: and xlstm's period (7 mLSTM and 1 sLSTM block tensor-parallel; its 2
+#: sLSTM heads split at tp = 2 and cut at tp = 4, where h is gathered a
+#: time step); the MoE configs at a capacity that drops nothing.  jamba
+#: and xlstm run in float64 (``float64``: JAX's f32 parameters widened for
+#: the port): their recurrent layers are tensor-parallel, so the ranks sum
+#: in another order than the unmeshed step, and in f32 a gradient of
+#: theirs moves past 1e-5 of its largest under a rounding's difference
+#: alone (jamba's last A_log by 1.65e-5 when the unmeshed step's embedding
+#: is perturbed by 1e-7)
 #: (qwen3, dbrx and jamba are the meshed cases' configs, params and batch;
 #: the seq layout gathers the cache as head_dim does, and runs for qwen3)
 PART_CASES = {
@@ -450,7 +505,9 @@ PART_CASES = {
              "meshed": True},
     "whisper": {"arch": "whisper-medium", "overrides": {}, "seq": 16, "frames": 12},
     "jamba": {"arch": "jamba-v0.1-52b", "overrides": {"n_layers": N_LAYERS["jamba-v0.1-52b"]},
-              "seq": 16, "n_experts": N_EXPERTS["jamba-v0.1-52b"], "meshed": True},
+              "seq": 16, "n_experts": N_EXPERTS["jamba-v0.1-52b"], "meshed": True,
+              "float64": True},
+    "xlstm": {"arch": "xlstm-350m", "overrides": {"n_layers": 8}, "seq": 16, "float64": True},
 }
 PART_MESHES = ((2, 2), (1, 4))
 PART_LAYOUTS = ("kv_head", "head_dim")
@@ -458,7 +515,11 @@ PART_STEPS, PART_MAX_LEN = 16, 32
 
 
 def part_cfg(case: dict, get=get_config):
+    """The case's reduced config (``get``: either package's
+    ``get_config``); a ``float64`` case is f64 in the port alone."""
     cfg = get(case["arch"]).reduced(**case["overrides"])
+    if case.get("float64") and get is get_config:
+        cfg = replace(cfg, dtype="float64", param_dtype="float64")
     if cfg.moe is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, n_experts=case["n_experts"],
                                        capacity_factor=CAPACITY))
@@ -480,16 +541,20 @@ def _partitioned_inputs(work: Path, rs, meshed: dict) -> dict:
     for name, case in PART_CASES.items():
         cfg_j, cfg = part_cfg(case, jget_config), part_cfg(case)
         if case.get("meshed"):
-            assert cfg == meshed_cfg(case["arch"])
+            assert part_cfg(case, jget_config) == meshed_cfg(case["arch"], jget_config)
             a = np.load(work / f"meshed_{case['arch']}.npz")
-            params = unflatten(M.abstract_params(cfg), [torch.from_numpy(a[f"leaf{i}"])
-                                                        for i in range(int(a["n_leaves"]))])
+            params = map_like(lambda t, a_: t.to(a_.dtype),
+                              unflatten(M.abstract_params(cfg), [torch.from_numpy(a[f"leaf{i}"])
+                                                                 for i in range(int(a["n_leaves"]))]),
+                              M.abstract_params(cfg))
             batch = {"tokens": a["tokens"], "labels": a["labels"]}
             jref = meshed[case["arch"]]
             jax_loss, jax_prefill = jref["jax_eval"], jref["jax_prefill"]
         else:
             jparams = JM.init_params(cfg_j, seed=3)
-            params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+            params = map_like(lambda t, a: t.to(a.dtype),
+                              params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu"),
+                              M.abstract_params(cfg))
             S = case["seq"]
             batch = {"tokens": rs.randint(4, cfg.vocab, (4, S)).astype(np.int32),
                      "labels": rs.randint(4, cfg.vocab, (4, S)).astype(np.int32)}
@@ -530,6 +595,25 @@ def _partitioned_inputs(work: Path, rs, meshed: dict) -> dict:
         save["serve_lengths"] = np.stack([n for _, n in ins])
         ref["serve"] = (np.stack(outs), np.stack(logits))
         ref["caches"] = {key: t.numpy() for key, t, _ in _caches(state)}
+        ref["states"] = {key: t.numpy() for key, t, _ in _recurrent(state)}
+        ref["kinds"] = {f"slot{i}": kind for i, kind in enumerate(cfg.block_pattern)}
+        # per recurrent layer (its kind, whether it carries a MoE FFN): the
+        # bytes of its leaves that "model" cuts (but the sLSTM's w_h, read
+        # whole), and of the others
+        specs = M.spec_tree(cfg)["body"]
+        ref["layer_split"] = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            if kind in T.RECURRENT_KINDS:
+                local = T._index(params["body"][f"slot{i}"], 0)
+                cut = whole = 0
+                for path, t, sp in _named(local, T._layer_specs(specs[f"slot{i}"], True)):
+                    n = t.numel() * t.element_size()
+                    if path[-1] != "w_h" and "model" in [a for e in sp if e
+                                                         for a in ((e,) if isinstance(e, str) else e)]:
+                        cut += n
+                    else:
+                        whole += n
+                ref["layer_split"][kind, "moe" in local] = (cut, whole)
         # the bytes of one layer's leaves (the largest), of embed and of the head
         layers = [leaves(T._index(params["body"][slot], p)) for slot in params["body"]
                   for p in range(cfg.n_periods)]
@@ -708,6 +792,15 @@ def test_pipeline_matches_sequential_stages(gloo):
     for r in gloo["ranks"]:
         np.testing.assert_allclose(r["pipe"], want.numpy(), atol=1e-5, rtol=0)
         assert float(r["bubble"]) == pytest.approx((S - 1) / (MB + S - 1))
+
+
+def _named(tree, specs, path=()):
+    """(path, leaf, its spec) of every leaf of a dict tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], specs[k], path + (k,))
+    else:
+        yield path, tree, specs
 
 
 def _flat_specs(tree, specs) -> list:
@@ -939,13 +1032,14 @@ def test_no_gather_returns_more_than_one_layer(gloo, name, shape):
 
 
 def _kv_local(name: str, shape) -> bool:
-    """The kv_head layout keeps each rank's cache local: its KV heads
-    divide over "model" and its decode heads split (a local group size
-    the decode kernel takes)."""
+    """The kv_head layout keeps each rank's cache local: the config has an
+    attention cache, its KV heads divide over "model" and its decode
+    heads split (a local group size the decode kernel takes)."""
     from repro_torch.kernels.decode_attention import GROUPS
     from repro_torch.models.layers import head_split
     cfg = part_cfg(PART_CASES[name])
-    return cfg.n_kv_heads % shape[1] == 0 and head_split(cfg, shape[1], 0, GROUPS) is not None
+    return ("attn" in cfg.block_pattern and cfg.n_kv_heads % shape[1] == 0
+            and head_split(cfg, shape[1], 0, GROUPS) is not None)
 
 
 PART_KV = [(name, shape) for name, shape in PART_IDS if _kv_local(name, shape)]
@@ -995,13 +1089,81 @@ def test_head_dim_serve_step_gathers_no_cache(gloo, name, shape):
     leaves, the queries' heads, the outputs' columns, the logits'
     vocabulary) move the same bytes, so no cache byte is gathered; the
     all-reduces grow by exactly the partial scores' growth, one f32 (B,
-    H, S) a layer."""
+    H, S) a layer (f64 in a float64 case)."""
     cfg, tag = part_cfg(PART_CASES[name]), _tag(name, shape)
+    score_bytes = 8 if cfg.dtype == "float64" else 4
     for r in gloo["ranks"]:
         (ag0, ar0), (ag1, ar1) = r[tag + "_head_dim_kinds"]
         rows = len(r[tag + "_rows"])
         assert ag0 == ag1 > 0, (ag0, ag1)
-        assert ar1 - ar0 == _attn_layers(cfg) * rows * cfg.n_heads * PART_MAX_LEN * 4, (ar0, ar1)
+        assert ar1 - ar0 == _attn_layers(cfg) * rows * cfg.n_heads * PART_MAX_LEN * score_bytes, \
+            (ar0, ar1)
+
+
+#: the partitioned cases with recurrent blocks, on each mesh
+PART_RECURRENT = [(name, shape) for name, shape in PART_IDS
+                  if {"mamba", "mlstm", "slstm"} & set(part_cfg(PART_CASES[name]).block_pattern)]
+
+
+@pytest.mark.parametrize("name,shape", PART_RECURRENT, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_recurrent_state_blocks_equal_the_unmeshed_state(gloo, name, shape):
+    """After 16 serve steps each rank's block of every recurrent state (its
+    rows over "data"; mamba's conv and h over their Din channels and the
+    sLSTM's four states over D on "model") equals that block of the
+    unmeshed state within 1e-5 of its largest: each rank stepped its own
+    channels in place.  The mLSTM state, whole on every "model" rank as
+    the reference keeps it, is equal bit for bit on the ranks that hold
+    the same rows."""
+    ref, tag = gloo["partitioned"][name], _tag(name, shape)
+    assert ref["states"]
+    for key, whole in ref["states"].items():
+        cut = ref["kinds"][key.split("_")[0]] != "mlstm"
+        by_rows = {}
+        for r in gloo["ranks"]:
+            at = tuple(slice(a, b) for a, b in r[f"{tag}_state_{key}_at"])
+            got = r[f"{tag}_state_{key}"]
+            assert got.shape == whole[at].shape, (key, got.shape)
+            assert (got.size * shape[1] == whole[at[:2]].size) if cut else \
+                (got.size == whole[at[:2]].size), key
+            np.testing.assert_allclose(got, whole[at], atol=1e-5 * np.abs(whole).max(), rtol=0,
+                                       err_msg=f"{tag} {key}")
+            if not cut:
+                first = by_rows.setdefault(tuple(r[tag + "_rows"]), got)
+                assert np.array_equal(got, first), f"{tag} {key}: differs between ranks"
+
+
+@pytest.mark.parametrize("name,shape", PART_RECURRENT, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_serve_step_gathers_no_recurrent_state(gloo, name, shape):
+    """No ``sharding.gather`` call of the 16 serve steps, under either
+    cache layout, takes a recurrent state: each rank decodes its own
+    block in place."""
+    tag = _tag(name, shape)
+    for r in gloo["ranks"]:
+        for layout in PART_CASES[name].get("layouts", PART_LAYOUTS):
+            key = f"{tag}_{layout}_state_gathers"
+            if key in r:
+                assert int(r[key]) == 0, (key, int(r[key]))
+
+
+@pytest.mark.parametrize("name,shape", PART_RECURRENT, ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_recurrent_layer_gathers_hold_a_tp_share_of_its_cut_leaves(gloo, name, shape):
+    """Every recurrent layer call of the train step (and its recompute),
+    the prefill and the serve steps gathers at most 1/tp of the bytes of
+    its leaves that "model" cuts, plus its leaves read whole (norms,
+    ``w_bc``, ``w_if``, the biases, the sLSTM's ``w_h``): no cut leaf is
+    gathered whole over "model"."""
+    ref, tag = gloo["partitioned"][name], _tag(name, shape)
+    kinds = ("mamba", "mlstm", "slstm")
+    for r in gloo["ranks"]:
+        calls = r[tag + "_layer_bytes"]
+        seen = {kinds[k] for k in calls[:, 0]}
+        assert seen == set(ref["kinds"].values()) & set(kinds), seen
+        for k, moe, got in calls:
+            cut, whole = ref["layer_split"][kinds[k], bool(moe)]
+            assert cut > 0 and got <= cut // shape[1] + whole, (kinds[k], got, cut, whole)
 
 
 @pytest.mark.parametrize("name,shape", PART_IDS, ids=lambda v: v if isinstance(v, str)

@@ -448,6 +448,49 @@ def test_partitioned_cells_hold_one_layer_at_a_time_on_16x16():
     assert dec["collectives"] == longer["collectives"]
 
 
+def _smoke_limits() -> dict:
+    """``chip_smoke.DRYRUN_LIMITS`` (the script imports only the standard
+    library at its top)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.DRYRUN_LIMITS
+
+
+RECURRENT_CELLS = (("jamba-v0.1-52b", "decode_32k"), ("xlstm-350m", "decode_32k"))
+
+
+def test_recurrent_decode_cells_keep_the_smoke_limits(tmp_path):
+    """jamba-v0.1-52b's and xlstm-350m's decode_32k through the CLI on fake
+    CPU tensors (16x16), in processes of their own started together: each
+    ends ok, within the smoke's ``DRYRUN_LIMITS`` for it: its collective
+    bytes a step and its bytes a card, now that each mamba, mLSTM and
+    sLSTM layer gathers only its 1/16 of the leaves "model" cuts, and no
+    recurrent state moves; the channel takes are all-to-alls."""
+    limits = _smoke_limits()
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+         cell[1], "--mesh", "single", "--device", "cpu", "--out-dir", str(tmp_path)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in RECURRENT_CELLS}
+    try:
+        logs = {cell: p.communicate(timeout=240)[0] for cell, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    for (arch, shape), p in procs.items():
+        assert p.returncode == 0, logs[arch, shape][-3000:]
+        res = json.loads((tmp_path / f"{arch}__{shape}__16x16.json").read_text())
+        lim = limits[arch, shape]
+        assert res["status"] == "ok"
+        assert 0 < res["collectives"]["total_bytes"] <= lim["collective"], res["collectives"]
+        assert res["collectives"]["all-to-all"]["count"] > 0
+        assert res["memory"]["total_per_device"] / 2**30 < lim["gib"], res["memory"]
+
+
 # ---------------------------------------------------------------------------
 # the copy of launch/hlo_walk.py
 # ---------------------------------------------------------------------------
