@@ -225,6 +225,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
 BF16_FLOPS = 989e12        # bfloat16 on the tensor cores
 INT8_OPS = 1979e12
+# exponentials a second on an H100 SXM5's special-function units (the
+# FlashAttention-3 paper's 3.9 TFLOP/s of them beside 989 of bf16 products)
+EXP_PER_S = 3.9e12
 F32_TOL = dict(atol=3e-5, rtol=3e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
@@ -761,6 +764,13 @@ def attn_work(B, Hq, Hkv, Sq, Skv, D, causal, elt) -> tuple[float, float]:
     return elt * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D), 4.0 * D * pairs * B * Hq
 
 
+def exp_bound_ms(flops: float, D: int) -> float:
+    """Least time of the exponentials of attention whose products are
+    ``flops`` (4·D a visible pair, one exp2 each) on the special-function
+    units: at head_dim 64 as long as the products on the tensor cores."""
+    return flops / (4 * D) / EXP_PER_S * 1e3
+
+
 def sdpa_mask(q, k, causal):
     """The mask that lets one SDPA call compute the same function (the
     yardstick only): the causal mask of a chunked prefill (Sq < Skv) is
@@ -806,9 +816,12 @@ def attention_kernels(dev) -> dict:
         lib = cuda_ms(lambda: sdpa(q, k, v, causal, mask), iters=n)
         dev_ms = graph_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal),
                           (q, k, v), calls=20)["device_ms"]
+        bf16 = dtype == torch.bfloat16
+        tile = fa.query_tile(B, Hq, Sq, D=D) if bf16 else fa.BLOCK_Q
         row = {"shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
                         f"{'causal' if causal else 'non-causal'}",
-               "block_q": fa.query_tile(B, Hq, Sq) if dt == "bfloat16" else fa.BLOCK_Q,
+               "block_q": tile,
+               "exp_bound_ms": exp_bound_ms(flops, D) if D <= 64 else None,
                "max_abs_err": err, "gflop": flops / 1e9, "ms": ms, "device_ms": dev_ms,
                "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), iters=n),
                "library_ms": lib,
@@ -3371,7 +3384,8 @@ def backward_kernels(dev) -> dict:
             "shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
                      f"{'causal' if causal else 'non-causal'}",
             "geometry": fa.bwd_geometry(B, Hq, Hkv, Sq, Skv, dtype == torch.bfloat16,
-                                        build.sm_count(0))._asdict(),
+                                        build.sm_count(0), causal)._asdict(),
+            "exp_bound_ms": exp_bound_ms(2 * fwd_flops, D) if D <= 64 else None,
             "max_abs_err": err, "lse_max_abs_err": lse_err, "gflop": flops / 1e9,
             "ms": ms, "device_ms": gm["device_ms"], "device_ms_profiled": prof,
             "plain_ms": plain_ms, "library_ms": lib_ms, "library_device_ms": lib_dev,

@@ -10,7 +10,7 @@ maxed over the leaves: the JAX package's f32 gradients against the
 port's, each of the two against the port's code run in float64, and the
 port's own f32 gradients moved by 1e-7 perturbations of the embedding
 table (four seeded draws: the witness of its sensitivity that
-tests/test_torch_train.py measures).  A drift of the JAX-port distance
+tests/test_torch_train_xlstm.py measures).  A drift of the JAX-port distance
 to the witness's order, with each block alone within 3e-5
 (tests/test_torch_ssm.py), is amplification by the random layers, not a
 fault.

@@ -45,6 +45,13 @@ _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _SM_COUNT: dict[int, int] = {}
+STREAM_SLOTS = 64     # streams a kernel's counter buffer serves on a device
+#: each (kernel, device)'s int32 counters (STREAM_SLOTS slots, zeroed once;
+#: a launch leaves its slot's counters 0 again), and the slot of each
+#: (kernel, device, stream)
+_SLOT_BUFFERS: dict = {}
+_STREAM_SLOTS: dict[tuple[str, int, int], int] = {}
+_SLOT_LOCK = threading.Lock()
 
 
 def count_launch(name: str) -> None:
@@ -154,6 +161,31 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = getattr(library(name), f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} ({msg})")
+
+
+def stream_slot(name: str, t, stream: int, ints: int) -> int:
+    """The address of ``ints`` int32 counters of ``stream`` on t's device
+    for the kernel ``name`` (rmsnorm_bwd's dscale arrivals,
+    flash_attention_bwd's head-split tickets): a slot of that kernel's
+    counter buffer on the device, made (zeroed) on the first call, which
+    must therefore come outside CUDA graph capture (a warm-up call does
+    it).  Two streams never share a slot, so launches on both at once do
+    not count each other's blocks; a graph keeps the slot of the stream
+    it was captured on."""
+    import torch
+    dev = t.get_device()
+    with _SLOT_LOCK:
+        slot = _STREAM_SLOTS.get((name, dev, stream))
+        if slot is None:
+            slot = sum(k[:2] == (name, dev) for k in _STREAM_SLOTS)
+            if slot >= STREAM_SLOTS:
+                raise RuntimeError(f"{name}: more than {STREAM_SLOTS} streams on device {dev}")
+            _STREAM_SLOTS[(name, dev, stream)] = slot
+        buf = _SLOT_BUFFERS.get((name, dev))
+        if buf is None:
+            buf = _SLOT_BUFFERS[(name, dev)] = torch.zeros(STREAM_SLOTS * ints,
+                                                          dtype=torch.int32, device=t.device)
+    return buf.data_ptr() + 4 * ints * slot
 
 
 def stream_of(t) -> int:

@@ -49,23 +49,48 @@
 //       One producer thread issues them: Q once, K and V through a ring of
 //       tiles of 128 keys (2 at D = 112 and 128, 3 below) with full (K, V apart)
 //       and empty mbarriers.  With two consumer warpgroups the producer warpgroup
-//       drops to 24 registers (setmaxnreg) and the consumers rise to 240.
+//       drops to 24 registers (setmaxnreg) and the consumers rise to 240;
+//       with three to 24 and 160.
 //     - products by wgmma: each consumer warpgroup owns 64 query rows
-//       (one or two a block: 128 queries, or 64 where the grid would not
-//       fill the card; the host picks).  S = Q K^T is m64n128k16 with both
+//       (one, two or three a block: 64, 128 or 192 queries; the host's
+//       query_tile picks).  S = Q K^T is m64n128k16 with both
 //       operands in shared memory; the online softmax runs on its f32
 //       accumulators in registers (row max and sum over the 4 threads of a
-//       row, exp2 with log2 e folded into the scale); P is rounded to
-//       bf16 in registers, where the accumulator layout of S is the A
-//       fragment of O += P V (m64n{D}k16), V read MN-major from the same
-//       tiles K came in (no transposed copy).
+//       row; the max over the raw scores, the scale being positive, so
+//       one FFMA gives s * scale * log2 e - m, and one ex2.approx.ftz the
+//       exponential: exp2f adds three instructions of denormal handling);
+//       P is rounded to bf16 in registers, where the accumulator layout of
+//       S is the A fragment of O += P V (m64n{D}k16), V read MN-major from
+//       the same tiles K came in (no transposed copy).
 //     - causal work: only tiles that straddle the diagonal or the ragged
 //       Skv tail compute the mask; wholly visible tiles skip the compare.
+//     - two schedules.  Each visible pair costs 4 * D flops of products
+//       and one exp2; an H100's special-function units give ~1/250 of its
+//       bf16 tensor rate, so at D = 128 the exponentials take half the
+//       products' time and at D = 64 all of it.  One tile at a time (S,
+//       its softmax, O += P V; the warpgroups interleave on their own)
+//       runs D = 112 and 128, and every 64-query block (one warpgroup).
+//       Two or three warpgroups at D <= 64 (whisper-medium, internvl2-1b;
+//       PIPELINED) run FlashAttention-3's schedule: batch i issues tile i's
+//       S with tile i-1's O += P V and runs tile i's softmax while that
+//       P V is on the tensor cores (the ring's third stage lets the
+//       producer load tile i + 1 meanwhile), and the warpgroups take turns
+//       to issue (named barriers 4 + wg), so one's exponentials run while
+//       another's products do.  Measured on an H100 (700 W) against the
+//       one-tile schedule with the same 128-query tile, the schedule alone
+//       gave 2-3% at whisper's and internvl2's shapes; the cheaper
+//       exponential and the folded scale 5-7% more: the softmax's
+//       instructions, not the overlap, bound it.  Three warpgroups (192 queries, one more warp
+//       a scheduler to hide the softmax's latency) took whisper's encoder
+//       from 0.117 to 0.099 ms and internvl2's prefill from 0.091 to
+//       0.088, under SDPA; at whisper's 448 decoder positions 192 pads to
+//       576 rows and loses, so query_tile keeps 128 there.  The same
+//       schedule at D = 112 and 128 (three stages) read within +-2% of
+//       one tile at a time, which they keep.  One warpgroup keeps it too:
+//       pipelined, a 64-query block read ~30% slower on grids of several
+//       waves (why is not measured).
 //    The epilogue writes O through the warpgroup's Q tile (swizzled) and
-//    one TMA store.  The two warpgroups' products and softmaxes interleave
-//    on their own; issuing tile i's S beside tile i-1's P V inside one
-//    warpgroup (FlashAttention-3's overlap) was no faster at qwen3
-//    prefill on an H100, and needs a third K/V stage at D = 128.
+//    one TMA store.
 //
 // Both bodies write the rows' log-sum-exp of the scaled scores (natural
 // log, f32, (B, Hq, Sq)) when `lse` is not null: the training forward
@@ -256,6 +281,13 @@ struct Geo : hopper::Atoms<D> {
   static constexpr int Q_WG_BYTES = WG_ROWS * DP * 2;
 };
 
+// The pipelined schedule with turns, at head_dim 64 and below (where the
+// exponentials take as long as the products) and two or three consumer
+// warpgroups; D = 112 and 128, and one warpgroup, run one tile at a time
+// (the header says what was measured).
+template <int D, int NWG>
+constexpr bool PIPELINED = D <= 64 && NWG > 1;
+
 template <int D, int NWG>
 constexpr int wgmma_smem_bytes() {
   // + 1024: the tiles start on a 1024-byte boundary (the 128-byte swizzle's period)
@@ -264,16 +296,21 @@ constexpr int wgmma_smem_bytes() {
 
 // One key tile of the online softmax on a warpgroup's S accumulators.
 // Element i of s (and of o) is row g + 8 * ((i >> 1) & 1) of the warp's
-// 16, column 8 * (i >> 2) + 2 * t + (i & 1).  On return s holds p.
-template <bool MASK, int NO>
-__device__ __forceinline__ void online_softmax(float (&s)[HBK / 2], float (&o)[NO], float (&m)[2],
-                                               float (&l)[2], int k0, int t, int pos0,
-                                               int kv_len, int causal, float scale_log2) {
+// 16, column 8 * (i >> 2) + 2 * t + (i & 1).  On return s holds p, (m, l)
+// are the rows' new max and this thread's share of their sums (m in the
+// exp2 domain: the scaled scores times log2 e), and alpha the factor that
+// takes the output accumulated so far to the new max.  The scale is
+// positive (the C entry refuses others), so the row max is taken over the
+// raw scores, and one FFMA a score gives s * scale - m before its exp2.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[HBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int t, int pos0,
+                                             int kv_len, int causal, float scale_log2) {
   float mx[2] = {NEG, NEG};
 #pragma unroll
   for (int i = 0; i < HBK / 2; ++i) {
     const int r = (i >> 1) & 1;
-    float v = s[i] * scale_log2;
+    float v = s[i];
     if (MASK) {
       const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
       const bool ok = key < kv_len && (!causal || key <= pos0 + 8 * r);
@@ -282,29 +319,74 @@ __device__ __forceinline__ void online_softmax(float (&s)[HBK / 2], float (&o)[N
     s[i] = v;
     mx[r] = fmaxf(mx[r], v);
   }
-  float alpha[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r]);
-    alpha[r] = exp2f(m[r] - m_new);
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = fast_exp2(m[r] - m_new);
     m[r] = m_new;
     l[r] *= alpha[r];
   }
 #pragma unroll
   for (int i = 0; i < HBK / 2; ++i) {
     const int r = (i >> 1) & 1;
-    float p = exp2f(s[i] - m[r]);
+    float p = fast_exp2(fmaf(s[i], scale_log2, -m[r]));
     if (MASK) p = s[i] == NEG ? 0.f : p;
     l[r] += p;  // this thread's share of the row sum
     s[i] = p;
   }
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
-template <int D, int NWG>
+// softmax_tile with the mask where the tile needs it (the ragged Skv tail,
+// or a tile that straddles the diagonal): wholly visible tiles skip the
+// compare.
+__device__ __forceinline__ void tile_softmax(float (&s)[HBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int t, int pos0,
+                                             int row_wg, int seq_off, int kv_len, int causal,
+                                             float scale_log2) {
+  if (k0 + HBK > kv_len || (causal && k0 + HBK - 1 > row_wg + seq_off))
+    softmax_tile<true>(s, m, l, alpha, k0, t, pos0, kv_len, causal, scale_log2);
+  else
+    softmax_tile<false>(s, m, l, alpha, k0, t, pos0, kv_len, causal, scale_log2);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// S = Q K^T of one key tile, issued (not awaited): m64n128k16 with both
+// operands in shared memory, 7 k-steps at D = 112 (padded columns unread).
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[HBK / 2], uint32_t q_wg, uint32_t k_t) {
+  using G = Geo<D>;
+  constexpr uint32_t SBO = 8 * G::ATOM_B;   // 8 rows of one atom
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int a = kk * 16 / G::ATOM_E, c = (kk * 16 % G::ATOM_E) * 2;
+    wgmma_ss_n128(s, make_desc(q_wg + a * WG_ROWS * G::ATOM_B + c, 16, SBO, G::LAYOUT),
+                  make_desc(k_t + a * HBK * G::ATOM_B + c, 16, SBO, G::LAYOUT), kk > 0);
+  }
+}
+
+// O += P V of one key tile, issued: P the bf16 A fragments of the tile's
+// S accumulators (key columns 16j .. 16j + 15 are k-step j), V read
+// MN-major from the tile K came in (LBO steps the D atoms, SBO 8 keys).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[Geo<D>::DP / 2],
+                                         const uint32_t (&pa)[HBK / 16][4], uint32_t v_t) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int j = 0; j < HBK / 16; ++j)
+    wgmma_rs<G::DP>(o, pa[j], make_desc(v_t + j * 16 * G::ATOM_B, HBK * G::ATOM_B,
+                                        8 * G::ATOM_B, G::LAYOUT));
+}
+
+constexpr int PP_BAR = 4;   // turns: named barriers 4 + wg (1 + wg: the epilogue's)
+
+template <int D, int NWG, bool PIPE>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -346,7 +428,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (wg == NWG) {
     // ---- producer: one thread issues every copy --------------------------
-    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (NWG > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == NWG * 128) {
       mbar_expect_tx(q_bar, NWG * G::Q_WG_BYTES);
 #pragma unroll
@@ -373,64 +455,107 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   } else {
     // ---- consumers: 64 query rows a warpgroup ----------------------------
     if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (NWG == 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int row_wg = q0 + wg * WG_ROWS;            // the warpgroup's first query row
     const int pos0 = row_wg + warp * 16 + g + seq_off;  // this thread's rows: pos0, pos0 + 8
     const uint32_t q_wg = q_s + wg * G::Q_WG_BYTES;
-    constexpr uint32_t SBO = 8 * G::ATOM_B;          // 8 rows of one atom
     float o[G::DP / 2];   // at D = 112 the last 16 columns stay 0 (V's padding)
 #pragma unroll
     for (int i = 0; i < G::DP / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float s[HBK / 2], alpha[2];
+    uint32_t pa[HBK / 16][4];
     mbar_wait(q_bar, 0);
 
-    for (int i = 0; i < n_kt; ++i) {
-      const int st = i % ST;
-      const uint32_t ph = (i / ST) & 1;
-      const int k0 = i * HBK;
-      const uint32_t k_t = k_s + st * G::KV_TILE_BYTES, v_t = v_s + st * G::KV_TILE_BYTES;
-      float s[HBK / 2];
-      mbar_wait(k_bar + 8 * st, ph);
-      fence_regs(s);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int a = kk * 16 / G::ATOM_E, c = (kk * 16 % G::ATOM_E) * 2;
-        wgmma_ss_n128(s, make_desc(q_wg + a * WG_ROWS * G::ATOM_B + c, 16, SBO, G::LAYOUT),
-                      make_desc(k_t + a * HBK * G::ATOM_B + c, 16, SBO, G::LAYOUT), kk > 0);
+    if constexpr (PIPE) {
+      // FlashAttention-3's schedule.  Batch i issues tile i's S with tile
+      // i-1's O += P V, then runs tile i's softmax while that P V is on
+      // the tensor cores.  The two or three warpgroups each issue their
+      // batch only in their turn (a named barrier a warpgroup: warpgroup 0
+      // first, then 1, 2, 0, ...), so one's softmax and exponentials run
+      // while another's products do.  Tile i-1's stage is released after
+      // its P V: with three stages the producer is then loading tile i + 1.
+      // The first and last batches are peeled, so that every wgmma of the
+      // loop is issued on one path and the compiler keeps them in flight.
+      const int turn = PP_BAR + wg, other = PP_BAR + (wg + 1) % NWG;
+      if (n_kt > 0) {
+        if (wg == NWG - 1) bar_arrive(PP_BAR, 256);   // warpgroup 0 goes first
+        mbar_wait(k_bar, 0);
+        bar_sync(turn, 256);
+        fence_regs(s);
+        wgmma_fence();
+        issue_s<D>(s, q_wg, k_s);
+        wgmma_commit();
+        bar_arrive(other, 256);
+        wgmma_wait_all();
+        fence_regs(s);
+        tile_softmax(s, m, l, alpha, 0, t, pos0, row_wg, seq_off, Skv, causal, scale_log2);
+        acc_to_a<HBK>(s, pa);   // O is still 0: nothing to rescale
+        for (int i = 1; i < n_kt; ++i) {
+          const int st = i % ST, pst = (i - 1) % ST;
+          mbar_wait(k_bar + 8 * st, (i / ST) & 1);
+          mbar_wait(v_bar + 8 * pst, ((i - 1) / ST) & 1);
+          bar_sync(turn, 256);
+          fence_regs(s);
+          fence_regs(o);
+          wgmma_fence();
+          issue_s<D>(s, q_wg, k_s + st * G::KV_TILE_BYTES);
+          wgmma_commit();
+          issue_pv<D>(o, pa, v_s + pst * G::KV_TILE_BYTES);
+          wgmma_commit();
+          bar_arrive(other, 256);
+          wgmma_wait_one();   // S is done; P V may still run
+          fence_regs(s);
+          tile_softmax(s, m, l, alpha, i * HBK, t, pos0, row_wg, seq_off, Skv, causal,
+                       scale_log2);
+          wgmma_wait_all();
+          fence_regs(o);
+          fence_regs(pa);
+          if (lane == 0) mbar_arrive(e_bar + 8 * pst);   // done with tile i-1's stage
+          rescale(o, alpha);
+          acc_to_a<HBK>(s, pa);
+        }
+        const int pst = (n_kt - 1) % ST;
+        mbar_wait(v_bar + 8 * pst, ((n_kt - 1) / ST) & 1);
+        bar_sync(turn, 256);
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv<D>(o, pa, v_s + pst * G::KV_TILE_BYTES);
+        wgmma_commit();
+        if (wg != NWG - 1) bar_arrive(other, 256);   // the last has no turn to give
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(pa);
+        if (lane == 0) mbar_arrive(e_bar + 8 * pst);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(s);
-
-      if (k0 + HBK > Skv || (causal && k0 + HBK - 1 > row_wg + seq_off))
-        online_softmax<true>(s, o, m, l, k0, t, pos0, Skv, causal, scale_log2);
-      else
-        online_softmax<false>(s, o, m, l, k0, t, pos0, Skv, causal, scale_log2);
-
-      // the S accumulators of key columns 16j..16j+15 are the A fragment of k-step j
-      uint32_t pa[HBK / 16][4];
-#pragma unroll
-      for (int j = 0; j < HBK / 16; ++j) {
-        pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
-        pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
-        pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
-        pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+    } else {
+      // one tile at a time: S, its softmax, then O += P V
+      for (int i = 0; i < n_kt; ++i) {
+        const int st = i % ST;
+        const uint32_t ph = (i / ST) & 1;
+        mbar_wait(k_bar + 8 * st, ph);
+        fence_regs(s);
+        wgmma_fence();
+        issue_s<D>(s, q_wg, k_s + st * G::KV_TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        tile_softmax(s, m, l, alpha, i * HBK, t, pos0, row_wg, seq_off, Skv, causal, scale_log2);
+        rescale(o, alpha);
+        acc_to_a<HBK>(s, pa);
+        mbar_wait(v_bar + 8 * st, ph);
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv<D>(o, pa, v_s + st * G::KV_TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(pa);
+        if (lane == 0) mbar_arrive(e_bar + 8 * st);  // this warp is done with the stage
       }
-      mbar_wait(v_bar + 8 * st, ph);
-      fence_regs(o);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < HBK / 16; ++j)  // V MN-major: LBO steps the D atoms, SBO 8 keys
-        wgmma_rs<G::DP>(o, pa[j], make_desc(v_t + j * 16 * G::ATOM_B, HBK * G::ATOM_B, SBO,
-                                        G::LAYOUT));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(o);
-      fence_regs(pa);
-      if (lane == 0) mbar_arrive(e_bar + 8 * st);  // this warp is done with the stage
     }
 
     // ---- epilogue: O / l through the warpgroup's Q tile, one TMA store ----
@@ -445,7 +570,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         lse[(size_t)bh * Sq + row] = l[r] == 0.f ? __int_as_float(0x7f800000)
                                                  : (m[r] + log2f(l[r])) * 0.6931471805599453f;
     }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // Q reads are over
+    bar_sync(1 + wg, 128);  // Q reads are over
 #pragma unroll
     for (int j = 0; j < G::DP / 8; ++j) {   // padded columns land in the tile, never stored
       const int col = 8 * j + 2 * t;
@@ -461,7 +586,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    bar_sync(1 + wg, 128);
     if (tid == 0 && row_wg < Sq) {
 #pragma unroll
       for (int a = 0; a < G::ATOMS; ++a)
@@ -486,7 +611,7 @@ template <int D, int NWG>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Hq,
                  int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
   constexpr int smem = wgmma_smem_bytes<D, NWG>();
-  auto kernel = flash_fwd_wgmma_kernel<D, NWG>;
+  auto kernel = flash_fwd_wgmma_kernel<D, NWG, PIPELINED<D, NWG>>;
   static const cudaError_t attr =  // once per instantiation: it is host work on every launch
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -507,6 +632,9 @@ template <int D>
 int launch_bf16(int block_q, const void* q, const void* k, const void* v, void* out, float* lse,
                 int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                 cudaStream_t stream) {
+  if constexpr (PIPELINED<D, 3>)   // three consumer warpgroups: D <= 64, pipelined
+    if (block_q == 192)
+      return launch_wgmma<D, 3>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
   if (block_q == 128)
     return launch_wgmma<D, 2>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
   if (block_q == 64)
@@ -547,6 +675,7 @@ int by_dim_f32(int D, const void* q, const void* k, const void* v, void* out, fl
 int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal, float scale,
                 cudaStream_t stream) {
+  if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;   // softmax_tile's max needs it
   switch (D) {
     case 16:
       return launch_bf16<16>(block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
@@ -570,8 +699,10 @@ int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v,
 // out like q, all contiguous and 16-byte aligned; lse (B, Hq, Sq) f32 or
 // null (not written); Hq % Hkv == 0; 0 < Sq, and Sq <= Skv when causal (a
 // non-causal call may have more queries than keys: seq_off = Skv - Sq then
-// enters no mask).  block_q: the bf16 body's queries a block, 128 (two
-// consumer warpgroups) or 64 (one); the f32 body always takes 64.
+// enters no mask); scale > 0 for bfloat16.  block_q: the bf16 body's
+// queries a block, 192 (three
+// consumer warpgroups, D <= 64), 128 (two) or 64 (one); the f32 body
+// always takes 64.
 // ceil(Sq / 64) <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,

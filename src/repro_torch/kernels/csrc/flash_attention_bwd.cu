@@ -40,10 +40,26 @@
 //     - a key-tile block: one or two consumer warpgroups of 64 keys of one
 //       KV head (the host picks, as the forward's query_tile does).  K and
 //       V stay in shared memory; dK and dV (64 x D f32 each) stay in
-//       registers across the group's heads and every query tile that sees
-//       the keys (causal: from the first such tile).  For each query tile
+//       registers across its heads and every query tile that sees the keys
+//       (causal: from the first such tile).  Its heads are the group's G,
+//       or with a head split c > 1 (bwd_geometry: the least c for which
+//       the longest key-tile block, ceil(G / c) heads, costs no more than
+//       one SM's share of the grid) the part [p G / c, (p + 1) G / c) of
+//       c neighbouring blocks of the same keys.  Where a KV head's keys
+//       are few against the card (internvl2-1b's 2 KV heads of 7 query
+//       heads, dbrx-132b's 1024 keys of 6) the unsplit key-tile blocks ran
+//       G times one SM's share while the rest of the card idled.  Each
+//       split block writes its f32 partials (128 x DP floats a warpgroup)
+//       to the workspace, then draws an integer ticket; the block that
+//       draws its keys' last sums the c partials in part order (never in
+//       arrival order), so dK and dV are the same bits on every call, and
+//       resets the ticket, so a captured graph replays.  No float atomics;
+//       at c = 1 (every group of 4 or less, kimi-k2's 8, whisper) the
+//       launch runs an instance without the split's code (SPLIT false:
+//       with it inside, a ragged row read 6% slower).  For each query tile
 //       S^T = K Q^T and dP^T = V dO^T are m64n64k16 wgmma with both operands
-//       in shared memory; P^T = exp2(S^T scale log2 e - lse2) and
+//       in shared memory; P^T = exp2(S^T scale log2 e - lse2) (one
+//       ex2.approx.ftz, hopper.cuh fast_exp2) and
 //       dS^T = P^T (dP^T - delta) on the accumulators; the accumulator
 //       layout rounded to bf16 is the A fragment of dV += P^T dO and
 //       dK += dS^T Q (m64n{D}k16), dO and Q read MN-major from the tiles
@@ -85,15 +101,19 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* ws;                   // bf16: 2 * B * Hq * Sq_pad floats (lse2, then delta)
+  float* ws;                   // bf16: lse2 and delta (B * Hq * Sq_pad floats each), then
+                               // with a head split the dK and dV partials of every key-tile block
+  unsigned* tickets;           // bf16 with a head split: a counter a (sequence, KV head, key
+                               // tile), 0 on entry and left 0
   long long B, Hq, Hkv, Sq, Skv, D, dtype, causal;
   double scale;
   long long block;             // bf16: keys or queries a block, 64 or 128
   long long dq_first;          // bf16: the query-tile blocks come first
+  long long head_split;        // bf16: key-tile blocks a (sequence, KV head, key tile), 1..G
   long long strides[12];       // bf16: (sequence, head, row) element strides of q, k, v, dout
   cudaStream_t stream;
 };
-static_assert(sizeof(BwdArgs) == 34 * 8, "BwdArgs must match the wrapper's \"<18qd15q\"");
+static_assert(sizeof(BwdArgs) == 36 * 8, "BwdArgs must match the wrapper's \"<19qd16q\"");
 
 namespace {
 
@@ -419,10 +439,14 @@ struct BwdMaps {
 struct BwdShape {
   const float* lse2;           // (B * Hq, Sq_pad): lse * log2 e, +inf past Sq
   const float* delta;          // (B * Hq, Sq_pad): rowsum(dO * O), 0 past Sq
+  float* part;                 // split > 1: (pair, part, warpgroup) blocks of 128 x DP floats
+  unsigned* tickets;           // split > 1: one a pair (sequence, KV head, key tile)
   int B, Hq, Hkv, Sq, Skv, Sq_pad, causal;
-  int n_kv_blocks, n_kb, n_qb, n_qt, dq_first;
+  int n_kv_blocks, n_kb, n_qb, n_qt, dq_first, split;
   float scale, scale_log2;
 };
+
+constexpr int BAR_CONSUMERS = 3;   // a named barrier of every consumer thread (1 + wg: one warpgroup)
 
 // delta = rowsum(dO * O) in f32 and lse2 = lse * log2 e for every query
 // row, written to (B * Hq, Sq_pad) rows padded to whole tiles of 64 (0 and
@@ -520,13 +544,56 @@ __device__ __forceinline__ void product_rs(float (&acc)[Atoms<D>::DP / 2],
                                      A::LAYOUT));
 }
 
-template <int D, int NWG>
+// A warpgroup's dK and dV accumulators (DP / 2 floats each a thread) to
+// its 128 x DP block of partials, float4 j of thread tid at j * 128 + tid:
+// a warp's stores are 512 contiguous bytes.
+template <int D>
+__device__ __forceinline__ void store_partials(float* dst, const float (&dk)[Atoms<D>::DP / 2],
+                                               const float (&dv)[Atoms<D>::DP / 2], int tid) {
+  constexpr int H = Atoms<D>::DP / 8;   // float4s of each accumulator
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    d4[j * 128 + tid] = make_float4(dk[4 * j], dk[4 * j + 1], dk[4 * j + 2], dk[4 * j + 3]);
+    d4[(H + j) * 128 + tid] = make_float4(dv[4 * j], dv[4 * j + 1], dv[4 * j + 2], dv[4 * j + 3]);
+  }
+}
+
+// The sum of a pair's `split` blocks of partials in partial-index order
+// (part 0 first, whichever block summed them), into dk and dv: read past
+// L1 (__ldcg), since other blocks wrote them in this launch.
+template <int D>
+__device__ __forceinline__ void sum_partials(float (&dk)[Atoms<D>::DP / 2],
+                                             float (&dv)[Atoms<D>::DP / 2], const float* first,
+                                             size_t part_stride, int split, int tid) {
+  constexpr int H = Atoms<D>::DP / 8;
+#pragma unroll
+  for (int i = 0; i < Atoms<D>::DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int p = 0; p < split; ++p) {
+    const float4* s4 = reinterpret_cast<const float4*>(first + p * part_stride);
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float4 a = __ldcg(s4 + j * 128 + tid), c = __ldcg(s4 + (H + j) * 128 + tid);
+      dk[4 * j] += a.x;
+      dk[4 * j + 1] += a.y;
+      dk[4 * j + 2] += a.z;
+      dk[4 * j + 3] += a.w;
+      dv[4 * j] += c.x;
+      dv[4 * j + 1] += c.y;
+      dv[4 * j + 2] += c.z;
+      dv[4 * j + 3] += c.w;
+    }
+  }
+}
+
+template <int D, int NWG, bool SPLIT>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) {
   using G = Tiles<D>;
   constexpr int ST = G::STAGES, T = G::TILE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * ST];   // resident full; ring full, empty
+  __shared__ int last_part;                            // this block sums its pair's partials
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t res0 = (raw + 1023u) & ~1023u;       // K (key role) or Q (dQ role), NWG tiles
   const uint32_t res1 = res0 + NWG * T;               // V or dO
@@ -548,17 +615,22 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
   }
   // seq_off < 0 (more queries than keys) only when not causal: every use is behind causal
   const int group = sh.Hq / sh.Hkv, seq_off = sh.Skv - sh.Sq;
-  int b, hk, h = 0, k0 = 0, q0 = 0, qt0 = 0, nq = 1, n_iter;
+  int b, hk, h = 0, k0 = 0, q0 = 0, qt0 = 0, nq = 1, n_iter, pair = 0, part = 0, h_lo = 0;
   if (key_role) {
-    // NWG * 64 keys of one KV head: every query tile of its group's heads
-    // that sees them (causal: from the first query at or past the keys)
-    const int bkv = idx % (sh.B * sh.Hkv);
+    // NWG * 64 keys of one KV head (a pair): every query tile that sees
+    // them (causal: from the first query at or past the keys) of its part
+    // of the group's heads, [part * G / split, (part + 1) * G / split); a
+    // pair's split parts are neighbours in the grid
+    part = SPLIT ? idx % sh.split : 0;
+    pair = SPLIT ? idx / sh.split : idx;
+    const int bkv = pair % (sh.B * sh.Hkv);
     b = bkv / sh.Hkv;
     hk = bkv % sh.Hkv;
-    k0 = (idx / (sh.B * sh.Hkv)) * NWG * ROWS;
+    k0 = (pair / (sh.B * sh.Hkv)) * NWG * ROWS;
     qt0 = sh.causal ? max(0, k0 - seq_off) / ROWS : 0;
     nq = sh.n_qt - qt0;
-    n_iter = group * nq;
+    h_lo = SPLIT ? part * group / sh.split : 0;
+    n_iter = (SPLIT ? (part + 1) * group / sh.split - h_lo : group) * nq;
   } else {
     // NWG * 64 queries of one query head: every key tile they see
     const int bh = idx % (sh.B * sh.Hq);
@@ -605,7 +677,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
         const int st = i % ST;
         // the key role streams (Q, dO, lse2, delta) tiles of (head, query
         // tile); the dQ role (K, V) tiles of its KV head
-        const int sh_h = key_role ? hk * group + i / nq : hk;
+        const int sh_h = key_role ? hk * group + h_lo + i / nq : hk;
         const int row = key_role ? (qt0 + i % nq) * ROWS : i * ROWS;
         const uint32_t f = f_bar + 8 * st, t0 = ring + 2 * st * T;
         mbar_wait(e_bar + 8 * st, ((i / ST) & 1) ^ 1);   // the first round passes at once
@@ -660,7 +732,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           const int col = 8 * (e >> 2) + 2 * t + (e & 1);
-          float p = exp2f(fmaf(s[e], sh.scale_log2, -lse_s[col]));
+          float p = fast_exp2(fmaf(s[e], sh.scale_log2, -lse_s[col]));
           if (mask) p = key + 8 * ((e >> 1) & 1) <= qs + col ? p : 0.f;
           s[e] = p;
           dp[e] = p * (dp[e] - delta_s[col]);
@@ -681,12 +753,30 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
         fence_regs(da);
         if (lane == 0) mbar_arrive(e_bar + 8 * st);   // this warp is done with the stage
       }
+      if constexpr (SPLIT) {
+        // this block's partials, then a ticket: the block that draws the
+        // pair's last sums every part in index order and stores the pair
+        constexpr size_t WG_FLOATS = 128 * G::DP;
+        float* first = sh.part + (size_t)pair * sh.split * NWG * WG_FLOATS + wg * WG_FLOATS;
+        store_partials<D>(first + (size_t)part * NWG * WG_FLOATS, dk, dv, tid);
+        __threadfence();   // visible device-wide before the ticket is taken
+        bar_sync(BAR_CONSUMERS, NWG * 128);
+        if (threadIdx.x == 0) {
+          const bool last = atomicAdd(sh.tickets + pair, 1u) == (unsigned)(sh.split - 1);
+          if (last) sh.tickets[pair] = 0u;   // every part has drawn: reset for the next call
+          last_part = last;
+        }
+        bar_sync(BAR_CONSUMERS, NWG * 128);
+        if (!last_part) return;
+        __threadfence();
+        sum_partials<D>(dk, dv, first, NWG * WG_FLOATS, sh.split, tid);
+      }
       // epilogue: dK * scale and dV through the warpgroup's K and V tiles
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      bar_sync(1 + wg, 128);
       stage_rows<D>(x_wg, dk, sh.scale, warp, g, t);
       stage_rows<D>(y_wg, dv, 1.f, warp, g, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      bar_sync(1 + wg, 128);
       if (tid == 0 && kw0 < sh.Skv) {
 #pragma unroll
         for (int a = 0; a < G::ATOMS; ++a) {
@@ -732,7 +822,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
           const int r = (e >> 1) & 1;
-          float p = exp2f(fmaf(s[e], sh.scale_log2, -l2[r]));
+          float p = fast_exp2(fmaf(s[e], sh.scale_log2, -l2[r]));
           if (mask) {
             const int kp = kt0 + 8 * (e >> 2) + 2 * t + (e & 1);
             p = kp < sh.Skv && (!sh.causal || kp <= row + 8 * r + seq_off) ? p : 0.f;
@@ -751,10 +841,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
         if (lane == 0) mbar_arrive(e_bar + 8 * st);
       }
       // epilogue: dQ * scale through the warpgroup's Q tile
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      bar_sync(1 + wg, 128);
       stage_rows<D>(x_wg, dq, sh.scale, warp, g, t);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      bar_sync(1 + wg, 128);
       if (tid == 0 && qw0 < sh.Sq) {
 #pragma unroll
         for (int a = 0; a < G::ATOMS; ++a)
@@ -800,10 +890,10 @@ int map4(CUtensorMap* map, const void* ptr, long long rows, long long heads, lon
   return bf16_map<D>(map, ptr, 4, dims, strides, box);
 }
 
-template <int D, int NWG>
+template <int D, int NWG, bool SPLIT>
 int launch_wgmma(const BwdArgs& a) {
   constexpr int smem = wgmma_smem_bytes<D, NWG>();
-  auto kernel = flash_bwd_wgmma_kernel<D, NWG>;
+  auto kernel = flash_bwd_wgmma_kernel<D, NWG, SPLIT>;
   static const cudaError_t attr =   // once per instantiation: it is host work on every launch
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -812,6 +902,9 @@ int launch_wgmma(const BwdArgs& a) {
   const long long rows_total = B * Hq * Sq_pad;
   float* lse2 = a.ws;
   float* delta = a.ws + rows_total;
+  const long long group = Hq / Hkv;
+  if (a.head_split < 1 || a.head_split > group || (a.head_split > 1 && a.tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
 
   constexpr int RPB = DeltaLanes<D>::RPB;
   flash_bwd_delta_kernel<D><<<(unsigned)((rows_total + RPB - 1) / RPB), 256, 0, a.stream>>>(
@@ -835,6 +928,9 @@ int launch_wgmma(const BwdArgs& a) {
   BwdShape sh;
   sh.lse2 = lse2;
   sh.delta = delta;
+  sh.part = a.ws + 2 * rows_total;
+  sh.tickets = a.tickets;
+  sh.split = (int)a.head_split;
   sh.B = (int)B;
   sh.Hq = (int)Hq;
   sh.Hkv = (int)Hkv;
@@ -845,20 +941,23 @@ int launch_wgmma(const BwdArgs& a) {
   sh.n_kb = (int)((Skv + NWG * ROWS - 1) / (NWG * ROWS));
   sh.n_qb = (int)((Sq + NWG * ROWS - 1) / (NWG * ROWS));
   sh.n_qt = (int)(Sq_pad / ROWS);
-  sh.n_kv_blocks = (int)(B * Hkv * sh.n_kb);
+  sh.n_kv_blocks = (int)(B * Hkv * sh.n_kb * a.head_split);
   sh.dq_first = (int)a.dq_first;
   sh.scale = (float)a.scale;
   sh.scale_log2 = (float)a.scale * LOG2E;
-  const long long blocks = (long long)sh.n_kv_blocks + B * Hq * sh.n_qb;
+  const long long blocks = B * Hkv * sh.n_kb * a.head_split + B * Hq * sh.n_qb;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, (NWG + 1) * 128, smem, a.stream>>>(maps, sh);
   return 0;
 }
 
+// A head split runs its own instance: the unsplit launch (c = 1) keeps
+// the kernel it had before the split was added.
 template <int D>
 int launch_bf16(const BwdArgs& a) {
-  if (a.block == 128) return launch_wgmma<D, 2>(a);
-  if (a.block == 64) return launch_wgmma<D, 1>(a);
+  const bool split = a.head_split > 1;
+  if (a.block == 128) return split ? launch_wgmma<D, 2, true>(a) : launch_wgmma<D, 2, false>(a);
+  if (a.block == 64) return split ? launch_wgmma<D, 1, true>(a) : launch_wgmma<D, 1, false>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -870,9 +969,12 @@ int launch_bf16(const BwdArgs& a) {
 // 16-byte aligned.  bfloat16: o, lse and the outputs contiguous; q, k, v
 // and dout of any strides (in elements, `strides`) whose rows are
 // contiguous, each stride and base a multiple of 16 bytes; ws 2 * B * Hq *
-// ceil(Sq / 64) * 64 floats of scratch; block 128 (two consumer
-// warpgroups a block) or 64 (one).  Two kernel launches for bfloat16 (the
-// delta pre-pass and the body), one for float32.
+// ceil(Sq / 64) * 64 floats of scratch, and with head_split c > 1 another
+// B * Hkv * ceil(Skv / block) * c * block * 2 * DP (the partials); block
+// 128 (two consumer warpgroups a block) or 64 (one); with c > 1, tickets
+// B * Hkv * ceil(Skv / block) counters that are 0 (each launch leaves them
+// 0).  Two kernel launches for bfloat16 (the delta pre-pass and the body),
+// one for float32.
 extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
   if (a->B > 0 && a->Hq > 0 && a->Sq > 0) {
     if (a->Hkv <= 0 || a->Hq % a->Hkv || (a->causal && a->Sq > a->Skv))

@@ -17,8 +17,9 @@ What bounds it on the card: operations (4·D flops per visible (query,
 key) pair).  float32 runs on the CUDA cores in full f32 (no TF32), 64
 queries a block.  bfloat16 runs Hopper's warp-specialised body: TMA copies
 into a ring of key tiles, both products on wgmma (f32 accumulate, P
-rounded to bf16 in registers for the second), 128 queries a block, or 64
-where ``query_tile`` finds the grid too small for the card.  The plain
+rounded to bf16 in registers for the second), 128 queries a block, 192
+at head_dim 64 and below (three warpgroups taking turns), or 64 where
+``query_tile`` finds the grid too small for the card.  The plain
 version it is held against is ``ref.attention_ref``.
 
 Training: ``flash_attention(..., with_lse=True)`` also returns the rows'
@@ -27,7 +28,10 @@ held against ``ref.attention_bwd_ref``) reads to give dq, dk and dv.  Its
 bfloat16 body runs on TMA and wgmma like the forward's, after a pre-pass
 that writes delta = rowsum(dO * O): key-tile blocks own dK and dV,
 query-tile blocks own dQ, with no float atomics (``bwd_geometry`` has the
-launch geometry); it reads q, k, v and dO at their own strides.  float32
+launch geometry).  Where a wide group's key-tile blocks would run far
+past an SM's share of the grid, the group's heads are split over c of
+them, whose f32 partials the last to draw a ticket sums in part order;
+it reads q, k, v and dO at their own strides.  float32
 runs on the CUDA cores, one launch.  Both take what the forward takes:
 Sq > Skv when not causal, where no mask reads the query's offset.
 ``kernels.ops.attention`` joins the two in an autograd Function; called
@@ -54,21 +58,35 @@ MAX_GRID_Y = 65535
 BWD_ROWS = 64           # keys or queries of a backward warpgroup, rows of a streamed tile
 #: the backward's C entry arguments (csrc/flash_attention_bwd.cu BwdArgs),
 #: packed in one buffer
-_BWD_PACK = struct.Struct("<18qd15q").pack
+_BWD_PACK = struct.Struct("<19qd16q").pack
+#: a stream's head-split tickets (``build.stream_slot``): the most
+#: (sequence, KV head, key block) pairs a split launch may have (a split
+#: needs few pairs against the card: the zoo's take at most 64)
+TICKETS_A_SLOT = 1024
 
 
-def query_tile(B: int, Hq: int, Sq: int, n_sm: int = N_SM) -> int:
-    """The bf16 body's queries a block: 128 (two consumer warpgroups)
-    when that grid, B * Hq * ceil(Sq / 128) blocks, fills the ``n_sm``
-    SMs, else 64 (one warpgroup, twice the blocks: a chunked prefill of
-    128 queries over 16 heads runs 32 blocks, not 16)."""
+def query_tile(B: int, Hq: int, Sq: int, n_sm: int = N_SM, *, D: int) -> int:
+    """The bf16 body's queries a block at head_dim D.  At D <= 64, 192
+    (three consumer warpgroups taking turns: one more warp a scheduler
+    hides more of the softmax's latency; whisper-medium's encoder and
+    internvl2-1b's prefill) where that grid, B * Hq * ceil(Sq / 192)
+    blocks, fills the ``n_sm`` SMs and pads Sq to at most 1/16 more rows
+    than tiles of 128 do (whisper's 448 decoder positions: 576 rows
+    against 512 keep 128).  Else 128 (two consumer warpgroups) when that
+    grid fills the card, else 64 (one warpgroup, twice the blocks: a
+    chunked prefill of 128 queries over 16 heads runs 32 blocks, not
+    16)."""
+    if D <= 64 and B * Hq * -(-Sq // 192) >= n_sm and \
+            16 * -(-Sq // 192) * 192 <= 17 * -(-Sq // 128) * 128:
+        return 192
     return 128 if B * Hq * -(-Sq // 128) >= n_sm else 64
 
 
 class BwdGeometry(NamedTuple):
     """The backward's launch: key-tile blocks (``rows`` keys of one KV head
-    each: dK, dV) and query-tile blocks (``rows`` queries of one query
-    head: dQ) in one grid, in the order ``dq_first`` says."""
+    and ``head_split`` blocks of the same keys, each over its part of the
+    group's heads: dK, dV) and query-tile blocks (``rows`` queries of one
+    query head: dQ) in one grid, in the order ``dq_first`` says."""
     warpgroups: int          # consumer warpgroups a block (bf16); 0: the f32 body's 256 threads
     rows: int                # keys or queries a block
     key_blocks: int
@@ -76,29 +94,64 @@ class BwdGeometry(NamedTuple):
     key_block_tiles: int     # query tiles the longest key-tile block walks
     query_block_tiles: int   # key tiles the longest query-tile block walks
     dq_first: bool           # the query-tile blocks start first (bf16)
+    head_split: int          # key-tile blocks a (sequence, KV head, key tile); 1: unsplit
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_geometry(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, bf16: bool,
-                 n_sm: int = N_SM) -> BwdGeometry:
+                 n_sm: int = N_SM, causal: bool = True) -> BwdGeometry:
     """The backward's blocks on a card of ``n_sm`` SMs.  Tiles of 64 keys
     or queries; the bf16 body puts two consumer warpgroups in a block (128
     rows, sharing the streamed tiles) when that grid fills the card, else
-    one.  A key-tile block walks the group's Hq / Hkv heads and, for its
-    first keys, every query tile (the longest, causal or not); a
-    query-tile block walks the key tiles its queries see, all Skv for the
-    last one.  A key tile costs 4 products a query tile and a query tile 3
-    a key tile, so the role whose longest block costs more starts first,
-    and each role's longest blocks lead it."""
+    one.  A key-tile block walks its heads and, for its first keys, every
+    query tile (the longest, causal or not); a query-tile block walks the
+    key tiles its queries see, all Skv for the last one.  A key-tile block
+    costs 4 products a query tile of a head and a query-tile block 3 a key
+    tile.  The bf16 body splits the group's G heads over c key-tile blocks
+    of the same keys (``head_split``): the least c for which the longest,
+    ceil(G / c) heads, costs no more than one SM's share of the whole grid
+    (G where none does, and 1 where there are more pairs of keys and KV
+    head than a stream's TICKETS_A_SLOT tickets).  Its part p walks the
+    heads [p G / c, (p + 1) G / c).  Where a KV head's keys are few
+    against the card (internvl2-1b: 2 KV heads, G 7; dbrx-132b: 1024
+    keys, G 6) this gives c = 3; qwen3, jamba, kimi-k2 and whisper keep
+    c = 1.  The role whose longest block costs more starts first, and
+    each role's longest blocks lead it."""
+    G = Hq // Hkv
     n_qt, n_kt = -(-Sq // BWD_ROWS), -(-Skv // BWD_ROWS)
-    key_tiles, query_tiles = (Hq // Hkv) * n_qt, n_kt
     if not bf16:
-        return BwdGeometry(0, BWD_ROWS, B * Hkv * n_kt, B * Hq * n_qt, key_tiles, query_tiles,
-                           False)
+        return BwdGeometry(0, BWD_ROWS, B * Hkv * n_kt, B * Hq * n_qt, G * n_qt, n_kt, False, 1)
     wg = 2 if B * Hkv * -(-Skv // 128) + B * Hq * -(-Sq // 128) >= n_sm else 1
     rows = wg * BWD_ROWS
-    return BwdGeometry(wg, rows, B * Hkv * -(-Skv // rows), B * Hq * -(-Sq // rows),
-                       key_tiles, query_tiles, 3 * query_tiles > 4 * key_tiles)
+    off = Skv - Sq                   # < 0 only when not causal, and then never read
+    key_cost = 4 * G * sum(n_qt - (max(0, k0 - off) // BWD_ROWS if causal else 0)
+                           for k0 in range(0, Skv, rows))
+    query_cost = 3 * sum(-(-(min(Skv, min(Sq, q0 + rows) + off) if causal else Skv) // BWD_ROWS)
+                         for q0 in range(0, Sq, rows))
+    share = (B * Hkv * key_cost + B * Hq * query_cost) / n_sm
+    split = next((c for c in range(1, G + 1) if 4 * -(-G // c) * n_qt <= share), G)
+    if B * Hkv * -(-Skv // rows) > TICKETS_A_SLOT:     # more pairs than a stream's tickets
+        split = 1
+    key_tiles = -(-G // split) * n_qt
+    return BwdGeometry(wg, rows, B * Hkv * -(-Skv // rows) * split, B * Hq * -(-Sq // rows),
+                       key_tiles, n_kt, 3 * n_kt > 4 * key_tiles, split)
+
+
+def tile_columns(D: int) -> int:
+    """Columns of the bf16 bodies' tiles of rows of D (hopper.cuh
+    Atoms::DP): D up to 64, else whole atoms of 64 (128 at D = 112)."""
+    return D if D <= 64 else -(-D // 64) * 64
+
+
+def bwd_workspace_floats(B: int, Hq: int, Sq: int, D: int, geo: BwdGeometry) -> int:
+    """The f32 scratch of a bf16 backward call: lse2 and delta a query row,
+    padded to whole tiles of 64, then with a head split the dK and dV
+    partials of every key-tile block (its ``rows`` keys x 2 x the tile's
+    columns)."""
+    rows = 2 * B * Hq * -(-Sq // BWD_ROWS) * BWD_ROWS
+    if geo.head_split == 1:
+        return rows
+    return rows + geo.key_blocks * geo.rows * 2 * tile_columns(D)
 
 
 _FN = None
@@ -183,12 +236,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sq <= Skv when causal (whisper's cross-attention takes more queries
     than keys, non-causal).  Returns (B, Hq, Sq, D) in q.dtype, and with
     ``with_lse`` also the rows' log-sum-exp of the scaled scores,
-    (B, Hq, Sq) float32.  CUDA tensors only; float32 or bfloat16, D in
-    HEAD_DIMS, any Sq, Skv and group."""
+    (B, Hq, Sq) float32.  CUDA tensors only; float32 or bfloat16 (a
+    positive sm_scale), D in HEAD_DIMS, any Sq, Skv and group."""
     B, Hq, Hkv, Sq, Skv, D = _check(q, k, v, long_q=not causal)
     build.refuse_grad("flash_attention", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"flash_attention: bfloat16 takes a positive sm_scale, not {scale}")
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if q.numel() == 0:
@@ -196,7 +251,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      lse.data_ptr() if with_lse else None,
                      B, Hq, Hkv, Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), scale,
-                     query_tile(B, Hq, Sq, build.sm_count(q.get_device())), build.stream_of(q))
+                     query_tile(B, Hq, Sq, build.sm_count(q.get_device()), D=D),
+                     build.stream_of(q))
     build.check("flash_attention", rc)
     build.count_launch("flash_attention")
     return (out, lse) if with_lse else out
@@ -240,14 +296,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dv = torch.empty_like(dk)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, build.sm_count(dev))
-    ws = (torch.empty(2 * B * Hq * -(-Sq // BWD_ROWS) * BWD_ROWS, dtype=torch.float32,
+    geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, build.sm_count(dev), bool(causal))
+    ws = (torch.empty(bwd_workspace_floats(B, Hq, Sq, D, geo), dtype=torch.float32,
                       device=q.device) if bf16 else None)
+    tickets = (build.stream_slot("flash_attention_bwd", q, build.stream_of(q), TICKETS_A_SLOT)
+               if geo.head_split > 1 else 0)
     rc = _bwd_launcher()(_BWD_PACK(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr() if ws is not None else 0,
-        B, Hq, Hkv, Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), scale, geo.rows,
-        int(geo.dq_first), *strides, build.stream_of(q)))
+        tickets, B, Hq, Hkv, Sq, Skv, D, _DTYPES[q.dtype], int(bool(causal)), scale, geo.rows,
+        int(geo.dq_first), geo.head_split, *strides, build.stream_of(q)))
     build.check("flash_attention_bwd", rc)
     build.count_launch("flash_attention_bwd")
     return dq, dk, dv

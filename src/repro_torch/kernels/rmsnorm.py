@@ -20,14 +20,13 @@ an autograd Function.  It is one launch with or without a scale: dscale's
 column sums are taken by thread-block clusters, and over the clusters'
 rows, a share of the columns each, by the blocks that finish a share last
 (``bwd_geometry`` has the geometry), counted on integer counters that each
-stream has its own of (``_counters``).
+stream has its own of (``build.stream_slot``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import struct
-import threading
 
 import torch
 
@@ -42,18 +41,11 @@ WARP_ROW_MAX_D = 1024   # the longest scalar row a warp takes
 BWD_MAX_D = 256 * 32    # the longest row the backward takes (256 threads x 32 columns)
 BWD_BLOCKS_PER_SM = 2   # the backward's grid: two blocks of 256 threads an SM
 BWD_MAX_CLUSTER = 8     # blocks of a cluster that sums dscale's rows
-COUNTER_SLOTS = 64      # streams a device's counter buffer serves
 COUNTERS_A_SLOT = 32    # a stream's counters (one a cluster rank) in one 128-byte line
 #: the backward's C entry arguments (csrc/rmsnorm.cu BwdArgs), packed in one buffer
 _BWD_PACK = struct.Struct("<11qd6q").pack
 _FN = None
 _BWD = None
-#: each device's dscale arrival counters (COUNTER_SLOTS x COUNTERS_A_SLOT
-#: int32, zeroed once; a launch leaves its slot's counters 0 again), and the
-#: slot of each (device, stream)
-_COUNTERS: dict[int, torch.Tensor] = {}
-_SLOTS: dict[tuple[int, int], int] = {}
-_SLOT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=256)
@@ -124,29 +116,6 @@ def bwd_geometry(rows: int, D: int, elt: int, vec_ok: bool, n_sm: int = N_SM
     while 2 * cluster <= min(blocks, BWD_MAX_CLUSTER):
         cluster *= 2
     return tpr, units, vec, blocks // cluster * cluster, cluster
-
-
-def _counters(x: torch.Tensor, stream: int) -> int:
-    """The address of the dscale counters of ``stream`` on x's device: a
-    slot of the device's counter buffer, made (zeroed) on its first use,
-    which must therefore come outside CUDA graph capture (a warm-up call
-    does it).  Two streams never share a slot, so launches on both at
-    once do not count each other's blocks; a graph keeps the slot of the
-    stream it was captured on."""
-    dev = x.get_device()
-    with _SLOT_LOCK:
-        slot = _SLOTS.get((dev, stream))
-        if slot is None:
-            slot = sum(d == dev for d, _ in _SLOTS)
-            if slot >= COUNTER_SLOTS:
-                raise RuntimeError(f"rmsnorm_bwd: more than {COUNTER_SLOTS} streams on "
-                                   f"device {dev}")
-            _SLOTS[(dev, stream)] = slot
-        buf = _COUNTERS.get(dev)
-        if buf is None:
-            buf = _COUNTERS[dev] = torch.zeros(COUNTER_SLOTS * COUNTERS_A_SLOT,
-                                               dtype=torch.int32, device=x.device)
-    return buf.data_ptr() + 4 * COUNTERS_A_SLOT * slot
 
 
 def _launcher():
@@ -247,7 +216,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor | None, dy: torch.Tensor,
     if scale is not None:
         partial = torch.empty((blocks // cluster, D), dtype=torch.float32, device=x.device)
         ds = torch.empty_like(scale)
-        counters = _counters(x, stream)
+        counters = build.stream_slot("rmsnorm_bwd", x, stream, COUNTERS_A_SLOT)
     rc = _bwd_launcher()(_BWD_PACK(
         xp, sp, dyp, dxp, partial.data_ptr() if partial is not None else 0,
         ds.data_ptr() if ds is not None else 0, counters,

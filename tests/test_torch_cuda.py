@@ -717,10 +717,13 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype):
              # the 128-query tile: groups 6, 7 and 11, ragged tails in every head
              (2, 48, 8, 257, 257, 128, True), (1, 70, 10, 129, 129, 128, True),
              (2, 66, 6, 257, 300, 64, False), (1, 132, 132, 128, 128, 32, True),
-             (1, 132, 66, 127, 127, 16, True)]
+             (1, 132, 66, 127, 127, 16, True),
+             # the 192-query tile at head_dim 64 and below: ragged in every head
+             (2, 66, 6, 257, 300, 16, True), (1, 132, 12, 191, 191, 32, False),
+             (1, 140, 14, 385, 385, 64, True)]
     tiles = set()
     for B, Hq, Hkv, Sq, Skv, D, causal in cases:
-        tiles.add(query_tile(B, Hq, Sq))
+        tiles.add(query_tile(B, Hq, Sq, D=D))
         q = torch.randn(B, Hq, Sq, D, dtype=dt, device=cuda)
         k = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
         v = torch.randn(B, Hkv, Skv, D, dtype=dt, device=cuda)
@@ -732,7 +735,7 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype):
         assert got.dtype == want.dtype and got.shape == want.shape
         torch.testing.assert_close(got[-1, -1].float(), want[-1, -1].float(), **_tol(dtype))
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
-    assert tiles == {64, 128}
+    assert tiles == {64, 128, 192}
 
 
 @pytest.mark.cuda
@@ -793,6 +796,10 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 2, 8, 64, device=cuda)
     with pytest.raises(ValueError):                      # Sq > Skv, causal
         ops.attention(q, q[:, :, :4], q[:, :, :4])
+    q = q.to(torch.bfloat16)                             # the bf16 body's max: a positive scale
+    for scale in (0.0, -0.125):
+        with pytest.raises(ValueError, match="positive sm_scale"):
+            ops.attention(q, q, q, sm_scale=scale)
 
 
 @pytest.mark.cuda
@@ -1161,6 +1168,106 @@ def test_cuda_flash_attention_bwd_bf16_wgmma_body(cuda, case):
         torch.testing.assert_close(a.float(), w.float(), **_bwd_tol("bfloat16"))
     # the same values laid out otherwise: the same bits
     assert all(torch.equal(a, b) for a, b in zip(sgot, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [6, 7, 8])
+def test_cuda_flash_attention_bwd_head_split(cuda, G, causal, D):
+    """The bf16 backward with the group's heads split over key-tile blocks
+    (groups 6, 7 and 8, ragged 200 x 1037 over one and two KV heads, and a
+    grid of two consumer warpgroups a block): against the plain version at
+    the bf16 tolerance; two calls and two replays of a captured graph
+    equal bit for bit (the partials are summed in part order and the
+    tickets left 0); two kernel nodes a call."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    n_sm = build.sm_count(cuda.index or 0)
+    for B, Hkv, Sq, Skv in ((1, 1, 200, 1037), (1, 2, 200, 1037), (1, 2, 2048, 2048)):
+        Hq = G * Hkv
+        geo = fa.bwd_geometry(B, Hq, Hkv, Sq, Skv, True, n_sm, causal)
+        assert geo.head_split > 1
+        args, want = _bwd_case(cuda, B, Hq, Hkv, Sq, Skv, D, causal, seed=G + Sq + D)
+        n0 = ops.LAUNCHES["flash_attention_bwd"]
+        got = fa.flash_attention_bwd(*args, causal=causal)
+        assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            torch.testing.assert_close(a.float(), w.float(), **_bwd_tol("bfloat16"))
+        again = fa.flash_attention_bwd(*args, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            outs = [fa.flash_attention_bwd(*args, causal=causal) for _ in range(2)]
+        assert build.graph_nodes(g) == (4, 4)
+        g.instantiate()
+        for _ in range(2):
+            for out in outs:
+                for t in out:
+                    t.fill_(float("nan"))
+            g.replay()
+            torch.cuda.synchronize()
+            for out in outs:
+                assert all(torch.equal(a, b) for a, b in zip(out, got))
+    assert geo.warpgroups == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["dbrx", "internvl2"])
+def test_cuda_flash_attention_bwd_head_split_at_the_train_shapes(cuda, shape):
+    """dbrx-132b's (1, 48/8, 1024, 128) and internvl2-1b's (1, 14/2,
+    4096, 64) causal training shapes, each with a head split of 3: the
+    plain version's gradients at the bf16 tolerance, and dq, dk and dv bit
+    for bit over two calls and two graph replays."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, S, D = {"dbrx": (1, 48, 8, 1024, 128), "internvl2": (1, 14, 2, 4096, 64)}[shape]
+    assert fa.bwd_geometry(B, Hq, Hkv, S, S, True, build.sm_count(cuda.index or 0)).head_split == 3
+    args, want = _bwd_case(cuda, B, Hq, Hkv, S, S, D, True, seed=S + D)
+    got = fa.flash_attention_bwd(*args)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), **_bwd_tol("bfloat16"))
+    del want
+    assert all(torch.equal(a, b) for a, b in zip(fa.flash_attention_bwd(*args), got))
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = fa.flash_attention_bwd(*args)
+    assert build.graph_nodes(g) == (2, 2)
+    g.instantiate()
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, got))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_head_dim_64_pipelined(cuda):
+    """The bf16 forward at D = 64: one tile at a time at the 64-query tile,
+    and at the 128- and 192-query tiles the pipelined schedule (S of tile
+    i issued with P V of tile i-1, the consumer warpgroups in turns);
+    ragged lengths, Sq < Skv and Sq > Skv, one key tile and many, causal
+    and not, groups 1, 7 and 8: against the plain version at the bf16
+    tolerance, its lse to 1e-4, and the same bits on a second call."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = [(1, 14, 2, 1037, 1037, True), (1, 14, 2, 200, 1037, True),
+             (1, 4, 4, 1500, 448, False), (1, 8, 1, 1, 1500, False), (1, 16, 2, 64, 127, True),
+             (1, 16, 16, 448, 1500, False), (2, 16, 16, 1037, 1037, True),
+             (4, 16, 16, 1500, 1500, False), (1, 64, 8, 129, 300, True),
+             (2, 32, 4, 300, 300, True), (1, 14, 2, 4096, 4096, True),
+             (2, 66, 6, 1037, 1037, True), (1, 140, 20, 193, 1500, False)]
+    tiles = set()
+    for B, Hq, Hkv, Sq, Skv, causal in cases:
+        tiles.add(fa.query_tile(B, Hq, Sq, D=64))
+        q = torch.randn(B, Hq, Sq, 64, dtype=torch.bfloat16, device=cuda)
+        k = torch.randn(B, Hkv, Skv, 64, dtype=torch.bfloat16, device=cuda)
+        v = torch.randn(B, Hkv, Skv, 64, dtype=torch.bfloat16, device=cuda)
+        got, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        want, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+        torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        assert torch.equal(fa.flash_attention(q, k, v, causal=causal), got)
+    assert tiles == {64, 128, 192}
 
 
 @pytest.mark.cuda
@@ -1588,7 +1695,7 @@ def test_cuda_router_train_step_matches_cpu(cuda):
     flash_attention_bwd per layer, 4 rmsnorm_bwd per layer and one for the
     final norm) against the CPU's autograd of the plain versions, within
     1e-4 relative to each leaf's largest gradient; then 3 train steps,
-    parameters within 3 lr (tests/test_torch_train.py's reason)."""
+    parameters within 3 lr (tests/torch_train_common.py's reason)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -1684,7 +1791,7 @@ def test_cuda_every_family_train_step_matches_cpu(cuda, arch, frames):
     the config, the scan through its Function — against the CPU's
     autograd of the plain versions, within 1e-4 of each leaf's largest
     gradient; then 3 train steps, losses within 1e-4 and parameters within
-    3 lr.  xlstm's layers amplify rounding (tests/test_torch_train.py):
+    3 lr.  xlstm's layers amplify rounding (tests/torch_train_common.py):
     it is held to twice the card's own witness, the largest change of its
     gradients, losses and parameters under two 1e-7 perturbations of the
     embedding table."""

@@ -843,7 +843,7 @@ def test_sharded_train_step_matches_unmeshed_and_stores_shards(gloo):
     # the int8-moment step of the checkpoint's config against the unmeshed
     # one: each moment's row scale and every f32 moment within 1e-5 of its
     # largest, the int8 values within one step of rounding, and the params
-    # within 3 lr (tests/test_torch_train.py's bound after AdamW steps: a
+    # within 3 lr (tests/torch_train_common.py's bound after AdamW steps: a
     # first step moves a weight by ~lr * g / (|g| + eps), so a gradient
     # within rounding of eps may move it by another share of lr)
     _, ckpt = gloo["ckpt"]

@@ -321,7 +321,7 @@ def test_train_launcher_refuses_encdec_and_vision(arch, tmp_path):
     text pipeline (the reference's) gives tokens and labels only, with no
     ``frames`` or ``prefix_embeds``.  ``make_train_step`` and
     ``loss_and_grads`` train them given such batches (held against JAX's
-    in tests/test_torch_train.py), and the other facades run them."""
+    in tests/test_torch_train_encdec.py), and the other facades run them."""
     _, cfg = _cfgs(arch)
     with pytest.raises(NotImplementedError, match="text pipeline gives tokens and labels only"):
         train_launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",

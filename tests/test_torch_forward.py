@@ -154,7 +154,7 @@ def test_forward_runs_every_family():
     """No family is refused any more: MoE (dbrx, kimi) runs since the
     moe_router slice, the SSM and xLSTM families (jamba, xlstm) since
     theirs, enc-dec and vision (whisper, internvl2) since theirs: a finite
-    prefill each (their training: tests/test_torch_train.py)."""
+    prefill each (their training: tests/test_torch_train_*.py)."""
     for arch in ("dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "xlstm-350m",
                  "whisper-medium", "internvl2-1b"):
         cfg = get_config(arch).reduced()

@@ -821,24 +821,35 @@ def test_cpu_dispatch_uses_plain_versions_and_counts_no_launch():
 # ---------------------------------------------------------------------------
 # launch geometry chosen on the host (pure Python, so it is tested here)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("B,Hq,Sq,want", [
-    (1, 16, 4096, 128),    # qwen3-1.7B prefill: 512 blocks of 128 queries
-    (1, 16, 128, 64),      # its chunked prefill: 16 blocks of 128 would idle 116 SMs
-    (1, 16, 448, 64),      # whisper's 448 x 1500 cross-attention
-    (1, 48, 1024, 128),    # dbrx's group 6 at S=1024
-    (1, 48, 4096, 128),    # dbrx prefill
-    (1, 4, 113, 64),       # the oracle's NLLs
-    (1, 132, 128, 128),    # exactly one wave of 128-query blocks
-    (1, 131, 128, 64),     # one block short of a wave
-    (2, 33, 129, 128),     # 2 * 33 * 2 = 132
-    (1, 1, 1, 64),
+@pytest.mark.parametrize("B,Hq,Sq,D,want", [
+    (1, 16, 4096, 128, 128),   # qwen3-1.7B prefill: 512 blocks of 128 queries
+    (1, 16, 128, 128, 64),     # its chunked prefill: 16 blocks of 128 would idle 116 SMs
+    (1, 16, 448, 64, 64),      # whisper's 448 x 1500 cross-attention at B = 1
+    (1, 48, 1024, 128, 128),   # dbrx's group 6 at S=1024
+    (1, 48, 4096, 128, 128),   # dbrx prefill
+    (1, 64, 4096, 112, 128),   # kimi-k2 prefill: no 192 above head_dim 64
+    (1, 4, 113, 64, 64),       # the oracle's NLLs
+    (1, 132, 128, 128, 128),   # exactly one wave of 128-query blocks
+    (1, 131, 128, 128, 64),    # one block short of a wave
+    (2, 33, 129, 128, 128),    # 2 * 33 * 2 = 132
+    (1, 1, 1, 64, 64),
+    # head_dim 64: three warpgroups where the grid fills the card and the
+    # tiles of 192 pad at most 1/16 more rows than tiles of 128
+    (4, 16, 1500, 64, 192),    # whisper's encoder: 1536 rows either way
+    (1, 14, 4096, 64, 192),    # internvl2-1b prefill: 4224 rows against 4096
+    (4, 16, 448, 64, 128),     # whisper's decoder and cross-attention: 576 against 512
+    (1, 132, 128, 32, 128),    # 192 rows against 128
+    (1, 131, 192, 64, 128),    # one block short of a wave of 192: two of 128
+    (2, 66, 257, 64, 192),     # 384 rows either way: 132 blocks of 192
 ])
-def test_flash_query_tile(B, Hq, Sq, want):
+def test_flash_query_tile(B, Hq, Sq, D, want):
     from repro_torch.kernels.flash_attention import BLOCK_Q, query_tile
-    tile = query_tile(B, Hq, Sq)
+    tile = query_tile(B, Hq, Sq, D=D)
     assert tile == want
-    assert tile % BLOCK_Q == 0
-    assert query_tile(B, Hq, Sq, n_sm=1) == 128
+    assert tile % BLOCK_Q == 0 and (tile < 192 or D <= 64)
+    one = query_tile(B, Hq, Sq, n_sm=1, D=D)       # every grid fills one SM
+    assert one == (192 if D <= 64 and 16 * -(-Sq // 192) * 192 <= 17 * -(-Sq // 128) * 128
+                   else 128)
 
 
 @pytest.mark.parametrize("rows,D,elt,vec_ok,want", [
@@ -877,18 +888,18 @@ def test_rmsnorm_launch_geometry(rows, D, elt, vec_ok, want):
 @pytest.mark.parametrize("shape,bf16,want", [
     # qwen3-1.7B training: 256 key blocks of 128 keys walk up to 2 x 64
     # query tiles, 512 query blocks up to 64 key tiles; keys first
-    ((1, 16, 8, 4096, 4096), True, (2, 128, 256, 512, 128, 64, False)),
+    ((1, 16, 8, 4096, 4096), True, (2, 128, 256, 512, 128, 64, False, 1)),
     # ragged 128 x 4096: 16 query blocks walk 64 key tiles each, so they start first
-    ((1, 16, 8, 128, 4096), True, (2, 128, 256, 16, 4, 64, True)),
+    ((1, 16, 8, 128, 4096), True, (2, 128, 256, 16, 4, 64, True, 1)),
     # whisper's non-causal 448 x 1500
-    ((1, 16, 16, 448, 1500), True, (2, 128, 192, 64, 7, 24, True)),
-    # dbrx's group 6
-    ((1, 48, 8, 1024, 1024), True, (2, 128, 64, 384, 96, 16, False)),
+    ((1, 16, 16, 448, 1500), True, (2, 128, 192, 64, 7, 24, True, 1)),
+    # dbrx's group 6: its heads split over 3 key-tile blocks of the same keys
+    ((1, 48, 8, 1024, 1024), True, (2, 128, 192, 384, 32, 16, False, 3)),
     # small grids keep one consumer warpgroup a block
-    ((1, 2, 2, 37, 37), True, (1, 64, 2, 2, 1, 1, False)),
-    ((1, 16, 8, 200, 1037), True, (1, 64, 136, 64, 8, 17, True)),
+    ((1, 2, 2, 37, 37), True, (1, 64, 2, 2, 1, 1, False, 1)),
+    ((1, 16, 8, 200, 1037), True, (1, 64, 136, 64, 8, 17, True, 1)),
     # the router's f32 training: the CUDA-core body, 64-row tiles
-    ((8, 4, 2, 128, 128), False, (0, 64, 32, 64, 4, 2, False)),
+    ((8, 4, 2, 128, 128), False, (0, 64, 32, 64, 4, 2, False, 1)),
 ])
 def test_flash_bwd_geometry(shape, bf16, want):
     from repro_torch.kernels.flash_attention import BWD_ROWS, bwd_geometry
@@ -896,12 +907,135 @@ def test_flash_bwd_geometry(shape, bf16, want):
     geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16)
     assert tuple(geo) == want
     assert geo.rows == BWD_ROWS * max(geo.warpgroups, 1)
-    # every key and every query has one block of its role
-    assert geo.key_blocks * geo.rows >= B * Hkv * Skv > (geo.key_blocks - B * Hkv) * geo.rows
+    # every key and every query has one block of its role (a key-tile
+    # block one of head_split)
+    pairs = geo.key_blocks // geo.head_split
+    assert pairs * geo.head_split == geo.key_blocks
+    assert pairs * geo.rows >= B * Hkv * Skv > (pairs - B * Hkv) * geo.rows
     assert geo.query_blocks * geo.rows >= B * Hq * Sq > (geo.query_blocks - B * Hq) * geo.rows
     if bf16 and geo.warpgroups == 1:      # two warpgroups a block would leave SMs idle
         assert B * Hkv * -(-Skv // 128) + B * Hq * -(-Sq // 128) < 132
     assert bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, n_sm=1).warpgroups == (2 if bf16 else 0)
+
+
+# (tag, B, Hq, Hkv, S_q, S_kv, D, bf16, causal, head split): the zoo's
+# training shapes of flash_attention_bwd (chip_smoke.FLASH_BWD_SHAPES)
+ZOO_BWD_SHAPES = [
+    ("router", 8, 4, 2, 128, 128, 64, False, True, 1),
+    ("qwen3", 1, 16, 8, 4096, 4096, 128, True, True, 1),
+    ("dbrx", 1, 48, 8, 1024, 1024, 128, True, True, 3),
+    ("jamba", 1, 32, 8, 4096, 4096, 128, True, True, 1),
+    ("internvl2", 1, 14, 2, 4096, 4096, 64, True, True, 3),
+    ("kimi-k2", 1, 64, 8, 4096, 4096, 112, True, True, 1),
+    ("whisper cross", 4, 16, 16, 448, 1500, 64, True, False, 1),
+    ("whisper encoder", 4, 16, 16, 1500, 1500, 64, True, False, 1),
+    ("whisper decoder", 4, 16, 16, 448, 448, 64, True, True, 1),
+]
+
+
+def _split_heads(G, c, part):
+    """The query heads [lo, hi) of a group of G that part ``part`` of a
+    head split c walks, as csrc/flash_attention_bwd.cu computes them."""
+    return part * G // c, (part + 1) * G // c
+
+
+def _bwd_blocks(B, Hq, Hkv, Sq, Skv, causal, geo):
+    """The key-tile blocks of a backward launch in grid order, as
+    csrc/flash_attention_bwd.cu decodes blockIdx (part fastest, then the
+    sequence and KV head, then the key block): (b, KV head, first key,
+    heads [lo, hi), query tiles walked a head), and the query-tile
+    blocks' key tiles walked."""
+    from repro_torch.kernels.flash_attention import BWD_ROWS
+    G, c, off = Hq // Hkv, geo.head_split, Skv - Sq
+    n_qt = -(-Sq // BWD_ROWS)
+    keys = []
+    for idx in range(geo.key_blocks):
+        part, pair = idx % c, idx // c
+        bkv, k0 = pair % (B * Hkv), pair // (B * Hkv) * geo.rows
+        qt0 = max(0, k0 - off) // BWD_ROWS if causal else 0
+        keys.append((bkv // Hkv, bkv % Hkv, k0, *_split_heads(G, c, part), n_qt - qt0))
+    queries = [-(-(min(Skv, min(Sq, q0 + geo.rows) + off) if causal else Skv) // BWD_ROWS)
+               for q0 in range(0, Sq, geo.rows)] * (B * Hq)
+    return keys, queries
+
+
+@pytest.mark.parametrize("tag,B,Hq,Hkv,Sq,Skv,D,bf16,causal,split", ZOO_BWD_SHAPES,
+                         ids=[z[0] for z in ZOO_BWD_SHAPES])
+def test_flash_bwd_head_split_at_the_zoo_shapes(tag, B, Hq, Hkv, Sq, Skv, D, bf16, causal,
+                                                split):
+    """Over the launch of each training shape: every (sequence, KV head,
+    key tile, query head) is walked by exactly one key-tile block; the
+    longest key-tile block costs no more than one SM's share of the grid
+    (4 products a query tile of a head, 3 a key tile of a query-tile
+    block) or, where no split reaches it, one head's walk, and one part
+    fewer would not do (the bf16 body: the f32 body is never split);
+    groups of 4 and less and kimi-k2 keep the unsplit geometry of before
+    the split."""
+    from repro_torch.kernels.flash_attention import BWD_ROWS, bwd_geometry
+    geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, 132, causal)
+    assert geo.head_split == split
+    G, n_qt, n_kt = Hq // Hkv, -(-Sq // BWD_ROWS), -(-Skv // BWD_ROWS)
+    keys, queries = _bwd_blocks(B, Hq, Hkv, Sq, Skv, causal, geo)
+    walked = np.zeros((B, Hkv, n_kt, G), np.int64)
+    for b, hk, k0, lo, hi, nq in keys:
+        for kt in range(k0 // BWD_ROWS, min(n_kt, (k0 + geo.rows) // BWD_ROWS)):
+            walked[b, hk, kt, lo:hi] += 1
+    assert (walked == 1).all()
+    assert geo.query_blocks == len(queries) and geo.query_block_tiles == max(queries)
+    cost = [4 * (hi - lo) * nq for *_, lo, hi, nq in keys]
+    share = (sum(cost) + 3 * sum(queries)) / 132
+    assert max(cost) == 4 * geo.key_block_tiles
+    if bf16:                          # the f32 body is never split
+        assert max(cost) <= max(share, 4 * n_qt)
+    if split > 1:
+        assert 4 * -(-G // (split - 1)) * n_qt > share
+    if G <= 4 or tag == "kimi-k2":
+        wg = (2 if B * Hkv * -(-Skv // 128) + B * Hq * -(-Sq // 128) >= 132 else 1) if bf16 \
+            else 0
+        rows = max(wg, 1) * BWD_ROWS
+        assert tuple(geo) == (wg, rows, B * Hkv * -(-Skv // rows), B * Hq * -(-Sq // rows),
+                              G * n_qt, n_kt, 3 * n_kt > 4 * G * n_qt, 1)
+
+
+@pytest.mark.parametrize("tag,B,Hq,Hkv,Sq,Skv,D,bf16,causal,split", ZOO_BWD_SHAPES,
+                         ids=[z[0] for z in ZOO_BWD_SHAPES])
+def test_flash_bwd_workspace(tag, B, Hq, Hkv, Sq, Skv, D, bf16, causal, split):
+    """The f32 scratch the wrapper allocates for a bf16 call: lse2 and
+    delta of every query row padded to tiles of 64, and with a head split
+    a 128-thread block of (dK, dV) partials, the tile's columns each, for
+    every warpgroup of every key-tile block (internvl2-1b: 12.6 MB)."""
+    from repro_torch.kernels.flash_attention import (BWD_ROWS, bwd_geometry,
+                                                     bwd_workspace_floats, tile_columns)
+    geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, 132, causal)
+    rows = 2 * B * Hq * -(-Sq // BWD_ROWS) * BWD_ROWS
+    parts = geo.key_blocks * geo.warpgroups * 128 * tile_columns(D) if split > 1 else 0
+    assert bwd_workspace_floats(B, Hq, Sq, D, geo) == rows + parts
+    assert tile_columns(D) == {64: 64, 112: 128, 128: 128}[D]
+    if tag == "internvl2":
+        assert 4 * parts == 3 * 2 * 4096 * 64 * 4 * 2 == 12_582_912
+    if tag == "dbrx":
+        assert 4 * parts == 3 * 8 * 1024 * 128 * 4 * 2
+
+
+def test_flash_bwd_split_within_a_slot_of_tickets():
+    """A head-split launch draws one ticket a (sequence, KV head, key
+    block) pair from its stream's slot of TICKETS_A_SLOT: on a card of
+    many SMs every grid would split, but not one of more pairs."""
+    from repro_torch.kernels import flash_attention as fa
+    fits = fa.bwd_geometry(1, 16, 2, 64, fa.TICKETS_A_SLOT // 2 * 64, True, 10 ** 6)
+    assert fits.head_split == 8 and fits.key_blocks == 8 * fa.TICKETS_A_SLOT
+    over = fa.bwd_geometry(1, 16, 2, 64, (fa.TICKETS_A_SLOT // 2 + 1) * 64, True, 10 ** 6)
+    assert over.head_split == 1
+
+
+def test_flash_bwd_split_heads_cover_the_group():
+    """Part p of a split c walks heads [p G / c, (p + 1) G / c): the parts
+    cover the group once, each ceil(G / c) or floor(G / c) heads."""
+    for G in range(1, 17):
+        for c in range(1, G + 1):
+            parts = [_split_heads(G, c, p) for p in range(c)]
+            assert [h for lo, hi in parts for h in range(lo, hi)] == list(range(G))
+            assert {hi - lo for lo, hi in parts} <= {G // c, -(-G // c)}
 
 
 @pytest.mark.parametrize("rows,D,elt,vec_ok,want", [
@@ -932,20 +1066,28 @@ def test_rmsnorm_bwd_geometry(rows, D, elt, vec_ok, want):
 
 
 def test_rmsnorm_bwd_counters_one_slot_a_stream(monkeypatch):
-    """Each (device, stream) gets its own slot of the device's counter
-    buffer, the same one on every call; more streams than slots raise."""
+    """Each (kernel, device, stream) gets its own slot of the kernel's
+    zeroed int32 counter buffer on the device, the same one on every call
+    (rmsnorm_bwd's dscale counters, flash_attention_bwd's tickets); more
+    streams than slots raise."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import rmsnorm as rn
-    monkeypatch.setattr(rn, "_COUNTERS", {})
-    monkeypatch.setattr(rn, "_SLOTS", {})
-    monkeypatch.setattr(rn, "COUNTER_SLOTS", 3)
+    monkeypatch.setattr(build, "_SLOT_BUFFERS", {})
+    monkeypatch.setattr(build, "_STREAM_SLOTS", {})
+    monkeypatch.setattr(build, "STREAM_SLOTS", 3)
     x = torch.zeros(2, 8)
-    a, b = rn._counters(x, 11), rn._counters(x, 22)
-    assert b - a == 4 * rn.COUNTERS_A_SLOT and rn._counters(x, 11) == a
-    buf = rn._COUNTERS[x.get_device()]
-    assert buf.dtype == torch.int32 and int(buf.abs().sum()) == 0
-    rn._counters(x, 33)
+    a = build.stream_slot("rmsnorm_bwd", x, 11, rn.COUNTERS_A_SLOT)
+    b = build.stream_slot("rmsnorm_bwd", x, 22, rn.COUNTERS_A_SLOT)
+    assert b - a == 4 * rn.COUNTERS_A_SLOT
+    assert build.stream_slot("rmsnorm_bwd", x, 11, rn.COUNTERS_A_SLOT) == a
+    buf = build._SLOT_BUFFERS[("rmsnorm_bwd", x.get_device())]
+    assert buf.dtype == torch.int32 and buf.numel() == 3 * rn.COUNTERS_A_SLOT
+    assert int(buf.abs().sum()) == 0
+    other = build.stream_slot("flash_attention_bwd", x, 11, 1024)   # a buffer of its own
+    assert build._SLOT_BUFFERS[("flash_attention_bwd", x.get_device())].data_ptr() == other
+    build.stream_slot("rmsnorm_bwd", x, 33, rn.COUNTERS_A_SLOT)
     with pytest.raises(RuntimeError, match="streams"):
-        rn._counters(x, 44)
+        build.stream_slot("rmsnorm_bwd", x, 44, rn.COUNTERS_A_SLOT)
 
 
 def test_flash_bwd_tensor_maps_take_the_layers_strides():

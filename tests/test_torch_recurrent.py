@@ -5,7 +5,7 @@ reduced xlstm-350m (mLSTM and sLSTM slots), parameters bridged from JAX
 the prefill, eval and serve facades, the decode state after 8 steps, and
 teacher-forced decode against the prefill (tests/test_models.py's test,
 on the port).  Then the ServingEngine (their training is held against
-JAX's in tests/test_torch_train.py and tests/test_torch_ssm.py): a request served at B = 4 gets the tokens the
+JAX's in tests/test_torch_train_{jamba,xlstm}.py and tests/test_torch_ssm.py): a request served at B = 4 gets the tokens the
 reference gives it alone at batch_size = 1 (its prefill, which steps
 every lane and never resets one, is right only there), a prefill leaves
 the other lanes as they were, ``reset_lanes`` writes each kind's init,
