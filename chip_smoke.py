@@ -36,9 +36,13 @@ its main path on the card, printing one JSON line per phase:
   7. the wikikv-router serving loop at full width over the AuthTrace wiki
      on the card, against the same run on the CPU (plain versions);
   8. flash_attention against its plain version at the oracle's, qwen3
-     prefill, chunked-prefill, non-causal ragged and group-6 shapes, and
+     prefill, chunked-prefill, non-causal ragged and group-6 shapes,
      kimi-k2's head_dim 112 (its prefill, 64 / 8 heads, and a ragged f32
-     shape), timed beside the plain version and SDPA;
+     shape) and the router's f32 training forward with its lse, timed
+     beside the plain version and SDPA (the f32 rows with a second bound
+     at 3xTF32's rate and their route: body and key split); every phase
+     line carries the attention kernels' launches since its last reset by
+     body (``flash_launches_by_dtype``);
   9. LM-routed navigation: the same serving run with a wikikv-router
      ModelOracle (two loss evaluations per decision, flash_attention in
      every layer) on the card and on the CPU, decisions and traces equal;
@@ -114,10 +118,11 @@ its main path on the card, printing one JSON line per phase:
      448 keys at whisper's heads in bf16, 200 over 77 in f32; the norms at
      each model's width and rows, qwen3's qk-norm, one without scale),
      timed beside the autograd backward of
-     SDPA and ``F.rms_norm`` (each row with its launch geometry; a bf16
+     SDPA and ``F.rms_norm`` (each row with its launch geometry; a
      flash_attention_bwd call is two kernel nodes, the delta pre-pass and
-     the wgmma body, an f32 call one, an rmsnorm_bwd call one with or
-     without a scale); wikikv-router at full width trained by a
+     the body, in either type, an rmsnorm_bwd call one with or
+     without a scale; the f32 rows with a second bound at 3xTF32's rate
+     and their route); wikikv-router at full width trained by a
      TrainLoop on the AuthTrace pipeline (B=8, S=128) for 20 steps on the
      card and on the CPU, losses equal within 2e-3 and falling, then a
      crash at step 8 and a restart that ends bit for bit where an
@@ -223,6 +228,9 @@ SRC = ROOT / "src"
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
+# float32 products at float32 accuracy on the tensor cores: 3xTF32, three
+# TF32 products (495e12 FLOP/s dense) for one (csrc/tf32.cuh)
+TF32X3_FLOPS = 495e12 / 3
 BF16_FLOPS = 989e12        # bfloat16 on the tensor cores
 INT8_OPS = 1979e12
 # exponentials a second on an H100 SXM5's special-function units (the
@@ -246,7 +254,14 @@ T_START = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
-    """One JSON line, with the seconds since the script started."""
+    """One JSON line, with the seconds since the script started and, once
+    the kernels are loaded, the attention kernels' launches since the last
+    ``reset_launches`` by body (a phase resets before its main path)."""
+    build = sys.modules.get("repro_torch.kernels.build")
+    if build is not None:
+        obj = {**obj, "flash_launches_by_dtype": {
+            k: {"float32": build.F32_LAUNCHES[k], "bfloat16": build.LAUNCHES[k] - n}
+            for k, n in build.F32_LAUNCHES.items()}}
     print(json.dumps({**obj, "at_s": time.perf_counter() - T_START}), flush=True)
 
 
@@ -331,8 +346,8 @@ def profiled_ms(fn, inputs, calls: int) -> float | None:
 
 
 # a kernel's category is the first whose name fragment its name contains
-# (the backward's kernels: flash_bwd_kernel, flash_bwd_delta_kernel and
-# flash_bwd_wgmma_kernel; rmsnorm_bwd_kernel)
+# (the backward's kernels: flash_bwd_f32_kernel, flash_bwd_delta_f32_kernel,
+# flash_bwd_delta_kernel and flash_bwd_wgmma_kernel; rmsnorm_bwd_kernel)
 STEP_CATEGORIES = (("flash_attention_bwd", ("flash_bwd",)),
                    ("flash_attention", ("flash_fwd",)),
                    ("rmsnorm_bwd", ("rmsnorm_bwd",)),
@@ -735,7 +750,8 @@ def split_decode_kernels(dev) -> dict:
 # internvl2-1b's prefill (256 patch embeddings + 3840 tokens, 14 / 2
 # heads); (k) more queries than keys, non-causal, in both types; (l)
 # kimi-k2's prefill (64 / 8 heads of head_dim 112, padded to 128 columns
-# in the bf16 body) and (m) a ragged f32 shape at head_dim 112
+# in the bf16 body) and (m) a ragged f32 shape at head_dim 112; (r) the
+# wikikv-router's training forward, f32 with its lse
 FLASH_SHAPES = [
     ("a S=7", 1, 4, 2, 7, 7, 64, "float32", True),
     ("a S=37", 1, 4, 2, 37, 37, 64, "float32", True),
@@ -753,7 +769,11 @@ FLASH_SHAPES = [
     ("k", 1, 16, 16, 128, 64, 64, "bfloat16", False),
     ("l", 1, 64, 8, 4096, 4096, 112, "bfloat16", True),
     ("m f32", 1, 8, 1, 300, 1037, 112, "float32", True),
+    ("r f32", 8, 4, 2, 128, 128, 64, "float32", True),
 ]
+# the rows timed with the log-sum-exp written too: (r f32) is the router's
+# training forward, whose lse its backward reads
+FLASH_WITH_LSE = ("r f32",)
 
 
 def attn_work(B, Hq, Hkv, Sq, Skv, D, causal, elt) -> tuple[float, float]:
@@ -793,11 +813,13 @@ def sdpa(q, k, v, causal, mask):
 
 def attention_kernels(dev) -> dict:
     """flash_attention against its plain version (``ref.attention_ref``) at
-    FLASH_SHAPES, timed beside it and beside SDPA; the kernels-line entry
-    is shape (b)."""
+    FLASH_SHAPES, timed beside it and beside SDPA (the rows of
+    FLASH_WITH_LSE with the lse written and held to the plain one too; the
+    f32 rows with their bound at 3xTF32's rate and their route); the
+    kernels-line entry is shape (b)."""
     import torch
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cpu").manual_seed(1)
     rows, entry = [], None
     for tag, B, Hq, Hkv, Sq, Skv, D, dt, causal in FLASH_SHAPES:
@@ -805,21 +827,32 @@ def attention_kernels(dev) -> dict:
         q = torch.randn((B, Hq, Sq, D), generator=g).to(dev, dtype)
         k = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
         v = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
-        got = ops.attention(q, k, v, causal=causal)
-        err = check_float(f"flash_attention ({tag})", got, ref.attention_ref(q, k, v, causal=causal),
-                          dtype)
+        lse_row = tag in FLASH_WITH_LSE
+        if lse_row:
+            got, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+            want, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+            lse_err = max_err(lse, want_lse)
+            check(lse_err <= 1e-4 * max(1.0, float(want_lse.abs().max())),
+                  f"flash_attention lse ({tag}) differs by {lse_err}")
+        else:
+            got = ops.attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+        err = check_float(f"flash_attention ({tag})", got, want, dtype)
         nbytes, flops = attn_work(B, Hq, Hkv, Sq, Skv, D, causal, q.element_size())
+        if lse_row:
+            nbytes += 4 * B * Hq * Sq
         b, by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
         n = 10 if Sq * Skv * Hq > (1 << 24) else 25
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), iters=n)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, with_lse=lse_row), iters=n)
         mask = sdpa_mask(q, k, causal)
         lib = cuda_ms(lambda: sdpa(q, k, v, causal, mask), iters=n)
-        dev_ms = graph_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal),
+        dev_ms = graph_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal,
+                                                             with_lse=lse_row),
                           (q, k, v), calls=20)["device_ms"]
         bf16 = dtype == torch.bfloat16
         tile = fa.query_tile(B, Hq, Sq, D=D) if bf16 else fa.BLOCK_Q
         row = {"shape": f"({tag}) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {dt} "
-                        f"{'causal' if causal else 'non-causal'}",
+                        f"{'causal' if causal else 'non-causal'}{' with lse' if lse_row else ''}",
                "block_q": tile,
                "exp_bound_ms": exp_bound_ms(flops, D) if D <= 64 else None,
                "max_abs_err": err, "gflop": flops / 1e9, "ms": ms, "device_ms": dev_ms,
@@ -830,6 +863,15 @@ def attention_kernels(dev) -> dict:
                "bound_ms": b, "bound_by": by,
                "tflop_per_s": flops / ms / 1e9, "library_tflop_per_s": flops / lib / 1e9,
                "share_of_bound": b / ms, "vs_library": ms / lib}
+        if not bf16:
+            # the second bound: the same work at 3xTF32's rate on the tensor
+            # cores, and the route that ran (csrc/flash_attention.cu)
+            row["tf32x3_bound_ms"] = bound(nbytes, flops, TF32X3_FLOPS)[0]
+            row["route"] = {"body": "3xtf32, S on wgmma, P V on mma.sync",
+                            "key_tile": fa.f32_key_tile(D),
+                            "key_split": fa.key_split(B, Hq, Sq, Skv, D, causal,
+                                                      build.sm_count(0))}
+            row["lse_max_abs_err"] = lse_err if lse_row else None
         rows.append(row)
         if tag == "b":
             entry = {"name": "flash_attention", "route": "cuda",
@@ -3368,9 +3410,8 @@ def backward_kernels(dev) -> dict:
         ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), iters=n)
         gm = graph_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal),
                       (q, k, v, o, lse, do), calls=4 if n == 5 else 20, replays=3)
-        # bf16: the delta pre-pass and the wgmma body; f32: one kernel
-        one_kernel_a_call(f"flash_attention_bwd ({tag})", gm,
-                          2 if dtype == torch.bfloat16 else 1)
+        # the delta pre-pass and the body, in both types
+        one_kernel_a_call(f"flash_attention_bwd ({tag})", gm, 2)
         mask = sdpa_mask(q, k, causal)
         lib = library_grad(lambda a, b_, c: sdpa(a, b_, c, causal, mask), (q, k, v), do)
         plain_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
@@ -3393,6 +3434,15 @@ def backward_kernels(dev) -> dict:
             "share_of_bound": b / ms, "vs_library": ms / lib_ms,
             "device_share_of_bound": b / gm["device_ms"] if gm["device_ms"] else None,
             "device_vs_library": prof / lib_dev if prof and lib_dev else None})
+        if dtype == torch.float32:
+            # the second bound: the same work at 3xTF32's rate on the tensor cores
+            flash_rows[-1]["tf32x3_bound_ms"] = bound(nbytes, flops, TF32X3_FLOPS)[0]
+            s_on = "wgmma" if fa.f32_bwd_wgmma(D) else "mma.sync"
+            flash_rows[-1]["route"] = {"body": f"3xtf32, S and dP on {s_on}, the rest on "
+                                               "mma.sync",
+                                       "head_split": flash_rows[-1]["geometry"]["head_split"],
+                                       "dq_split": fa.dq_split(B, Hq, Hkv, Sq, Skv,
+                                                               build.sm_count(0), causal)}
         del q, k, v, do, o, lse, lib
         torch.cuda.empty_cache()
     emit({"phase": "flash_attention_bwd", "tolerance_f32": BWD_F32_TOL, "shapes": flash_rows,

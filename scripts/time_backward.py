@@ -2,7 +2,8 @@
 """Time one checkout's backward kernels on the card, so that two trees can
 be compared within one run.
 
-    python3 scripts/time_backward.py [--forward [--sweep]] [--train] [CHECKOUT ...]
+    python3 scripts/time_backward.py [--forward [--sweep]] [--bodies] [--train] [--host]
+                                     [CHECKOUT ...]
     python3 scripts/time_backward.py --router [--sweep] [CHECKOUT ...]
 
 For each CHECKOUT (default: this one), a directory holding that tree's
@@ -11,10 +12,21 @@ kernels and runs its smoke's backward phase (``backward_kernels``:
 flash_attention_bwd and rmsnorm_bwd against their plain versions, timed
 beside the library's autograd backward and their bounds); with
 ``--forward`` first the tree's flash_attention at this script's own
-checkout's ``FLASH_SHAPES``, held to the plain version and timed with this
-checkout's ``graph_ms`` beside SDPA's graph time, the bound and, at
-head_dim 64 and below, the exponentials' bound (``--sweep``: every bf16
-row at every query tile the tree's kernel takes); with ``--train`` also its
+checkout's ``FLASH_SHAPES`` (the rows of ``FLASH_WITH_LSE`` with the lse
+written), held to the plain version and timed with this
+checkout's ``graph_ms`` beside SDPA's graph time (and ``ms``: events
+around one call, host work included), the bound, at
+head_dim 64 and below the exponentials' bound, and for an f32 row the
+bound at 3xTF32's rate and the tree's key split (``--sweep``: every bf16
+row at every query tile the tree's kernel takes, and after the backward
+phase its f32 rows at dQ splits 1-4 with the query-tile blocks first and
+last); with ``--bodies`` the f32 rows of the backward once more with S
+and dP on wgmma and on mma.sync, forced through the tree's
+``f32_bwd_wgmma`` (a tree without it prints that it has none); with
+``--host`` the router's host-bound main paths, the tree's own
+``chip_smoke``: the ModelOracle's serving run on the card
+(``serve_once``: ms per NLL, mean and median) and 20 ``train_router``
+steps (``router_loop``: the median step ms); with ``--train`` also its
 qwen3-1.7B, dbrx-132b (one layer) and internvl2-1b training
 (``qwen3_training``, ``dbrx_training``, ``vlm_training``: steps at full
 width, each step's ms and split by kernel kind).
@@ -48,9 +60,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FLAGS = ("--forward", "--train", "--router", "--sweep")
+FLAGS = ("--forward", "--train", "--router", "--sweep", "--bodies", "--host")
 SWEEP_WARPS = (1, 2, 4, 8, 16, 32)
 SWEEP_TILES = (64, 128, 192)
+SWEEP_DQ_SPLITS = (1, 2, 3, 4)
 
 
 def own_smoke():
@@ -75,6 +88,7 @@ def run_forward(own, tag: str, sweep: bool) -> None:
     planned = fa.query_tile
     for shape, B, Hq, Hkv, Sq, Skv, D, dt, causal in own.FLASH_SHAPES:
         dtype = getattr(torch, dt)
+        lse = shape in own.FLASH_WITH_LSE
         q = torch.randn((B, Hq, Sq, D), generator=g).to(dev, dtype)
         k = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
         v = torch.randn((B, Hkv, Skv, D), generator=g).to(dev, dtype)
@@ -110,23 +124,195 @@ def run_forward(own, tag: str, sweep: bool) -> None:
             try:
                 err = own.check_float(f"flash_attention ({shape}, tile {tile or plan})", got,
                                       want, dtype)
-                ms = own.graph_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal),
+                ms = own.graph_ms(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal,
+                                                                     with_lse=lse),
                                   (q, k, v), calls=20)["device_ms"]
+                host = own.cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                              with_lse=lse))
             finally:
                 fa.query_tile = planned
             print(json.dumps({"checkout": tag, "phase": "flash_forward", "row": shape, "B": B,
                               "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Skv": Skv, "D": D, "dtype": dt,
                               "causal": causal, "max_abs_err": err, "plan": tile is None,
-                              "query_tile": tile or plan, "device_ms": ms,
+                              "query_tile": tile or plan, "device_ms": ms, "ms": host,
                               "library_device_ms": lib, "vs_library": ms / lib,
                               "bound_ms": b, "bound_by": by,
-                              "exp_bound_ms": own.exp_bound_ms(flops, D) if D <= 64 else None}),
+                              "exp_bound_ms": own.exp_bound_ms(flops, D) if D <= 64 else None,
+                              "with_lse": lse, **f32_route(own, fa, B, Hq, Sq, Skv, D, dt,
+                                                           causal, nbytes, flops)}),
                   flush=True)
         del q, k, v, want
     torch.cuda.empty_cache()
 
 
-def run_one(root: Path, forward: bool, train: bool, sweep: bool) -> int:
+def f32_route(own, fa, B, Hq, Sq, Skv, D, dt, causal, nbytes, flops) -> dict:
+    """An f32 row's bound at 3xTF32's rate and the tree's key split (a
+    tree without one: None)."""
+    if dt != "float32":
+        return {}
+    from repro_torch.kernels import build
+    split = getattr(fa, "key_split", None)
+    return {"tf32x3_bound_ms": own.bound(nbytes, flops, own.TF32X3_FLOPS)[0],
+            "key_split": split(B, Hq, Sq, Skv, D, causal, build.sm_count(0)) if split else None}
+
+
+def run_bwd_splits(own, tag: str) -> None:
+    """The tree's float32 backward at the f32 rows of ``own.FLASH_BWD_SHAPES``
+    at every dQ split of SWEEP_DQ_SPLITS, the query-tile blocks first and
+    last in the grid (``bwd_geometry``'s ``dq_first`` forced), each held to
+    the plain version and timed by the profiler beside SDPA's backward; a
+    tree without ``dq_split`` prints that it has none."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    if not hasattr(fa, "dq_split"):
+        print(json.dumps({"checkout": tag, "phase": "bwd_splits", "refused": "no dq_split"}),
+              flush=True)
+        return
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    geometry, planned = fa.bwd_geometry, fa.dq_split
+    for shape, B, Hq, Hkv, Sq, Skv, D, dt, causal in own.FLASH_BWD_SHAPES:
+        if dt != "float32":
+            continue
+        q, do = (torch.randn((B, Hq, Sq, D), generator=g).to(dev) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, Skv, D), generator=g).to(dev) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        mask = own.sdpa_mask(q, k, causal)
+        lib = own.library_grad(lambda a, b, c: own.sdpa(a, b, c, causal, mask), (q, k, v), do)
+        lib_ms = own.profiled_ms(lambda: lib(), (), 3)
+        for d in SWEEP_DQ_SPLITS:
+            for first in (True, False):
+                fa.dq_split = lambda *a, d=d, **kw: d
+                fa.bwd_geometry = lambda *a, f=first, **kw: geometry(*a, **kw)._replace(
+                    dq_first=f)
+                try:
+                    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+                    err = max(own.check_grad(f"flash_attention_bwd ({shape}, d {d})", a, b,
+                                             torch.float32) for a, b in zip(got, want))
+                    ms = own.profiled_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                        causal=causal), (), 3)
+                finally:
+                    fa.dq_split, fa.bwd_geometry = planned, geometry
+                print(json.dumps({"checkout": tag, "phase": "bwd_splits", "row": shape,
+                                  "dq_split": d, "dq_first": first,
+                                  "planned": d == planned(B, Hq, Hkv, Sq, Skv,
+                                                          causal=causal) and
+                                  first == geometry(B, Hq, Hkv, Sq, Skv, False,
+                                                    causal=causal).dq_first,
+                                  "max_abs_err": err, "device_ms_profiled": ms,
+                                  "library_device_ms": lib_ms}), flush=True)
+        del q, k, v, do, o, lse, lib
+
+
+def run_bwd_bodies(own, tag: str) -> None:
+    """The tree's float32 backward at the f32 rows of ``own.FLASH_BWD_SHAPES``
+    with S and dP on wgmma and on mma.sync (``f32_bwd_wgmma`` forced; wgmma
+    where the tree's kernel takes it), each held to the plain version and
+    timed by the profiler beside SDPA's backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    body = getattr(fa, "f32_bwd_wgmma", None)
+    if body is None:
+        print(json.dumps({"checkout": tag, "phase": "bwd_bodies", "refused": "no f32_bwd_wgmma"}),
+              flush=True)
+        return
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for shape, B, Hq, Hkv, Sq, Skv, D, dt, causal in own.FLASH_BWD_SHAPES:
+        if dt != "float32":
+            continue
+        q, do = (torch.randn((B, Hq, Sq, D), generator=g).to(dev) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, Skv, D), generator=g).to(dev) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        mask = own.sdpa_mask(q, k, causal)
+        lib = own.library_grad(lambda a, b, c: own.sdpa(a, b, c, causal, mask), (q, k, v), do)
+        lib_ms = own.profiled_ms(lambda: lib(), (), 3)
+        for wg in (True, False):
+            fa.f32_bwd_wgmma = lambda *a, w=wg, **kw: w
+            try:
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+                err = max(own.check_grad(f"flash_attention_bwd ({shape}, wgmma {wg})", a, b,
+                                         torch.float32) for a, b in zip(got, want))
+                ms = own.profiled_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                    causal=causal), (), 3)
+            except RuntimeError as e:       # a head_dim whose wgmma tiles do not fit
+                print(json.dumps({"checkout": tag, "phase": "bwd_bodies", "row": shape,
+                                  "s_on_wgmma": wg, "refused": str(e)}), flush=True)
+                continue
+            finally:
+                fa.f32_bwd_wgmma = body
+            print(json.dumps({"checkout": tag, "phase": "bwd_bodies", "row": shape,
+                              "s_on_wgmma": wg, "planned": wg == body(D), "max_abs_err": err,
+                              "device_ms_profiled": ms, "library_device_ms": lib_ms}),
+                  flush=True)
+        del q, k, v, do, o, lse, lib
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """The median host time of one call of ``fn`` in microseconds: the
+    wrapper's work and the launch, not the card's (a synchronize every 50
+    calls keeps the queue short)."""
+    import statistics
+    import time
+
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def run_host(tag: str) -> None:
+    """The router's host-bound main paths with the tree's own smoke: the
+    host time of one float32 flash_attention call at an NLL's shape (1,
+    4/2, 37, 64) and at the training forward's with its lse (8, 4/2, 128,
+    64), and of one flash_attention_bwd call at the training shape; the
+    ModelOracle's serving run on the card (ms per NLL); and 20
+    train_router steps (the median step, the first left out)."""
+    import statistics
+    import tempfile
+
+    import chip_smoke
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    calls = {}
+    for name, B, S, lse in (("nll", 1, 37, False), ("train", 8, 128, True)):
+        q = torch.randn((B, 4, S, 64), generator=g).to(dev)
+        k, v = (torch.randn((B, 2, S, 64), generator=g).to(dev) for _ in range(2))
+        calls[f"fwd_{name}_host_us"] = host_us(lambda: fa.flash_attention(q, k, v, with_lse=lse))
+        if lse:
+            o, ls = fa.flash_attention(q, k, v, with_lse=True)
+            do = torch.randn_like(q)
+            calls["bwd_train_host_us"] = host_us(lambda: fa.flash_attention_bwd(q, k, v, o, ls,
+                                                                                do))
+    run = chip_smoke.serve_once(dev, True)
+    ms = run["oracle"]["ms"]
+    with tempfile.TemporaryDirectory(prefix="time_backward_") as tmp:
+        loop = chip_smoke.router_loop(dev, tmp, 20, 20)
+        times = loop.run().step_times
+    print(json.dumps({"checkout": tag, "phase": "router_host", **calls, "nll_calls": len(ms),
+                      "oracle_ms_per_nll": statistics.mean(ms),
+                      "oracle_ms_per_nll_median": statistics.median(ms),
+                      "train_router_step_ms": statistics.median(times[1:]) * 1e3,
+                      "train_router_step_ms_all": [t * 1e3 for t in times]}), flush=True)
+
+
+def run_one(root: Path, forward: bool, train: bool, sweep: bool, bodies: bool = False,
+            host: bool = False) -> int:
     sys.path.insert(0, str(root / "src"))
     sys.path.insert(0, str(root))
     import torch
@@ -141,9 +327,15 @@ def run_one(root: Path, forward: bool, train: bool, sweep: bool) -> int:
                       "nvidia_smi": chip_smoke.nvidia_smi(),
                       "nvcc_s": build.build_all()}), flush=True)
     dev = torch.device("cuda")
+    if host:
+        run_host(str(root))
     if forward:
         run_forward(own_smoke(), str(root), sweep)
     chip_smoke.backward_kernels(dev)
+    if sweep:
+        run_bwd_splits(own_smoke(), str(root))
+    if bodies:
+        run_bwd_bodies(own_smoke(), str(root))
     if train:
         chip_smoke.qwen3_training(dev)
         chip_smoke.dbrx_training(dev)
@@ -235,11 +427,12 @@ def run_router(root: Path, sweep: bool) -> int:
 
 
 def main(argv: list[str]) -> int:
-    forward, train, router, sweep = (f in argv for f in FLAGS)
+    forward, train, router, sweep, bodies, host = (f in argv for f in FLAGS)
     roots = [a for a in argv if a not in FLAGS]
     if len(roots) == 1 and roots[0].startswith("--one="):
         root = Path(roots[0][len("--one="):]).resolve()
-        return run_router(root, sweep) if router else run_one(root, forward, train, sweep)
+        return (run_router(root, sweep) if router
+                else run_one(root, forward, train, sweep, bodies, host))
     rc = 0
     for root in roots or [str(ROOT)]:
         cmd = [sys.executable, __file__, f"--one={root}"] + [f for f in FLAGS if f in argv]

@@ -40,6 +40,9 @@ LAUNCHES: dict[str, int] = {"path_lookup": 0, "prefix_search": 0,
                             "decode_attention": 0, "flash_attention": 0, "rmsnorm": 0,
                             "moe_router": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                             "moe_router_bwd": 0, "decode_scores": 0, "decode_combine": 0}
+#: of those, the launches of the attention kernels' float32 bodies (the
+#: rest of LAUNCHES' attention counts are bfloat16)
+F32_LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -54,15 +57,18 @@ _STREAM_SLOTS: dict[tuple[str, int, int], int] = {}
 _SLOT_LOCK = threading.Lock()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, f32: bool = False) -> None:
     # readers on several threads launch at once; an unlocked += can drop one
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+        if f32:
+            F32_LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def nbytes(*tensors) -> int:

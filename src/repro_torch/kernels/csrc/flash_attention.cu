@@ -21,14 +21,34 @@
 // never a repeated copy.  The longest causal query tiles start first.
 // Two bodies:
 //
-//  * float32 (flash_fwd_kernel): f32 on the CUDA cores, full f32 with no
-//    TF32, so it matches the plain version to float tolerance; 128
-//    threads and 64 queries a block.  A lane owns 4 rows x BK/8 score
-//    columns and 4 rows x D/8 output dims (lane = 8 * ry + rx; row
-//    reductions are 3 xor shuffles over rx); Q, the K and V tiles and the
-//    warp's P tile are staged in shared memory as f32 with row pitches
-//    D + 1 and BK + 1, so a warp's loads hit distinct banks.  It serves
-//    the ModelOracle's short f32 NLLs, where it beats SDPA.
+//  * float32 (flash_fwd_f32_kernel): the wikikv-router's own attention
+//    (the ModelOracle's NLLs, the router's prefill and training forward)
+//    and every f32 parity run.  Bound on this card: operations, and only
+//    the tensor cores give them at float32 accuracy fast enough: both
+//    products in 3xTF32 (tf32.cuh: every operand split into a TF32 hi and
+//    lo, three products a product, f32 accumulate; 165e12 effective
+//    FLOP/s against 67e12 on the CUDA cores), within the plain version's
+//    float tolerance.  S = Q K^T on wgmma.m64nNk8 (Q's hi and lo A
+//    fragments in registers for the walk, each K tile split once into a
+//    hi tile in place and a lo tile over Q's); O += P V on
+//    mma.sync.m16n8k8, P straight from S's accumulators (wgmma reads a
+//    tf32 B K-major only, and V is stored the other way).  wgmma took
+//    every f32 row the smoke times 11-24% under S on mma.sync, the
+//    router's NLLs of 7 and 37 queries too (an H100 at 700 W,
+//    scripts/time_backward.py).  128 threads, 64 queries a block
+//    (16 a warp), key tiles of 64 (32 at D = 112 and 128: two blocks an
+//    SM at every D).  Copies by TMA: f32 tensor maps over (D, S, B*H) in
+//    the 128-byte swizzle (32 floats an atom; D = 112 padded to 128
+//    columns that TMA zero-fills, a ragged tail's rows zero-filled, never
+//    the next head's), Q once and (K, V) through a ring of two stages
+//    that thread 0 refills.  Where the grid, B * Hq * ceil(Sq / 64)
+//    blocks, leaves SMs idle (kimi-k2's 8 heads over 300 ragged queries:
+//    40 blocks), the visible key tiles of each query tile are cut into c
+//    parts (the wrapper's key_split: the least c whose longest part is no
+//    more than one SM's share of the tiles, and no part under 2 tiles),
+//    whose (acc, m, l) the last part to draw a ticket merges in part
+//    order.  A warp whose rows all lie past Sq (the router's NLLs of 7-37
+//    queries) skips the softmax and P V.
 //  * bfloat16 (flash_fwd_wgmma_kernel): Hopper's warp-specialised shape.
 //    Bound on this card: operations (4 * D flops per visible (query, key)
 //    pair against 2 * D * 2 bytes per key row; at qwen3 prefill, S = 4096,
@@ -95,7 +115,7 @@
 // Both bodies write the rows' log-sum-exp of the scaled scores (natural
 // log, f32, (B, Hq, Sq)) when `lse` is not null: the training forward
 // keeps it for flash_attention_bwd.cu; the inference paths pass null.
-// The wgmma body's running max is in the exp2 domain, so its lse is
+// Both keep the running max in the exp2 domain, so the lse is
 // (m + log2 l) * ln 2.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -103,164 +123,275 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;        // queries per block of the f32 body
-constexpr int WARPS = 4;      // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
 constexpr float NEG = -1e30f;  // the finite mask value of the reference
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: TMA + 3xTF32, S on wgmma and P V on mma.sync (tf32.cuh)
 // ---------------------------------------------------------------------------
-// rows x D floats from global memory (row-major, pitch D) into a shared
-// tile of pitch `ld`; rows in [n_valid, rows) are zero-filled (so a masked
-// position never multiplies a stale or NaN value).
+namespace f32body {
+
+constexpr int BQ = 64;        // queries a block: four warps of 16 rows
+constexpr int THREADS = 128;
+constexpr int STAGES = 2;     // the ring of (K, V) tiles
+
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
-                                          int n_valid, int rows) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    dst[r * ld + d] = r < n_valid ? src[(size_t)r * D + d] : 0.f;
-  }
-}
+struct Fwd {
+  using A = tf32::Atoms<D>;
+  static constexpr int BK = D <= 64 ? 64 : 32;   // keys a tile (two blocks an SM at every D)
+  static constexpr int NT = D / 8;               // n8 blocks of an output row (padding unread)
+  static constexpr int Q_BYTES = BQ * A::DP * 4;
+  static constexpr int KV_BYTES = BK * A::DP * 4;
+  // + 1024: the tiles start on a 1024-byte boundary (the swizzle's period)
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  static constexpr int PART_F4 = NT + 1;         // float4s a thread of a split's part: acc, (m, l)
+};
 
-template <int D, int BK>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + WARPS * 16 * (BK + 1);
-}
-
-template <int D, int BK>
+// One block: 64 queries of one (sequence, query head) over the key tiles
+// [t_lo, t_lo + n) of their visible range, which is part p of `parts` (the
+// key split; parts = 1 walks them all).  The block is one warpgroup and
+// S one wgmma product of its 64 rows; a warp owns 16 of them: its S
+// accumulators (rows g, g + 8; key columns 2t, 2t + 1 of each n8 block)
+// hold the scores, the online softmax runs on them in registers (m in the
+// exp2 domain: scores times scale * log2 e; the scale may have any sign, so
+// the max is taken over the scaled scores), and P is the A operand of
+// O += P V on mma.sync straight from them (tf32.cuh acc_a).  Q's hi and
+// lo fragments are split once into registers (D a thread); K and V
+// arrive by TMA in a ring of two stages that thread 0 refills once every
+// warp is past a stage, and each K tile is split once by all 128 threads.
+// With parts > 1 each block writes its (acc, m, l) and draws a ticket; the
+// block that draws the last merges the parts in part order (never in
+// arrival order: the same bits every call) and resets the ticket (a
+// captured graph replays).
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-                 int Hq, int Hkv, int Sq, int Skv, int causal, float scale, int n_qt) {
-  constexpr int NC = BK / 8;   // score columns per lane
-  constexpr int ND = D / 8;    // output dims per lane
-  constexpr int QLD = D + 1, KLD = D + 1, PLD = BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * QLD;
-  float* Vs = Ks + BK * KLD;
-  float* Ps = Vs + BK * D;
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, float* __restrict__ out,
+                     float* __restrict__ lse, float* __restrict__ part,
+                     unsigned* __restrict__ tickets, int Hq, int Hkv, int Sq, int Skv, int causal,
+                     float scale_log2, int n_qt, int split) {
+  using F = Fwd<D>;
+  constexpr int BK = F::BK, NT = F::NT, NS = BK / 8;   // NS: n8 blocks of a score tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];   // Q full; (K, V) full per stage
+  __shared__ int last_part;
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base_s = smem_u32(base);
+  const uint32_t q_bar = smem_u32(bars), kv_bar = q_bar + 8;
 
   const int bh = blockIdx.x;                 // sequence * Hq + query head
   const int qt = n_qt - 1 - blockIdx.y;      // the longest causal tiles start first
   const int b = bh / Hq, h = bh % Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);  // the query head's KV head
-  const int q0 = qt * BQ;
-  const int seq_off = Skv - Sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ry = lane >> 3, rx = lane & 7;
-  const int row0 = warp * 16 + ry * 4;       // the lane's first row in the tile
-
-  const float* kb = k + (size_t)bkv * Skv * D;
-  const float* vb = v + (size_t)bkv * Skv * D;
-  const int q_rows = min(BQ, Sq - q0);
-  load_tile<D>(Qs, QLD, q + ((size_t)bh * Sq + q0) * D, q_rows, BQ);
-  // keys at or past k_end are masked for every row of this tile
+  const int q0 = qt * BQ, q_rows = min(BQ, Sq - q0);
+  const int seq_off = Skv - Sq;              // < 0 only when not causal, and then never read
   const int k_end = causal ? min(Skv, q0 + q_rows + seq_off) : Skv;
+  const int n_t = (k_end + BK - 1) / BK;
+  const int parts = max(1, min(split, n_t));
+  const int p = blockIdx.z;
+  if (p >= parts) return;                    // a tile with fewer key tiles than the split
+  const int t_lo = p * n_t / parts, n = (p + 1) * n_t / parts - t_lo;
 
-  float m[4], l[4], acc[4][ND];
-  int qpos[4];
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-    qpos[i] = q0 + row0 + i + seq_off;
-#pragma unroll
-    for (int c = 0; c < ND; ++c) acc[i][c] = 0.f;
+    for (int st = 0; st < STAGES; ++st) mbar_init(kv_bar + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float* Pw = Ps + warp * 16 * PLD;
+  __syncthreads();
+  auto issue = [&](int i) {                  // key tile t_lo + i into stage i % STAGES
+    const int st = i % STAGES;
+    const uint32_t bar = kv_bar + 8 * st, k_s = base_s + F::Q_BYTES + st * 2 * F::KV_BYTES;
+    mbar_expect_tx(bar, 2 * F::KV_BYTES);
+    tf32::load_tile<D, BK>(k_s, &k_map, bar, (t_lo + i) * BK, bkv);
+    tf32::load_tile<D, BK>(k_s + F::KV_BYTES, &v_map, bar, (t_lo + i) * BK, bkv);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_bar, F::Q_BYTES);
+    tf32::load_tile<D, BQ>(base_s, &q_map, q_bar, q0, bh);
+    for (int i = 0; i < min(STAGES, n); ++i) issue(i);
+  }
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    const int k_rows = min(BK, Skv - k0);
-    __syncthreads();  // every warp is done with the previous K, V and P tiles
-    load_tile<D>(Ks, KLD, kb + (size_t)k0 * D, k_rows, BK);
-    load_tile<D>(Vs, D, vb + (size_t)k0 * D, k_rows, BK);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;                  // the warp's first row of the tile
+  const bool live = q0 + r0 < Sq;            // a warp past the last query only keeps step
+  const int pos = q0 + r0 + g + seq_off;     // this thread's rows' positions: pos, pos + 8
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  mbar_wait(q_bar, 0);
+  // Q's hi and lo A fragments stay in registers for the walk, and its
+  // tile then takes each key tile's lo
+  uint32_t qh[D / 8][4], ql[D / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const tf32::FragA a = tf32::load_a<D, BQ>(base, r0, kk * 8, g, t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qh[kk][e] = a.hi[e];
+      ql[kk][e] = a.lo[e];
+    }
+  }
+  __syncthreads();
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i % STAGES, k0 = (t_lo + i) * BK;
+    unsigned char* ks = base + F::Q_BYTES + st * 2 * F::KV_BYTES;
+    const unsigned char* vs = ks + F::KV_BYTES;
+    mbar_wait(kv_bar + 8 * st, (i / STAGES) & 1);
+    // S = Q K^T on wgmma, the warpgroup's 64 rows (the padded columns
+    // unread): K split once into hi (in place) and lo (over Q's tile)
+    float s[NS][4];
+    tf32::split_tile(ks, base, F::KV_BYTES, tid, THREADS);
+    tf32::fence_async();
     __syncthreads();
-
-    float s[4][NC];
+    float (&sf)[BK / 2] = *reinterpret_cast<float (*)[BK / 2]>(&s[0][0]);
+    const uint32_t k_hi = smem_u32(ks), k_lo = base_s;
+    fence_regs(sf);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(row0 + i) * QLD + d];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) kv[j] = Ks[(rx + 8 * j) * KLD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int kk = 0; kk < D / 8; ++kk) {     // the small terms first, as mma3
+      tf32::wgmma_rs<BK>(sf, ql[kk], tf32::desc<D, BK>(k_hi, kk), kk > 0);
+      tf32::wgmma_rs<BK>(sf, qh[kk], tf32::desc<D, BK>(k_lo, kk), 1);
+      tf32::wgmma_rs<BK>(sf, qh[kk], tf32::desc<D, BK>(k_hi, kk), 1);
     }
-
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sf);
+    if (live) {
+      // the ragged Skv tail, or a tile that straddles the diagonal
+      const bool mask = k0 + BK > Skv || (causal && k0 + BK - 1 > q0 + r0 + seq_off);
+      float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int kp = k0 + rx + 8 * j;
-        const bool ok = kp < k_end && (!causal || kp <= qpos[i]);
-        s[i][j] = ok ? s[i][j] * scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale_log2;
+          if (mask) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            x = key < Skv && (!causal || key <= pos + 8 * (e >> 1)) ? x : NEG;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = fast_exp2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
       }
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float p = s[i][j] == NEG ? 0.f : expf(s[i][j] - m_new);
-        rs += p;
-        Pw[(ry * 4 + i) * PLD + rx + 8 * j] = p;
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pr = fast_exp2(s[j][e] - m[r]);
+          if (mask) pr = s[j][e] == NEG ? 0.f : pr;
+          l[r] += pr;   // this thread's share of the row sum
+          s[j][e] = pr;
+        }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
       }
-      rs += __shfl_xor_sync(FULL, rs, 1);
-      rs += __shfl_xor_sync(FULL, rs, 2);
-      rs += __shfl_xor_sync(FULL, rs, 4);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < ND; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < NS; ++j) {         // O += P V, keys in acc_a's order
+        const tf32::FragA pa = tf32::acc_a(s[j]);
+#pragma unroll
+        for (int c = 0; c < NT; ++c)
+          tf32::mma3(o[c], pa, tf32::load_b_kmajor<D, BK>(vs, j * 8, c * 8, g, t));
+      }
     }
-    __syncwarp();
-
-    const int kn = min(BK, k_end - k0);
-#pragma unroll 4
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[4];
+    __syncthreads();                         // every warp is done with stage st
+    if (tid == 0 && i + STAGES < n) issue(i + STAGES);
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Pw[(ry * 4 + i) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        const float vv = Vs[kk * D + rx + 8 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
   }
 
+  if (parts > 1) {
+    // this part's (acc, m, l), then a ticket; the last to draw merges
+    const int slot = bh * n_qt + qt;
+    float4* all = reinterpret_cast<float4*>(part) + (size_t)slot * split * F::PART_F4 * THREADS;
+    float4* mine = all + (size_t)p * F::PART_F4 * THREADS;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + row0 + i;
+    for (int j = 0; j < NT; ++j) mine[j * THREADS + tid] = make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+    mine[NT * THREADS + tid] = make_float4(m[0], m[1], l[0], l[1]);
+    __threadfence();                         // visible device-wide before the ticket is drawn
+    __syncthreads();
+    if (tid == 0) {
+      const bool last = atomicAdd(tickets + slot, 1u) == (unsigned)(parts - 1);
+      if (last) tickets[slot] = 0u;          // every part has drawn: reset for the next call
+      last_part = last;
+    }
+    __syncthreads();
+    if (!last_part) return;
+    __threadfence();
+    // the parts in part order, read past L1: other blocks wrote them
+    float M[2] = {NEG, NEG};
+    for (int q = 0; q < parts; ++q) {
+      const float4 x = __ldcg(all + ((size_t)q * F::PART_F4 + NT) * THREADS + tid);
+      M[0] = fmaxf(M[0], x.x);
+      M[1] = fmaxf(M[1], x.y);
+    }
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int q = 0; q < parts; ++q) {
+      const float4* pq = all + (size_t)q * F::PART_F4 * THREADS + tid;
+      const float4 x = __ldcg(pq + NT * THREADS);
+      const float w0 = fast_exp2(x.x - M[0]), w1 = fast_exp2(x.y - M[1]);
+      l[0] = fmaf(x.z, w0, l[0]);
+      l[1] = fmaf(x.w, w1, l[1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 y = __ldcg(pq + j * THREADS);
+        o[j][0] = fmaf(y.x, w0, o[j][0]);
+        o[j][1] = fmaf(y.y, w0, o[j][1]);
+        o[j][2] = fmaf(y.z, w1, o[j][2]);
+        o[j][3] = fmaf(y.w, w1, o[j][3]);
+      }
+    }
+    m[0] = M[0];
+    m[1] = M[1];
+  }
+
+  // out = acc / l (l == 0 -> 1) and the natural log-sum-exp, rows < Sq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
     if (row >= Sq) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
-    float* o = out + ((size_t)bh * Sq + row) * D;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    float* orow = out + ((size_t)bh * Sq + row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < ND; ++c) o[rx + 8 * c] = acc[i][c] / denom;
-    if (lse != nullptr && rx == 0)
-      lse[(size_t)bh * Sq + row] = l[i] == 0.f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * Sq + row] = l[r] == 0.f ? __int_as_float(0x7f800000)
+                                               : (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
 }
+
+}  // namespace f32body
 
 // ---------------------------------------------------------------------------
 // bfloat16: TMA + wgmma, one producer warp and one or two consumer
@@ -624,7 +755,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
   const int n_qt = (Sq + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
   const dim3 grid(B * Hq, n_qt);
   kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(qm, km, vm, om, lse, Hq, Hkv, Sq, Skv, causal,
-                                                   scale * 1.4426950408889634f, n_qt);
+                                                   scale * LOG2E, n_qt);
   return 0;
 }
 
@@ -642,32 +773,49 @@ int launch_bf16(int block_q, const void* q, const void* k, const void* v, void* 
   return (int)cudaErrorInvalidValue;
 }
 
-template <int D, int BK>
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Hq,
-               int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D, BK>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<D, BK>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const dim3 grid(B * Hq, n_qt);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), lse, Hq, Hkv, Sq, Skv, causal, scale, n_qt);
+               int Hkv, int Sq, int Skv, int causal, float scale, int split, float* part,
+               unsigned* tickets, cudaStream_t stream) {
+  using F = f32body::Fwd<D>;
+  auto kernel = f32body::flash_fwd_f32_kernel<D>;
+  static const cudaError_t attr =  // once per instantiation: it is host work on every launch
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  if (split < 1 || split > 65535 || (split > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int rc = tf32::f32_map<D>(&qm, q, Sq, (long long)B * Hq, f32body::BQ);
+  if (!rc) rc = tf32::f32_map<D>(&km, k, Skv, (long long)B * Hkv, F::BK);
+  if (!rc) rc = tf32::f32_map<D>(&vm, v, Skv, (long long)B * Hkv, F::BK);
+  if (rc) return rc;
+  const int n_qt = (Sq + f32body::BQ - 1) / f32body::BQ;
+  const dim3 grid(B * Hq, n_qt, split);
+  kernel<<<grid, f32body::THREADS, F::SMEM, stream>>>(
+      qm, km, vm, static_cast<float*>(out), lse, part, tickets, Hq, Hkv, Sq, Skv, causal,
+      scale * LOG2E, n_qt, split);
   return 0;
 }
 
 int by_dim_f32(int D, const void* q, const void* k, const void* v, void* out, float* lse, int B,
-               int Hq, int Hkv, int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+               int Hq, int Hkv, int Sq, int Skv, int causal, float scale, int split, float* part,
+               unsigned* tickets, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_f32<16, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 32: return launch_f32<32, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
-    case 64: return launch_f32<64, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+    case 16:
+      return launch_f32<16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, split, part,
+                            tickets, stream);
+    case 32:
+      return launch_f32<32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, split, part,
+                            tickets, stream);
+    case 64:
+      return launch_f32<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, split, part,
+                            tickets, stream);
     case 112:
-      return launch_f32<112, 32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+      return launch_f32<112>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, split, part,
+                             tickets, stream);
     case 128:
-      return launch_f32<128, 32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream);
+      return launch_f32<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, split, part,
+                             tickets, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -697,21 +845,24 @@ int by_dim_bf16(int D, int block_q, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D),
 // out like q, all contiguous and 16-byte aligned; lse (B, Hq, Sq) f32 or
-// null (not written); Hq % Hkv == 0; 0 < Sq, and Sq <= Skv when causal (a
-// non-causal call may have more queries than keys: seq_off = Skv - Sq then
-// enters no mask); scale > 0 for bfloat16.  block_q: the bf16 body's
-// queries a block, 192 (three
-// consumer warpgroups, D <= 64), 128 (two) or 64 (one); the f32 body
-// always takes 64.
+// null (not written); Hq % Hkv == 0; 0 < Sq, 0 < Skv, and Sq <= Skv when
+// causal (a non-causal call may have more queries than keys: seq_off =
+// Skv - Sq then enters no mask); scale > 0 for bfloat16.  block_q: the
+// bf16 body's queries a block, 192 (three consumer warpgroups, D <= 64),
+// 128 (two) or 64 (one); the f32 body always takes 64.  split: the f32
+// body's key split (1 for bfloat16), c > 1 with part, B * Hq * ceil(Sq / 64)
+// * c * (D / 8 + 1) * 512 floats of scratch, and tickets, B * Hq *
+// ceil(Sq / 64) counters that are 0 (each launch leaves them 0).
 // ceil(Sq / 64) <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                                      int dtype, int causal, float scale, int block_q,
-                                      cudaStream_t stream) {
+                                      int dtype, int causal, float scale, int block_q, int split,
+                                      float* part, unsigned* tickets, cudaStream_t stream) {
   if (B > 0 && Hq > 0 && Sq > 0) {
     const int rc = dtype == 0
-        ? by_dim_f32(D, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
-        : dtype == 1
+        ? by_dim_f32(D, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, split, part,
+                     tickets, stream)
+        : dtype == 1 && split == 1
         ? by_dim_bf16(D, block_q, q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, causal, scale, stream)
         : (int)cudaErrorInvalidValue;
     if (rc) return rc;

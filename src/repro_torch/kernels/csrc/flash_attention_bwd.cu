@@ -24,14 +24,47 @@
 // products in all.
 // Two bodies:
 //
-//  * float32 (flash_bwd_kernel): f32 on the CUDA cores with no TF32, so
-//    the wikikv-router's training matches the CPU to float tolerance and a
-//    restart is bit exact.  256 threads, tiles of 64 queries and 64 keys
-//    staged as f32 in shared memory (row pitch D + 4, so a thread's 16-byte
-//    loads of neighbouring rows hit distinct banks); delta is computed as a
-//    block stages dO.  A thread owns a 4 x 4 piece of each 64 x 64 score
-//    tile (rows ty + 16 i, columns tx + 16 j) and 4 rows x D / 16 columns of
-//    its accumulators.
+//  * float32 (flash_bwd_f32_kernel, after flash_bwd_delta_f32_kernel): the
+//    wikikv-router's training (every train_router step: 4 calls at
+//    (8, 4/2, 128 x 128, 64)) and every f32 training parity run, within
+//    the plain version's float tolerance, bit for bit repeatable so that
+//    a restart is bit exact.  Bound: operations; every product in 3xTF32
+//    (tf32.cuh: hi and lo TF32 halves of every operand, three
+//    tensor-core products a product, f32 accumulate: 165e12 effective
+//    FLOP/s against the CUDA cores' 67e12).  S and dP (S^T and dP^T in
+//    the key role) read both operands K-major as they are stored, so up
+//    to D = 64 they run on wgmma.m64n32k8, each warpgroup over its half of
+//    the streamed tile, from hi and lo tiles that every landed tile is
+//    split into once (hi in place, lo in a buffer of its own; the second
+//    products then read both halves with no conversion): the router's
+//    training backward 0.0264 -> 0.0191 ms on an H100 at 700 W
+//    (scripts/time_backward.py --bodies).  At D = 112 and 128 the lo
+//    tiles would need 320 KB of shared memory, so there, and for dV, dK
+//    and dQ everywhere (their B operands are not K-major), the products
+//    run on mma.sync.m16n8k8 with fragments split as they are loaded.  The bf16
+//    body's grid and roles with eight warps a block: tiles of 64 keys or
+//    queries (16 rows a warp, each of a warp pair over half the streamed
+//    tile's 64 columns, their sums added through shared memory at the
+//    end: at D = 112 and 128 the tiles leave room for one block an SM,
+//    and four warps there ran latency-bound), the resident pair (K, V or Q, dO) and a ring of
+//    two stages of streamed tiles, all by TMA over f32 tensor maps in the
+//    128-byte swizzle (D = 112 padded to 128 columns, zero-filled), the
+//    key role's lse2 and delta by bulk copies from the pre-pass's
+//    workspace; thread 0 refills a stage once every warp is past it.  P^T
+//    and dS^T (or dS) are the A operands of the second products straight
+//    from the accumulators (the depth permuted, and dO, Q or K read in the
+//    same order).  A key-tile block keeps dV and dK (D / 2 floats a
+//    thread each: with four warps a block, a thread held D of each and
+//    ptxas spilled 5-8 KB at D = 112 and 128).  The head split of the bf16
+//    body, by the same rule (bwd_geometry): kimi-k2's group of 8 over
+//    300 x 1037 runs 136 key-tile blocks of one head each where it ran 17
+//    of all 8, and the router's group of 2 runs 64 where it ran 32.  Where
+//    the longest query-tile block would then outlast the longest key-tile
+//    block and one SM's share, its key tiles are cut into d parts
+//    (dq_split, the wrapper's pure function) whose dQ the last to finish
+//    sums in part order: kimi-k2's 40 query-tile blocks of 17 key tiles
+//    run as 120 of 5 or 6.  Gradients go from the accumulators to global
+//    memory.
 //  * bfloat16 (flash_bwd_wgmma_kernel, after flash_bwd_delta_kernel):
 //    Hopper's warp-specialised shape, the forward's made for the backward.
 //     - a pre-pass writes delta and lse * log2 e for every query row into a
@@ -88,6 +121,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 // The C entry's one argument, packed by the wrapper in one buffer: outside
 // the anonymous namespace, so the entry's signature names a type of its own.
@@ -101,313 +135,27 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* ws;                   // bf16: lse2 and delta (B * Hq * Sq_pad floats each), then
-                               // with a head split the dK and dV partials of every key-tile block
-  unsigned* tickets;           // bf16 with a head split: a counter a (sequence, KV head, key
+  float* ws;                   // lse2 and delta (B * Hq * Sq_pad floats each), then with a
+                               // head split the dK and dV partials of every key-tile block
+  unsigned* tickets;           // with a head split: a counter a (sequence, KV head, key
                                // tile), 0 on entry and left 0
   long long B, Hq, Hkv, Sq, Skv, D, dtype, causal;
   double scale;
-  long long block;             // bf16: keys or queries a block, 64 or 128
-  long long dq_first;          // bf16: the query-tile blocks come first
-  long long head_split;        // bf16: key-tile blocks a (sequence, KV head, key tile), 1..G
+  long long block;             // keys or queries a block: 64 or 128 (bf16), 64 (f32)
+  long long dq_first;          // the query-tile blocks come first
+  long long head_split;        // key-tile blocks a (sequence, KV head, key tile), 1..G
+  long long dq_split;          // f32: query-tile blocks a (query head, query tile); bf16: 1
+  long long wgmma;             // f32: S and dP on wgmma (1, head_dim <= 64) or mma.sync (0)
   long long strides[12];       // bf16: (sequence, head, row) element strides of q, k, v, dout
   cudaStream_t stream;
 };
-static_assert(sizeof(BwdArgs) == 36 * 8, "BwdArgs must match the wrapper's \"<19qd16q\"");
+static_assert(sizeof(BwdArgs) == 38 * 8, "BwdArgs must match the wrapper's \"<19qd18q\"");
 
 namespace {
 
 using namespace hopper;
 
 constexpr unsigned FULL = 0xffffffffu;
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-constexpr int BT = 64;          // queries, and keys, a tile
-constexpr int THREADS = 256;    // 16 x 16 threads (ty, tx)
-constexpr int LP = BT + 4;      // the pitch of the P and dS tiles
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-template <int D>
-struct Geo {
-  static constexpr int LD = D + 4;             // the pitch of the Q, K, V and dO tiles
-  static constexpr int ND = D / 16;            // accumulator columns a thread
-  // of them adjacent (one vector load): 4, 2 or 1, dividing ND (7 at D = 112)
-  static constexpr int VW = ND % 4 == 0 ? 4 : ND % 2 == 0 ? 2 : 1;
-  static constexpr int NG = ND / VW;           // groups of VW columns, 16 * VW apart
-  static constexpr int TILE = BT * LD;
-  // the key-tile role's shared memory: K, V, Q, dO, P, dS, lse, delta
-  static constexpr int SMEM_FLOATS = 4 * TILE + 2 * BT * LP + 2 * BT;
-};
-
-// Accumulator column c of thread tx: group c / VW, element c % VW.
-template <int D>
-__device__ __forceinline__ int acc_col(int tx, int c) {
-  using G = Geo<D>;
-  return (c / G::VW) * 16 * G::VW + tx * G::VW + c % G::VW;
-}
-
-// Rows [0, BT) of a (rows, D) matrix into a shared tile of pitch D + 4;
-// rows at or past n_valid are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int n_valid) {
-  constexpr int C4 = D / 4;
-  for (int i = threadIdx.x; i < BT * C4; i += THREADS) {
-    const int r = i / C4, c = (i % C4) * 4;
-    const float4 v = r < n_valid ? load4(src + (size_t)r * D + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * Geo<D>::LD + c) = v;
-  }
-}
-
-// dO's tile like load_tile, and delta = rowsum(dO * O) of its rows: a row
-// takes C4P adjacent lanes of one warp, the power of two at or above
-// C4 = D / 4 (32 at D = 112, whose last 4 lanes load nothing), and every
-// thread runs the same number of rounds (BT * C4P is a multiple of 256).
-template <int D>
-__device__ __forceinline__ void load_do_delta(float* dst, float* delta, const float* __restrict__ dout,
-                                              const float* __restrict__ o, int n_valid) {
-  constexpr int C4 = D / 4;
-  constexpr int C4P = C4 <= 4 ? 4 : C4 <= 8 ? 8 : C4 <= 16 ? 16 : 32;
-  static_assert(C4 <= 32 && (BT * C4P) % THREADS == 0, "rows of dO within a warp");
-  for (int i = threadIdx.x; i < BT * C4P; i += THREADS) {
-    const int r = i / C4P, c = (i % C4P) * 4;
-    const bool col = c < D;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (col && r < n_valid) {
-      a = load4(dout + (size_t)r * D + c);
-      b = load4(o + (size_t)r * D + c);
-    }
-    if (col) *reinterpret_cast<float4*>(dst + r * Geo<D>::LD + c) = a;
-    float dot = a.x * b.x;
-    dot = fmaf(a.y, b.y, dot);
-    dot = fmaf(a.z, b.z, dot);
-    dot = fmaf(a.w, b.w, dot);
-#pragma unroll
-    for (int off = C4P / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
-    if (i % C4P == 0) delta[r] = dot;
-  }
-}
-
-// Element e (a constant once unrolled) of a float4.
-__device__ __forceinline__ float elt(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// s[i][j] = X1[ty + 16 i] . Y1[tx + 16 j] and t[i][j] = X2[ty + 16 i] . Y2[tx + 16 j]
-// over the D columns of four shared tiles.
-template <int D>
-__device__ __forceinline__ void two_products(const float* X1, const float* X2, const float* Y1,
-                                             const float* Y2, float (&s)[4][4], float (&t)[4][4],
-                                             int ty, int tx) {
-  constexpr int LD = Geo<D>::LD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 x1[4], x2[4], y1[4], y2[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x1[i] = *reinterpret_cast<const float4*>(X1 + (ty + 16 * i) * LD + d);
-      x2[i] = *reinterpret_cast<const float4*>(X2 + (ty + 16 * i) * LD + d);
-      y1[i] = *reinterpret_cast<const float4*>(Y1 + (tx + 16 * i) * LD + d);
-      y2[i] = *reinterpret_cast<const float4*>(Y2 + (tx + 16 * i) * LD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = dot4(x1[i], y1[j], s[i][j]);
-        t[i][j] = dot4(x2[i], y2[j], t[i][j]);
-      }
-  }
-}
-
-// acc[i][c] += sum over n < BT of A[ty + 16 i][n] * B[n][acc_col(tx, c)]:
-// A a (BT, BT) tile of pitch LP, B a (BT, D) tile of pitch D + 4.
-template <int D>
-__device__ __forceinline__ void acc_product(const float* A, const float* B,
-                                            float (&acc)[4][D / 16], int ty, int tx) {
-  using G = Geo<D>;
-#pragma unroll 2
-  for (int n = 0; n < BT; n += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LP + n);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float* brow = B + (n + e) * G::LD + tx * G::VW;
-      float b[G::ND];
-#pragma unroll
-      for (int gi = 0; gi < G::NG; ++gi) {
-        const float* bp = brow + gi * 16 * G::VW;
-        if constexpr (G::VW == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(bp);
-          b[4 * gi] = v.x;
-          b[4 * gi + 1] = v.y;
-          b[4 * gi + 2] = v.z;
-          b[4 * gi + 3] = v.w;
-        } else if constexpr (G::VW == 2) {
-          const float2 v = *reinterpret_cast<const float2*>(bp);
-          b[2 * gi] = v.x;
-          b[2 * gi + 1] = v.y;
-        } else {
-          b[gi] = *bp;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < G::ND; ++c) acc[i][c] = fmaf(elt(a[i], e), b[c], acc[i][c]);
-    }
-  }
-}
-
-// Rows row0 + ty + 16 i (< n_rows) of a (rows, D) output, times mult.
-template <int D>
-__device__ __forceinline__ void write_rows(float* __restrict__ out, const float (&acc)[4][D / 16],
-                                           int ty, int tx, int n_rows, float mult) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) out[(size_t)r * D + acc_col<D>(tx, c)] = acc[i][c] * mult;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ o,
-                 const float* __restrict__ lse, const float* __restrict__ dout,
-                 float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int Hq,
-                 int Hkv, int Sq, int Skv, int causal, float scale, int n_kv_blocks, int n_kt,
-                 int n_qt) {
-  using G = Geo<D>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int group = Hq / Hkv;
-  const int seq_off = Skv - Sq;   // < 0 only when not causal, and then never read
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float INF = __int_as_float(0x7f800000);
-
-  if ((int)blockIdx.x < n_kv_blocks) {
-    // ---- dK and dV of one key tile --------------------------------------
-    const int kt = blockIdx.x % n_kt, bkv = blockIdx.x / n_kt;   // bkv = b * Hkv + kv head
-    const int b = bkv / Hkv, hk = bkv % Hkv;
-    const int k0 = kt * BT, k_rows = min(BT, Skv - k0);
-    float* Ks = smem;
-    float* Vs = Ks + G::TILE;
-    float* Qs = Vs + G::TILE;
-    float* dOs = Qs + G::TILE;
-    float* Ps = dOs + G::TILE;
-    float* dSs = Ps + BT * LP;
-    float* lse_s = dSs + BT * LP;
-    float* delta_s = lse_s + BT;
-    load_tile<D>(Ks, k + ((size_t)bkv * Skv + k0) * D, k_rows);
-    load_tile<D>(Vs, v + ((size_t)bkv * Skv + k0) * D, k_rows);
-    float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-    // query i sees key j when j <= i + seq_off: tiles before qt0 see none of these keys
-    const int qt0 = causal ? max(0, k0 - seq_off) / BT : 0;
-    for (int h = hk * group; h < (hk + 1) * group; ++h) {
-      const size_t bh = (size_t)b * Hq + h;
-      for (int qt = qt0; qt < n_qt; ++qt) {
-        const int q0 = qt * BT, q_rows = min(BT, Sq - q0);
-        __syncthreads();   // every thread is done with the previous query tile
-        load_tile<D>(Qs, q + (bh * Sq + q0) * D, q_rows);
-        load_do_delta<D>(dOs, delta_s, dout + (bh * Sq + q0) * D, o + (bh * Sq + q0) * D, q_rows);
-        if (threadIdx.x < BT)
-          lse_s[threadIdx.x] = (int)threadIdx.x < q_rows ? lse[bh * Sq + q0 + threadIdx.x] : INF;
-        __syncthreads();
-        float s[4][4], dp[4][4];   // transposed: row = key, column = query
-        two_products<D>(Ks, Vs, Qs, dOs, s, dp, ty, tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kr = ty + 16 * i, qc = tx + 16 * j;
-            const int key = k0 + kr, qi = q0 + qc;
-            const bool ok = key < Skv && qi < Sq && (!causal || key <= qi + seq_off);
-            const float p = ok ? expf(s[i][j] * scale - lse_s[qc]) : 0.f;
-            Ps[kr * LP + qc] = p;
-            dSs[kr * LP + qc] = p * (dp[i][j] - delta_s[qc]);
-          }
-        __syncthreads();
-        acc_product<D>(Ps, dOs, dv_acc, ty, tx);
-        acc_product<D>(dSs, Qs, dk_acc, ty, tx);
-      }
-    }
-    write_rows<D>(dk + ((size_t)bkv * Skv + k0) * D, dk_acc, ty, tx, k_rows, scale);
-    write_rows<D>(dv + ((size_t)bkv * Skv + k0) * D, dv_acc, ty, tx, k_rows, 1.f);
-  } else {
-    // ---- dQ of one query tile -------------------------------------------
-    const int idx = blockIdx.x - n_kv_blocks;
-    const int qt = n_qt - 1 - idx % n_qt;   // the longest causal tiles start first
-    const int bh = idx / n_qt;
-    const int b = bh / Hq, h = bh % Hq;
-    const int bkv = b * Hkv + h / group;
-    const int q0 = qt * BT, q_rows = min(BT, Sq - q0);
-    float* Qs = smem;
-    float* dOs = Qs + G::TILE;
-    float* Ks = dOs + G::TILE;
-    float* Vs = Ks + G::TILE;
-    float* dSs = Vs + G::TILE;
-    float* lse_s = dSs + BT * LP;
-    float* delta_s = lse_s + BT;
-    load_tile<D>(Qs, q + ((size_t)bh * Sq + q0) * D, q_rows);
-    load_do_delta<D>(dOs, delta_s, dout + ((size_t)bh * Sq + q0) * D,
-                     o + ((size_t)bh * Sq + q0) * D, q_rows);
-    if (threadIdx.x < BT)
-      lse_s[threadIdx.x] =
-          (int)threadIdx.x < q_rows ? lse[(size_t)bh * Sq + q0 + threadIdx.x] : INF;
-    float dq_acc[4][D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) dq_acc[i][c] = 0.f;
-    // keys at or past k_end are masked for every query of this tile
-    const int k_end = causal ? min(Skv, q0 + q_rows + seq_off) : Skv;
-    for (int k0 = 0; k0 < k_end; k0 += BT) {
-      const int k_rows = min(BT, Skv - k0);
-      __syncthreads();   // the staged query tile is complete; the last key tile is read
-      load_tile<D>(Ks, k + ((size_t)bkv * Skv + k0) * D, k_rows);
-      load_tile<D>(Vs, v + ((size_t)bkv * Skv + k0) * D, k_rows);
-      __syncthreads();
-      float s[4][4], dp[4][4];   // row = query, column = key
-      two_products<D>(Qs, dOs, Ks, Vs, s, dp, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qr = ty + 16 * i, kc = tx + 16 * j;
-          const int qi = q0 + qr, key = k0 + kc;
-          const bool ok = key < Skv && qi < Sq && (!causal || key <= qi + seq_off);
-          const float p = ok ? expf(s[i][j] * scale - lse_s[qr]) : 0.f;
-          dSs[qr * LP + kc] = p * (dp[i][j] - delta_s[qr]);
-        }
-      __syncthreads();
-      acc_product<D>(dSs, Ks, dq_acc, ty, tx);
-    }
-    write_rows<D>(dq + ((size_t)bh * Sq + q0) * D, dq_acc, ty, tx, q_rows, scale);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: TMA + wgmma, one producer warp and one or two consumer
@@ -856,25 +604,573 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdShape sh) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: TMA + 3xTF32 on wgmma and mma.sync (tf32.cuh), after a delta pre-pass
+// ---------------------------------------------------------------------------
+namespace f32body {
+
+// QW column groups of four warps: warp w takes 16 keys (key role) or
+// queries (dQ role), rows 16 (w % 4), against group w / 4 of the streamed
+// tile's 64 columns
+constexpr int QW = 2;
+constexpr int THREADS = 128 * QW;
+constexpr int STAGES = 2;      // the ring of streamed tiles
+constexpr int NS = 8 / QW;     // n8 blocks of a warp's 64 / QW score columns
+
 template <int D>
-int launch_f32(const BwdArgs& a) {
-  constexpr int smem = Geo<D>::SMEM_FLOATS * (int)sizeof(float);
-  auto kernel = flash_bwd_kernel<D>;
-  static const cudaError_t attr =   // once per instantiation
+struct Bwd {
+  using A = tf32::Atoms<D>;
+  static constexpr int TILE = ROWS * A::DP * 4;    // bytes of a tile of 64 rows
+  static constexpr int NT = D / 8;                 // n8 blocks of a gradient row (padding unread)
+  // resident tiles (K and V, or Q and dO), the stages' tiles, the stages'
+  // lse2 and delta (key role), and the 1024-byte alignment of the swizzle
+  static constexpr int SMEM = 2 * TILE + STAGES * 2 * TILE + STAGES * 2 * ROWS * 4 + 1024;
+  // with S and dP on wgmma, the lo halves of the resident pair and of the
+  // stage being read follow (hopper's 227 KB hold them up to D = 64)
+  static constexpr int LO = SMEM - 1024;
+  static constexpr int SMEM_WG = SMEM + 4 * TILE;
+  static constexpr bool WG_FITS = SMEM_WG <= 227 * 1024;
+};
+
+// delta = rowsum(dO * O) and lse2 = lse * log2 e for every query row, as
+// flash_bwd_delta_kernel does for bf16: LPR lanes a row, the power of two
+// at or above D / 4 (32 at D = 112, whose last 4 load nothing), 16 bytes
+// each, summed by xor shuffles in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_f32_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                           const float* __restrict__ lse, float* __restrict__ lse2,
+                           float* __restrict__ delta, int Sq, int Sq_pad, long long rows_total) {
+  constexpr int LPR = D / 4 <= 4 ? 4 : D / 4 <= 8 ? 8 : D / 4 <= 16 ? 16 : 32;
+  constexpr int RPB = 256 / LPR;
+  const int lr = threadIdx.x % LPR;
+  const long long row = (long long)blockIdx.x * RPB + threadIdx.x / LPR;
+  const bool valid = row < rows_total;
+  const long long bh = row / Sq_pad;
+  const int s = (int)(row % Sq_pad);
+  const bool live = valid && s < Sq;
+  float dot = 0.f;
+  if (live && lr < D / 4) {
+    const float4 a = *reinterpret_cast<const float4*>(dout + (bh * Sq + s) * D + lr * 4);
+    const float4 c = *reinterpret_cast<const float4*>(o + (bh * Sq + s) * D + lr * 4);
+    dot = a.x * c.x;
+    dot = fmaf(a.y, c.y, dot);
+    dot = fmaf(a.z, c.z, dot);
+    dot = fmaf(a.w, c.w, dot);
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
+  if (valid && lr == 0) {
+    lse2[row] = live ? lse[bh * Sq + s] * LOG2E : __int_as_float(0x7f800000);
+    delta[row] = live ? dot : 0.f;
+  }
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;   // (D, rows, B * heads), contiguous f32
+};
+
+struct Shape {
+  const float* lse2;           // (B * Hq, Sq_pad): lse * log2 e, +inf past Sq
+  const float* delta;          // (B * Hq, Sq_pad): rowsum(dO * O), 0 past Sq
+  float* part;                 // split > 1: (pair, dV or dK, part) blocks of 128 x D / 2 floats
+  float* qpart;                // dq_split > 1: (query head, query tile, part) blocks, the same
+  unsigned* tickets;           // split > 1: two a pair (sequence, KV head, key tile), dV and
+                               // dK; dq_split > 1: from q_ticket0 one a (query head, tile)
+  float* dq;
+  float* dk;
+  float* dv;
+  int B, Hq, Hkv, Sq, Skv, Sq_pad, causal;
+  int n_kv_blocks, n_kt, n_qt, dq_first, split, dq_split, q_ticket0;
+  float scale, scale_log2;
+};
+
+// The other column groups' accumulators added to group 0's (the thread
+// of the same row and lane), groups 1, 2, ... in that order, through
+// shared memory: group 0 then holds the block's sums.  Every thread of the
+// block calls it.
+template <int NT>
+__device__ __forceinline__ void sum_groups(float (&acc)[NT][4], float4* red, int grp, int tq) {
+  if (grp > 0)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      red[((grp - 1) * NT + j) * 128 + tq] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  __syncthreads();
+  if (grp == 0)
+    for (int q = 0; q < QW - 1; ++q)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 x = red[(q * NT + j) * 128 + tq];
+        acc[j][0] += x.x;
+        acc[j][1] += x.y;
+        acc[j][2] += x.z;
+        acc[j][3] += x.w;
+      }
+}
+
+// A block's accumulator summed over its column groups and, with parts > 1,
+// over the parts of its slot: this part's sums go to the workspace
+// (float4 j of thread tq at j * 128 + tq, coalesced), then a ticket; the
+// block that draws the slot's last sums parts 0, 1, ... from the workspace
+// (its own included, past L1: other blocks wrote them) and resets the
+// ticket, so the sums are the same bits whoever arrives last and a
+// captured graph replays.  Every thread of the block calls it; true in
+// the threads that then hold the whole sums (group 0 of that block).
+template <int NT>
+__device__ __forceinline__ bool finish(float (&acc)[NT][4], float4* red, int grp, int tq,
+                                       float4* slot_parts, int part, int parts,
+                                       unsigned* ticket, int* last_flag) {
+  sum_groups<NT>(acc, red, grp, tq);
+  if (parts == 1) return grp == 0;
+  float4* mine = slot_parts + (size_t)part * NT * 128;
+  if (grp == 0)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mine[j * 128 + tq] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  __threadfence();                            // visible device-wide before the ticket is drawn
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(ticket, 1u) == (unsigned)(parts - 1);
+    if (last) *ticket = 0u;                   // every part has drawn: reset for the next call
+    *last_flag = last;
+  }
+  __syncthreads();
+  if (!*last_flag || grp != 0) return false;
+  __threadfence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int p = 0; p < parts; ++p) {
+    const float4* pp = slot_parts + (size_t)p * NT * 128 + tq;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 a = __ldcg(pp + j * 128);
+      acc[j][0] += a.x;
+      acc[j][1] += a.y;
+      acc[j][2] += a.z;
+      acc[j][3] += a.w;
+    }
+  }
+  return true;
+}
+
+// Rows row, row + 8 (< n_rows) of thread (g, t)'s accumulator block, times
+// mult, into a (rows, D) f32 matrix: float2 a thread.
+template <int D, int NT>
+__device__ __forceinline__ void write_rows(float* out, const float (&acc)[NT][4], int row, int t,
+                                           int n_rows, float mult) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= n_rows) continue;
+    float* o = out + (size_t)(row + 8 * r) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * r] * mult,
+                                                          acc[j][2 * r + 1] * mult);
+  }
+}
+
+// The grid of the bf16 body with blocks of 64 rows and eight warps.
+// Key-tile blocks own dV and dK of 64 keys of one KV head, walking every
+// query tile that sees the keys of their part of the group's heads.  Query-tile blocks own dQ of 64
+// queries of one query head, walking the key tiles they see, or with a
+// dQ split (dq_split > 1) part p of them.  A warp takes 16 rows against
+// half the streamed tile's columns, and the halves are added at the end.
+// Every product is 3xTF32: S^T = K Q^T and dP^T = V dO^T (K and V as A
+// from the resident tiles, Q and dO as B from the streamed ones; with WG
+// on wgmma from their hi and lo tiles, else on mma.sync), P^T and dS^T on
+// the accumulators, then on mma.sync dV += P^T dO and dK += dS^T Q with
+// P^T and dS^T the A operands straight from the accumulators (tf32.cuh
+// acc_a; dO and Q read as B in the permuted depth order); the dQ role
+// likewise S = Q K^T, dP = dO V^T, dQ += dS K.  Split blocks meet in
+// `finish`.  Gradients go from the accumulators to global memory.
+template <int D, bool SPLIT, bool WG>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_f32_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Shape sh) {
+  using W = Bwd<D>;
+  constexpr int T = W::TILE, NT = W::NT;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];   // resident full; stage full
+  __shared__ int last_part;
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base_s = smem_u32(base);
+  const uint32_t r_bar = smem_u32(bars), f_bar = r_bar + 8;
+  // resident tiles at 0 (K or Q) and T (V or dO); stage st's tiles at
+  // 2T (1 + st) and T more, its lse2 and delta at VEC + 512 st and + 256
+  constexpr int VEC = 2 * T + STAGES * 2 * T;
+
+  const int n_q_blocks = sh.B * sh.Hq * sh.n_qt * sh.dq_split;
+  int idx = blockIdx.x;
+  bool key_role;
+  if (sh.dq_first) {
+    key_role = idx >= n_q_blocks;
+    if (key_role) idx -= n_q_blocks;
+  } else {
+    key_role = idx < sh.n_kv_blocks;
+    if (!key_role) idx -= sh.n_kv_blocks;
+  }
+  // seq_off < 0 (more queries than keys) only when not causal: every use is behind causal
+  const int group = sh.Hq / sh.Hkv, seq_off = sh.Skv - sh.Sq;
+  int b, hk, h = 0, k0 = 0, q0 = 0, qt0 = 0, nq = 1, n_iter, pair = 0, part = 0, h_lo = 0;
+  int kt_lo = 0, parts = 1, slot = 0;
+  if (key_role) {
+    part = SPLIT ? idx % sh.split : 0;
+    pair = SPLIT ? idx / sh.split : idx;
+    parts = SPLIT ? sh.split : 1;
+    const int bkv = pair % (sh.B * sh.Hkv);
+    b = bkv / sh.Hkv;
+    hk = bkv % sh.Hkv;
+    k0 = (pair / (sh.B * sh.Hkv)) * ROWS;
+    qt0 = sh.causal ? max(0, k0 - seq_off) / ROWS : 0;
+    nq = sh.n_qt - qt0;
+    h_lo = SPLIT ? part * group / sh.split : 0;
+    n_iter = (SPLIT ? (part + 1) * group / sh.split - h_lo : group) * nq;
+  } else {
+    // the parts of a (query head, query tile) are neighbours
+    part = idx % sh.dq_split;
+    idx /= sh.dq_split;
+    const int bh = idx % (sh.B * sh.Hq);
+    const int qt = sh.n_qt - 1 - idx / (sh.B * sh.Hq);   // the longest causal tiles first
+    b = bh / sh.Hq;
+    h = bh % sh.Hq;
+    hk = h / group;
+    q0 = qt * ROWS;
+    slot = bh * sh.n_qt + qt;
+    const int q_rows = min(ROWS, sh.Sq - q0);
+    const int k_end = sh.causal ? min(sh.Skv, q0 + q_rows + seq_off) : sh.Skv;
+    const int n_t = (k_end + ROWS - 1) / ROWS;
+    parts = max(1, min(sh.dq_split, n_t));
+    if (part >= parts) return;                // a tile with fewer key tiles than the split
+    kt_lo = part * n_t / parts;
+    n_iter = (part + 1) * n_t / parts - kt_lo;
+  }
+  const int bkv = b * sh.Hkv + hk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(r_bar, 1);
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) mbar_init(f_bar + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the key role streams (Q, dO, lse2, delta) of (head, query tile); the
+  // dQ role (K, V) of its KV head
+  auto issue = [&](int i) {
+    const int st = i % STAGES;
+    const uint32_t f = f_bar + 8 * st, t0 = base_s + 2 * T * (1 + st);
+    if (key_role) {
+      const int head = b * sh.Hq + hk * group + h_lo + i / nq;
+      const int row = (qt0 + i % nq) * ROWS;
+      mbar_expect_tx(f, 2 * T + 2 * ROWS * 4);
+      tf32::load_tile<D, ROWS>(t0, &maps.q, f, row, head);
+      tf32::load_tile<D, ROWS>(t0 + T, &maps.dout, f, row, head);
+      const size_t v0 = (size_t)head * sh.Sq_pad + row;
+      bulk_load(base_s + VEC + 512 * st, sh.lse2 + v0, ROWS * 4, f);
+      bulk_load(base_s + VEC + 512 * st + 256, sh.delta + v0, ROWS * 4, f);
+    } else {
+      mbar_expect_tx(f, 2 * T);
+      tf32::load_tile<D, ROWS>(t0, &maps.k, f, (kt_lo + i) * ROWS, bkv);
+      tf32::load_tile<D, ROWS>(t0 + T, &maps.v, f, (kt_lo + i) * ROWS, bkv);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(r_bar, 2 * T);
+    if (key_role) {
+      tf32::load_tile<D, ROWS>(base_s, &maps.k, r_bar, k0, bkv);
+      tf32::load_tile<D, ROWS>(base_s + T, &maps.v, r_bar, k0, bkv);
+    } else {
+      tf32::load_tile<D, ROWS>(base_s, &maps.q, r_bar, q0, b * sh.Hq + h);
+      tf32::load_tile<D, ROWS>(base_s + T, &maps.dout, r_bar, q0, b * sh.Hq + h);
+    }
+    for (int i = 0; i < min(STAGES, n_iter); ++i) issue(i);
+  }
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 3) * 16;             // the warp's first row of the resident tiles
+  const int grp = warp >> 2;                  // its column group
+  const int c0 = grp * (64 / QW);             // its first column of the streamed tile
+  const int tq = tid & 127;                   // its thread among the warps of its group
+  // the other groups' accumulators meet group 0's through the ring's
+  // stages, free after the walk: red0 for dV or dQ, red1 for dK
+  float4* red0 = reinterpret_cast<float4*>(base + 2 * T);
+  float4* red1 = red0 + (QW - 1) * NT * 128;
+  const unsigned char* x_t = base;            // K or Q
+  const unsigned char* y_t = base + T;        // V or dO
+  // WG: the lo halves of the resident pair at LO, of the stage at LO + 2T
+  unsigned char* lo_r = base + W::LO;
+  unsigned char* lo_s = lo_r + 2 * T;
+  // S (or S^T) and dP (or dP^T) of the warpgroup's 64 rows against its 32
+  // columns of the stage at stage_s: the resident tiles as A, the stage's
+  // as B (from row c0), each product 3xTF32 with the small terms first
+  auto s_dp_wgmma = [&](float (&s)[NS][4], float (&dp)[NS][4], uint32_t stage_s) {
+    float (&sf)[4 * NS] = *reinterpret_cast<float (*)[4 * NS]>(&s[0][0]);
+    float (&df)[4 * NS] = *reinterpret_cast<float (*)[4 * NS]>(&dp[0][0]);
+    const uint32_t xh = base_s, yh = base_s + T, xl = smem_u32(lo_r), yl = xl + T;
+    const uint32_t ah = stage_s, bh = stage_s + T, al = smem_u32(lo_s), bl = al + T;
+    fence_regs(sf);
+    fence_regs(df);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      tf32::wgmma_ss_n32(sf, tf32::desc<D, ROWS>(xl, kk), tf32::desc<D, ROWS>(ah, kk, c0), kk > 0);
+      tf32::wgmma_ss_n32(sf, tf32::desc<D, ROWS>(xh, kk), tf32::desc<D, ROWS>(al, kk, c0), 1);
+      tf32::wgmma_ss_n32(sf, tf32::desc<D, ROWS>(xh, kk), tf32::desc<D, ROWS>(ah, kk, c0), 1);
+      tf32::wgmma_ss_n32(df, tf32::desc<D, ROWS>(yl, kk), tf32::desc<D, ROWS>(bh, kk, c0), kk > 0);
+      tf32::wgmma_ss_n32(df, tf32::desc<D, ROWS>(yh, kk), tf32::desc<D, ROWS>(bl, kk, c0), 1);
+      tf32::wgmma_ss_n32(df, tf32::desc<D, ROWS>(yh, kk), tf32::desc<D, ROWS>(bh, kk, c0), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sf);
+    fence_regs(df);
+  };
+  // WG: split a landed pair of tiles (hi in place, lo at lo), visible to wgmma
+  auto split_pair = [&](unsigned char* tiles, unsigned char* lo) {
+    if constexpr (WG) {
+      tf32::split_tile(tiles, lo, 2 * T, tid, THREADS);
+      tf32::fence_async();
+      __syncthreads();
+    }
+  };
+  if (key_role) {
+    const int key = k0 + r0 + g;              // this thread's keys: key, key + 8
+    const bool live = k0 + r0 < sh.Skv;       // a warp past the last key only keeps step
+    float dv[NT][4], dk[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[j][e] = dk[j][e] = 0.f;
+    mbar_wait(r_bar, 0);
+    split_pair(base, lo_r);
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % STAGES;
+      const int qs = (qt0 + i % nq) * ROWS + seq_off;   // the tile's first query position
+      unsigned char* q_t = base + 2 * T * (1 + st);
+      const unsigned char* do_t = q_t + T;
+      const float* lse_s = reinterpret_cast<const float*>(base + VEC + 512 * st);
+      const float* delta_s = lse_s + ROWS;
+      mbar_wait(f_bar + 8 * st, (i / STAGES) & 1);
+      // the tile straddles the diagonal
+      const bool mask = sh.causal && k0 + r0 + 15 > qs;
+      float s[NS][4], dp[NS][4];
+      if constexpr (WG) {                      // S^T = K Q^T and dP^T = V dO^T
+        split_pair(q_t, lo_s);
+        s_dp_wgmma(s, dp, smem_u32(q_t));
+      }
+      if (live) {
+        if constexpr (!WG) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+          for (int kk = 0; kk < D / 8; ++kk) {   // S^T = K Q^T and dP^T = V dO^T
+            const tf32::FragA ak = tf32::load_a<D, ROWS>(x_t, r0, kk * 8, g, t);
+            const tf32::FragA av = tf32::load_a<D, ROWS>(y_t, r0, kk * 8, g, t);
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+              tf32::mma3(s[j], ak, tf32::load_b_nmajor<D, ROWS>(q_t, c0 + 8 * j, kk * 8, g, t));
+              tf32::mma3(dp[j], av, tf32::load_b_nmajor<D, ROWS>(do_t, c0 + 8 * j, kk * 8, g, t));
+            }
+          }
+        }
+        // P^T into s, dS^T = P^T (dP^T - delta) into dp
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            float p = fast_exp2(fmaf(s[j][e], sh.scale_log2, -lse_s[col]));
+            if (mask) p = key + 8 * (e >> 1) <= qs + col ? p : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - delta_s[col]);
+          }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {         // dV += P^T dO
+          const tf32::FragA a = tf32::acc_a(s[j]);
+#pragma unroll
+          for (int c = 0; c < NT; ++c)
+            tf32::mma3(dv[c], a, WG ? tf32::load_b_kmajor_split<D, ROWS>(do_t, lo_s + T, c0 + 8 * j,
+                                                                         8 * c, g, t)
+                                    : tf32::load_b_kmajor<D, ROWS>(do_t, c0 + 8 * j, 8 * c, g, t));
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {         // dK += dS^T Q
+          const tf32::FragA a = tf32::acc_a(dp[j]);
+#pragma unroll
+          for (int c = 0; c < NT; ++c)
+            tf32::mma3(dk[c], a, WG ? tf32::load_b_kmajor_split<D, ROWS>(q_t, lo_s, c0 + 8 * j,
+                                                                         8 * c, g, t)
+                                    : tf32::load_b_kmajor<D, ROWS>(q_t, c0 + 8 * j, 8 * c, g, t));
+        }
+      }
+      __syncthreads();                        // every warp is done with stage st
+      if (tid == 0 && i + STAGES < n_iter) issue(i + STAGES);
+    }
+    // tickets and partials a (pair, dV or dK): slot 2 pair + (0 or 1)
+    float4* parts4 = reinterpret_cast<float4*>(sh.part);
+    const size_t slot_f4 = (size_t)sh.split * NT * 128;
+    if (finish<NT>(dv, red0, grp, tq, parts4 + (2 * pair) * slot_f4, part, parts,
+                              sh.tickets + 2 * pair, &last_part))
+      write_rows<D, NT>(sh.dv + (size_t)bkv * sh.Skv * D, dv, key, t, sh.Skv, 1.f);
+    if (finish<NT>(dk, red1, grp, tq, parts4 + (2 * pair + 1) * slot_f4, part, parts,
+                              sh.tickets + 2 * pair + 1, &last_part))
+      write_rows<D, NT>(sh.dk + (size_t)bkv * sh.Skv * D, dk, key, t, sh.Skv, sh.scale);
+  } else {
+    const int row = q0 + r0 + g;               // this thread's queries: row, row + 8
+    const bool live = q0 + r0 < sh.Sq;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {              // padded rows: +inf and 0 (the pre-pass)
+      const size_t v0 = ((size_t)b * sh.Hq + h) * sh.Sq_pad + row + 8 * r;
+      l2[r] = sh.lse2[v0];
+      dl[r] = sh.delta[v0];
+    }
+    float dq[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+    mbar_wait(r_bar, 0);
+    split_pair(base, lo_r);
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % STAGES, kt0 = (kt_lo + i) * ROWS;
+      unsigned char* k_t = base + 2 * T * (1 + st);
+      const unsigned char* v_t = k_t + T;
+      mbar_wait(f_bar + 8 * st, (i / STAGES) & 1);
+      // the ragged Skv tail, or a tile that straddles the diagonal
+      const bool mask = kt0 + ROWS > sh.Skv || (sh.causal && kt0 + ROWS - 1 > q0 + r0 + seq_off);
+      float s[NS][4], dp[NS][4];
+      if constexpr (WG) {                      // S = Q K^T, dP = dO V^T
+        split_pair(k_t, lo_s);
+        s_dp_wgmma(s, dp, smem_u32(k_t));
+      }
+      if (live) {
+        if constexpr (!WG) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+          for (int kk = 0; kk < D / 8; ++kk) {   // S = Q K^T, dP = dO V^T
+            const tf32::FragA aq = tf32::load_a<D, ROWS>(x_t, r0, kk * 8, g, t);
+            const tf32::FragA ad = tf32::load_a<D, ROWS>(y_t, r0, kk * 8, g, t);
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+              tf32::mma3(s[j], aq, tf32::load_b_nmajor<D, ROWS>(k_t, c0 + 8 * j, kk * 8, g, t));
+              tf32::mma3(dp[j], ad, tf32::load_b_nmajor<D, ROWS>(v_t, c0 + 8 * j, kk * 8, g, t));
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float p = fast_exp2(fmaf(s[j][e], sh.scale_log2, -l2[r]));
+            if (mask) {
+              const int kp = kt0 + c0 + 8 * j + 2 * t + (e & 1);
+              p = kp < sh.Skv && (!sh.causal || kp <= row + 8 * r + seq_off) ? p : 0.f;
+            }
+            dp[j][e] = p * (dp[j][e] - dl[r]);
+          }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {         // dQ += dS K
+          const tf32::FragA da = tf32::acc_a(dp[j]);
+#pragma unroll
+          for (int c = 0; c < NT; ++c)
+            tf32::mma3(dq[c], da, WG ? tf32::load_b_kmajor_split<D, ROWS>(k_t, lo_s, c0 + 8 * j,
+                                                                          8 * c, g, t)
+                                     : tf32::load_b_kmajor<D, ROWS>(k_t, c0 + 8 * j, 8 * c, g, t));
+        }
+      }
+      __syncthreads();
+      if (tid == 0 && i + STAGES < n_iter) issue(i + STAGES);
+    }
+    float4* qparts = reinterpret_cast<float4*>(sh.qpart) + (size_t)slot * sh.dq_split * NT * 128;
+    if (finish<NT>(dq, red0, grp, tq, qparts, part, parts, sh.tickets + sh.q_ticket0 + slot,
+                   &last_part))
+      write_rows<D, NT>(sh.dq + ((size_t)b * sh.Hq + h) * sh.Sq * D, dq, row, t, sh.Sq, sh.scale);
+  }
+}
+
+}  // namespace f32body
+
+template <int D, bool SPLIT, bool WG>
+int launch_f32_body(const BwdArgs& a) {
+  using W = f32body::Bwd<D>;
+  constexpr int smem = WG ? W::SMEM_WG : W::SMEM;
+  auto kernel = f32body::flash_bwd_f32_kernel<D, SPLIT, WG>;
+  static const cudaError_t attr =   // once per instantiation: it is host work on every launch
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  const int Hq = (int)a.Hq, Hkv = (int)a.Hkv, Sq = (int)a.Sq, Skv = (int)a.Skv;
-  const int n_kt = (Skv + BT - 1) / BT, n_qt = (Sq + BT - 1) / BT;
-  const long long n_kv_blocks = a.B * Hkv * n_kt;
-  const long long blocks = n_kv_blocks + a.B * Hq * n_qt;
+  const long long B = a.B, Hq = a.Hq, Hkv = a.Hkv, Sq = a.Sq, Skv = a.Skv;
+  const long long Sq_pad = (Sq + ROWS - 1) / ROWS * ROWS;
+  const long long rows_total = B * Hq * Sq_pad;
+  const long long group = Hq / Hkv;
+  if (a.block != ROWS || a.ws == nullptr || a.head_split < 1 || a.head_split > group ||
+      a.dq_split < 1 || ((a.head_split > 1 || a.dq_split > 1) && a.tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float* lse2 = a.ws;
+  float* delta = a.ws + rows_total;
+
+  constexpr int RPB = 256 / (D / 4 <= 4 ? 4 : D / 4 <= 8 ? 8 : D / 4 <= 16 ? 16 : 32);
+  f32body::flash_bwd_delta_f32_kernel<D><<<(unsigned)((rows_total + RPB - 1) / RPB), 256, 0,
+                                           a.stream>>>(
+      static_cast<const float*>(a.o), static_cast<const float*>(a.dout), a.lse, lse2, delta,
+      (int)Sq, (int)Sq_pad, rows_total);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  f32body::Maps maps;
+  int rc = tf32::f32_map<D>(&maps.q, a.q, Sq, B * Hq, ROWS);
+  if (!rc) rc = tf32::f32_map<D>(&maps.k, a.k, Skv, B * Hkv, ROWS);
+  if (!rc) rc = tf32::f32_map<D>(&maps.v, a.v, Skv, B * Hkv, ROWS);
+  if (!rc) rc = tf32::f32_map<D>(&maps.dout, a.dout, Sq, B * Hq, ROWS);
+  if (rc) return rc;
+
+  f32body::Shape sh;
+  sh.lse2 = lse2;
+  sh.delta = delta;
+  const long long pairs = B * Hkv * ((Skv + ROWS - 1) / ROWS);
+  sh.part = a.ws + 2 * rows_total;
+  sh.qpart = sh.part + (a.head_split > 1 ? pairs * a.head_split * 128 * D : 0);
+  sh.tickets = a.tickets;
+  sh.q_ticket0 = (int)(2 * pairs);
+  sh.dq_split = (int)a.dq_split;
+  sh.dq = static_cast<float*>(a.dq);
+  sh.dk = static_cast<float*>(a.dk);
+  sh.dv = static_cast<float*>(a.dv);
+  sh.B = (int)B;
+  sh.Hq = (int)Hq;
+  sh.Hkv = (int)Hkv;
+  sh.Sq = (int)Sq;
+  sh.Skv = (int)Skv;
+  sh.Sq_pad = (int)Sq_pad;
+  sh.causal = (int)a.causal;
+  sh.n_kt = (int)((Skv + ROWS - 1) / ROWS);
+  sh.n_qt = (int)(Sq_pad / ROWS);
+  sh.split = (int)a.head_split;
+  sh.n_kv_blocks = (int)(pairs * a.head_split);
+  sh.dq_first = (int)a.dq_first;
+  sh.scale = (float)a.scale;
+  sh.scale_log2 = (float)a.scale * LOG2E;
+  const long long blocks = (long long)sh.n_kv_blocks + B * Hq * sh.n_qt * a.dq_split;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.o), a.lse,
-      static_cast<const float*>(a.dout), static_cast<float*>(a.dq), static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), Hq, Hkv, Sq, Skv, (int)a.causal, (float)a.scale,
-      (int)n_kv_blocks, n_kt, n_qt);
+  kernel<<<(unsigned)blocks, f32body::THREADS, smem, a.stream>>>(maps, sh);
   return 0;
+}
+
+// A head split runs its own instance, as in the bf16 body; so does the
+// wgmma body, where its tiles fit.
+template <int D>
+int launch_f32(const BwdArgs& a) {
+  if (a.wgmma) {
+    if constexpr (f32body::Bwd<D>::WG_FITS)
+      return a.head_split > 1 ? launch_f32_body<D, true, true>(a)
+                              : launch_f32_body<D, false, true>(a);
+    return (int)cudaErrorInvalidValue;
+  }
+  return a.head_split > 1 ? launch_f32_body<D, true, false>(a)
+                          : launch_f32_body<D, false, false>(a);
 }
 
 // A 4-D map (D, rows, heads, sequences) over a bf16 tensor whose rows are
@@ -955,6 +1251,7 @@ int launch_wgmma(const BwdArgs& a) {
 // the kernel it had before the split was added.
 template <int D>
 int launch_bf16(const BwdArgs& a) {
+  if (a.dq_split != 1) return (int)cudaErrorInvalidValue;
   const bool split = a.head_split > 1;
   if (a.block == 128) return split ? launch_wgmma<D, 2, true>(a) : launch_wgmma<D, 2, false>(a);
   if (a.block == 64) return split ? launch_wgmma<D, 1, true>(a) : launch_wgmma<D, 1, false>(a);
@@ -965,16 +1262,19 @@ int launch_bf16(const BwdArgs& a) {
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout and dq (B, Hq, Sq, D); k, v,
 // dk and dv (B, Hkv, Skv, D); lse (B, Hq, Sq) f32 from the forward;
-// Hq % Hkv == 0, 0 < Sq, and Sq <= Skv when causal.  float32: every tensor contiguous and
-// 16-byte aligned.  bfloat16: o, lse and the outputs contiguous; q, k, v
-// and dout of any strides (in elements, `strides`) whose rows are
-// contiguous, each stride and base a multiple of 16 bytes; ws 2 * B * Hq *
-// ceil(Sq / 64) * 64 floats of scratch, and with head_split c > 1 another
-// B * Hkv * ceil(Skv / block) * c * block * 2 * DP (the partials); block
-// 128 (two consumer warpgroups a block) or 64 (one); with c > 1, tickets
-// B * Hkv * ceil(Skv / block) counters that are 0 (each launch leaves them
-// 0).  Two kernel launches for bfloat16 (the delta pre-pass and the body),
-// one for float32.
+// Hq % Hkv == 0, 0 < Sq, 0 < Skv, and Sq <= Skv when causal.  float32:
+// every tensor contiguous and 16-byte aligned, block 64.  bfloat16: o, lse
+// and the outputs contiguous; q, k, v and dout of any strides (in
+// elements, `strides`) whose rows are contiguous, each stride and base a
+// multiple of 16 bytes; block 128 (two consumer warpgroups a block) or 64
+// (one).  Both: ws 2 * B * Hq * ceil(Sq / 64) * 64 floats of scratch, and
+// with head_split c > 1 another B * Hkv * ceil(Skv / block) * c * block *
+// 2 * DP (the partials) and tickets, B * Hkv * ceil(Skv / block) counters
+// (twice as many in f32: dV and dK) that are 0 (each launch leaves them
+// 0).  float32 with dq_split d > 1 (bf16: 1): another B * Hq * ceil(Sq /
+// 64) * d * 64 * D floats of dQ partials after the key partials, and from
+// counter 2 * B * Hkv * ceil(Skv / 64) on one a (query head, query tile).
+// Two kernel launches (the delta pre-pass and the body).
 extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
   if (a->B > 0 && a->Hq > 0 && a->Sq > 0) {
     if (a->Hkv <= 0 || a->Hq % a->Hkv || (a->causal && a->Sq > a->Skv))

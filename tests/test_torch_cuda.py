@@ -1277,8 +1277,9 @@ def test_cuda_flash_attention_bwd_more_queries_than_keys(cuda, dtype, D):
     """The backward at non-causal Sq > Skv (whisper's cross-attention with
     a decoder longer than its frames) at every head_dim x dtype, groups 1,
     2, 7 and 16, ragged 1037 x 200, Sq = 2 Skv and one key: equal to the
-    plain version, the same bits on a replay, one kernel node a call in
-    f32 and two in bf16 in a captured graph.  Causal Sq > Skv raises."""
+    plain version, the same bits on a replay, two kernel nodes a call (the
+    delta pre-pass and the body) in a captured graph.  Causal Sq > Skv
+    raises."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     dt = getattr(torch, dtype)
@@ -1301,8 +1302,7 @@ def test_cuda_flash_attention_bwd_more_queries_than_keys(cuda, dtype, D):
         g = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(g):
             outs = [fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False) for _ in range(2)]
-        nodes = 2 * (2 if dtype == "bfloat16" else 1)
-        assert build.graph_nodes(g) == (nodes, nodes)
+        assert build.graph_nodes(g) == (4, 4)
         g.instantiate()
         g.replay()
         torch.cuda.synchronize()
@@ -1310,6 +1310,151 @@ def test_cuda_flash_attention_bwd_more_queries_than_keys(cuda, dtype, D):
             assert all(torch.equal(a, b) for a, b in zip(out, got))
     with pytest.raises(ValueError, match="Sq=.* > Skv"):
         fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+
+
+# (B, Hq, Hkv, Sq, Skv): the f32 bodies' tile edges (1, 63, 64, 65, 127,
+# 129 queries or keys against tiles of 64, and 32 keys in the forward at
+# D = 112 and 128), groups 1, 2, 6, 7 and 8, Sq < Skv ragged, and (non-causal
+# only) Sq > Skv
+F32_EDGE_SHAPES = [(1, 1, 1, 1, 1), (1, 2, 2, 63, 63), (1, 2, 1, 64, 65), (2, 6, 1, 65, 129),
+                   (1, 7, 1, 127, 127), (1, 8, 1, 129, 300), (1, 4, 2, 63, 1037),
+                   (1, 8, 1, 1, 129)]
+F32_LONG_Q_SHAPES = [(1, 2, 1, 129, 63), (1, 7, 1, 65, 1), (2, 8, 8, 127, 64)]
+
+
+def _forced_bwd_geometry(split):
+    """``bwd_geometry`` with its head split forced to min(split, G), the
+    rest of the geometry following it."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.bwd_geometry
+
+    def geometry(B, Hq, Hkv, Sq, Skv, bf16, n_sm=132, causal=True):
+        geo = real(B, Hq, Hkv, Sq, Skv, bf16, n_sm, causal)
+        G = Hq // Hkv
+        c = min(split, G)
+        return geo._replace(head_split=c, key_blocks=B * Hkv * -(-Skv // geo.rows) * c,
+                            key_block_tiles=-(-G // c) * -(-Sq // fa.BWD_ROWS))
+    return geometry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,wgmma", [(16, True), (16, False), (32, True), (32, False), (64, True),
+                                     (64, False), (112, False), (128, False)])
+def test_cuda_flash_attention_f32_bodies_at_the_tile_edges(cuda, D, wgmma, causal, monkeypatch):
+    """The float32 forward and backward (3xTF32 on the tensor cores) at the
+    tile edges, every head_dim, groups 1-8, ragged Sq < Skv and (not
+    causal) Sq > Skv, each unsplit and with the forward's key split and
+    the backward's head split and dQ split forced through their pure
+    functions, the backward's S and dP on wgmma or on mma.sync as forced
+    through ``f32_bwd_wgmma`` (wgmma up to head_dim 64, where its tiles
+    fit): the
+    output and lse against ``ref.attention_ref``, dq, dk and dv against
+    ``ref.attention_bwd_ref`` at the f32 tolerances, and the same bits on
+    a second call."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    real_split, real_dq_split = fa.key_split, fa.dq_split
+    monkeypatch.setattr(fa, "f32_bwd_wgmma", lambda *a, **kw: wgmma)
+    shapes = F32_EDGE_SHAPES + ([] if causal else F32_LONG_Q_SHAPES)
+    seen = set()
+    for i, (B, Hq, Hkv, Sq, Skv) in enumerate(shapes):
+        g = torch.Generator(device="cpu").manual_seed(1000 * D + i)
+        q, do = (torch.randn((B, Hq, Sq, D), generator=g).to(cuda) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, Skv, D), generator=g).to(cuda) for _ in range(2))
+        want_o, want_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+        for fsplit, hsplit in ((1, 1), (3, Hq // Hkv)):
+            monkeypatch.setattr(fa, "key_split", lambda *a, c=fsplit, **kw: c)
+            monkeypatch.setattr(fa, "bwd_geometry", _forced_bwd_geometry(hsplit))
+            monkeypatch.setattr(fa, "dq_split", lambda *a, c=fsplit, **kw: c)
+            o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+            torch.testing.assert_close(o, want_o, **_tol("float32"))
+            torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+            assert torch.equal(fa.flash_attention(q, k, v, causal=causal), o)
+            n0 = ops.LAUNCHES["flash_attention_bwd"]
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+            want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+            for a, w in zip(got, want):
+                assert a.dtype == w.dtype and a.shape == w.shape
+                torch.testing.assert_close(a, w, **_bwd_tol("float32"))
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            seen.add((fsplit, min(hsplit, Hq // Hkv)))
+    monkeypatch.setattr(fa, "key_split", real_split)
+    monkeypatch.setattr(fa, "dq_split", real_dq_split)
+    assert (1, 1) in seen and (3, 8) in seen and (3, 1) in seen
+    assert build.F32_LAUNCHES["flash_attention_bwd"] >= len(seen)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f32_without_keys(cuda):
+    """A non-causal float32 or bfloat16 call with queries and no keys: the
+    forward gives zeros and an lse of +inf (every row's l is 0) and the
+    backward zero dq, with no launch; causal, it raises."""
+    from repro_torch.kernels import flash_attention as fa
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 4, 37, 64), device=cuda).to(dt)
+        k = v = torch.empty((1, 2, 0, 64), device=cuda, dtype=dt)
+        n0 = dict(ops.LAUNCHES)
+        o, lse = fa.flash_attention(q, k, v, causal=False, with_lse=True)
+        assert torch.equal(o, torch.zeros_like(q)) and bool(torch.isinf(lse).all())
+        assert torch.equal(fa.flash_attention(q, k, v, causal=False), torch.zeros_like(q))
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, q, causal=False)
+        assert torch.equal(dq, torch.zeros_like(q)) and dk.shape == dv.shape == k.shape
+        assert dict(ops.LAUNCHES) == n0
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,wgmma", [(64, True), (64, False), (112, False)])
+def test_cuda_flash_attention_f32_split_in_a_captured_graph(cuda, D, wgmma, monkeypatch):
+    """The f32 forward with its key split (kimi-k2's 8 heads over 300 ragged
+    queries: ``key_split`` gives 4 at D = 112, 5 at 64) and the backward
+    with its head split and dQ split (8 and 3, and the router's training
+    shape: 2 and 1; its forward unsplit at D = 64), each two calls captured in a
+    CUDA graph: one kernel node a forward call and two a backward call,
+    and two replays equal to an eager call bit for bit (the parts merged in
+    part order, the tickets left 0); the backward's S and dP on wgmma or
+    on mma.sync, forced."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "f32_bwd_wgmma", lambda *a, **kw: wgmma)
+    n_sm = build.sm_count(cuda.index or 0)
+    for B, Hq, Hkv, S_q, S_kv, fsplit, hsplit, dsplit in (
+            (1, 8, 1, 300, 1037, {64: 5, 112: 4}[D], 8, 3),
+            (8, 4, 2, 128, 128, {64: 1, 112: 2}[D], 2, 1)):
+        assert fa.key_split(B, Hq, S_q, S_kv, D, True, 132) == fsplit
+        assert fa.bwd_geometry(B, Hq, Hkv, S_q, S_kv, False, 132, True).head_split == hsplit
+        assert fa.dq_split(B, Hq, Hkv, S_q, S_kv, 132, True) == dsplit
+        assert fa.key_split(B, Hq, S_q, S_kv, D, True, n_sm) > 1 or fsplit == 1
+        g = torch.Generator(device="cpu").manual_seed(S_q + D)
+        q, do = (torch.randn((B, Hq, S_q, D), generator=g).to(cuda) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, S_kv, D), generator=g).to(cuda) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, with_lse=True)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        want_o, want_lse = ref.attention_ref(q, k, v, return_lse=True)
+        torch.testing.assert_close(o, want_o, **_tol("float32"))
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        for a, w in zip(grads, ref.attention_bwd_ref(q, k, v, o, lse, do)):
+            torch.testing.assert_close(a, w, **_bwd_tol("float32"))
+        torch.cuda.synchronize()
+        for fn, nodes, want in ((lambda: fa.flash_attention(q, k, v, with_lse=True), 1, (o, lse)),
+                                (lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 2, grads)):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                outs = [fn() for _ in range(2)]
+            assert build.graph_nodes(graph) == (2 * nodes, 2 * nodes)
+            graph.instantiate()
+            for _ in range(2):
+                for out in outs:
+                    for t in out:
+                        t.fill_(float("nan"))
+                graph.replay()
+                torch.cuda.synchronize()
+                for out in outs:
+                    assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 @pytest.mark.cuda
@@ -1355,8 +1500,8 @@ def test_cuda_rmsnorm_bwd_matches_plain(cuda, dtype):
 @pytest.mark.cuda
 def test_cuda_backward_kernels_in_a_captured_graph(cuda):
     """Captured in a CUDA graph, three calls of flash_attention_bwd make
-    three kernel nodes in f32 and six in bf16 (the delta pre-pass and the
-    wgmma body), and of rmsnorm_bwd three with or without a scale (dscale's
+    six kernel nodes in f32 and in bf16 (the delta pre-pass and the body),
+    and of rmsnorm_bwd three with or without a scale (dscale's
     column sums are taken by the blocks that arrive last), and no other
     node; the replay matches an eager call bit for bit."""
     from repro_torch.kernels import build
@@ -1373,7 +1518,7 @@ def test_cuda_backward_kernels_in_a_captured_graph(cuda):
     dy = torch.randn_like(x)
     s = torch.randn(256, device=cuda)
     xb, dyb, sb = (t.to(torch.bfloat16) for t in (x, dy, s))
-    for fn, calls, nodes in ((lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 3, 3),
+    for fn, calls, nodes in ((lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 3, 6),
                              (lambda: fa.flash_attention_bwd(qb, kb, vb, ob, lseb, dob), 3, 6),
                              (lambda: rn.rmsnorm_bwd(x, None, dy), 3, 3),
                              (lambda: rn.rmsnorm_bwd(x, s, dy), 3, 3),

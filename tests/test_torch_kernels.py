@@ -898,8 +898,11 @@ def test_rmsnorm_launch_geometry(rows, D, elt, vec_ok, want):
     # small grids keep one consumer warpgroup a block
     ((1, 2, 2, 37, 37), True, (1, 64, 2, 2, 1, 1, False, 1)),
     ((1, 16, 8, 200, 1037), True, (1, 64, 136, 64, 8, 17, True, 1)),
-    # the router's f32 training: the CUDA-core body, 64-row tiles
-    ((8, 4, 2, 128, 128), False, (0, 64, 32, 64, 4, 2, False, 1)),
+    # the router's f32 training: the f32 body's 64-row tiles, its group of 2
+    # split over 2 key-tile blocks of the same keys
+    ((8, 4, 2, 128, 128), False, (0, 64, 64, 64, 2, 2, False, 2)),
+    # kimi-k2's ragged f32 shape: its group of 8 over 8 key-tile blocks
+    ((1, 8, 1, 300, 1037), False, (0, 64, 136, 40, 5, 17, True, 8)),
 ])
 def test_flash_bwd_geometry(shape, bf16, want):
     from repro_torch.kernels.flash_attention import BWD_ROWS, bwd_geometry
@@ -921,7 +924,7 @@ def test_flash_bwd_geometry(shape, bf16, want):
 # (tag, B, Hq, Hkv, S_q, S_kv, D, bf16, causal, head split): the zoo's
 # training shapes of flash_attention_bwd (chip_smoke.FLASH_BWD_SHAPES)
 ZOO_BWD_SHAPES = [
-    ("router", 8, 4, 2, 128, 128, 64, False, True, 1),
+    ("router", 8, 4, 2, 128, 128, 64, False, True, 2),
     ("qwen3", 1, 16, 8, 4096, 4096, 128, True, True, 1),
     ("dbrx", 1, 48, 8, 1024, 1024, 128, True, True, 3),
     ("jamba", 1, 32, 8, 4096, 4096, 128, True, True, 1),
@@ -968,9 +971,8 @@ def test_flash_bwd_head_split_at_the_zoo_shapes(tag, B, Hq, Hkv, Sq, Skv, D, bf1
     longest key-tile block costs no more than one SM's share of the grid
     (4 products a query tile of a head, 3 a key tile of a query-tile
     block) or, where no split reaches it, one head's walk, and one part
-    fewer would not do (the bf16 body: the f32 body is never split);
-    groups of 4 and less and kimi-k2 keep the unsplit geometry of before
-    the split."""
+    fewer would not do, in both bodies; in bf16 groups of 4 and less and
+    kimi-k2 keep the unsplit geometry of before the split."""
     from repro_torch.kernels.flash_attention import BWD_ROWS, bwd_geometry
     geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, 132, causal)
     assert geo.head_split == split
@@ -985,11 +987,10 @@ def test_flash_bwd_head_split_at_the_zoo_shapes(tag, B, Hq, Hkv, Sq, Skv, D, bf1
     cost = [4 * (hi - lo) * nq for *_, lo, hi, nq in keys]
     share = (sum(cost) + 3 * sum(queries)) / 132
     assert max(cost) == 4 * geo.key_block_tiles
-    if bf16:                          # the f32 body is never split
-        assert max(cost) <= max(share, 4 * n_qt)
+    assert max(cost) <= max(share, 4 * n_qt)
     if split > 1:
         assert 4 * -(-G // (split - 1)) * n_qt > share
-    if G <= 4 or tag == "kimi-k2":
+    if bf16 and (G <= 4 or tag == "kimi-k2"):
         wg = (2 if B * Hkv * -(-Skv // 128) + B * Hq * -(-Sq // 128) >= 132 else 1) if bf16 \
             else 0
         rows = max(wg, 1) * BWD_ROWS
@@ -1000,21 +1001,24 @@ def test_flash_bwd_head_split_at_the_zoo_shapes(tag, B, Hq, Hkv, Sq, Skv, D, bf1
 @pytest.mark.parametrize("tag,B,Hq,Hkv,Sq,Skv,D,bf16,causal,split", ZOO_BWD_SHAPES,
                          ids=[z[0] for z in ZOO_BWD_SHAPES])
 def test_flash_bwd_workspace(tag, B, Hq, Hkv, Sq, Skv, D, bf16, causal, split):
-    """The f32 scratch the wrapper allocates for a bf16 call: lse2 and
-    delta of every query row padded to tiles of 64, and with a head split
-    a 128-thread block of (dK, dV) partials, the tile's columns each, for
-    every warpgroup of every key-tile block (internvl2-1b: 12.6 MB)."""
+    """The f32 scratch the wrapper allocates for a call of either body:
+    lse2 and delta of every query row padded to tiles of 64, and with a
+    head split a 128-thread block of (dK, dV) partials, the tile's columns
+    each, for every 64 rows of every key-tile block (internvl2-1b: 12.6
+    MB; the router's f32 training 2.1 MB)."""
     from repro_torch.kernels.flash_attention import (BWD_ROWS, bwd_geometry,
                                                      bwd_workspace_floats, tile_columns)
     geo = bwd_geometry(B, Hq, Hkv, Sq, Skv, bf16, 132, causal)
     rows = 2 * B * Hq * -(-Sq // BWD_ROWS) * BWD_ROWS
-    parts = geo.key_blocks * geo.warpgroups * 128 * tile_columns(D) if split > 1 else 0
+    parts = geo.key_blocks * geo.rows * 2 * tile_columns(D) if split > 1 else 0
     assert bwd_workspace_floats(B, Hq, Sq, D, geo) == rows + parts
     assert tile_columns(D) == {64: 64, 112: 128, 128: 128}[D]
     if tag == "internvl2":
         assert 4 * parts == 3 * 2 * 4096 * 64 * 4 * 2 == 12_582_912
     if tag == "dbrx":
         assert 4 * parts == 3 * 8 * 1024 * 128 * 4 * 2
+    if tag == "router":
+        assert 4 * parts == 2 * 8 * 2 * 2 * 128 * 64 * 4 == 2_097_152
 
 
 def test_flash_bwd_split_within_a_slot_of_tickets():
